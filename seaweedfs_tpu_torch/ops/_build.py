@@ -1,0 +1,135 @@
+"""Builds and loads the port's native libraries at first use.
+
+Two shared libraries, each compiled from the sources in this package into
+``seaweedfs_tpu_torch/_build/`` (git-ignored) and loaded with ctypes:
+
+  * ``kernels()`` — ``csrc/gf2_matmul.cu`` with ``nvcc`` for ``sm_90a``:
+    a plain C interface, so the build takes seconds (no PyTorch headers).
+  * ``host()`` — ``csrc/host/crc32c.cpp`` and ``gf256.cpp`` with ``g++``:
+    CRC32C and the CPU GF(256) codec (the CPU yardstick).
+
+The output name carries a hash of the sources and flags, so an edited
+source rebuilds and two processes never load each other's half-written
+file (each builds into a temporary name and renames).  A failed build
+raises: no caller carries on without the library.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+
+_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+_CSRC = os.path.join(_PKG, "csrc")
+BUILD_DIR = os.path.join(_PKG, "_build")
+
+_NVCC_FLAGS = [
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+]
+_GXX_FLAGS = ["-O3", "-fPIC", "-shared", "-std=c++17", "-Wall"]
+
+# one lock per library, so the two builds can run at the same time
+_locks = {"swfs_kernels": threading.Lock(), "swfs_host": threading.Lock()}
+_loaded: dict[str, ctypes.CDLL] = {}
+# seconds each library took to build in this process (0.0 = reused)
+build_seconds: dict[str, float] = {}
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    cand = os.path.join(home, "bin", "nvcc")
+    if os.path.exists(cand):
+        return cand
+    raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH)")
+
+
+def _build(name: str, compiler: str, flags: list[str], sources: list[str]) -> str:
+    h = hashlib.sha256(" ".join(flags).encode())
+    for src in sources:
+        with open(src, "rb") as f:
+            h.update(f.read())
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    so = os.path.join(BUILD_DIR, f"lib{name}-{h.hexdigest()[:12]}.so")
+    if os.path.exists(so):
+        build_seconds[name] = 0.0
+        return so
+    tmp = f"{so}.{os.getpid()}.tmp"
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [compiler, *flags, "-o", tmp, *sources],
+        capture_output=True, text=True, timeout=600,
+    )
+    if proc.returncode != 0:
+        raise RuntimeError(
+            f"building {name} failed ({compiler}):\n{proc.stdout}{proc.stderr}"
+        )
+    os.replace(tmp, so)
+    build_seconds[name] = time.perf_counter() - t0
+    return so
+
+
+def _load(name: str, compiler, flags: list[str], sources: list[str], bind) -> ctypes.CDLL:
+    with _locks[name]:
+        lib = _loaded.get(name)
+        if lib is None:
+            lib = ctypes.CDLL(_build(name, compiler(), flags, sources))
+            bind(lib)
+            _loaded[name] = lib
+        return lib
+
+
+def _bind_kernels(lib: ctypes.CDLL) -> None:
+    fn = lib.gf2_matmul_launch
+    fn.argtypes = [
+        ctypes.c_void_p,  # a_bm  int8 [8*m_pad, 8*k_pad]
+        ctypes.c_int,  # m_pad
+        ctypes.c_int,  # k_pad
+        ctypes.c_void_p,  # x     u8 [k, b] row-major
+        ctypes.c_int,  # k
+        ctypes.c_long,  # b
+        ctypes.c_void_p,  # out   u8 [m_out, b] row-major
+        ctypes.c_int,  # m_out
+        ctypes.c_void_p,  # cudaStream_t
+    ]
+    fn.restype = ctypes.c_int
+    lib.gf2_matmul_error_string.argtypes = [ctypes.c_int]
+    lib.gf2_matmul_error_string.restype = ctypes.c_char_p
+
+
+def _bind_host(lib: ctypes.CDLL) -> None:
+    lib.swfs_crc32c.argtypes = [ctypes.c_uint32, ctypes.c_void_p, ctypes.c_size_t]
+    lib.swfs_crc32c.restype = ctypes.c_uint32
+    lib.gf256_apply_matrix.argtypes = [
+        ctypes.c_void_p,  # matrix [m,k]
+        ctypes.c_int,  # m
+        ctypes.c_int,  # k
+        ctypes.c_void_p,  # shards [k,B] row-major
+        ctypes.c_void_p,  # out [m,B]
+        ctypes.c_long,  # B
+    ]
+    lib.gf256_apply_matrix.restype = None
+
+
+def kernels() -> ctypes.CDLL:
+    """The CUDA kernel library (csrc/gf2_matmul.cu), typed."""
+    return _load(
+        "swfs_kernels", _nvcc, _NVCC_FLAGS,
+        [os.path.join(_CSRC, "gf2_matmul.cu")], _bind_kernels,
+    )
+
+
+def host() -> ctypes.CDLL:
+    """The host C++ library (CRC32C + CPU GF(256) codec), typed."""
+    return _load(
+        "swfs_host", lambda: "g++", _GXX_FLAGS,
+        [os.path.join(_CSRC, "host", "crc32c.cpp"),
+         os.path.join(_CSRC, "host", "gf256.cpp")], _bind_host,
+    )

@@ -1,0 +1,142 @@
+"""The PyTorch port stands alone: it imports nothing of JAX or of the JAX
+package, and its entry points run on the card or raise — none of them
+drops to the CPU on its own."""
+import ast
+import os
+import pkgutil
+import shutil
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+import seaweedfs_tpu_torch
+from seaweedfs_tpu_torch.ops import rs
+from seaweedfs_tpu_torch.storage import ec
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PKG_DIR = os.path.dirname(seaweedfs_tpu_torch.__file__)
+
+
+def _forbidden(name: str) -> bool:
+    root = name.split(".")[0]
+    return root in ("jax", "jaxlib", "seaweedfs_tpu")
+
+
+def _port_modules():
+    return ["seaweedfs_tpu_torch"] + [
+        m.name
+        for m in pkgutil.walk_packages([PKG_DIR], prefix="seaweedfs_tpu_torch.")
+    ]
+
+
+def test_forbidden_names():
+    assert _forbidden("jax.numpy") and _forbidden("seaweedfs_tpu.ops.rs")
+    assert not _forbidden("seaweedfs_tpu_torch.ops.rs")
+
+
+def test_importing_every_port_module_loads_no_jax():
+    """A fresh interpreter that refuses jax and seaweedfs_tpu[.*] imports
+    every port module and chip_smoke, and ends with neither loaded."""
+    code = f"""
+import importlib, importlib.abc, sys
+class Refuse(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path, target=None):
+        if name.split(".")[0] in ("jax", "jaxlib", "seaweedfs_tpu"):
+            raise ImportError("port imported " + name)
+sys.meta_path.insert(0, Refuse())
+for m in {_port_modules()!r} + ["chip_smoke"]:
+    importlib.import_module(m)
+bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "seaweedfs_tpu")]
+assert not bad, bad
+print("clean", len([m for m in sys.modules if m.startswith("seaweedfs_tpu_torch")]))
+"""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run(
+        [sys.executable, "-c", code], cwd=REPO, env=env,
+        capture_output=True, text=True, timeout=120,
+    )
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.startswith("clean")
+    assert int(proc.stdout.split()[1]) >= len(_port_modules())
+
+
+def test_no_jax_import_statements():
+    """Static check of every port source and chip_smoke.py."""
+    paths = [os.path.join(REPO, "chip_smoke.py")]
+    for root, _, files in os.walk(PKG_DIR):
+        paths += [os.path.join(root, f) for f in files if f.endswith(".py")]
+    for path in paths:
+        with open(path) as f:
+            tree = ast.parse(f.read(), path)
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                names = [node.module or ""]
+            else:
+                continue
+            assert not any(_forbidden(n) for n in names), (path, names)
+
+
+@pytest.fixture
+def no_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+
+def test_codec_default_backend_raises_without_cuda(no_cuda):
+    with pytest.raises(RuntimeError, match="CUDA"):
+        rs.RSCodec()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        rs.RSCodec(backend="cuda")
+    with pytest.raises(ValueError):
+        rs.RSCodec(backend="auto")
+    assert rs.RSCodec(backend="torch").backend == "torch"
+
+
+def test_entry_points_default_to_cuda(no_cuda, tmp_path):
+    from seaweedfs_tpu_torch.storage.volume import Volume
+
+    v = Volume(str(tmp_path), 1)
+    for i in range(1, 30):
+        v.write(i, 7, np.random.default_rng(i).bytes(50_000))
+    v.close()
+    base = str(tmp_path / "1")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ec.write_ec_files(base)
+    assert not os.path.exists(base + ec.to_ext(0))
+    ec.write_ec_files(base, backend="torch")
+    ec.write_sorted_file_from_idx(base)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ec.verify_ec_files(base)
+    os.remove(base + ec.to_ext(0))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ec.rebuild_ec_files(base)
+    ev = ec.EcVolume(str(tmp_path), 1)
+    try:
+        for sid in range(1, 14):
+            ev.add_shard(sid)
+        with pytest.raises(RuntimeError, match="CUDA"):
+            ev.read_needle(1)  # needle 1 lives on the missing shard 0
+        assert ev.read_needle(1, backend="torch").data == np.random.default_rng(1).bytes(50_000)
+    finally:
+        ev.close()
+
+
+def test_chip_smoke_refuses_without_cuda(tmp_path):
+    """chip_smoke.py prints no result and exits non-zero without a CUDA
+    device, and also when it stands alone without the port."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    alone = tmp_path / "chip_smoke.py"
+    shutil.copy(os.path.join(REPO, "chip_smoke.py"), alone)
+    for script, cwd in ((os.path.join(REPO, "chip_smoke.py"), REPO),
+                        (str(alone), str(tmp_path))):
+        proc = subprocess.run(
+            [sys.executable, script], cwd=cwd,
+            capture_output=True, text=True, timeout=120,
+        )
+        assert proc.returncode != 0
+        assert '"ok"' not in proc.stdout
