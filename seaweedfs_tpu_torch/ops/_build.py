@@ -3,8 +3,9 @@
 Two shared libraries, each compiled from the sources in this package into
 ``seaweedfs_tpu_torch/_build/`` (git-ignored) and loaded with ctypes:
 
-  * ``kernels()`` — ``csrc/gf2_matmul.cu`` with ``nvcc`` for ``sm_90a``:
-    a plain C interface, so the build takes seconds (no PyTorch headers).
+  * ``kernels()`` — ``csrc/gf2_matmul.cu`` and ``csrc/fused_reconstruct.cu``
+    with ``nvcc`` for ``sm_90a`` into one library: a plain C interface, so
+    the build takes seconds (no PyTorch headers).
   * ``host()`` — ``csrc/host/crc32c.cpp`` and ``gf256.cpp`` with ``g++``:
     CRC32C and the CPU GF(256) codec (the CPU yardstick).
 
@@ -102,6 +103,25 @@ def _bind_kernels(lib: ctypes.CDLL) -> None:
     fn.restype = ctypes.c_int
     lib.gf2_matmul_error_string.argtypes = [ctypes.c_int]
     lib.gf2_matmul_error_string.restype = ctypes.c_char_p
+    fn = lib.fused_reconstruct_launch
+    fn.argtypes = [
+        ctypes.c_void_p,  # a     int8 [8*m_pad, 8*k_pad]
+        ctypes.c_int,  # m_pad
+        ctypes.c_int,  # k_pad
+        ctypes.POINTER(ctypes.c_void_p),  # k survivor device pointers
+        ctypes.c_int,  # k
+        ctypes.c_void_p,  # meta  int32 [n] on the device
+        ctypes.c_int,  # n
+        ctypes.c_int,  # fetch
+        ctypes.c_void_p,  # out   u8 [n, fetch]
+        ctypes.c_int,  # w_true
+        ctypes.c_int,  # groups (1: the flat system)
+        ctypes.c_int,  # tile
+        ctypes.c_void_p,  # cudaStream_t
+    ]
+    fn.restype = ctypes.c_int
+    lib.fused_reconstruct_error_string.argtypes = [ctypes.c_int]
+    lib.fused_reconstruct_error_string.restype = ctypes.c_char_p
 
 
 def _bind_host(lib: ctypes.CDLL) -> None:
@@ -119,10 +139,12 @@ def _bind_host(lib: ctypes.CDLL) -> None:
 
 
 def kernels() -> ctypes.CDLL:
-    """The CUDA kernel library (csrc/gf2_matmul.cu), typed."""
+    """The CUDA kernel library (csrc/gf2_matmul.cu and
+    csrc/fused_reconstruct.cu), typed."""
     return _load(
         "swfs_kernels", _nvcc, _NVCC_FLAGS,
-        [os.path.join(_CSRC, "gf2_matmul.cu")], _bind_kernels,
+        [os.path.join(_CSRC, "gf2_matmul.cu"),
+         os.path.join(_CSRC, "fused_reconstruct.cu")], _bind_kernels,
     )
 
 

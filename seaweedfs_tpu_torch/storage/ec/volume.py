@@ -8,10 +8,13 @@ maps the (offset, size) run to shard intervals, then serves each interval
 from a local shard or — the degraded path — by reading the same interval
 from >=10 surviving local shards and reconstructing the missing bytes with
 one GF(256) multiply (the reference's per-needle ReconstructData,
-store_ec.go:339-393), on the card by default.
+store_ec.go:339-393), on the card by default.  With a DeviceShardCache
+(ops/rs_resident.py) holding >=10 survivors, the missing-shard intervals of
+a read, or of a whole burst (read_needles_batch), are reconstructed from the
+resident bytes in one device call instead.
 
-Remote shard reads, the hedged fan-out, the reconstruct memo, the host
-tier and the device-resident shard cache are later slices of the port.
+Remote shard reads, the hedged fan-out, the reconstruct memo and the host
+tier are later slices of the port.
 """
 from __future__ import annotations
 
@@ -20,7 +23,7 @@ import threading
 
 import numpy as np
 
-from ...ops import rs
+from ...ops import rs, rs_resident
 from .. import needle as needle_mod
 from .. import types as t
 from ..needle import Needle
@@ -122,6 +125,12 @@ class EcVolume:
         self._ecj = open(self.ecj_path, "ab")
         self._ecj_lock = threading.Lock()
         self.shards: dict[int, EcVolumeShard] = {}
+        # optional device shard cache (ops/rs_resident.py): when set and
+        # >=10 survivors of this volume are resident, degraded reads
+        # reconstruct on the card without shipping survivor bytes
+        self.device_cache = None
+        # missing-shard intervals a CacheMiss sent to the host path
+        self.device_misses = 0
         info = load_volume_info(self.base_name + ".vif")
         if info:
             self.version = int(info.get("version", needle_mod.CURRENT_VERSION))
@@ -147,8 +156,49 @@ class EcVolume:
         )
         return True
 
+    def _holds_pin(self) -> bool:
+        """True when this location's shard files back the cache's resident
+        bytes of this vid (the cache is keyed by (vid, shard) only)."""
+        return (
+            self.device_cache is not None
+            and self.device_cache.pin_source(self.id) == self.dir
+        )
+
     def delete_shard(self, shard_id: int) -> EcVolumeShard | None:
+        # only the pinning location's unmount evicts resident bytes
+        if self._holds_pin():
+            self.device_cache.evict(self.id, shard_id)
         return self.shards.pop(shard_id, None)
+
+    def load_shards_to_device(self, cache=None, should_stop=None) -> int:
+        """Pin every locally mounted shard of this volume into the device
+        cache, in shard-id order.  Returns shards pinned.  `should_stop`
+        (callable -> bool) aborts between shards.  A vid another location
+        already pinned stays file-backed here (returns 0)."""
+        if cache is not None:
+            self.device_cache = cache
+        if self.device_cache is None:
+            raise ValueError("no device cache configured")
+        if self.device_cache.claim_pin_source(self.id, self.dir) != self.dir:
+            return 0
+        n = 0
+        for sid, shard in sorted(self.shards.items()):
+            if should_stop is not None and should_stop():
+                break
+            if self.device_cache.get(self.id, sid) is None:
+                self.device_cache.put(
+                    self.id, sid, np.fromfile(shard.path, dtype=np.uint8)
+                )
+                n += 1
+        return n
+
+    def is_device_resident(self) -> bool:
+        """True when enough of THIS location's shards are pinned to
+        reconstruct any missing interval on the device."""
+        return (
+            self._holds_pin()
+            and self.device_cache.resident_count(self.id) >= DATA_SHARDS
+        )
 
     @property
     def shard_size(self) -> int:
@@ -185,19 +235,33 @@ class EcVolume:
 
     # -- interval reads (store_ec.go:176-393) --------------------------------
 
-    def read_interval(self, interval: Interval, backend: str = "cuda") -> bytes:
+    def read_interval(
+        self, interval: Interval, backend: str = "cuda", use_device: bool = True
+    ) -> bytes:
         shard_id, off = interval.to_shard_and_offset()
         shard = self.shards.get(shard_id)
         if shard is not None:
             return shard.read_at(off, interval.size)
-        return self._reconstruct_interval(shard_id, off, interval.size, backend)
+        return self._reconstruct_interval(
+            shard_id, off, interval.size, backend, use_device
+        )
 
     def _reconstruct_interval(
-        self, missing_shard: int, off: int, size: int, backend: str
+        self, missing_shard: int, off: int, size: int, backend: str,
+        use_device: bool = True,
     ) -> bytes:
         """Degraded read: gather this interval from >=k other local shards
         and recompute the missing rows (recoverOneRemoteEcShardInterval
-        store_ec.go:339-393) — one multiply on the selected backend."""
+        store_ec.go:339-393) — one multiply on the selected backend.  With
+        the survivors resident in `device_cache` the gather happens on the
+        device instead; `use_device=False` forces the host path."""
+        if use_device and self.device_cache is not None:
+            try:
+                return rs_resident.reconstruct_intervals(
+                    self.device_cache, self.id, [(missing_shard, off, size)]
+                )[0]
+            except rs_resident.CacheMiss:
+                self.device_misses += 1
         got: dict[int, np.ndarray] = {}
         for sid in range(TOTAL_SHARDS):
             if sid == missing_shard:
@@ -219,17 +283,88 @@ class EcVolume:
         out = codec.reconstruct(got, wanted=[missing_shard])
         return out[missing_shard].tobytes()
 
-    def read_needle_bytes(self, needle_id: int, backend: str = "cuda") -> bytes:
+    def read_needle_bytes(
+        self, needle_id: int, backend: str = "cuda", use_device: bool = True
+    ) -> bytes:
         _, _, intervals = self.locate_needle(needle_id)
-        parts = [self.read_interval(iv, backend) for iv in intervals]
+        parts = [self.read_interval(iv, backend, use_device) for iv in intervals]
         return parts[0] if len(parts) == 1 else b"".join(parts)
 
+    def read_needles_batch(
+        self, needle_ids: list[int], backend: str = "cuda"
+    ) -> list[Needle | Exception]:
+        """Serve a burst of needle reads with every missing-shard interval
+        reconstructed in one reconstruct_intervals call (at most one device
+        call per size bucket).  Local intervals are pread as usual.  Falls
+        back to the per-interval host path when no device cache is set or
+        it lacks survivors (CacheMiss).
+
+        Returns one entry per requested id, in order; a failed needle
+        (deleted, not found, corrupt) yields its exception in that slot."""
+        plans: list[tuple[int, list] | Exception] = []
+        requests: list[tuple[int, int, int]] = []
+        for nid in needle_ids:
+            try:
+                _, _, intervals = self.locate_needle(nid)
+            except (NeedleNotFound, OSError) as e:
+                plans.append(e)
+                continue
+            parts: list = []
+            for iv in intervals:
+                sid, off = iv.to_shard_and_offset()
+                if sid in self.shards:
+                    parts.append(("local", sid, off, iv.size))
+                else:
+                    parts.append(("recon", len(requests)))
+                    requests.append((sid, off, iv.size))
+            plans.append((nid, parts))
+
+        recon: list[bytes] | None = None
+        if requests and self.device_cache is not None:
+            try:
+                recon = rs_resident.reconstruct_intervals(
+                    self.device_cache, self.id, requests
+                )
+            except rs_resident.CacheMiss:
+                self.device_misses += len(requests)
+
+        results: list[Needle | Exception] = []
+        for plan in plans:
+            if isinstance(plan, Exception):
+                results.append(plan)
+                continue
+            nid, parts = plan
+            try:
+                pieces: list = []
+                for p in parts:
+                    if p[0] == "local":
+                        _, sid, off, size = p
+                        pieces.append(self.shards[sid].read_at(off, size))
+                    elif recon is not None:
+                        pieces.append(recon[p[1]])
+                    else:
+                        sid, off, size = requests[p[1]]
+                        pieces.append(self._reconstruct_interval(
+                            sid, off, size, backend, use_device=False
+                        ))
+                raw = pieces[0] if len(pieces) == 1 else b"".join(pieces)
+                n = Needle.from_bytes(raw, self.version)
+                if n.id != nid:
+                    raise NeedleNotFound(
+                        f"ec batch read got needle {n.id:x}, expected {nid:x}"
+                    )
+                results.append(n)
+            except Exception as e:  # isolate per-needle failures
+                results.append(e)
+        return results
+
     def read_needle(
-        self, needle_id: int, cookie: int | None = None, backend: str = "cuda"
+        self, needle_id: int, cookie: int | None = None, backend: str = "cuda",
+        use_device: bool = True,
     ) -> Needle:
         """Full needle with CRC verification (ReadEcShardNeedle
         store_ec.go:136-174)."""
-        raw = self.read_needle_bytes(needle_id, backend)
+        raw = self.read_needle_bytes(needle_id, backend, use_device)
         n = Needle.from_bytes(raw, self.version)
         if n.id != needle_id:
             raise NeedleNotFound(
@@ -256,6 +391,10 @@ class EcVolume:
     # -- lifecycle -----------------------------------------------------------
 
     def close(self) -> None:
+        """Unmount: closes the files and, when this location holds the
+        pin, releases the volume's resident bytes."""
+        if self._holds_pin():
+            self.device_cache.evict(self.id)
         for s in self.shards.values():
             s.close()
         if not self._ecx.closed:

@@ -123,6 +123,11 @@ def test_entry_points_default_to_cuda(no_cuda, tmp_path):
         assert ev.read_needle(1, backend="torch").data == np.random.default_rng(1).bytes(50_000)
     finally:
         ev.close()
+    from seaweedfs_tpu_torch.ops import rs_resident
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        rs_resident.DeviceShardCache()
+    assert rs_resident.DeviceShardCache(device="cpu").device.type == "cpu"
 
 
 def test_chip_smoke_refuses_without_cuda(tmp_path):
