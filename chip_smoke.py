@@ -3,14 +3,22 @@
 
     python3 chip_smoke.py [--seed N] [--volume-gib G]
 
-Builds the port's kernels (csrc/gf2_matmul.cu and csrc/fused_reconstruct.cu,
-nvcc for sm_90a, one library) and host library (csrc/host/*.cpp, g++) from
-this checkout, holds each kernel byte-equal to its plain PyTorch version on
-the card at the shapes the main path gives it, then runs the EC main path
-through the port's entry points on a real volume:
+Builds the port's kernels (csrc/gf2_matmul.cu, gf2_matmul_small.cu and
+fused_reconstruct.cu, nvcc for sm_90a, one library) and host library
+(csrc/host/*.cpp, g++) from this checkout, holds each kernel byte-equal to
+its plain PyTorch version on the card at the shapes the main path gives it,
+then runs the EC main path through the port's entry points on a real
+volume:
 
-  1. device      CUDA device, both builds
-  2. kernel      gf2_matmul vs _apply_torch (+ numpy oracle sample), times
+  1. device      CUDA device, both builds; the gf2_matmul kernels'
+                 registers and shared memory (nvcc -Xptxas -v) and their
+                 tensor-core instructions (cuobjdump -sass: BMMA)
+  2. kernel      gf2_matmul and gf2_matmul_small (the CUDA-core K1,
+                 which takes the small one-row calls) vs _apply_torch (+
+                 numpy oracle sample), timed in turns (small, tensor-core,
+                 tensor-core, small) at the main path's shapes: encode,
+                 rebuild, the host degraded read's 4 KiB, 64 KiB, 256 KiB
+                 and 1 MiB one-row reconstructs
   2b. resident_kernel
                  fused_reconstruct and fused_reconstruct_blockdiag vs their
                  plain versions (+ numpy oracle sample) on 10 x 256 MiB
@@ -80,6 +88,9 @@ NO_LIBRARY_CALL = "no single PyTorch call gathers, reconstructs and selects"
 TRACED_BURSTS = 32
 
 SMI = "unknown"
+# the degraded read's needle sizes are log-uniform over 4 KB-1 MB: the
+# median is 64 KiB
+NEEDLE_MEDIAN = 1 << 16
 
 
 def log(phase: str, **fields) -> None:
@@ -127,6 +138,7 @@ def phase_device(torch) -> dict:
         t.join()
     if errors:
         raise errors[0]
+    k1 = _k1_build_facts(_build)
     info = {
         "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count(),
@@ -135,8 +147,55 @@ def phase_device(torch) -> dict:
         "build_s": {k: round(v, 3) for k, v in _build.build_seconds.items()},
         "build_wall_s": round(time.perf_counter() - t0, 3),
     }
-    log("device", **info)
+    log("device", **info, gf2_matmul_kernels=k1)
     return info
+
+
+def _k1_build_facts(_build) -> list:
+    """Each gf2_matmul_kernel instantiation's registers, spills and shared
+    memory from the build's -Xptxas -v log, and its tensor-core
+    instructions from cuobjdump -sass of the library.  Fails if one has no
+    BMMA or IMMA: the product must run on the tensor cores."""
+    import re
+
+    inst = re.compile(r"gf2_matmul_kernelILi(\d)ELb(\d)ELb(\d)E")
+
+    def name(m):
+        return (f"k_pad={16 * int(m.group(1))} "
+                f"{'aligned' if m.group(2) == '1' else 'shifted'} "
+                f"{'one-row' if m.group(3) == '1' else 'general'}")
+
+    facts: dict = {}
+    cur = None
+    for line in _build.build_logs.get("swfs_kernels", "").splitlines():
+        if "Compiling entry function" in line:
+            m = inst.search(line)
+            cur = name(m) if m else None
+            if cur:
+                facts[cur] = {}
+        elif cur and "spill stores" in line:
+            facts[cur]["spill_stores"] = int(line.split("bytes spill stores")[0].split(",")[-1])
+        elif cur and "Used" in line and "registers" in line:
+            facts[cur]["registers"] = int(line.split("Used")[1].split()[0])
+            sm = re.search(r"(\d+) bytes smem", line)
+            facts[cur]["static_smem"] = int(sm.group(1)) if sm else 0
+            cur = None
+    lib = _build.kernels()._name
+    sass = subprocess.run(["cuobjdump", "-sass", lib], capture_output=True,
+                          text=True, check=True).stdout
+    cur = None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            m = inst.search(line)
+            cur = name(m) if m else None
+        elif cur and ("BMMA" in line or "IMMA" in line):
+            op = line.split("*/")[1].split()[0] if "*/" in line else "MMA"
+            facts.setdefault(cur, {}).setdefault("tensor_ops", {})
+            facts[cur]["tensor_ops"][op] = facts[cur]["tensor_ops"].get(op, 0) + 1
+    if not facts or any(not f.get("tensor_ops") for f in facts.values()):
+        raise AssertionError(f"a gf2_matmul kernel has no tensor-core "
+                             f"instruction in its SASS: {facts}")
+    return [{"instance": k, **v} for k, v in sorted(facts.items())]
 
 
 # --------------------------------------------------------------- phase 2
@@ -205,10 +264,16 @@ def phase_kernel(torch, seed: int) -> dict:
         ("encode_blockdiag_g4", rs_cuda.blockdiag_system(parity), 40, mib, 16,
          rs_cuda.BLOCKDIAG_GROUPS, True),
         ("reconstruct_1row", recon1, 10, mib, 1, 1, True),
+        # the host degraded read: one lost shard, intervals of the 4 KB-1 MB
+        # needle mix (its median, and an unaligned width), and 4 KiB
+        ("reconstruct_1row_64k", recon1, 10, NEEDLE_MEDIAN, 1, 1, True),
+        ("reconstruct_1row_64k_odd", recon1, 10, NEEDLE_MEDIAN + 13, 1, 1, True),
+        ("reconstruct_1row_4k", recon1, 10, 4096, 1, 1, True),
+        ("reconstruct_1row_256k", recon1, 10, 4 * NEEDLE_MEDIAN, 1, 1, True),
         ("rebuild_4row", rebuild4, 10, 4 * mib, 4, 1, True),
         ("encode_flat_ragged", parity, 10, 4 * mib + 37, 4, 1, True),
     ]
-    for k in (1, 3, 7, 10, 13, 16):
+    for k in (1, 3, 7, 10, 13, 16, 40, 64):
         m = int(rng.integers(1, 15))
         mat = rng.integers(0, 256, (m, k), dtype=np.uint8)
         shapes.append((f"random_k{k}_m{m}", mat, k, 65536 + k, m, 1, k == 16))
@@ -217,12 +282,17 @@ def phase_kernel(torch, seed: int) -> dict:
     # L2, so each launch finds its input cold, as the main path does
     l2_cold = 128 << 20
     results = {}
+    # the least time this method reads for one launch: a kernel that
+    # spins for 0 cycles
+    floor_ms = _median_ms(torch, lambda: torch.cuda._sleep(0), 20)
+    log("kernel", launch_floor_ms=floor_ms)
     for name, mat, k, b, m_out, groups, timed in shapes:
         a = rs_cuda.prepare_matrix(mat, dev)
         if m_out > a.shape[0] // 8:
             raise AssertionError(f"{name}: m_out {m_out} > m_pad")
         x = torch.randint(0, 256, (k, b), dtype=torch.uint8, device=dev,
                           generator=gen)
+        paths0 = dict(rs_cuda.gf2_matmul.launches_by_path)
         got = rs_cuda.gf2_matmul(a, x, m_out)
         ref = rs_cuda._apply_torch(a, x, m_out)
         torch.cuda.synchronize()
@@ -239,10 +309,21 @@ def phase_kernel(torch, seed: int) -> dict:
         oracle_bad = int((got[:, :sample].cpu().numpy() != oracle).sum())
         row = {
             "a": list(a.shape), "k": k, "b": b, "m_out": m_out,
+            "load_path": next(p for p, n in rs_cuda.gf2_matmul.launches_by_path.items()
+                              if n != paths0[p]),
             "mismatched_bytes": mismatched, "max_abs_err": max_err,
             "oracle_sample_mismatched": oracle_bad,
         }
-        if mismatched or oracle_bad:
+        # the main path sends the small one-row calls to gf2_matmul_small;
+        # it takes every shape, and is held and timed on all of them
+        row["routed_to"] = rs_cuda._kernel_for(x, m_out).__name__
+        n0 = rs_cuda.gf2_matmul_small.launches
+        sdiff = rs_cuda.gf2_matmul_small(a, x, m_out).to(torch.int16) - ref.to(torch.int16)
+        row["small_mismatched_bytes"] = int((sdiff != 0).sum().item())
+        row["small_max_abs_err"] = int(sdiff.abs().max().item()) if sdiff.numel() else 0
+        if rs_cuda.gf2_matmul_small.launches != n0 + 1:
+            raise AssertionError("gf2_matmul_small did not count its launch")
+        if mismatched or oracle_bad or row["small_mismatched_bytes"]:
             log("kernel", shape=name, **row)
             raise AssertionError(f"{name}: kernel disagrees with its plain version")
         if timed:
@@ -251,8 +332,13 @@ def phase_kernel(torch, seed: int) -> dict:
                 torch.randint(0, 256, (k, b), dtype=torch.uint8, device=dev,
                               generator=gen)
                 for _ in range(-(-l2_cold // x.numel()) - 1)])
-            row["ms"] = _median_ms(
-                torch, lambda: rs_cuda.gf2_matmul(a, next(xs), m_out), 20)
+            tc = lambda: rs_cuda.gf2_matmul(a, next(xs), m_out)  # noqa: E731
+            sm = lambda: rs_cuda.gf2_matmul_small(a, next(xs), m_out)  # noqa: E731
+            turns = [_median_ms(torch, f, 20) for f in (sm, tc, tc, sm)]
+            row["ms_turns"] = turns[1:3]
+            row["small_ms_turns"] = [turns[0], turns[3]]
+            row["ms"] = statistics.mean(row["ms_turns"])
+            row["small_ms"] = statistics.mean(row["small_ms_turns"])
             row["plain_ms"] = _median_ms(
                 torch, lambda: rs_cuda._apply_torch(a, next(xs), m_out), 5,
                 warmup=1,
@@ -265,7 +351,20 @@ def phase_kernel(torch, seed: int) -> dict:
             row["share_of_bound"] = bound_ms / row["ms"]
         results[name] = row
         log("kernel", shape=name, **row)
-        del x, got, ref, diff
+        del x, got, ref, diff, sdiff
+
+    # the wrapper refuses what the kernel does not take, before any launch
+    before = rs_cuda.gf2_matmul.launches
+    a = rs_cuda.prepare_matrix(parity, dev)
+    for bad in (torch.zeros((10, 8), dtype=torch.int32, device=dev),
+                torch.zeros((11, 8), dtype=torch.uint8, device=dev)[:10, ::2]):
+        try:
+            rs_cuda.gf2_matmul(a, bad, 4)
+        except (TypeError, ValueError):
+            continue
+        raise AssertionError("gf2_matmul took an argument it must refuse")
+    if rs_cuda.gf2_matmul.launches != before:
+        raise AssertionError("a refused gf2_matmul call counted a launch")
 
     # CPU yardstick: the native GF(256) codec on the same encode batch
     xs = rng.integers(0, 256, (10, 4 * mib), dtype=np.uint8)
@@ -277,7 +376,7 @@ def phase_kernel(torch, seed: int) -> dict:
     log("kernel", shape="encode_flat", cpu_native_ms=native_s * 1e3,
         cpu_native_input_GBps=xs.nbytes / native_s / 1e9,
         host_cpus=os.cpu_count())
-    return results
+    return {"shapes": results, "launch_floor_ms": floor_ms}
 
 
 def _fused_bound(k: int, n: int, fetch: int, rows: int,
@@ -527,7 +626,21 @@ def _device_time(prof, path: str, wall: float, kernels: tuple[str, ...]) -> dict
             "memcpy_s": copy_us * 1e-6}
 
 
-def phase_encode(torch, workdir: str, dat_size: int, kernel, seed: int) -> dict:
+def _reset(*kernels) -> None:
+    """Set wrappers' launch counts to 0 (gf2_matmul's by load path too)."""
+    for kernel in kernels:
+        kernel.launches = 0
+        for p in getattr(kernel, "launches_by_path", {}):
+            kernel.launches_by_path[p] = 0
+
+
+def _k1_counts(kernel, small) -> dict:
+    """The two K1 wrappers' launches since their _reset."""
+    return {"gf2_matmul": kernel.launches, **kernel.launches_by_path,
+            "gf2_matmul_small": small.launches}
+
+
+def phase_encode(torch, workdir: str, dat_size: int, k1: tuple, seed: int) -> dict:
     import numpy as np
 
     from seaweedfs_tpu_torch.ops import gf256, rs_cpu
@@ -535,7 +648,7 @@ def phase_encode(torch, workdir: str, dat_size: int, kernel, seed: int) -> dict:
 
     base = os.path.join(workdir, "1")
     stats: dict = {}
-    kernel.launches = 0
+    _reset(*k1)
     # traced, to read the card's busy and idle share of the encode
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
@@ -543,7 +656,8 @@ def phase_encode(torch, workdir: str, dat_size: int, kernel, seed: int) -> dict:
         ec.write_ec_files(base, backend="cuda", stats=stats)
         ec.write_sorted_file_from_idx(base)
         wall = time.perf_counter() - t0
-    enc_launches = kernel.launches
+    enc_paths = _k1_counts(*k1)
+    enc_launches = enc_paths["gf2_matmul"] + enc_paths["gf2_matmul_small"]
     if enc_launches == 0:
         raise AssertionError("encode launched no gf2_matmul kernel")
     dev = _device_time(prof, os.path.join(workdir, "encode_trace.json"), wall,
@@ -553,17 +667,18 @@ def phase_encode(torch, workdir: str, dat_size: int, kernel, seed: int) -> dict:
               "encode; device busy share not measured", file=sys.stderr)
     shard_size = os.path.getsize(base + ec.to_ext(0))
     log("encode", GBps=dat_size / wall / 1e9, wall_s=wall, shard_bytes=shard_size,
-        launches=enc_launches, stats=stats,
+        launches=enc_launches, load_paths=enc_paths, stats=stats,
         overlapped=stats["read_s"] + stats["write_s"] + stats["device_busy_s"]
         > stats["wall_s"] - stats["fsync_s"],
         device_trace=dev or "not measured")
 
-    kernel.launches = 0
+    _reset(*k1)
     vstats: dict = {}
     t0 = time.perf_counter()
     mism, verified = ec.verify_ec_files(base, backend="cuda", stats=vstats)
     vwall = time.perf_counter() - t0
-    ver_launches = kernel.launches
+    ver_paths = _k1_counts(*k1)
+    ver_launches = ver_paths["gf2_matmul"] + ver_paths["gf2_matmul_small"]
     if any(mism) or ver_launches == 0:
         raise AssertionError(f"verify: mismatches {mism}, launches {ver_launches}")
     # re-derive the parity of a sample of stripes with the numpy oracle
@@ -585,16 +700,18 @@ def phase_encode(torch, workdir: str, dat_size: int, kernel, seed: int) -> dict:
         for h in handles:
             h.close()
     log("verify", GBps=verified * 14 / vwall / 1e9, wall_s=vwall,
-        mismatches=mism, launches=ver_launches, oracle_stripes=checked,
+        mismatches=mism, launches=ver_launches, load_paths=ver_paths,
+        oracle_stripes=checked,
         stats=vstats)
     return {"wall_s": wall, "shard_size": shard_size,
-            "launches": {"encode": enc_launches, "verify": ver_launches}}
+            "launches": {"encode": enc_launches, "verify": ver_launches},
+            "load_paths": {"encode": enc_paths, "verify": ver_paths}}
 
 
 # --------------------------------------------------------------- phase 5
 
 
-def phase_degraded(workdir: str, vol: dict, shard_size: int, kernel, seed: int) -> dict:
+def phase_degraded(workdir: str, vol: dict, shard_size: int, k1: tuple, seed: int) -> dict:
     import numpy as np
 
     from seaweedfs_tpu_torch.storage import ec, needle as needle_mod
@@ -619,7 +736,7 @@ def phase_degraded(workdir: str, vol: dict, shard_size: int, kernel, seed: int) 
     for sid in range(14):
         if sid not in (0, 11):
             ev.add_shard(sid)
-    kernel.launches = 0
+    _reset(*k1)
     lat_deg, lat_local = [], []
     shard0 = set(on_shard0)
     for nid in picks:
@@ -630,7 +747,8 @@ def phase_degraded(workdir: str, vol: dict, shard_size: int, kernel, seed: int) 
         if hashlib.sha256(n.data).digest() != digest:
             raise AssertionError(f"needle {nid}: bytes differ after degraded read")
         (lat_deg if nid in shard0 else lat_local).append(dt)
-    launches = kernel.launches
+    paths = _k1_counts(*k1)
+    launches = paths["gf2_matmul"] + paths["gf2_matmul_small"]
     if launches < len(on_shard0):
         raise AssertionError(f"{len(on_shard0)} degraded needles, {launches} launches")
     # journal three deletes (never the last needle, so the decoded .dat
@@ -649,10 +767,10 @@ def phase_degraded(workdir: str, vol: dict, shard_size: int, kernel, seed: int) 
             "degraded_p50_ms": _pct(lat_deg, 50),
             "degraded_p99_ms": _pct(lat_deg, 99)}
     log("degraded_read", shards_down=[0, 11], reads=len(picks),
-        degraded_reads=len(lat_deg), launches=launches, **host,
+        degraded_reads=len(lat_deg), launches=launches, load_paths=paths, **host,
         local_p50_ms=_pct(lat_local, 50), local_p99_ms=_pct(lat_local, 99))
-    return {"launches": launches, "deleted": deleted, "picks": picks,
-            "on_shard0": on_shard0, "host": host}
+    return {"launches": launches, "load_paths": paths, "deleted": deleted,
+            "picks": picks, "on_shard0": on_shard0, "host": host}
 
 
 def _pct(seconds: list, q: float):
@@ -712,7 +830,8 @@ def phase_resident(torch, workdir: str, vol: dict, deg: dict, seed: int) -> dict
         return lat
 
     try:
-        for kern in (*kernels.values(), rs_cuda.gf2_matmul):
+        for kern in (*kernels.values(), rs_cuda.gf2_matmul,
+                     rs_cuda.gf2_matmul_small):
             kern.launches = 0
         t0 = time.perf_counter()
         pinned = ev.load_shards_to_device(cache)
@@ -810,10 +929,11 @@ def phase_resident(torch, workdir: str, vol: dict, deg: dict, seed: int) -> dict
         if not isinstance(got[0], ec.NeedleNotFound):
             raise AssertionError(f"deleted needle read as {got[0]!r}")
         check(ids[:1], got[1:])
-        if ev.device_misses or rs_cuda.gf2_matmul.launches:
+        host_k1 = rs_cuda.gf2_matmul.launches + rs_cuda.gf2_matmul_small.launches
+        if ev.device_misses or host_k1:
             raise AssertionError(
                 f"{ev.device_misses} intervals fell back to the host path "
-                f"({rs_cuda.gf2_matmul.launches} gf2_matmul launches)")
+                f"({host_k1} gf2_matmul launches)")
         out = {kern.__name__: kern.launches for kern in kernels.values()}
     finally:
         ev.close()
@@ -825,7 +945,7 @@ def phase_resident(torch, workdir: str, vol: dict, deg: dict, seed: int) -> dict
 # --------------------------------------------------------------- phase 6
 
 
-def phase_rebuild(workdir: str, shard_size: int, kernel) -> dict:
+def phase_rebuild(workdir: str, shard_size: int, k1: tuple) -> dict:
     from seaweedfs_tpu_torch.storage import ec
 
     base = os.path.join(workdir, "1")
@@ -839,12 +959,13 @@ def phase_rebuild(workdir: str, shard_size: int, kernel) -> dict:
         os.remove(path)
     os.rename(base + ec.to_ext(11) + ".down", base + ec.to_ext(11))
     stats: dict = {}
-    kernel.launches = 0
+    _reset(*k1)
     t0 = time.perf_counter()
     rebuilt = ec.rebuild_ec_files(base, backend="cuda", stats=stats)
     ec.rebuild_ecx_file(base)
     wall = time.perf_counter() - t0
-    launches = kernel.launches
+    paths = _k1_counts(*k1)
+    launches = paths["gf2_matmul"] + paths["gf2_matmul_small"]
     if sorted(rebuilt) != list(lost) or launches == 0:
         raise AssertionError(f"rebuilt {rebuilt} with {launches} launches")
     for sid in lost:
@@ -853,8 +974,8 @@ def phase_rebuild(workdir: str, shard_size: int, kernel) -> dict:
     if os.path.exists(base + ".ecj"):
         raise AssertionError("rebuild_ecx_file left the .ecj journal")
     log("rebuild", shards=list(lost), GBps=10 * shard_size / wall / 1e9,
-        wall_s=wall, launches=launches, stats=stats)
-    return {"wall_s": wall, "launches": launches}
+        wall_s=wall, launches=launches, load_paths=paths, stats=stats)
+    return {"wall_s": wall, "launches": launches, "load_paths": paths}
 
 
 # --------------------------------------------------------------- phase 7
@@ -906,7 +1027,8 @@ def main() -> int:
     try:
         info = phase_device(torch)
         phase = "kernel"
-        shapes = phase_kernel(torch, args.seed)
+        k1 = phase_kernel(torch, args.seed)
+        shapes = k1["shapes"]
         phase = "resident_kernel"
         fused = phase_resident_kernels(torch, args.seed)
         shutil.rmtree(workdir, ignore_errors=True)
@@ -914,15 +1036,15 @@ def main() -> int:
         phase = "volume"
         vol = phase_volume(workdir, args.seed, int(args.volume_gib * (1 << 30)))
         # the main path: encode, verify, degraded read, rebuild, decode
-        kernel = rs_cuda.gf2_matmul
+        k1_wrappers = (rs_cuda.gf2_matmul, rs_cuda.gf2_matmul_small)
         phase = "encode"
-        enc = phase_encode(torch, workdir, vol["dat_size"], kernel, args.seed)
+        enc = phase_encode(torch, workdir, vol["dat_size"], k1_wrappers, args.seed)
         phase = "degraded_read"
-        deg = phase_degraded(workdir, vol, enc["shard_size"], kernel, args.seed)
+        deg = phase_degraded(workdir, vol, enc["shard_size"], k1_wrappers, args.seed)
         phase = "resident_read"
         res = phase_resident(torch, workdir, vol, deg, args.seed)
         phase = "rebuild"
-        reb = phase_rebuild(workdir, enc["shard_size"], kernel)
+        reb = phase_rebuild(workdir, enc["shard_size"], k1_wrappers)
         phase = "decode"
         phase_decode(workdir, vol)
     except Exception:  # noqa: BLE001 — every phase is fatal
@@ -932,8 +1054,15 @@ def main() -> int:
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
 
-    main_launches = {**enc["launches"], "degraded_read": deg["launches"],
-                     "rebuild": reb["launches"]}
+    main_paths = {**enc["load_paths"], "degraded_read": deg["load_paths"],
+                  "rebuild": reb["load_paths"]}
+    launches = {name: sum(p[name] for p in main_paths.values())
+                for name in ("gf2_matmul", "gf2_matmul_small")}
+    if not all(launches.values()):
+        print(f"chip_smoke: a K1 kernel was not launched on the main path: "
+              f"{launches}", file=sys.stderr)
+        return 1
+    small_row = shapes["reconstruct_1row_64k"]
     flat = shapes["encode_flat"]
     resident = []
     for layout, name, line in (
@@ -964,8 +1093,8 @@ def main() -> int:
         "route": "cuda",
         "source": "seaweedfs_tpu_torch/csrc/gf2_matmul.cu",
         "replaces": "seaweedfs_tpu/ops/rs_tpu.py:201",
-        "launches": sum(main_launches.values()),
-        "launches_by_path": main_launches,
+        "launches": launches["gf2_matmul"],
+        "launches_by_phase": main_paths,
         "max_abs_err": max(r["max_abs_err"] for r in shapes.values()),
         "mismatched_bytes": sum(r["mismatched_bytes"] for r in shapes.values()),
         "shape": "encode_flat",
@@ -974,6 +1103,28 @@ def main() -> int:
         "bound_ms": flat["bound_ms"],
         "bound_by": flat["bound_by"],
         "library_ms": flat["library_ms"],
+        "launch_floor_ms": k1["launch_floor_ms"],
+        "timed_shapes": {
+            name: {key: r[key] for key in ("b", "m_out", "load_path", "routed_to",
+                                           "ms", "small_ms", "bound_ms",
+                                           "share_of_bound", "plain_ms",
+                                           "library_ms") if key in r}
+            for name, r in shapes.items() if "ms" in r},
+    }, {
+        "name": "gf2_matmul_small",
+        "route": "cuda",
+        "source": "seaweedfs_tpu_torch/csrc/gf2_matmul_small.cu",
+        "replaces": "seaweedfs_tpu/ops/rs_tpu.py:201",
+        "launches": launches["gf2_matmul_small"],
+        "max_abs_err": max(r["small_max_abs_err"] for r in shapes.values()),
+        "mismatched_bytes": sum(r.get("small_mismatched_bytes", 0)
+                                for r in shapes.values()),
+        "shape": "reconstruct_1row_64k",
+        "ms": small_row["small_ms"],
+        "plain_ms": small_row["plain_ms"],
+        "bound_ms": small_row["bound_ms"],
+        "bound_by": small_row["bound_by"],
+        "library_ms": small_row["library_ms"],
     }, *resident]}), flush=True)
     print(SMI, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -36,7 +36,8 @@
 // bytes, is the cost.
 //
 // Design (simple first):
-//   * the multiply stays in the bit domain as in gf2_matmul.cu: for each
+//   * the multiply stays in the bit domain on the CUDA cores (the scheme
+//     gf2_matmul.cu used before it moved to the tensor cores): for each
 //     (group, output bit, survivor) one 8-bit mask, replicated into a
 //     uint32, kept in shared memory; the output bit is the parity of
 //     (mask & byte), one LOP3 per (bit, survivor, word);

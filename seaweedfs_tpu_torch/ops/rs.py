@@ -6,7 +6,8 @@ weed/storage/store_ec.go:342-384).  Every operation is one linear
 primitive, apply_matrix over GF(256).
 
 Backends:
-  "cuda"   — the hand-written kernel (ops/rs_cuda.gf2_matmul); the default.
+  "cuda"   — the hand-written kernels (ops/rs_cuda.gf2_matmul, and
+             gf2_matmul_small for small one-row calls); the default.
              Raises when no CUDA device is present: nothing drops to the CPU
              on its own.
   "torch"  — the kernel's plain PyTorch version, on the CPU

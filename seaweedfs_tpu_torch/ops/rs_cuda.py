@@ -13,8 +13,9 @@ matrix carries over unchanged (from_jax_prepared).
 
 Two versions of the apply, chosen by where the input tensor lies:
 
-  * a CUDA tensor goes to the hand-written kernel csrc/gf2_matmul.cu
-    (gf2_matmul below), or the call raises;
+  * a CUDA tensor goes to a hand-written kernel, or the call raises: the
+    tensor-core kernel csrc/gf2_matmul.cu (gf2_matmul below), or for
+    small one-row calls csrc/gf2_matmul_small.cu (gf2_matmul_small);
   * a CPU tensor goes to the plain PyTorch version _apply_torch (unpack,
     float32 matmul, `& 1`, pack), which the CPU tests and chip_smoke.py
     hold the kernel against.
@@ -26,6 +27,7 @@ kernel/interpret/tile arguments (the tensor's device picks the route).
 """
 from __future__ import annotations
 
+import ctypes
 import functools
 import threading
 
@@ -137,64 +139,237 @@ def _apply_torch(a_bm: torch.Tensor, x: torch.Tensor, m_out: int) -> torch.Tenso
     return acc.to(torch.uint8)
 
 
+# --- the kernel's formulation, in plain PyTorch ------------------------------
+#
+# csrc/gf2_matmul.cu computes the product with the binary tensor-core
+# instruction mma m16n8k128 b1 AND+POPC.  K runs over (shard s, bit j), j
+# inner, 16 shards (128 bits) per K step; thread t (0..3) of a quad holds
+# the 32 bits of shards 16ks + t + 4r (r = 0..3), bit j of shard r's byte
+# at bit 8r + j.  N runs over the output bits in blocks of 32 (4 output
+# rows): n = 8q + 2t + e is output row 4blk + t, bit 2q + e; with one
+# output row, N is its 8 bits (n = i) and thread t keeps bits 2t, 2t+1.
+# The functions below build the two operands exactly as the kernel does,
+# and _apply_b1_model multiplies them with the kernel's integer identity
+# (parity = bit 0 of popcount(data & matrix)) and its byte pack, so the
+# CPU tests hold the formulation, not only the function, against the JAX
+# package.
+
+SHARDS_PER_STEP = 16
+
+
+def b1_matrix_operand(a_bm: torch.Tensor, k: int, m_out: int) -> torch.Tensor:
+    """The kernel's matrix operand: int64 words (32 bits used)
+    [n_blk, ks, nq, 32 (lane)], n_blk = ceil(m_out / 4), ks =
+    max(1, ceil(k / 16)), nq = 4 n-tiles (1 when m_out == 1).  Lane
+    (g, t) = (lane // 4, lane % 4) holds N column 8q + g: output row
+    p = 4blk + g // 2 and bit i = 2q + g % 2 (p = 0, i = g when
+    m_out == 1); its bit 8r + j is A[i*m_pad + p, j*k_pad + s] for shard
+    s = 16ks + t + 4r (0 for s >= k or p >= m_pad)."""
+    m_pad, k_pad = a_bm.shape[0] // 8, a_bm.shape[1] // 8
+    one = m_out == 1
+    n_blk, ks = -(-m_out // 4), max(1, -(-k // SHARDS_PER_STEP))
+    blk = torch.arange(n_blk).view(-1, 1, 1, 1, 1, 1)
+    kstep = torch.arange(ks).view(1, -1, 1, 1, 1, 1)
+    q = torch.arange(1 if one else 4).view(1, 1, -1, 1, 1, 1)
+    lane = torch.arange(32).view(1, 1, 1, -1, 1, 1)
+    r = torch.arange(4).view(1, 1, 1, 1, -1, 1)
+    j = torch.arange(8).view(1, 1, 1, 1, 1, -1)
+    g, t = lane // 4, lane % 4
+    p = torch.zeros_like(blk) if one else 4 * blk + g // 2
+    i = g + 0 * q if one else 2 * q + g % 2
+    s = SHARDS_PER_STEP * kstep + t + 4 * r
+    ok = (p < m_pad) & (s < k)
+    row = (i * m_pad + p).clamp(max=8 * m_pad - 1)
+    colm = (j * k_pad + s).clamp(max=8 * k_pad - 1)
+    shape = torch.broadcast_shapes(row.shape, colm.shape, ok.shape)
+    bits = (a_bm.cpu()[row.expand(shape), colm.expand(shape)] != 0) & ok.expand(shape)
+    return (bits.to(torch.int64) << (8 * r + j)).sum(dim=(-2, -1))
+
+
+def b1_data_operand(x: torch.Tensor) -> torch.Tensor:
+    """The kernel's data operand: int64 words (32 bits used) [ks, 4 (t), b];
+    word (ks, t, c) holds shard 16ks + t + 4r of column c in byte r (0 for
+    shards past k): a byte transpose, no bit unpack."""
+    k, b = x.shape
+    ks = max(1, -(-k // SHARDS_PER_STEP))
+    padded = torch.zeros((ks * SHARDS_PER_STEP, b), dtype=torch.int64)
+    padded[:k] = x.cpu().to(torch.int64)
+    # shard 16ks + t + 4r -> [ks, r, t]
+    by = padded.view(ks, 4, 4, b)
+    shift = (8 * torch.arange(4)).view(1, 4, 1, 1)
+    return (by << shift).sum(dim=1)
+
+
+def _popcount32(w: torch.Tensor) -> torch.Tensor:
+    w = w - ((w >> 1) & 0x55555555)
+    w = (w & 0x33333333) + ((w >> 2) & 0x33333333)
+    w = (w + (w >> 4)) & 0x0F0F0F0F
+    return ((w * 0x01010101) & 0xFFFFFFFF) >> 24
+
+
+def _low_bytes(counts: torch.Tensor) -> torch.Tensor:
+    """Byte 0 of each of 4 counts [..., 4] in one 32-bit word."""
+    return ((counts & 0xFF) << (8 * torch.arange(4))).sum(-1)
+
+
+def _pack_counts(counts: torch.Tensor) -> torch.Tensor:
+    """The kernel's pack_byte: counts [..., 8 (bit i)] -> bytes.  Bit 0 of
+    count i is output bit i.  The low bytes of counts 0..3 (lo) and 4..7
+    (hi) are gathered into two words and masked to bit 0; the 32-bit sum
+    lo * 0x01020408 + hi * 0x10204080 holds the byte in its top 8 bits."""
+    lo = _low_bytes(counts[..., :4]) & 0x01010101
+    hi = _low_bytes(counts[..., 4:]) & 0x01010101
+    return (((lo * 0x01020408 + hi * 0x10204080) & 0xFFFFFFFF) >> 24).to(torch.uint8)
+
+
+def _apply_b1_model(a_bm: torch.Tensor, x: torch.Tensor, m_out: int) -> torch.Tensor:
+    """u8 [k, B] -> u8 [m_out, B] through the kernel's formulation: counts
+    = sum over K steps and quad lanes t of popcount(data & matrix), then
+    the kernel's pack of bit 0 of each count."""
+    k, b = x.shape
+    mat = b1_matrix_operand(a_bm, k, m_out)  # [n_blk, ks, nq, lane]
+    data = b1_data_operand(x)  # [ks, t, b]
+    n_blk, ks, nq = mat.shape[:3]
+    out = torch.zeros((4 * n_blk, b), dtype=torch.uint8)
+    for blk in range(n_blk):
+        w = mat[blk].view(ks, nq, 8, 4)  # [ks, q, g, t]
+        counts = _popcount32(w.unsqueeze(-1) & data.unsqueeze(1).unsqueeze(1))
+        counts = counts.sum(dim=(0, 3))  # [q, g, b]
+        if m_out == 1:
+            # thread t places bits 2t, 2t+1 (N columns g = 2t, 2t+1) of its
+            # byte; the four partial bytes are ORed on the way out
+            sh = torch.arange(8).view(8, 1)
+            part = ((counts[0] & 1) << sh).view(4, 2, b).sum(1)
+            out[0] = part[0] | part[1] | part[2] | part[3]
+            continue
+        # n = 8q + g with g = 2t' + e: row 4blk + t', bit 2q + e
+        by_bit = counts.view(4, 4, 2, b).permute(1, 3, 0, 2).reshape(4, b, 8)
+        out[4 * blk : 4 * blk + 4] = _pack_counts(by_bit)
+    return out[:m_out].to(x.device)
+
+
 # --- the kernel -------------------------------------------------------------
 
 _launch_lock = threading.Lock()
+LOAD_PATHS = ("aligned", "shifted")
 
 
-def gf2_matmul(a_bm: torch.Tensor, x: torch.Tensor, m_out: int) -> torch.Tensor:
-    """Launch csrc/gf2_matmul.cu on CUDA tensors: u8 [k, B] -> u8
-    [m_out, B], the first m_out rows of the apply.  Runs on the current
-    stream of x's device; raises on any argument the kernel does not take
-    and on a refused launch.  `gf2_matmul.launches` counts launches."""
+# One-row calls on 16-byte-aligned rows up to this width go to the CUDA-core
+# kernel csrc/gf2_matmul_small.cu: timed in turns on the H100 it was 3-5%
+# faster than the tensor-core kernel at 64 KiB (the host degraded read's
+# median) and 256 KiB, slower at 1 MiB and on unaligned rows (chip_smoke.py
+# phase 2; PERF.md).
+SMALL_ONE_ROW_BYTES = 1 << 18
+
+
+def _checked(a_bm: torch.Tensor, x: torch.Tensor, m_out: int, name: str):
+    """The arguments both kernels take -> (m_pad, k_pad, out); raises on
+    anything else, before any launch."""
     if not (a_bm.is_cuda and x.is_cuda) or a_bm.device != x.device:
-        raise ValueError("gf2_matmul needs a_bm and x on the same CUDA device")
+        raise ValueError(f"{name} needs a_bm and x on the same CUDA device")
     if a_bm.dtype != torch.int8 or x.dtype != torch.uint8:
-        raise TypeError(f"gf2_matmul takes int8 a_bm and uint8 x, got "
+        raise TypeError(f"{name} takes int8 a_bm and uint8 x, got "
                         f"{a_bm.dtype} and {x.dtype}")
     if a_bm.dim() != 2 or x.dim() != 2:
-        raise ValueError("gf2_matmul takes 2-D a_bm and x")
+        raise ValueError(f"{name} takes 2-D a_bm and x")
     if not (a_bm.is_contiguous() and x.is_contiguous()):
-        raise ValueError("gf2_matmul takes contiguous tensors")
+        raise ValueError(f"{name} takes contiguous tensors")
+    if a_bm.data_ptr() % 16:
+        raise ValueError(f"{name} reads a_bm in 16-byte words: it must "
+                         "start on a 16-byte boundary")
     m8, k8 = a_bm.shape
     if m8 % 8 or k8 % 8:
         raise ValueError(f"a_bm shape {tuple(a_bm.shape)} is not bit-major")
-    m_pad, k_pad = m8 // 8, k8 // 8
-    k, b = x.shape
-    if k > k_pad or not 0 <= m_out <= m_pad:
+    if x.shape[0] > k8 // 8 or not 0 <= m_out <= m8 // 8:
         raise ValueError(
             f"shapes disagree: a_bm {tuple(a_bm.shape)}, x {tuple(x.shape)}, "
             f"m_out {m_out}"
         )
-    out = torch.empty((m_out, b), dtype=torch.uint8, device=x.device)
+    out = torch.empty((m_out, x.shape[1]), dtype=torch.uint8, device=x.device)
+    return m8 // 8, k8 // 8, out
+
+
+def gf2_matmul(a_bm: torch.Tensor, x: torch.Tensor, m_out: int) -> torch.Tensor:
+    """Launch csrc/gf2_matmul.cu (the tensor-core kernel) on CUDA tensors:
+    u8 [k, B] -> u8 [m_out, B], the first m_out rows of the apply.  Runs
+    on the current stream of x's device; raises on any argument the kernel
+    does not take and on a refused launch.  `gf2_matmul.launches` counts
+    launches and `gf2_matmul.launches_by_path` the load path each took:
+    "aligned" (x and B 16-byte aligned: 16-byte chunks are columns) or
+    "shifted" (rows off a 16-byte boundary: the kernel realigns them in
+    shared memory)."""
+    m_pad, k_pad, out = _checked(a_bm, x, m_out, "gf2_matmul")
     lib = _build.kernels()
+    path = ctypes.c_int(-1)
     with torch.cuda.device(x.device):
         rc = lib.gf2_matmul_launch(
-            a_bm.data_ptr(), m_pad, k_pad, x.data_ptr(), k, b,
-            out.data_ptr(), m_out, torch.cuda.current_stream().cuda_stream,
+            a_bm.data_ptr(), m_pad, k_pad, x.data_ptr(), x.shape[0],
+            x.shape[1], out.data_ptr(), m_out,
+            torch.cuda.current_stream().cuda_stream, ctypes.byref(path),
         )
     if rc != 0:
         raise RuntimeError(
             f"gf2_matmul launch failed ({rc}): "
             f"{lib.gf2_matmul_error_string(rc).decode()}"
         )
-    with _launch_lock:
-        gf2_matmul.launches += 1
+    if path.value >= 0:
+        with _launch_lock:
+            gf2_matmul.launches += 1
+            gf2_matmul.launches_by_path[LOAD_PATHS[path.value]] += 1
     return out
 
 
 gf2_matmul.launches = 0
+gf2_matmul.launches_by_path = dict.fromkeys(LOAD_PATHS, 0)
+
+
+def gf2_matmul_small(a_bm: torch.Tensor, x: torch.Tensor, m_out: int) -> torch.Tensor:
+    """Launch csrc/gf2_matmul_small.cu (the CUDA-core kernel for small
+    one-row calls) on CUDA tensors: the same function and arguments as
+    gf2_matmul.  `gf2_matmul_small.launches` counts launches."""
+    m_pad, k_pad, out = _checked(a_bm, x, m_out, "gf2_matmul_small")
+    if x.shape[1] == 0 or m_out == 0:
+        return out
+    lib = _build.kernels()
+    with torch.cuda.device(x.device):
+        rc = lib.gf2_matmul_small_launch(
+            a_bm.data_ptr(), m_pad, k_pad, x.data_ptr(), x.shape[0],
+            x.shape[1], out.data_ptr(), m_out,
+            torch.cuda.current_stream().cuda_stream,
+        )
+    if rc != 0:
+        raise RuntimeError(
+            f"gf2_matmul_small launch failed ({rc}): "
+            f"{lib.gf2_matmul_small_error_string(rc).decode()}"
+        )
+    with _launch_lock:
+        gf2_matmul_small.launches += 1
+    return out
+
+
+gf2_matmul_small.launches = 0
+
+
+def _kernel_for(x: torch.Tensor, m_out: int):
+    """The hand-written kernel for a CUDA call: one-row calls on aligned
+    rows up to SMALL_ONE_ROW_BYTES take gf2_matmul_small, the rest the
+    tensor cores."""
+    b = x.shape[1]
+    if (m_out == 1 and b <= SMALL_ONE_ROW_BYTES and b % 16 == 0
+            and x.data_ptr() % 16 == 0):
+        return gf2_matmul_small
+    return gf2_matmul
 
 
 def _apply(a_bm: torch.Tensor, x: torch.Tensor, m_out: int) -> torch.Tensor:
     """The route is the tensor's device: the plain version for CPU tensors,
-    the kernel for CUDA tensors (which raises rather than falls back)."""
+    a kernel for CUDA tensors (which raises rather than falls back)."""
     if a_bm.device != x.device:
         raise ValueError(f"a_bm on {a_bm.device} but x on {x.device}")
     if x.device.type == "cpu":
         return _apply_torch(a_bm, x, m_out)
     if x.device.type == "cuda":
-        return gf2_matmul(a_bm, x, m_out)
+        return _kernel_for(x, m_out)(a_bm, x, m_out)
     raise ValueError(f"no GF(2) apply for device {x.device}")
 
 

@@ -37,7 +37,10 @@ def cuda_device():
     "k,m,b",
     [(10, 4, 4 * 1024 * 1024 + 37), (10, 1, 4096), (16, 14, 65537),
      (40, 16, 1 << 20), (64, 56, 3001), (1, 1, 1), (10, 4, 4098),
-     (13, 3, 4099), (7, 5, 3)],
+     (13, 3, 4099), (7, 5, 3),
+     # k_pad 48 and 64, B % 16 != 0, one output row, small and large
+     (48, 4, 4096 + 5), (33, 12, 1 << 16), (64, 16, 1 << 20), (64, 1, 1023),
+     (10, 1, 1 << 20), (10, 1, (1 << 16) + 13), (17, 2, 1025), (10, 4, 511)],
 )
 def test_gf2_matmul_matches_plain(cuda_device, k, m, b):
     mat = _rand((m, k), k + m)
@@ -54,16 +57,94 @@ def test_gf2_matmul_matches_plain(cuda_device, k, m, b):
     )
 
 
-@pytest.mark.parametrize("shift", [1, 2, 3])
+@pytest.mark.parametrize("shift", range(1, 16))
 def test_gf2_matmul_unaligned_views(cuda_device, shift):
-    """Row starts off a 4-byte boundary take the kernel's funnel-shift
-    loads; the end of the buffer is the last row's ragged end."""
+    """Row starts off a 16-byte boundary take the kernel's shifted path
+    (aligned chunks realigned in shared memory); the end of the buffer is
+    the last row's ragged end.  Rows of 4096 bytes all share the view's
+    offset, rows of 5001 and 1 MiB + 5 bytes each have their own."""
     mat = gf256.parity_matrix(10, 14)
     a = rs_cuda.prepare_matrix(mat, device=cuda_device)
-    buf = torch.from_numpy(_rand((10 * 5001 + shift,), 5)).to(cuda_device)
-    x = buf[shift:].view(10, 5001)
-    assert x.data_ptr() % 4
-    assert torch.equal(rs_cuda.gf2_matmul(a, x, 4), rs_cuda._apply_torch(a, x, 4))
+    for b in (5001, 4096, (1 << 20) + 5):
+        buf = torch.from_numpy(_rand((10 * b + shift,), 5)).to(cuda_device)
+        x = buf[shift:].view(10, b)
+        assert x.data_ptr() % 16
+        before = rs_cuda.gf2_matmul.launches_by_path["shifted"]
+        for m in (4, 1):
+            assert torch.equal(rs_cuda.gf2_matmul(a, x, m),
+                               rs_cuda._apply_torch(a, x, m))
+        assert rs_cuda.gf2_matmul.launches_by_path["shifted"] == before + 2
+
+
+def test_gf2_matmul_load_paths_counted(cuda_device):
+    """An aligned call counts on the aligned path, a B % 16 != 0 call on
+    the shifted path, and nothing else moves."""
+    a = rs_cuda.prepare_matrix(gf256.parity_matrix(10, 14), device=cuda_device)
+    for b, path in ((4096, "aligned"), (4096 + 3, "shifted"), (1 << 20, "aligned")):
+        x = torch.from_numpy(_rand((10, b), b)).to(cuda_device)
+        before = dict(rs_cuda.gf2_matmul.launches_by_path)
+        rs_cuda.gf2_matmul(a, x, 4)
+        after = rs_cuda.gf2_matmul.launches_by_path
+        assert {p: after[p] - before[p] for p in after} == {
+            p: int(p == path) for p in after}
+
+
+def test_gf2_matmul_blockdiag_system(cuda_device):
+    """The g=4 block-diagonal system A[128, 384] at x[40, 1 MiB], whose
+    all-zero K steps the kernel skips."""
+    mat = gf256.parity_matrix(10, 14)
+    a = rs_cuda.prepare_matrix_blockdiag(mat, device=cuda_device)
+    assert tuple(a.shape) == (128, 384)
+    x = torch.from_numpy(_rand((40, 1 << 20), 8)).to(cuda_device)
+    got = rs_cuda.gf2_matmul(a, x, 16)
+    assert torch.equal(got, rs_cuda._apply_torch(a, x, 16))
+    sample = x[:, :4096].cpu().numpy()
+    assert np.array_equal(
+        got[:, :4096].cpu().numpy(),
+        rs_cpu.apply_matrix_numpy(rs_cuda.blockdiag_system(mat), sample))
+
+
+@pytest.mark.parametrize("k_pad,m_pad", [(16, 4), (32, 8), (48, 4), (64, 16)])
+def test_gf2_matmul_largest_counts(cuda_device, k_pad, m_pad):
+    """All-ones data and matrix: every count is its largest (8 * k_pad),
+    so no byte of the kernel's pack may carry into the next."""
+    a = torch.ones((8 * m_pad, 8 * k_pad), dtype=torch.int8, device=cuda_device)
+    x = torch.full((k_pad, 4099), 255, dtype=torch.uint8, device=cuda_device)
+    for m in (1, 3, m_pad):
+        assert torch.equal(rs_cuda.gf2_matmul(a, x, m), rs_cuda._apply_torch(a, x, m))
+
+
+@pytest.mark.parametrize("k,m,b", [(10, 1, 4096), (10, 1, 1 << 16), (10, 4, 1000),
+                                   (16, 14, 3001), (64, 9, 65539), (1, 1, 1)])
+def test_gf2_matmul_small_matches_plain(cuda_device, k, m, b):
+    """The CUDA-core kernel for small one-row calls takes every argument
+    the tensor-core kernel takes."""
+    mat = _rand((m, k), k * m + b)
+    a = rs_cuda.prepare_matrix(mat, device=cuda_device)
+    x = torch.from_numpy(_rand((k, b), b + 1)).to(cuda_device)
+    before = rs_cuda.gf2_matmul_small.launches
+    got = rs_cuda.gf2_matmul_small(a, x, m)
+    torch.cuda.synchronize()
+    assert rs_cuda.gf2_matmul_small.launches == before + 1
+    assert torch.equal(got, rs_cuda._apply_torch(a, x, m))
+
+
+def test_small_one_row_calls_take_the_small_kernel(cuda_device):
+    """apply_matrix routes one-row calls on aligned rows up to
+    SMALL_ONE_ROW_BYTES to gf2_matmul_small and the rest to the tensor
+    cores; both give the oracle's bytes."""
+    recon1, _ = gf256.reconstruction_matrix(
+        10, 14, [i for i in range(14) if i not in (0, 11)], [0])
+    parity = gf256.parity_matrix(10, 14)
+    for mat, b, small in ((recon1, 4096, True), (recon1, rs_cuda.SMALL_ONE_ROW_BYTES, True),
+                          (recon1, 4096 + 3, False), (recon1, 1 << 20, False),
+                          (parity, 4096, False)):
+        x = _rand((10, b), b)
+        n0 = (rs_cuda.gf2_matmul.launches, rs_cuda.gf2_matmul_small.launches)
+        got = rs_cuda.apply_matrix(mat, x)
+        n1 = (rs_cuda.gf2_matmul.launches, rs_cuda.gf2_matmul_small.launches)
+        assert (n1[0] - n0[0], n1[1] - n0[1]) == ((0, 1) if small else (1, 0)), b
+        assert np.array_equal(got, rs_cpu.apply_matrix_numpy(mat, x))
 
 
 def test_gf2_matmul_refuses_bad_arguments(cuda_device):
@@ -266,12 +347,13 @@ def test_ec_volume_resident_on_card(cuda_device, tmp_path):
             if sid not in (0, 11):
                 ev.add_shard(sid)
         assert ev.load_shards_to_device(cache) == 12
-        host = rs_cuda.gf2_matmul.launches
+        host = rs_cuda.gf2_matmul.launches + rs_cuda.gf2_matmul_small.launches
         got = ev.read_needles_batch(list(range(1, 40)))
         for i, n in zip(range(1, 40), got):
             assert n.data == np.random.default_rng(i).bytes(1000 * i)
         assert ev.read_needle(7, cookie=7).data == np.random.default_rng(7).bytes(7000)
-        assert rs_cuda.gf2_matmul.launches == host  # no host fallback
+        # no host fallback
+        assert rs_cuda.gf2_matmul.launches + rs_cuda.gf2_matmul_small.launches == host
     finally:
         ev.close()
     assert cache.shard_ids(1) == []
