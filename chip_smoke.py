@@ -10,9 +10,10 @@ its plain PyTorch version on the card at the shapes the main path gives it,
 then runs the EC main path through the port's entry points on a real
 volume:
 
-  1. device      CUDA device, both builds; the gf2_matmul kernels'
-                 registers and shared memory (nvcc -Xptxas -v) and their
-                 tensor-core instructions (cuobjdump -sass: BMMA)
+  1. device      CUDA device, nvcc and driver versions, both builds; the
+                 gf2_matmul kernels' registers and shared memory (nvcc
+                 -Xptxas -v) and their tensor-core instructions (cuobjdump
+                 -sass: BMMA); the fused_reconstruct kernels' registers
   2. kernel      gf2_matmul and gf2_matmul_small (the CUDA-core K1,
                  which takes the small one-row calls) vs _apply_torch (+
                  numpy oracle sample), timed in turns (small, tensor-core,
@@ -22,7 +23,9 @@ volume:
   2b. resident_kernel
                  fused_reconstruct and fused_reconstruct_blockdiag vs their
                  plain versions (+ numpy oracle sample) on 10 x 256 MiB
-                 synthetic survivors, times against the bound
+                 synthetic survivors, times against the bound: uniform
+                 calls, and bursts of 64 needle reads served as one ragged
+                 launch and as one uniform call per size bucket, in turns
   3. volume      write a volume of mixed 4 KB-1 MB needles from --seed
   4. encode      write_ec_files + write_sorted_file_from_idx under
                  torch.profiler (the card's busy share), verify_ec_files
@@ -31,8 +34,9 @@ volume:
   5b. resident_read
                  the same reads with the 12 survivors pinned in a
                  DeviceShardCache, in bursts (read_needles_batch) and
-                 singly (read_needle), block-diagonal and flat; no read may
-                 fall back to the host path
+                 singly (read_needle), block-diagonal and flat; launches
+                 and D2H bytes per burst; no read may fall back to the host
+                 path
   6. rebuild     shards 0, 5, 10, 13 removed: rebuild_ec_files +
                  rebuild_ecx_file, sha256 of every rebuilt shard
   7. decode      original .dat deleted: write_dat_file, sha256 of the .dat
@@ -83,6 +87,10 @@ BURST = 64
 # further sampled bursts of other widths: (width, bursts)
 BURST_SAMPLES = ((1, 64), (8, 32), (256, 8))
 SINGLE_READS = 200
+# phase 2b: bursts timed per layout, and the device spin (cycles) that
+# hides a burst's host enqueue before its start event
+BURST_TIMED = 12
+BURST_SPIN = 4_000_000
 NO_LIBRARY_CALL = "no single PyTorch call gathers, reconstructs and selects"
 # bursts of BURST re-read under torch.profiler for the busy share
 TRACED_BURSTS = 32
@@ -91,6 +99,7 @@ SMI = "unknown"
 # the degraded read's needle sizes are log-uniform over 4 KB-1 MB: the
 # median is 64 KiB
 NEEDLE_MEDIAN = 1 << 16
+MAX_TILE = 2 << 20  # a DeviceShardCache pads each survivor by this
 
 
 def log(phase: str, **fields) -> None:
@@ -144,11 +153,42 @@ def phase_device(torch) -> dict:
         "count": torch.cuda.device_count(),
         "torch": torch.__version__,
         "cuda": torch.version.cuda,
+        # kernel parameters above 4 KB (the fused reconstruct's work list)
+        # need CUDA 12.1 and a driver that supports it
+        "nvcc": subprocess.run([_build._nvcc(), "--version"], capture_output=True,
+                               text=True, check=True).stdout.strip().splitlines()[-1],
+        "driver": subprocess.run(
+            ["nvidia-smi", "--query-gpu=driver_version", "--format=csv,noheader"],
+            capture_output=True, text=True, check=True).stdout.strip().splitlines()[0],
         "build_s": {k: round(v, 3) for k, v in _build.build_seconds.items()},
         "build_wall_s": round(time.perf_counter() - t0, 3),
     }
-    log("device", **info, gf2_matmul_kernels=k1)
+    log("device", **info, gf2_matmul_kernels=k1,
+        fused_reconstruct_kernels=_fused_build_facts(_build))
     return info
+
+
+def _fused_build_facts(_build) -> list:
+    """Each fused_reconstruct_kernel instantiation (survivors unrolled: 10,
+    or 16 predicated; work-list capacity) from the build's -Xptxas -v log:
+    registers and spills."""
+    import re
+
+    facts, cur = [], None
+    for line in _build.build_logs.get("swfs_kernels", "").splitlines():
+        if "Compiling entry function" in line:
+            m = re.search(r"fused_reconstruct_kernelILi(\d+)ELi(\d+)E", line)
+            cur = ({"k": int(m.group(1)), "capacity": int(m.group(2))}
+                   if m else None)
+        elif cur is not None and "spill stores" in line:
+            cur["spill_stores"] = int(line.split("bytes spill stores")[0].split(",")[-1])
+        elif cur is not None and "Used" in line and "registers" in line:
+            cur["registers"] = int(line.split("Used")[1].split()[0])
+            facts.append(cur)
+            cur = None
+    if not facts:
+        raise AssertionError("the build log names no fused_reconstruct_kernel")
+    return facts
 
 
 def _k1_build_facts(_build) -> list:
@@ -379,42 +419,48 @@ def phase_kernel(torch, seed: int) -> dict:
     return {"shapes": results, "launch_floor_ms": floor_ms}
 
 
-def _fused_bound(k: int, n: int, fetch: int, rows: int,
+def _fused_bound(k: int, fetches, rows: int,
                  groups: int = 1) -> tuple[float, str]:
-    """Least time for one fused reconstruct call: the n requests' k survivor
-    windows and their meta words read once, the [n, fetch] rows written
-    once, and of the prepared matrix only what the function needs, 8
-    output bits by 8k input bits for each of the `rows` wanted rows in
-    each of the `groups` diagonal blocks (pad rows and zero blocks are
-    not read); against the int8 ops of the one wanted row per byte."""
-    nbytes = (k + 1) * n * fetch + 4 * n + groups * rows * 8 * (8 * k)
-    return _roofline(nbytes, 2 * 8 * (8 * k) * n * fetch)
+    """Least time for one fused reconstruct call: each request's k survivor
+    windows (its own fetch) and its meta word read once, the packed output
+    written once, and of the prepared matrix only what the function needs,
+    8 output bits by 8k input bits for each of the `rows` wanted rows in
+    each of the `groups` diagonal blocks (pad rows and zero blocks are not
+    read); against the int8 ops of the one wanted row per byte."""
+    total = int(sum(fetches))
+    nbytes = (k + 1) * total + 4 * len(fetches) + groups * rows * 8 * (8 * k)
+    return _roofline(nbytes, 2 * 8 * (8 * k) * total)
+
+
+def _event_ms(torch, fn, spin: int = 1_000_000) -> float:
+    """CUDA events around `fn`'s device work; a device-side spin of `spin`
+    cycles (about half a millisecond by default) before the start event
+    keeps the host's enqueue time, the work list's checks included, out of
+    the window."""
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(spin)
+    a.record()
+    fn()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b)
 
 
 def _launch_ms(torch, launch, metas) -> float:
     """CUDA-event median of one kernel launch for each meta vector after
     the first two (warm-up).  Each vector asks for fresh random windows, so
-    the survivors' bytes are cold in L2 as a serving call finds them; a
-    device-side spin before each start event keeps the host's launch time
-    out of the window."""
-    times = []
-    for i, meta in enumerate(metas):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        torch.cuda._sleep(200_000)
-        a.record()
-        launch(meta)
-        b.record()
-        b.synchronize()
-        if i >= 2:
-            times.append(a.elapsed_time(b))
-    return statistics.median(times)
+    the survivors' bytes are cold in L2 as a serving call finds them."""
+    times = [_event_ms(torch, lambda: launch(meta)) for meta in metas]
+    return statistics.median(times[2:])
 
 
 def phase_resident_kernels(torch, seed: int) -> dict:
     """Both fused reconstruct kernels against their plain versions (and a
     numpy-oracle sample) on synthetic resident survivors, at the shapes a
-    degraded-read burst gives them, flat and block-diagonal."""
+    degraded-read burst gives them, flat and block-diagonal: uniform calls
+    (RESIDENT_SHAPES), and bursts of needle reads served both as one
+    uniform call per size bucket and as one ragged call."""
     import numpy as np
 
     from seaweedfs_tpu_torch.ops import gf256, rs_cpu, rs_cuda
@@ -456,15 +502,14 @@ def phase_resident_kernels(torch, seed: int) -> dict:
             f = kw["fetch"]
             last = (SURVIVOR_BYTES - f) // rr.FUSED_ALIGN
 
-            def meta_of():
+            def words_of():
                 units = rng.integers(0, last + 1, n)
                 units[-1] = last  # the last legal window
                 rows = rng.integers(0, w, n)
-                return torch.from_numpy(
-                    ((units << rr.META_ROW_BITS) | rows).astype(np.int32)
-                ).to(dev)
+                return (units << rr.META_ROW_BITS) | rows
 
-            meta = meta_of()
+            words = words_of()
+            meta = torch.from_numpy(words.astype(np.int32)).to(dev)
             got = fn(a, surv, meta, **kw, **fkw)
             want = plain(a, surv, meta, **kw, **pkw)
             torch.cuda.synchronize()
@@ -474,14 +519,10 @@ def phase_resident_kernels(torch, seed: int) -> dict:
             # the first and the last (last legal window) request against the
             # numpy table oracle: the same bytes in either layout
             oracle_bad = 0
-            host_meta = meta.cpu().numpy()
             sample = min(f, 65536)
             for j in (0, n - 1):
-                start = int(host_meta[j] >> rr.META_ROW_BITS) * rr.FUSED_ALIGN
-                r = int(host_meta[j] & ((1 << rr.META_ROW_BITS) - 1))
-                x = np.stack([s[start : start + sample].cpu().numpy() for s in surv])
-                ref = rs_cpu.apply_matrix_numpy(mat[r : r + 1], x)[0]
-                oracle_bad += int((got[j, :sample].cpu().numpy() != ref).sum())
+                oracle_bad += int((got[j, :sample].cpu().numpy() != _oracle(
+                    rr, rs_cpu, mat, surv, int(words[j]), sample)).sum())
             row = {"layout": layout, "shape": [n, fetch, w], "fetch": f,
                    "tile": tile, "a": list(a.shape),
                    "mismatched_bytes": mismatched, "max_abs_err": max_err,
@@ -490,17 +531,18 @@ def phase_resident_kernels(torch, seed: int) -> dict:
                 log("resident_kernel", **row)
                 raise AssertionError(f"{layout} {n}x{f}: kernel disagrees "
                                      "with its plain version")
-            metas = [meta_of() for _ in range(22)]
+            # the kernel alone: the host builds each list under the spin
+            metas = [words_of() for _ in range(22)]
             row["ms"] = _launch_ms(
                 torch,
-                lambda m: rr._launch(fn, a, surv, m, f, w, launch_g,
+                lambda m: rr._launch(fn, a, surv, m, [f] * n, w, launch_g,
                                      launch_tile),
                 metas,
             )
             # the median of the timed calls' bounds, each with the rows its
             # requests want
             row_mask = (1 << rr.META_ROW_BITS) - 1
-            bounds = [_fused_bound(10, n, f, len(torch.unique(m & row_mask)),
+            bounds = [_fused_bound(10, [f] * n, len(np.unique(m & row_mask)),
                                    launch_g) for m in metas[2:]]
             row["bound_ms"] = statistics.median(b for b, _ in bounds)
             row["bound_by"] = bounds[0][1]
@@ -514,9 +556,214 @@ def phase_resident_kernels(torch, seed: int) -> dict:
             results[layout].append(row)
             log("resident_kernel", **row)
             del got, want, diff
+        results[layout + "_burst"] = _burst_row(torch, np, rr, rs_cpu, gf256,
+                                                surv, layout, g, seed)
     del surv
     torch.cuda.empty_cache()
     return results
+
+
+def _oracle(rr, rs_cpu, mat, surv, word: int, nbytes: int):
+    """The numpy table oracle's `nbytes` from meta word `word`."""
+    import numpy as np
+
+    start = (word >> rr.META_ROW_BITS) * rr.FUSED_ALIGN
+    r = word & ((1 << rr.META_ROW_BITS) - 1)
+    x = np.stack([s[start : start + nbytes].cpu().numpy() for s in surv])
+    return rs_cpu.apply_matrix_numpy(mat[r : r + 1], x)[0]
+
+
+def _burst_requests(np, rng):
+    """BURST needle reads of lost shard 0 and lost parity shard 11 (w = 2):
+    sizes log-uniform over MIN_NEEDLE-MAX_NEEDLE as phase 3's volume,
+    offsets anywhere in the survivors short of a cache's MAX_TILE pad."""
+    sizes = np.exp(rng.uniform(np.log(MIN_NEEDLE), np.log(MAX_NEEDLE),
+                               BURST)).astype(np.int64)
+    offs = rng.integers(0, SURVIVOR_BYTES - MAX_NEEDLE - MAX_TILE, BURST)
+    sids = rng.choice([0, 11], BURST)
+    return [(int(a), int(b), int(c)) for a, b, c in zip(sids, offs, sizes)]
+
+
+def _bucket_calls(rr, subs, reqs, row_of, groups):
+    """The per-bucket call structure for one burst: one uniform call per
+    size bucket present (more where _max_count caps one), every request
+    of a call fetched at the cover of the call's largest.  -> [(part,
+    words, fetch, tile, deltas)]"""
+    calls = []
+    for bucket in rr.SIZE_BUCKETS:
+        group = [(i, s) for i, s in enumerate(subs) if s[4] == bucket]
+        if not group:
+            continue
+        step = rr._bucket(rr.COUNT_BUCKETS,
+                          min(len(group), rr._max_count(bucket)))
+        for lo in range(0, len(group), step):
+            part = group[lo : lo + step]
+            words, deltas, fetch = rr._fused_vectors(part, reqs, row_of)
+            if groups > 1:
+                fetch, tile = rr._blockdiag_fetch_tile(fetch, groups)
+            else:
+                tile = fetch
+            calls.append((part, words, fetch, tile, deltas))
+    return calls
+
+
+def _burst_row(torch, np, rr, rs_cpu, gf256, surv, layout, g, seed) -> dict:
+    """BURST_TIMED bursts of BURST needle reads, each served two ways on the
+    same kernel, timed in turns (A, B, B, A) with CUDA events from the
+    first enqueued operation to the last D2H's completion (a device spin
+    long enough to hide the host's enqueue before the start event):
+    (A) the per-bucket structure, one uniform call per size bucket, each a
+    launch and a D2H; (B) one ragged launch and one D2H.  (B)'s output is held
+    byte-equal to the ragged plain version, (A)'s trimmed bytes equal (B)'s,
+    and the first and last requests equal the numpy oracle."""
+    rng = np.random.default_rng(seed + 11)
+    wanted = [0, 11]
+    mat, _ = gf256.reconstruction_matrix(
+        10, 14, [i for i in range(14) if i not in wanted], wanted)
+    groups = g if layout == "blockdiag" else 1
+    if groups > 1:
+        a = rr._prepared_blockdiag(mat.tobytes(), *mat.shape, g, "cuda")
+        fn = rr.fused_reconstruct_blockdiag
+    else:
+        a = rr.rs_cuda._prepared(mat.tobytes(), *mat.shape, "cuda")
+        fn = rr.fused_reconstruct
+    tile = groups * rr.FUSED_ALIGN
+    row_of = {0: 0, 11: 1}
+    host = torch.empty(0, dtype=torch.uint8, pin_memory=True)
+    spin_ms = _event_ms(torch, lambda: torch.cuda._sleep(BURST_SPIN), spin=0)
+    per = []
+    mismatched = oracle_bad = 0
+    for i in range(BURST_TIMED):
+        reqs = _burst_requests(np, rng)
+        subs = rr._plan(reqs)
+        # one ragged call, or more where the burst passes one launch's
+        # work list (RAGGED_MAX_BLOCKS entries) or _MAX_CALL_OUT
+        calls_b = rr._ragged_calls(subs, reqs, row_of, groups)
+        calls_a = _bucket_calls(rr, subs, reqs, row_of, groups)
+        fetches_b = [f for c in calls_b for f in c[2]]
+        d2h_a = sum(len(w) * f for _, w, f, _, _ in calls_a)
+        if host.numel() < max(d2h_a, sum(fetches_b)):
+            host = torch.empty(max(d2h_a, sum(fetches_b)), dtype=torch.uint8,
+                               pin_memory=True)
+
+        def enqueue_a():
+            off = 0
+            for _, words, fetch, t, _ in calls_a:
+                out = rr._launch(fn, a, surv, words, [fetch] * len(words), 2,
+                                 groups, t)[0]
+                host[off : off + out.numel()].copy_(out, non_blocking=True)
+                off += out.numel()
+
+        def enqueue_b() -> int:
+            off = sent = 0
+            for _, words, fetches, _ in calls_b:
+                out, _, pb = rr._launch(fn, a, surv, words, fetches, 2,
+                                        groups, tile)
+                host[off : off + out.numel()].copy_(out, non_blocking=True)
+                off += out.numel()
+                sent += pb
+            return sent
+
+        # the bytes: (B) against the ragged plain version and the oracle,
+        # (A)'s trimmed pieces against (B)'s
+        l0 = fn.launches
+        param_bytes = enqueue_b()
+        torch.cuda.synchronize()
+        launches_b = fn.launches - l0
+        pieces_b: dict = {}
+        off = 0
+        max_err = 0
+        for part, words, fetches, deltas in calls_b:
+            got_b = host[off : off + sum(fetches)].clone()
+            off += sum(fetches)
+            want = rr._fused_reconstruct_ragged_torch(
+                a, surv, words, fetches, k_true=10, w_true=2, groups=groups,
+                tile=tile).cpu()
+            diff = got_b.to(torch.int16) - want.to(torch.int16)
+            mismatched += int((diff != 0).sum())
+            max_err = max(max_err, int(diff.abs().max()))
+            rr._trim(got_b.numpy(), part, deltas, rr._offsets(fetches),
+                     pieces_b)
+        for j in (0, len(reqs) - 1):
+            sid, off, size = reqs[j]
+            data = b"".join(pieces_b[k] for k, s in enumerate(subs)
+                            if s[0] == j)
+            unit = off - off % rr.FUSED_ALIGN
+            word = (unit // rr.FUSED_ALIGN) << rr.META_ROW_BITS | row_of[sid]
+            ref = _oracle(rr, rs_cpu, mat, surv, word,
+                          off % rr.FUSED_ALIGN + size)[off % rr.FUSED_ALIGN :]
+            oracle_bad += int((np.frombuffer(data, np.uint8) != ref).sum())
+        l0 = fn.launches
+        enqueue_a()
+        torch.cuda.synchronize()
+        launches_a = fn.launches - l0
+        pieces_a: dict = {}
+        off = 0
+        for part, words, fetch, _, deltas in calls_a:
+            nbytes = len(words) * fetch
+            rr._trim(host[off : off + nbytes].numpy(), part, deltas,
+                     [fetch * j for j in range(len(words))], pieces_a)
+            off += nbytes
+        mismatched += sum(pieces_a[k] != pieces_b[k] for k in pieces_b)
+
+        turns = {"A": [], "B": []}
+        enq = {"A": [], "B": []}
+        for name in ("A", "B", "B", "A"):
+            fn_ = enqueue_a if name == "A" else enqueue_b
+            t = [0.0]
+
+            def timed():
+                t0 = time.perf_counter()
+                fn_()
+                t[0] = (time.perf_counter() - t0) * 1e3
+
+            turns[name].append(_event_ms(torch, timed, spin=BURST_SPIN))
+            enq[name].append(t[0])
+        kernel = statistics.median(
+            _event_ms(torch, lambda: [
+                rr._launch(fn, a, surv, words, fetches, 2, groups, tile)
+                for _, words, fetches, _ in calls_b])
+            for _ in range(3))
+        bound, bound_by = _fused_bound(10, fetches_b, 2, groups)
+        per.append({
+            "sub_requests": len(subs), "calls_A": len(calls_a),
+            "calls_B": len(calls_b),
+            "launches_A": launches_a, "launches_B": launches_b,
+            "d2h_A": d2h_a, "d2h_B": int(sum(fetches_b)),
+            "window_A_ms": statistics.mean(turns["A"]),
+            "window_B_ms": statistics.mean(turns["B"]),
+            "enqueue_A_ms": max(enq["A"]), "enqueue_B_ms": max(enq["B"]),
+            "kernel_ms": kernel, "bound_ms": bound, "bound_by": bound_by,
+            "param_bytes": param_bytes,
+            "max_abs_err": max_err,
+        })
+    row = {"layout": layout, "shape": "burst", "bursts": len(per),
+           "requests": BURST, "w_true": 2,
+           "mismatched_bytes": mismatched, "oracle_mismatched": oracle_bad,
+           "max_abs_err": max(p["max_abs_err"] for p in per),
+           "spin_ms": spin_ms, "bound_by": per[0]["bound_by"]}
+    for key in ("sub_requests", "calls_A", "calls_B", "launches_A",
+                "launches_B", "d2h_A",
+                "d2h_B", "window_A_ms", "window_B_ms", "enqueue_A_ms",
+                "enqueue_B_ms", "kernel_ms", "bound_ms", "param_bytes"):
+        row[key] = statistics.median(p[key] for p in per)
+    row["share_of_bound"] = statistics.median(
+        p["bound_ms"] / p["kernel_ms"] for p in per)
+    row["host_enqueue_under_spin"] = max(
+        max(p["enqueue_A_ms"], p["enqueue_B_ms"]) for p in per) < spin_ms
+    row["launches_B_max"] = max(p["launches_B"] for p in per)
+    row["calls_B_max"] = max(p["calls_B"] for p in per)
+    row["plain_ms"] = _median_ms(torch, lambda: [
+        rr._fused_reconstruct_ragged_torch(
+            a, surv, words, fetches, k_true=10, w_true=2, groups=groups,
+            tile=tile) for _, words, fetches, _ in calls_b], 3, warmup=1)
+    row["library_ms"] = None
+    row["library_note"] = NO_LIBRARY_CALL
+    log("resident_kernel", **row)
+    if mismatched or oracle_bad:
+        raise AssertionError(f"{layout} burst: the ragged kernel disagrees "
+                             "with its plain version or the oracle")
+    return row
 
 
 def _int_mm_ms(torch, a, x):
@@ -773,6 +1020,25 @@ def phase_degraded(workdir: str, vol: dict, shard_size: int, k1: tuple, seed: in
             "picks": picks, "on_shard0": on_shard0, "host": host}
 
 
+def _bucket_structure(rr, ev, burst, groups: int) -> tuple[int, int]:
+    """What the per-bucket call structure (one uniform call per size
+    bucket, every request at the cover of its call's largest) would launch
+    and copy down for one read_needles_batch burst: -> (calls, D2H bytes),
+    counted from the burst's own degraded intervals and plan."""
+    reqs = []
+    for nid in burst:
+        _, _, ivs = ev.locate_needle(nid)
+        for iv in ivs:
+            sid, off = iv.to_shard_and_offset()
+            if sid not in ev.shards:
+                reqs.append((sid, off, iv.size))
+    if not reqs:
+        return 0, 0
+    row_of = {sid: i for i, sid in enumerate(sorted({r[0] for r in reqs}))}
+    calls = _bucket_calls(rr, rr._plan(reqs), reqs, row_of, groups)
+    return len(calls), sum(len(w) * f for _, w, f, _, _ in calls)
+
+
 def _pct(seconds: list, q: float):
     """q-th percentile of a list of seconds, in ms (None when empty)."""
     import numpy as np
@@ -845,6 +1111,7 @@ def phase_resident(torch, workdir: str, vol: dict, deg: dict, seed: int) -> dict
             padded_bytes=cache.bytes_used, budget_bytes=RESIDENT_BUDGET,
             pin_s=pin_s, GBps=true_bytes / pin_s / 1e9)
 
+        per_burst: dict = {}
         for layout, kern in kernels.items():
             cache.layout = layout
             k0, d2h0, h2d0 = (kern.launches, cache.pipeline.d2h_bytes,
@@ -853,7 +1120,14 @@ def phase_resident(torch, workdir: str, vol: dict, deg: dict, seed: int) -> dict
             t0 = time.perf_counter()
             check(ids[:BURST], ev.read_needles_batch(ids[:BURST], backend="cuda"))
             first_ms = (time.perf_counter() - t0) * 1e3
+            m0, md0 = kern.launches, cache.pipeline.d2h_bytes
             main = bursts(BURST, ids)
+            main_launches = kern.launches - m0
+            main_d2h = cache.pipeline.d2h_bytes - md0
+            # the same bursts' plans under the per-bucket structure, counted
+            per_bucket = [_bucket_structure(rr, ev, ids[i : i + BURST],
+                              cache.groups if layout == "blockdiag" else 1)
+                   for i in range(0, len(ids), BURST)]
             widths = {}
             for width, count in BURST_SAMPLES:
                 seq = rng.choice(shard0, size=min(width * count, len(shard0)),
@@ -893,10 +1167,12 @@ def phase_resident(torch, workdir: str, vol: dict, deg: dict, seed: int) -> dict
                 kept: list = []
                 acts = [torch.profiler.ProfilerActivity.CPU,
                         torch.profiler.ProfilerActivity.CUDA]
+                t_launches = kern.launches
                 with torch.profiler.profile(activities=acts) as prof:
                     t0 = time.perf_counter()
                     bursts(BURST, ids[: TRACED_BURSTS * BURST], keep=kept)
                     wall = time.perf_counter() - t0
+                t_launches = kern.launches - t_launches
                 for burst, got in kept:
                     check(burst, got)
                 trace = _device_time(
@@ -905,9 +1181,12 @@ def phase_resident(torch, workdir: str, vol: dict, deg: dict, seed: int) -> dict
                 )
                 if trace:
                     trace["wall_s"] = wall
+                    trace["bursts"] = len(kept)
+                    trace["fused_reconstruct_launches"] = t_launches
                 else:
                     trace = "not measured"
             launches = kern.launches - k0
+            per_burst[kern.__name__] = main_launches / len(main)
             if launches == 0:
                 raise AssertionError(f"{layout}: no {kern.__name__} launch")
             log("resident_read", layout=layout, needles=len(ids),
@@ -921,6 +1200,12 @@ def phase_resident(torch, workdir: str, vol: dict, deg: dict, seed: int) -> dict
                 read_needle_p50_ms=_pct(singles, 50),
                 read_needle_p99_ms=_pct(singles, 99), read_needle_split=split,
                 launches={kern.__name__: launches},
+                main_burst_launches=main_launches,
+                launches_per_main_burst=main_launches / len(main),
+                d2h_bytes_per_main_burst=main_d2h / len(main),
+                bucket_structure_per_main_burst={
+                    "launches": sum(c for c, _ in per_bucket) / len(main),
+                    "d2h_bytes": sum(d for _, d in per_bucket) / len(main)},
                 d2h_bytes=cache.pipeline.d2h_bytes - d2h0,
                 h2d_bytes=cache.pipeline.h2d_bytes - h2d0,
                 host_route=deg["host"], device_trace=trace)
@@ -935,6 +1220,7 @@ def phase_resident(torch, workdir: str, vol: dict, deg: dict, seed: int) -> dict
                 f"{ev.device_misses} intervals fell back to the host path "
                 f"({host_k1} gf2_matmul launches)")
         out = {kern.__name__: kern.launches for kern in kernels.values()}
+        out["per_main_burst"] = per_burst
     finally:
         ev.close()
         cache.clear()
@@ -1071,14 +1357,17 @@ def main() -> int:
     ):
         rows = fused[layout]
         rep = next(r for r in rows if r["shape"] == RESIDENT_REPORT)
+        burst = fused[layout + "_burst"]
         resident.append({
             "name": name,
             "route": "cuda",
             "source": "seaweedfs_tpu_torch/csrc/fused_reconstruct.cu",
             "replaces": f"seaweedfs_tpu/ops/rs_resident.py:{line}",
             "launches": res[name],
-            "max_abs_err": max(r["max_abs_err"] for r in rows),
-            "mismatched_bytes": sum(r["mismatched_bytes"] for r in rows),
+            "max_abs_err": max([r["max_abs_err"] for r in rows]
+                               + [burst["max_abs_err"]]),
+            "mismatched_bytes": sum(r["mismatched_bytes"] for r in rows)
+                                + burst["mismatched_bytes"],
             "shape": f"N={rep['shape'][0]} fetch={rep['fetch']} "
                      f"w_true={rep['shape'][2]}",
             "ms": rep["ms"],
@@ -1087,6 +1376,14 @@ def main() -> int:
             "bound_by": rep["bound_by"],
             "library_ms": None,
             "library_note": NO_LIBRARY_CALL,
+            # a burst of BURST needle reads as one ragged launch (kernel
+            # alone, and the device window of launch + D2H) against one
+            # uniform call per size bucket on the same kernel
+            "burst": {key: burst[key] for key in (
+                "kernel_ms", "bound_ms", "share_of_bound", "launches_B",
+                "launches_A", "window_B_ms", "window_A_ms", "d2h_B",
+                "d2h_A", "plain_ms")},
+            "launches_per_main_burst": res["per_main_burst"][name],
         })
     print(json.dumps({"kernels": [{
         "name": "gf2_matmul",

@@ -135,21 +135,27 @@ def _bind_kernels(lib: ctypes.CDLL) -> None:
     lib.gf2_matmul_small_error_string.restype = ctypes.c_char_p
     fn = lib.fused_reconstruct_launch
     fn.argtypes = [
-        ctypes.c_void_p,  # a     int8 [8*m_pad, 8*k_pad]
-        ctypes.c_int,  # m_pad
-        ctypes.c_int,  # k_pad
+        ctypes.c_void_p,  # masks u8 [groups*rows*8, 16] on the host
+        ctypes.c_int,  # rows (wanted rows per group)
+        ctypes.c_int,  # groups (1: the flat system)
+        ctypes.c_int,  # tile (block-diagonal)
         ctypes.POINTER(ctypes.c_void_p),  # k survivor device pointers
         ctypes.c_int,  # k
-        ctypes.c_void_p,  # meta  int32 [n] on the device
+        ctypes.c_void_p,  # words     int32 [n] meta words, on the host
+        ctypes.c_void_p,  # fetch_kib int32 [n] on the host
         ctypes.c_int,  # n
-        ctypes.c_int,  # fetch
-        ctypes.c_void_p,  # out   u8 [n, fetch]
-        ctypes.c_int,  # w_true
-        ctypes.c_int,  # groups (1: the flat system)
-        ctypes.c_int,  # tile
+        ctypes.c_void_p,  # out   u8 on the device
         ctypes.c_void_p,  # cudaStream_t
+        ctypes.POINTER(ctypes.c_int),  # out: launches made
+        ctypes.POINTER(ctypes.c_longlong),  # out: parameter bytes sent
     ]
     fn.restype = ctypes.c_int
+    fn = lib.fused_reconstruct_work_list
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                   ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_long]
+    fn.restype = ctypes.c_long
+    lib.fused_reconstruct_limits.argtypes = [ctypes.POINTER(ctypes.c_int)] * 2
+    lib.fused_reconstruct_limits.restype = None
     lib.fused_reconstruct_error_string.argtypes = [ctypes.c_int]
     lib.fused_reconstruct_error_string.restype = ctypes.c_char_p
 

@@ -3,25 +3,27 @@
 Port of the single-device serving half of seaweedfs_tpu/ops/rs_resident.py.
 A volume's surviving shards are pinned in device memory once
 (DeviceShardCache); a burst of degraded needle reads then becomes one
-device call per size-bucket group (reconstruct_intervals): only one packed
-int32 meta word per request goes up, only the reconstructed bytes come
-down, and no survivor byte crosses PCIe per read.
+ragged device call (reconstruct_intervals): one launch and one D2H, each
+request fetched at its own length, nothing copied up (the work list and
+bit masks ride in the kernel's parameters), only the reconstructed bytes
+copied down, and no survivor byte crosses PCIe per read.
 
 The calls run the hand-written kernel of csrc/fused_reconstruct.cu through
-two wrappers, fused_reconstruct (flat system) and
-fused_reconstruct_blockdiag (the g-group block-diagonal system), each call
-one launch that reads the survivors straight from the resident buffers and
-writes only each request's wanted row.  A
-CPU tensor takes the kernels' plain PyTorch versions below (the CPU tests);
-a CUDA tensor takes the kernel or raises.
+fused_reconstruct_ragged, and its uniform form through fused_reconstruct
+(flat system) and fused_reconstruct_blockdiag (the g-group block-diagonal
+system): one launch reads the survivors straight from the resident
+buffers and writes only each request's wanted row.  A CPU tensor takes
+the kernels' plain PyTorch versions below (the CPU tests); a CUDA tensor
+takes the kernel or raises.
 
 What differs from the JAX package:
   * one fused launch replaces each gather + select pallas_call pair (the
     split was a Mosaic layout workaround), so no gathered intermediate is
     written to device memory;
-  * a call launches with its TRUE request count: the JAX package pads the
-    count to COUNT_BUCKETS only so that XLA compiles few shapes, and the
-    kernels here take runtime shapes.  The returned bytes are the same;
+  * a burst is one ragged call, not one call per size bucket padded to
+    COUNT_BUCKETS: the JAX package groups requests by size only so that
+    XLA compiles few shapes, and the kernel here takes runtime shapes and
+    a per-request fetch.  The returned bytes are the same;
   * nothing compiles per shape, so ColdShape is never raised (it stays a
     CacheMiss subclass so callers read the same).
 
@@ -80,7 +82,7 @@ def _bucket(values: tuple[int, ...], need: int) -> int:
     raise ValueError(f"{need} exceeds largest bucket {values[-1]}")
 
 
-# bound per-call output (count * size bucket)
+# bound per-call output (the sum of the call's fetches)
 _MAX_CALL_OUT = 32 * 1024 * 1024
 # bound aggregate un-fetched output across the calls of one batch
 _MAX_PENDING_OUT = 128 * 1024 * 1024
@@ -103,46 +105,13 @@ FUSED_TILE = 4096  # per-request chunk of the fetch ladder
 
 
 class StagingArena:
-    """Per-slot reusable host staging for a call's packed meta words:
-    pinned int32 rows of COUNT_BUCKETS[-1] words, and a pinned uint8 result
-    buffer for the calls' D2H, grown on demand up to _MAX_PENDING_OUT (plus
-    one call).  The meta block is a small ring of rows, each with the event
-    recorded after the call that copied it: staging waits on that event, so
-    a row is never rewritten while its H2D copy is still in flight."""
+    """Per-slot reusable host staging: a pinned uint8 result buffer for the
+    calls' D2H, grown on demand up to _MAX_PENDING_OUT (plus one call).
+    Nothing is staged for the way up: a call's work list and bit masks
+    ride in the kernel's parameters."""
 
-    # meta rows in the ring: a call restages a row only after the call
-    # that used it RING calls earlier has finished with it
-    RING = 4
-
-    def __init__(self, width: int | None = None):
-        self.width = width or COUNT_BUCKETS[-1]
-        self._meta = torch.empty(
-            (self.RING, self.width), dtype=torch.int32, pin_memory=True
-        )
-        self._copied: list = [None] * self.RING
-        self._next = 0
-        self._last = 0
+    def __init__(self):
         self.result = torch.empty(0, dtype=torch.uint8, pin_memory=True)
-
-    def stage_fused(self, packed: list[int]) -> torch.Tensor:
-        """-> [n] pinned int32 view of a ring row holding the packed meta,
-        after the H2D out of that row's previous use has completed."""
-        i = self._next
-        self._next = (i + 1) % self.RING
-        if self._copied[i] is not None:
-            self._copied[i].synchronize()
-            self._copied[i] = None
-        self._last = i
-        view = self._meta[i, : len(packed)]
-        view.copy_(torch.tensor(packed, dtype=torch.int32))
-        return view
-
-    def mark_copied(self, stream) -> None:
-        """Record, on `stream`, the point after which the row staged last
-        may be rewritten (called right after the call that read it)."""
-        ev = torch.cuda.Event()
-        ev.record(stream)
-        self._copied[self._last] = ev
 
     def ensure_result(self, nbytes: int) -> torch.Tensor:
         """The result buffer, grown to hold `nbytes` (called only while no
@@ -627,14 +596,161 @@ def _fused_reconstruct_blockdiag_torch(
     return out
 
 
+def _offsets(fetches: np.ndarray) -> np.ndarray:
+    """Each request's byte offset in the packed output."""
+    fetches = np.asarray(fetches, dtype=np.int64)
+    return np.cumsum(fetches) - fetches
+
+
+def _fused_reconstruct_ragged_torch(a, survivors, words, fetches, *, k_true,
+                                    w_true, groups, tile):
+    """Plain version of a ragged call, built from the uniform plain versions
+    one fetch length at a time: request n's [fetches[n]] bytes land at its
+    offset in one packed output.  -> [sum(fetches)] u8."""
+    words = np.asarray(words, dtype=np.int64)
+    fetches = np.asarray(fetches, dtype=np.int64)
+    dev = survivors[0].device
+    offsets = _offsets(fetches)
+    out = torch.empty(int(fetches.sum()), dtype=torch.uint8, device=dev)
+    for f in np.unique(fetches).tolist():
+        idx = np.flatnonzero(fetches == f)
+        meta = torch.from_numpy(words[idx].astype(np.int32))
+        if groups > 1:
+            y = _fused_reconstruct_blockdiag_torch(
+                a, survivors, meta, tile=tile, fetch=f, k_true=k_true,
+                w_true=w_true, groups=groups)
+        else:
+            y = _fused_reconstruct_torch(a, survivors, meta, tile=f, fetch=f,
+                                         k_true=k_true)
+        pos = torch.from_numpy(offsets[idx])[:, None] + torch.arange(f)
+        out[pos.reshape(-1).to(dev)] = y.reshape(-1)
+    return out
+
+
+# --- the kernel's work list (a model of its launch entry) and bit masks ------
+
+# csrc/fused_reconstruct.cu's constants (checked against the library when it
+# loads): bytes one block covers, and the most work entries one launch
+# takes (its largest parameter block)
+RAGGED_SPAN = 4096
+RAGGED_MAX_BLOCKS = 3816
+# a work entry is two uint32: x = (survivor offset in KiB) << 5 | row, the
+# meta word advanced by the span; y = (output offset in KiB) << _OUT_SHIFT
+# | (tile phase in KiB) << _LEN_BITS | (length in KiB - 1)
+_LEN_BITS = 2
+_PHASE_BITS = 10
+_OUT_SHIFT = _LEN_BITS + _PHASE_BITS
+
+
+def _work_list(words, fetches, groups: int, tile: int) -> np.ndarray:
+    """Model of the work list the launch entry of csrc/fused_reconstruct.cu
+    builds (held equal to it on the card): one entry per (request,
+    RAGGED_SPAN span), requests in order, spans in order, outputs packed
+    in that order.  -> [blocks, 2] int64 (x, y), y's output field not yet
+    rebased to a launch."""
+    words = np.asarray(words, dtype=np.int64)
+    fk = np.asarray(fetches, dtype=np.int64) // FUSED_ALIGN
+    span_kib = RAGGED_SPAN // FUSED_ALIGN
+    nb = -(-fk // span_kib)
+    req = np.repeat(np.arange(fk.size), nb)
+    first = _offsets(nb)
+    pos = (np.arange(int(nb.sum())) - np.repeat(first, nb)) * span_kib
+    length = np.minimum(span_kib, fk[req] - pos)
+    phase = pos % (tile // FUSED_ALIGN) if groups > 1 else np.zeros_like(pos)
+    out_kib = _offsets(fk)[req] + pos
+    x = words[req] + (pos << META_ROW_BITS)
+    y = (out_kib << _OUT_SHIFT) | (phase << _LEN_BITS) | (length - 1)
+    return np.stack([x, y], axis=1)
+
+
+def _launch_lists(work: np.ndarray) -> list[tuple[int, np.ndarray]]:
+    """Model of how the launch entry splits a work list into launches of
+    at most RAGGED_MAX_BLOCKS entries: -> [(output byte offset of the
+    launch, its [n, 2] uint32 list with output offsets relative to
+    it)]."""
+    out = []
+    for lo in range(0, len(work), RAGGED_MAX_BLOCKS):
+        chunk = work[lo : lo + RAGGED_MAX_BLOCKS].copy()
+        base = int(chunk[0, 1]) >> _OUT_SHIFT
+        chunk[:, 1] -= base << _OUT_SHIFT
+        if int(chunk.max()) >= 1 << 32:
+            raise ValueError("a launch's work entry exceeds 32 bits")
+        out.append((base * FUSED_ALIGN, chunk.astype(np.uint32)))
+    return out
+
+
+def _launch_model(work: np.ndarray, masks: np.ndarray, survivors, *,
+                  rows: int, groups: int, tile: int,
+                  out_len: int) -> tuple[np.ndarray, np.ndarray]:
+    """numpy model of one launch of csrc/fused_reconstruct.cu: each block
+    decodes its entry and each of its threads reads its 16 bytes of every
+    survivor, applies the row's masks (parity of mask & byte for each output
+    bit) and writes its 16 bytes.  -> (out [out_len] u8, writes [out_len]:
+    how many threads wrote each byte)."""
+    out = np.zeros(out_len, dtype=np.uint8)
+    writes = np.zeros(out_len, dtype=np.int64)
+    k = len(survivors)
+    table = masks.reshape(groups, rows, 8, 16)
+    local = np.arange(RAGGED_SPAN // 16) * 16
+    for x, y in work.astype(np.int64):
+        length = ((y & ((1 << _LEN_BITS) - 1)) + 1) * FUSED_ALIGN
+        lanes = local[local < length]  # threads past the length return
+        row = x & _META_ROW_MASK
+        src = (x >> META_ROW_BITS) * FUSED_ALIGN + lanes
+        jg = np.zeros_like(lanes)
+        if groups > 1:
+            phase = (y >> _LEN_BITS) & ((1 << _PHASE_BITS) - 1)
+            jg = ((phase * FUSED_ALIGN + lanes) % tile) // (tile // groups)
+        cols = (src[:, None] + np.arange(16)).reshape(-1)
+        xs = np.stack([s[cols] for s in survivors])  # [k, lanes*16]
+        m = table[np.repeat(jg, 16), row][:, :, :k].transpose(1, 2, 0)
+        par = np.bitwise_xor.reduce(m & xs[None], axis=1)  # [8, lanes*16]
+        bits = (np.unpackbits(par[..., None], axis=-1).sum(-1) & 1).astype(
+            np.int64)
+        dst = ((y >> _OUT_SHIFT) * FUSED_ALIGN + lanes[:, None]
+               + np.arange(16)).reshape(-1)
+        out[dst] = (bits << np.arange(8)[:, None]).sum(0)
+        np.add.at(writes, dst, 1)
+    return out, writes
+
+
+def _bit_masks(a: torch.Tensor, k: int, rows: int, groups: int,
+               w_true: int) -> np.ndarray:
+    """The kernel's mask table: [groups*rows*8, 16] u8 whose row
+    (jg*rows + r)*8 + i holds at byte s < k the mask of survivor s for
+    output bit i of wanted row r in group jg: bit j is set iff
+    A[i*m_pad + jg*w_true + r, j*k_pad + jg*k + s] != 0.  Computed once per
+    prepared system and kept on the tensor (a matrix on the card is read
+    back once)."""
+    key = (a._version, k, rows, groups, w_true if groups > 1 else 0)
+    kept = getattr(a, "_swfs_bit_masks", None)
+    if kept is None:
+        kept = {}
+        a._swfs_bit_masks = kept
+    if key not in kept:
+        m_pad, k_pad = a.shape[0] // 8, a.shape[1] // 8
+        bits = (a.cpu().numpy() != 0).reshape(8, m_pad, 8, k_pad)
+        weights = (1 << np.arange(8)).reshape(1, 1, 8, 1)
+        table = np.zeros((groups, rows, 8, 16), dtype=np.uint8)
+        for jg in range(groups):
+            r0 = jg * w_true if groups > 1 else 0
+            sub = bits[:, r0 : r0 + rows, :, jg * k : jg * k + k]
+            # rows past m_pad (a flat w_true above it) stay zero
+            table[jg, : sub.shape[1], :, :k] = (
+                (sub * weights).sum(axis=2).transpose(1, 0, 2))
+        kept[key] = table.reshape(-1, 16)
+    return kept[key]
+
+
 # --- the kernels ------------------------------------------------------------
 
 # counts of the two wrappers' `.launches`, bumped from several threads
 _launch_lock = threading.Lock()
 
 
-def _check_call(a, survivors, meta, tile, fetch, k_true, w_true, groups) -> None:
-    """Host checks shared by both routes; raises on any violation."""
+def _check_system(a, survivors, k_true, w_true, groups, tile) -> None:
+    """Host checks of the matrix, the survivors and the block-diagonal
+    tile, shared by every route; raises on any violation."""
     if not isinstance(survivors, (tuple, list)) or not survivors:
         raise ValueError("survivors must be a non-empty tuple of tensors")
     k = len(survivors)
@@ -651,68 +767,109 @@ def _check_call(a, survivors, meta, tile, fetch, k_true, w_true, groups) -> None
     if a.dtype != torch.int8 or a.dim() != 2 or a.shape[0] % 8 or a.shape[1] % 8:
         raise TypeError(f"matrix must be bit-major int8, got {a.dtype} "
                         f"{tuple(a.shape)}")
-    if meta.dtype != torch.int32 or meta.dim() != 1:
-        raise TypeError("meta must be a 1-D int32 tensor")
     m_pad, k_pad = a.shape[0] // 8, a.shape[1] // 8
     if groups * k > k_pad:
         raise ValueError(f"{groups}x{k} survivor columns exceed k_pad {k_pad}")
     if groups > 1:
-        if tile % (groups * FUSED_ALIGN):
+        if tile <= 0 or tile % (groups * FUSED_ALIGN):
             raise ValueError(f"tile {tile} is not a multiple of "
                              f"{groups}*{FUSED_ALIGN}")
         if groups * w_true > m_pad:
             raise ValueError(f"{groups}x{w_true} rows exceed m_pad {m_pad}")
+
+
+def _check_windows(a, survivors, words: np.ndarray, fetches: np.ndarray,
+                   w_true) -> None:
+    """Every request's window inside the survivors and its row inside the
+    wanted rows (all of the matrix's rows when w_true is None)."""
+    if not words.size:
+        return
+    if int(words.min()) < 0:
+        raise ValueError("negative meta word")
+    if int(words.max()) >= 1 << 31:
+        raise ValueError("meta word exceeds 31 bits")
+    length = min(s.numel() for s in survivors)
+    ends = (words >> META_ROW_BITS) * FUSED_ALIGN + fetches
+    if int(ends.max()) > length:
+        j = int(ends.argmax())
+        raise ValueError(
+            f"request window {int(words[j] >> META_ROW_BITS) * FUSED_ALIGN}"
+            f"+{int(fetches[j])} runs past the {length}-byte survivors"
+        )
+    row_max = int((words & _META_ROW_MASK).max())
+    rows = w_true if w_true is not None else a.shape[0] // 8
+    if row_max >= rows:
+        raise ValueError(f"wanted row {row_max} >= {rows}")
+
+
+def _check_call(a, survivors, meta, tile, fetch, k_true, w_true, groups) -> None:
+    """Host checks of a uniform call, shared by both routes; raises on any
+    violation."""
+    _check_system(a, survivors, k_true, w_true, groups, tile)
+    if meta.dtype != torch.int32 or meta.dim() != 1:
+        raise TypeError("meta must be a 1-D int32 tensor")
     if fetch <= 0 or tile <= 0 or fetch % tile or fetch % FUSED_ALIGN:
         raise ValueError(f"fetch {fetch} must be a positive multiple of the "
                          f"tile {tile} and of {FUSED_ALIGN}")
-    host = meta if meta.device.type == "cpu" else meta.cpu()
-    if host.numel():
-        if int(host.min()) < 0:
-            raise ValueError("negative meta word")
-        # the offset units are the high bits: the largest word holds them
-        units_max = int(host.max()) >> META_ROW_BITS
-        length = min(s.numel() for s in survivors)
-        if units_max * FUSED_ALIGN + fetch > length:
-            raise ValueError(
-                f"request window {units_max * FUSED_ALIGN}+{fetch} runs past "
-                f"the {length}-byte survivors"
-            )
-        row_max = int((host & _META_ROW_MASK).max())
-        rows = w_true if w_true is not None else m_pad
-        if row_max >= rows:
-            raise ValueError(f"wanted row {row_max} >= {rows}")
+    words = meta.cpu().numpy().astype(np.int64)
+    _check_windows(a, survivors, words, np.full(words.size, fetch), w_true)
 
 
-def _launch(wrapper, a, survivors, meta, fetch, w_true, groups, tile):
-    """Launch csrc/fused_reconstruct.cu on the current stream (groups 1:
-    the flat system) and add one to `wrapper.launches` when it launched.
-    The C entry checks the kernel's own limits (k, groups, n)."""
+@functools.cache
+def _kernel_lib():
+    """The kernel library, its constants checked against this module's."""
+    lib = _build.kernels()
+    span, blocks = ctypes.c_int(), ctypes.c_int()
+    lib.fused_reconstruct_limits(ctypes.byref(span), ctypes.byref(blocks))
+    if (span.value, blocks.value) != (RAGGED_SPAN, RAGGED_MAX_BLOCKS):
+        raise RuntimeError(
+            f"csrc/fused_reconstruct.cu has span {span.value} and "
+            f"{blocks.value} entries a launch; rs_resident expects "
+            f"{RAGGED_SPAN} and {RAGGED_MAX_BLOCKS}"
+        )
+    return lib
+
+
+def _launch(wrapper, a, survivors, words, fetches, w_true, groups, tile):
+    """Run csrc/fused_reconstruct.cu over one ragged list on the current
+    stream (groups 1: the flat system) and add to `wrapper.launches` the
+    launches it made: one, or more where the list does not fit one
+    launch's parameters.  `words` and `fetches` are host sequences; the
+    launch entry builds the work list (_work_list is its model).  -> (out
+    [sum(fetches)] u8, offsets [N], parameter bytes sent)."""
     if any(s.data_ptr() % 16 for s in survivors):
         raise ValueError("survivor buffers must be 16-byte aligned")
+    words = np.ascontiguousarray(words, dtype=np.int32)
+    fetches = np.asarray(fetches, dtype=np.int64)
+    fetch_kib = np.ascontiguousarray(fetches // FUSED_ALIGN, dtype=np.int32)
+    # the mask table's rows per group (the C entry refuses more than its
+    # 16 (group, row) sets, and a block-diagonal tile past 1 MiB)
+    rows = w_true if groups > 1 or w_true is not None else int(
+        (words & _META_ROW_MASK).max(initial=0)) + 1
     k = len(survivors)
-    n = meta.numel()
     dev = survivors[0].device
-    out = torch.empty((n, fetch), dtype=torch.uint8, device=dev)
-    if n == 0:
-        return out
-    lib = _build.kernels()
+    out = torch.empty(int(fetches.sum()), dtype=torch.uint8, device=dev)
+    offsets = _offsets(fetches)
+    if not words.size:
+        return out, offsets, 0
+    lib = _kernel_lib()
+    masks = _bit_masks(a, k, rows, groups, w_true)
+    launches, sent = ctypes.c_int(), ctypes.c_longlong()
     with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream()
-        if meta.device.type == "cpu":
-            meta = meta.to(dev, non_blocking=meta.is_pinned())
         ptrs = (ctypes.c_void_p * k)(*[s.data_ptr() for s in survivors])
         rc = lib.fused_reconstruct_launch(
-            a.data_ptr(), a.shape[0] // 8, a.shape[1] // 8, ptrs, k,
-            meta.data_ptr(), n, fetch, out.data_ptr(), w_true, groups, tile,
-            stream.cuda_stream)
+            masks.ctypes.data, rows, groups, tile, ptrs, k, words.ctypes.data,
+            fetch_kib.ctypes.data, words.size, out.data_ptr(),
+            torch.cuda.current_stream().cuda_stream, ctypes.byref(launches),
+            ctypes.byref(sent))
+    with _launch_lock:
+        wrapper.launches += launches.value
     if rc != 0:
         raise RuntimeError(
             f"fused_reconstruct_launch failed ({rc}): "
             f"{lib.fused_reconstruct_error_string(rc).decode()}"
         )
-    with _launch_lock:
-        wrapper.launches += 1
-    return out
+    return out, offsets, sent.value
 
 
 def fused_reconstruct(a_bm, survivors, meta, *, tile, fetch, k_true,
@@ -722,10 +879,11 @@ def fused_reconstruct(a_bm, survivors, meta, *, tile, fetch, k_true,
     shards in matrix column order, meta [N] int32 packed words.  -> [N,
     fetch] u8, the raw reconstruction from each request's FUSED_ALIGN-
     aligned offset (the caller trims the delta).  CPU survivors take the
-    plain version; CUDA survivors launch csrc/fused_reconstruct.cu on the
-    current stream (meta may be a pinned host tensor, copied up there) or
-    raise.  `w_true`, when given, bounds the rows.  `.launches` counts
-    kernel launches."""
+    plain version; CUDA survivors launch csrc/fused_reconstruct.cu with a
+    uniform work list on the current stream or raise (meta is read on the
+    host: its words ride in the launch's parameters).  `w_true`, when
+    given, bounds the rows.  `.launches` counts kernel launches, this
+    wrapper's and fused_reconstruct_ragged's of the flat system."""
     _check_call(a_bm, survivors, meta, tile, fetch, k_true, w_true, 1)
     if survivors[0].device.type == "cpu":
         return _fused_reconstruct_torch(
@@ -733,8 +891,10 @@ def fused_reconstruct(a_bm, survivors, meta, *, tile, fetch, k_true,
         )
     if survivors[0].device.type != "cuda":
         raise ValueError(f"no fused reconstruct for {survivors[0].device}")
-    return _launch(fused_reconstruct, a_bm, survivors, meta, fetch, 0, 1,
-                   fetch)
+    n = meta.numel()
+    out, _, _ = _launch(fused_reconstruct, a_bm, survivors, meta.cpu().numpy(),
+                        [fetch] * n, w_true, 1, fetch)
+    return out.view(n, fetch)
 
 
 fused_reconstruct.launches = 0
@@ -747,7 +907,8 @@ def fused_reconstruct_blockdiag(a_blk, survivors, meta, *, tile, fetch,
     segment jg is reconstructed through diagonal block jg of `a_blk`, row
     jg*w_true + row.  Same contract as fused_reconstruct; the caller
     guarantees tile % (groups*FUSED_ALIGN) == 0 and fetch % tile == 0
-    (checked)."""
+    (checked).  `.launches` counts this wrapper's launches and
+    fused_reconstruct_ragged's of the block-diagonal system."""
     _check_call(a_blk, survivors, meta, tile, fetch, k_true, w_true, groups)
     if survivors[0].device.type == "cpu":
         return _fused_reconstruct_blockdiag_torch(
@@ -756,11 +917,56 @@ def fused_reconstruct_blockdiag(a_blk, survivors, meta, *, tile, fetch,
         )
     if survivors[0].device.type != "cuda":
         raise ValueError(f"no fused reconstruct for {survivors[0].device}")
-    return _launch(fused_reconstruct_blockdiag, a_blk, survivors, meta,
-                   fetch, w_true, groups, tile)
+    n = meta.numel()
+    out, _, _ = _launch(fused_reconstruct_blockdiag, a_blk, survivors,
+                        meta.cpu().numpy(), [fetch] * n, w_true, groups, tile)
+    return out.view(n, fetch)
 
 
 fused_reconstruct_blockdiag.launches = 0
+
+
+def _ragged(a, survivors, words, fetches, *, k_true, w_true, groups, tile):
+    """fused_reconstruct_ragged, with the parameter bytes its launches sent
+    (0 on the CPU)."""
+    _check_system(a, survivors, k_true, w_true, groups, tile)
+    words = np.asarray(words, dtype=np.int64).reshape(-1)
+    fetches = np.asarray(fetches, dtype=np.int64).reshape(-1)
+    if words.shape != fetches.shape:
+        raise ValueError(f"{words.size} meta words but {fetches.size} fetches")
+    unit = tile if groups > 1 else FUSED_ALIGN
+    if fetches.size and (int(fetches.min()) <= 0 or (fetches % unit).any()):
+        raise ValueError(f"every fetch must be a positive multiple of {unit}")
+    _check_windows(a, survivors, words, fetches, w_true)
+    dev = survivors[0].device
+    if dev.type == "cpu":
+        out = _fused_reconstruct_ragged_torch(
+            a, survivors, words, fetches, k_true=k_true, w_true=w_true,
+            groups=groups, tile=tile)
+        return out, _offsets(fetches), 0
+    if dev.type != "cuda":
+        raise ValueError(f"no fused reconstruct for {dev}")
+    wrapper = fused_reconstruct_blockdiag if groups > 1 else fused_reconstruct
+    return _launch(wrapper, a, survivors, words, fetches, w_true, groups, tile)
+
+
+def fused_reconstruct_ragged(a, survivors, words, fetches, *, k_true, w_true,
+                             groups, tile=None):
+    """One call of the fused reconstruct over a ragged list: request n has
+    its own packed meta word words[n] and its own fetch length fetches[n]
+    (a multiple of FUSED_ALIGN flat, of `tile` block-diagonal; `tile`
+    defaults to groups*FUSED_ALIGN).  groups 1 is the flat system (K2+K3),
+    groups > 1 the block-diagonal one (K4+K5).  -> (out [sum(fetches)] u8,
+    offsets [N]): request n's bytes are out[offsets[n] : offsets[n] +
+    fetches[n]].  CPU survivors take the plain version; CUDA survivors
+    launch csrc/fused_reconstruct.cu on the current stream, once, or once
+    per RAGGED_MAX_BLOCKS work entries, each launch counted on
+    fused_reconstruct.launches (flat) or fused_reconstruct_blockdiag.launches."""
+    if tile is None:
+        tile = groups * FUSED_ALIGN
+    out, offsets, _ = _ragged(a, survivors, words, fetches, k_true=k_true,
+                              w_true=w_true, groups=groups, tile=tile)
+    return out, offsets
 
 
 # --- the serving call -------------------------------------------------------
@@ -818,61 +1024,65 @@ def _resolve_codec(cache, vid, requests, data_shards, total_shards, layout):
     return a_prep, survivors, events, row_of, use, rmat.shape[0]
 
 
+def _ragged_calls(subs, requests, row_of, groups: int) -> list[tuple]:
+    """Pack a burst's sub-requests into ragged calls: each sub-request is
+    fetched at its own delta+take rounded up to groups*FUSED_ALIGN (1 KiB
+    flat, 4 KiB for g = 4), and a call ends only where one more
+    sub-request would take its work list past one launch
+    (RAGGED_MAX_BLOCKS) or its output past _MAX_CALL_OUT.  -> [(part,
+    words, fetches, deltas)], part the call's [(sub index, sub)]."""
+    part = list(enumerate(subs))
+    words, deltas, _ = _fused_vectors(part, requests, row_of) if part else (
+        [], [], 0)
+    q = groups * FUSED_ALIGN
+    calls: list[tuple] = []
+    cur: list[int] = []
+    blocks = out = 0
+    for j, (_, s) in enumerate(part):
+        fetch = -(-(deltas[j] + s[3]) // q) * q
+        nb = -(-fetch // RAGGED_SPAN)
+        if cur and (blocks + nb > RAGGED_MAX_BLOCKS
+                    or out + fetch > _MAX_CALL_OUT):
+            calls.append(cur)
+            cur, blocks, out = [], 0, 0
+        cur.append((j, fetch))
+        blocks += nb
+        out += fetch
+    if cur:
+        calls.append(cur)
+    return [([part[j] for j, _ in c], [words[j] for j, _ in c],
+             [f for _, f in c], [deltas[j] for j, _ in c]) for c in calls]
+
+
 def _pack_calls(cache, vid, requests, layout, data_shards, total_shards):
-    """Resolve the codec, split/align the requests and group them into
-    device calls, one per size bucket present (more where _max_count caps
-    a call's output).  Each call is (part, packed, fetch, tile, deltas)
-    with the TRUE request count: nothing here compiles per shape, so the
-    JAX package's count padding would only ship zero rows."""
+    """Resolve the codec, split/align the requests (_plan) and pack them
+    into ragged device calls: one for a burst, more only where
+    _ragged_calls must split.  -> (calls, subs, survivors, events, a_prep,
+    use, w_true, groups, tile)."""
     a_prep, survivors, events, row_of, use, w_true = _resolve_codec(
         cache, vid, requests, data_shards, total_shards, layout
     )
     groups = cache.groups if layout == "blockdiag" else 1
     subs = _plan(requests)
-    calls = []
-    for bucket in SIZE_BUCKETS:
-        group = [(i, s) for i, s in enumerate(subs) if s[4] == bucket]
-        if not group:
-            continue
-        n_bucket = _bucket(COUNT_BUCKETS, min(len(group), _max_count(bucket)))
-        for start in range(0, len(group), n_bucket):
-            part = group[start : start + n_bucket]
-            packed, deltas, fetch = _fused_vectors(part, requests, row_of)
-            if layout == "blockdiag":
-                fetch, tile = _blockdiag_fetch_tile(fetch, groups)
-            else:
-                tile = _fused_tile_for(fetch)
-            calls.append((part, packed, fetch, tile, deltas))
-    return calls, subs, survivors, events, a_prep, use, w_true, groups
+    calls = _ragged_calls(subs, requests, row_of, groups)
+    tile = groups * FUSED_ALIGN
+    return calls, subs, survivors, events, a_prep, use, w_true, groups, tile
 
 
-def _stage_call_vec(packed: list[int], arena=None) -> torch.Tensor:
-    """One call's [n] int32 meta: into the held slot's pinned arena on the
-    card, a fresh tensor on the CPU."""
-    if arena is not None:
-        return arena.stage_fused(packed)
-    return torch.tensor(packed, dtype=torch.int32)
+def _dispatch_call(a_prep, survivors, words, fetches, n_use, w_true, groups,
+                   tile):
+    """Run one ragged call (flat or block-diagonal) -> (out, offsets,
+    parameter bytes sent)."""
+    return _ragged(a_prep, survivors, words, fetches, k_true=n_use,
+                   w_true=w_true, groups=groups, tile=tile)
 
 
-def _dispatch_call(meta, a_prep, survivors, n_use, w_true, groups, tile,
-                   fetch) -> torch.Tensor:
-    """Route one call to its kernel (flat or block-diagonal)."""
-    if groups > 1:
-        return fused_reconstruct_blockdiag(
-            a_prep, survivors, meta, tile=tile, fetch=fetch, k_true=n_use,
-            w_true=w_true, groups=groups,
-        )
-    return fused_reconstruct(
-        a_prep, survivors, meta, tile=tile, fetch=fetch, k_true=n_use,
-        w_true=w_true,
-    )
-
-
-def _trim(out: np.ndarray, part, deltas, sub_out) -> None:
-    """The host trims each sub-request's alignment delta."""
+def _trim(out: np.ndarray, part, deltas, offsets, sub_out) -> None:
+    """The host slices each sub-request's [delta, delta+take) out of the
+    packed output."""
     for j, (sub_idx, (_, _, _, take, _)) in enumerate(part):
-        d = deltas[j]
-        sub_out[sub_idx] = out[j, d : d + take].tobytes()
+        lo = int(offsets[j]) + deltas[j]
+        sub_out[sub_idx] = out[lo : lo + take].tobytes()
 
 
 def reconstruct_intervals(
@@ -883,41 +1093,43 @@ def reconstruct_intervals(
     total_shards: int = TOTAL_SHARDS,
     layout: str | None = None,
 ) -> list[bytes]:
-    """Reconstruct interval bytes for a batch of degraded reads in as few
-    device calls as possible (one per size bucket present).
+    """Reconstruct interval bytes for a batch of degraded reads in one
+    device call: one ragged launch and one D2H (more only where a burst
+    outgrows one launch's work list or _MAX_CALL_OUT).
 
     requests: [(wanted_shard_id, shard_offset, size)].  All gather inputs
-    are resident shards; per call, H2D is the packed meta words and D2H the
-    reconstructed rows.  Raises CacheMiss, before any device work, when
-    fewer than `data_shards` non-wanted shards of `vid` are resident.
-    `layout` (None = the cache's) picks the flat or block-diagonal kernel.
-    On the card the batch runs on its pipeline slot's stream: every call
-    is enqueued (meta H2D, kernel, D2H into the slot's pinned buffer)
-    before the first is waited on, and the calls drain once more than
-    _MAX_PENDING_OUT bytes are pending.  -> one bytes per request, in
-    order."""
+    are resident shards; each request is fetched at its own length
+    (rounded up to 1 KiB, to groups*1 KiB block-diagonal).  Nothing is
+    copied up: the work list and bit masks ride in the launch's
+    parameters; the reconstructed bytes come down packed.  Raises
+    CacheMiss, before any device work, when fewer than `data_shards`
+    non-wanted shards of `vid` are resident.  `layout` (None = the
+    cache's) picks the flat or block-diagonal kernel.  On the card the
+    batch runs on its pipeline slot's stream: every call is enqueued
+    (kernel, D2H into the slot's pinned buffer) before the first is waited
+    on, and the calls drain once more than _MAX_PENDING_OUT bytes are
+    pending.  -> one bytes per request, in order."""
     if not requests:
         return []
     if layout is None:
         layout = cache.layout
     if layout not in LAYOUTS:
         raise ValueError(f"unknown resident layout {layout!r}")
-    calls, subs, survivors, events, a_prep, use, w_true, groups = _pack_calls(
-        cache, vid, requests, layout, data_shards, total_shards
-    )
+    (calls, subs, survivors, events, a_prep, use, w_true, groups,
+     tile) = _pack_calls(cache, vid, requests, layout, data_shards,
+                         total_shards)
     sub_out: list[bytes | None] = [None] * len(subs)
     pipe = cache.pipeline
     with pipe.slot() as pslot:
         if pslot.stream is None:
-            for part, packed, fetch, tile, deltas in calls:
-                out = _dispatch_call(
-                    _stage_call_vec(packed), a_prep, survivors, len(use),
-                    w_true, groups, tile, fetch,
-                )
-                _trim(out.numpy(), part, deltas, sub_out)
+            for part, words, fetches, deltas in calls:
+                out, offsets, _ = _dispatch_call(
+                    a_prep, survivors, words, fetches, len(use), w_true,
+                    groups, tile)
+                _trim(out.numpy(), part, deltas, offsets, sub_out)
         else:
             _run_on_stream(pipe, pslot, calls, survivors, events, a_prep,
-                           len(use), w_true, groups, sub_out)
+                           len(use), w_true, groups, tile, sub_out)
     outputs: list[list[bytes]] = [[] for _ in requests]
     for (idx, *_), piece in zip(subs, sub_out):
         outputs[idx].append(piece)  # subs are in offset order per request
@@ -925,14 +1137,14 @@ def reconstruct_intervals(
 
 
 def _run_on_stream(pipe, pslot, calls, survivors, events, a_prep, n_use,
-                   w_true, groups, sub_out) -> None:
+                   w_true, groups, tile, sub_out) -> None:
     stream, arena = pslot.stream, pslot.arena
     pending: list[tuple] = []
 
     def drain() -> None:
-        for part, deltas, host, done in pending:
+        for part, deltas, offsets, host, done in pending:
             done.synchronize()
-            _trim(host.numpy(), part, deltas, sub_out)
+            _trim(host.numpy(), part, deltas, offsets, sub_out)
         pending.clear()
 
     with torch.cuda.device(pipe.device), torch.cuda.stream(stream):
@@ -943,28 +1155,28 @@ def _run_on_stream(pipe, pslot, calls, survivors, events, a_prep, n_use,
             stream.wait_event(ev)
         for s in survivors:
             s.record_stream(stream)
-        sizes = [len(packed) * fetch for _, packed, fetch, _, _ in calls]
+        sizes = [sum(fetches) for _, _, fetches, _ in calls]
         # one pinned buffer for the batch's results, grown only here while
         # nothing is pending; more than _MAX_PENDING_OUT drains first
         result = arena.ensure_result(
             max(max(sizes), min(sum(sizes), _MAX_PENDING_OUT))
         )
         off = 0
-        for (part, packed, fetch, tile, deltas), nbytes in zip(calls, sizes):
+        for (part, words, fetches, deltas), nbytes in zip(calls, sizes):
             if pending and off + nbytes > result.numel():
                 drain()
                 off = 0
-            meta = _stage_call_vec(packed, arena)
-            out = _dispatch_call(meta, a_prep, survivors, n_use, w_true,
-                                 groups, tile, fetch)
-            arena.mark_copied(stream)
-            host = result[off : off + nbytes].view(len(packed), fetch)
+            out, offsets, sent = _dispatch_call(
+                a_prep, survivors, words, fetches, n_use, w_true, groups,
+                tile)
+            host = result[off : off + nbytes]
             host.copy_(out, non_blocking=True)
             done = torch.cuda.Event()
             done.record(stream)
-            pending.append((part, deltas, host, done))
+            pending.append((part, deltas, offsets, host, done))
             off += nbytes
-            pipe.h2d_bytes += meta.numel() * 4
+            # the work list and masks cross PCIe in the launch itself
+            pipe.h2d_bytes += sent
             pipe.d2h_bytes += nbytes
         drain()
 
@@ -975,10 +1187,10 @@ def make_batched_call(
     requests: list[tuple[int, int, int]],
     layout: str | None = None,
 ):
-    """Zero-arg thunk running the ONE device call a homogeneous batch of
-    requests (one size bucket, count <= COUNT_BUCKETS[-1]) maps to, and
-    returning the un-copied [N * fetch] device tensor (a benchmark times the
-    serving call with it, without host copies)."""
+    """Zero-arg thunk running the ONE uniform device call a homogeneous
+    batch of requests (one size bucket, count <= COUNT_BUCKETS[-1]) maps
+    to, and returning the un-copied [N * fetch] device tensor (a benchmark
+    times the serving call with it, without host copies)."""
     if layout is None:
         layout = cache.layout
     groups = cache.groups if layout == "blockdiag" else 1
@@ -1001,7 +1213,14 @@ def make_batched_call(
             for ev in events:
                 stream.wait_event(ev)
         meta = torch.tensor(packed, dtype=torch.int32)
-        return _dispatch_call(meta, a_prep, survivors, len(use), w_true,
-                              groups, tile, fetch).reshape(-1)
+        if groups > 1:
+            out = fused_reconstruct_blockdiag(
+                a_prep, survivors, meta, tile=tile, fetch=fetch,
+                k_true=len(use), w_true=w_true, groups=groups)
+        else:
+            out = fused_reconstruct(a_prep, survivors, meta, tile=tile,
+                                    fetch=fetch, k_true=len(use),
+                                    w_true=w_true)
+        return out.reshape(-1)
 
     return thunk

@@ -294,10 +294,10 @@ class EcVolume:
         self, needle_ids: list[int], backend: str = "cuda"
     ) -> list[Needle | Exception]:
         """Serve a burst of needle reads with every missing-shard interval
-        reconstructed in one reconstruct_intervals call (at most one device
-        call per size bucket).  Local intervals are pread as usual.  Falls
-        back to the per-interval host path when no device cache is set or
-        it lacks survivors (CacheMiss).
+        reconstructed in one reconstruct_intervals call (one ragged device
+        launch and D2H for the burst).  Local intervals are pread as usual.
+        Falls back to the per-interval host path when no device cache is set
+        or it lacks survivors (CacheMiss).
 
         Returns one entry per requested id, in order; a failed needle
         (deleted, not found, corrupt) yields its exception in that slot."""

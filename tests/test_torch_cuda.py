@@ -264,7 +264,10 @@ def test_fused_kernels_match_plain(cuda_device, layout, n, fetch, w):
     before = fn.launches
     got = fn(a, surv, meta, tile=tile, fetch=fetch, k_true=10, **kw)
     torch.cuda.synchronize()
-    assert fn.launches == before + 1
+    # one launch, or one per RAGGED_MAX_BLOCKS work entries (a 4 KiB span
+    # each): the 16 x 1.5 MiB and 8 x 2 MiB calls take two
+    entries = n * -(-fetch // rs_resident.RAGGED_SPAN)
+    assert fn.launches == before + -(-entries // rs_resident.RAGGED_MAX_BLOCKS)
     want = plain(a, surv, meta.to(cuda_device), tile=tile, fetch=fetch,
                  k_true=10, **pkw)
     assert torch.equal(got, want)
@@ -327,8 +330,143 @@ def test_resident_reads_on_card(cuda_device, layout):
         assert g == shards[sid][off : off + size].tobytes(), (sid, off, size)
     after = (rs_resident.fused_reconstruct.launches
              + rs_resident.fused_reconstruct_blockdiag.launches)
-    assert after > before
-    assert cache.pipeline.d2h_bytes > 0 and cache.pipeline.h2d_bytes > 0
+    # the 305 sub-requests (the 2 MiB + 12345 one splits in two) make one
+    # work list of 1,128 entries in either layout: one ragged launch, inside
+    # the RAGGED_MAX_BLOCKS (3,816) parameter cap
+    assert after == before + 1
+    # the work list and masks crossed in the launch's parameters; the D2H
+    # is each sub-request at its own rounded length
+    assert cache.pipeline.h2d_bytes > 0
+    subs = rs_resident._plan(reqs)
+    q = 4096 if layout == "blockdiag" else 1024
+    assert cache.pipeline.d2h_bytes == sum(
+        -(-(s[1] % 1024 + s[2] + s[3]) // q) * q for s in subs)
+
+
+def _ragged_inputs(dev, layout, n, w, seed, max_units=600):
+    """n requests of random lengths up to max_units KiB (whole tiles
+    block-diagonal), windows anywhere in 8 MiB survivors."""
+    mat = _recon_system(w)
+    if layout == "flat":
+        a, groups = rs_cuda.prepare_matrix(mat, dev), 1
+    else:
+        a, groups = rs_cuda.prepare_matrix_blockdiag(mat, 4, dev), 4
+    length = 8 << 20
+    rng = np.random.default_rng(seed)
+    unit = groups * 1024
+    fetches = rng.integers(1, max_units // groups + 1, n) * unit
+    units = rng.integers(0, (length - fetches) // 1024 + 1)
+    units[-1] = (length - fetches[-1]) // 1024
+    words = (units << 5) | rng.integers(0, w, n)
+    surv, _ = _recon_inputs(dev, 1, 1024, w, length=length, seed=seed)
+    return mat, a, groups, surv, words, fetches
+
+
+@pytest.mark.parametrize("layout", ["flat", "blockdiag"])
+@pytest.mark.parametrize("n,w,max_units", [(1, 1, 4), (7, 2, 9), (64, 2, 200),
+                                           (33, 4, 1100)])
+def test_ragged_kernel_matches_plain(cuda_device, layout, n, w, max_units):
+    """Mixed fetch lengths in one launch, byte-equal to the ragged plain
+    version, and the first request to the numpy oracle."""
+    mat, a, groups, surv, words, fetches = _ragged_inputs(
+        cuda_device, layout, n, w, n + w, max_units)
+    fn = (rs_resident.fused_reconstruct if groups == 1
+          else rs_resident.fused_reconstruct_blockdiag)
+    before = fn.launches
+    got, offsets = rs_resident.fused_reconstruct_ragged(
+        a, surv, words, fetches, k_true=10, w_true=w, groups=groups)
+    torch.cuda.synchronize()
+    blocks = int(sum(-(-fetches // rs_resident.RAGGED_SPAN)))
+    assert fn.launches == before + -(-blocks // rs_resident.RAGGED_MAX_BLOCKS)
+    want = rs_resident._fused_reconstruct_ragged_torch(
+        a, surv, words, fetches, k_true=10, w_true=w, groups=groups,
+        tile=groups * 1024)
+    assert torch.equal(got, want)
+    start = int(words[0]) >> 5 << 10
+    x = np.stack([s[start : start + 4096].cpu().numpy() for s in surv])
+    row = int(words[0]) & 31
+    f0 = min(4096, int(fetches[0]))
+    assert np.array_equal(got[:f0].cpu().numpy(),
+                          rs_cpu.apply_matrix_numpy(mat[row : row + 1], x)[0][:f0])
+
+
+@pytest.mark.parametrize("layout", ["flat", "blockdiag"])
+def test_ragged_list_splits_into_launches(cuda_device, layout):
+    """A list longer than one launch's parameters takes more launches, each
+    counted, and the same bytes."""
+    mat, a, groups, surv, words, fetches = _ragged_inputs(
+        cuda_device, layout, 48, 2, 9, max_units=1024)
+    blocks = int(sum(-(-fetches // rs_resident.RAGGED_SPAN)))
+    assert blocks > rs_resident.RAGGED_MAX_BLOCKS
+    fn = (rs_resident.fused_reconstruct if groups == 1
+          else rs_resident.fused_reconstruct_blockdiag)
+    before = fn.launches
+    got, _ = rs_resident.fused_reconstruct_ragged(
+        a, surv, words, fetches, k_true=10, w_true=2, groups=groups)
+    torch.cuda.synchronize()
+    assert fn.launches - before == -(-blocks // rs_resident.RAGGED_MAX_BLOCKS) > 1
+    want = rs_resident._fused_reconstruct_ragged_torch(
+        a, surv, words, fetches, k_true=10, w_true=2, groups=groups,
+        tile=groups * 1024)
+    assert torch.equal(got, want)
+
+
+def test_ragged_kernel_refuses_bad_calls(cuda_device):
+    """A window past the survivors, a bad row, a misaligned fetch or
+    survivor buffer: refused on the host, no launch counted."""
+    mat, a, _, surv, words, fetches = _ragged_inputs(
+        cuda_device, "flat", 4, 2, 3, max_units=8)
+    kw = dict(k_true=10, w_true=2, groups=1)
+    before = (rs_resident.fused_reconstruct.launches,
+              rs_resident.fused_reconstruct_blockdiag.launches)
+    past = (((8 << 20) - 2048) // 1024 + 1) << 5
+    with pytest.raises(ValueError, match="runs past"):
+        rs_resident.fused_reconstruct_ragged(a, surv, [0, past], [1024, 2048], **kw)
+    with pytest.raises(ValueError, match="row"):
+        rs_resident.fused_reconstruct_ragged(a, surv, [0, 2], [1024, 1024], **kw)
+    with pytest.raises(ValueError, match="multiple"):
+        rs_resident.fused_reconstruct_ragged(a, surv, [0, 32], [1024, 1000], **kw)
+    big = torch.empty(surv[0].numel() + 1, dtype=torch.uint8, device=cuda_device)
+    big[1:].copy_(surv[0])
+    with pytest.raises(ValueError, match="aligned"):
+        rs_resident.fused_reconstruct_ragged(a, (big[1:],) + surv[1:], words,
+                                             fetches, **kw)
+    a_blk = rs_cuda.prepare_matrix_blockdiag(_recon_system(2), 4, cuda_device)
+    with pytest.raises(ValueError, match="multiple"):
+        rs_resident.fused_reconstruct_ragged(a_blk, surv, [0], [2048], k_true=10,
+                                             w_true=2, groups=4)
+    assert (rs_resident.fused_reconstruct.launches,
+            rs_resident.fused_reconstruct_blockdiag.launches) == before
+
+
+@pytest.mark.parametrize("groups,n,max_units", [(1, 5, 9), (4, 40, 1024),
+                                                 (1, 3000, 3)])
+def test_kernel_work_list_is_the_host_model(cuda_device, groups, n, max_units):
+    """The launch entry's work list (span, capacity, entries, the split into
+    launches) is rs_resident's model of it, which the CPU tests hold."""
+    import ctypes
+
+    from seaweedfs_tpu_torch.ops import _build
+
+    lib = _build.kernels()
+    span, blocks = ctypes.c_int(), ctypes.c_int()
+    lib.fused_reconstruct_limits(ctypes.byref(span), ctypes.byref(blocks))
+    assert (span.value, blocks.value) == (rs_resident.RAGGED_SPAN,
+                                          rs_resident.RAGGED_MAX_BLOCKS)
+    rng = np.random.default_rng(n)
+    tile = groups * 1024
+    fetches = rng.integers(1, max_units + 1, n) * tile
+    words = ((rng.integers(0, 1 << 20, n) << 5) | rng.integers(0, 4, n))
+    want = np.concatenate([w for _, w in rs_resident._launch_lists(
+        rs_resident._work_list(words, fetches, groups, tile))])
+    w32 = words.astype(np.int32)
+    fk = (fetches // 1024).astype(np.int32)
+    got = np.zeros_like(want)
+    total = lib.fused_reconstruct_work_list(
+        w32.ctypes.data, fk.ctypes.data, n, groups, tile, got.ctypes.data,
+        len(got))
+    assert total == len(want)
+    assert np.array_equal(got, want)
 
 
 def test_ec_volume_resident_on_card(cuda_device, tmp_path):
