@@ -37,6 +37,15 @@ volume:
                  singly (read_needle), block-diagonal and flat; launches
                  and D2H bytes per burst; no read may fall back to the host
                  path
+  5c. serve      the volume server started as an operator starts it
+                 (python3 -m seaweedfs_tpu_torch volume -ec.backend cuda
+                 -ec.deviceCacheMB ...) over the sidecars and 12 survivors,
+                 a fresh server a turn (flat, block-diagonal, block-
+                 diagonal, flat): HTTP GETs of every needle with bytes on
+                 shard 0 plus 400 others one at a time (each layout's first
+                 turn), then 64 concurrent keep-alive clients; every
+                 body byte-verified, no native route once resident; batch
+                 widths, launches and D2H bytes per batch from /metrics
   6. rebuild     shards 0, 5, 10, 13 removed: rebuild_ec_files +
                  rebuild_ecx_file, sha256 of every rebuilt shard
   7. decode      original .dat deleted: write_dat_file, sha256 of the .dat
@@ -51,6 +60,7 @@ Imports nothing of JAX or of the JAX package.
 from __future__ import annotations
 
 import argparse
+import asyncio
 import hashlib
 import itertools
 import json
@@ -1228,6 +1238,365 @@ def phase_resident(torch, workdir: str, vol: dict, deg: dict, seed: int) -> dict
     return out
 
 
+# -------------------------------------------------------------- phase 5c
+
+# phase 5c: needles read besides every one with bytes on the lost shard
+SERVE_EXTRA = 400
+SERVE_CLIENTS = 64
+# the clients run in this many processes, so that one client process's
+# event loop (HTTP parsing, sha256 of every body) does not bound the pass
+SERVE_CLIENT_PROCS = 4
+SERVE_READS = 20_000
+SERVE_SECONDS = 30.0
+SERVE_PIN_TIMEOUT = 180.0
+# the layouts in turns, so neither always runs first on a warmer host
+SERVE_TURNS = ("flat", "blockdiag", "blockdiag", "flat")
+SERVE_CACHE_MB = RESIDENT_BUDGET >> 20
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _scrape(port: int) -> dict:
+    """/metrics of the server on `port`, parsed: {series line key: value}
+    (the key is the name with its labels, as printed)."""
+    import urllib.request
+
+    with urllib.request.urlopen(f"http://127.0.0.1:{port}/metrics",
+                                timeout=30) as r:
+        text = r.read().decode()
+    out = {}
+    for line in text.splitlines():
+        if line and not line.startswith("#"):
+            key, _, value = line.rpartition(" ")
+            out[key] = float(value)
+    return out
+
+
+def _serve_counts(m: dict) -> dict:
+    """The serving series phase 5c reads, from one _scrape."""
+    widths = {}
+    prev = 0.0
+    for w in range(1, 257):
+        acc = m[f'SeaweedFS_volumeServer_ec_batch_size_bucket{{le="{w}.0"}}']
+        widths[w] = acc - prev
+        prev = acc
+    kern = "SeaweedFS_volumeServer_ec_kernel_launches_total{kernel=\"%s\"}"
+    route = "SeaweedFS_volumeServer_ec_read_route_total{route=\"%s\"}"
+    return {
+        "widths": widths,
+        "batches": m["SeaweedFS_volumeServer_ec_batch_size_count"],
+        "launches": {k: m.get(kern % k, 0.0) for k in (
+            "fused_reconstruct", "fused_reconstruct_blockdiag", "gf2_matmul",
+            "gf2_matmul_small")},
+        "routes": {r: m[route % r] for r in ("batched", "native")},
+        "fallback": m["SeaweedFS_volumeServer_ec_batch_fallback_total"],
+        "d2h": m["SeaweedFS_volumeServer_ec_d2h_bytes_total"],
+        "h2d": m["SeaweedFS_volumeServer_ec_h2d_bytes_total"],
+        # the GET handler's time on the server (parse to response built,
+        # the socket write excluded) and the coalescer's queue wait
+        "get_s": m.get('SeaweedFS_volumeServer_request_seconds_sum{type="get"}', 0.0),
+        "gets": m.get('SeaweedFS_volumeServer_request_seconds_count{type="get"}', 0.0),
+        "wait_s": m["SeaweedFS_volumeServer_ec_batch_queue_wait_seconds_sum"],
+        "waits": m["SeaweedFS_volumeServer_ec_batch_queue_wait_seconds_count"],
+    }
+
+
+def _serve_delta(before: dict, after: dict) -> dict:
+    """What one pass added to the serving series."""
+    widths = {w: after["widths"][w] - before["widths"][w] for w in range(1, 257)}
+    batches = after["batches"] - before["batches"]
+    seen = [w for w, c in widths.items() if c > 0]
+    half, acc, p50 = batches / 2, 0.0, None
+    for w in range(1, 257):
+        acc += widths[w]
+        if p50 is None and acc >= half and batches:
+            p50 = w
+    launches = {k: after["launches"][k] - before["launches"][k]
+                for k in after["launches"]}
+    return {
+        "batches": batches,
+        "batch_width_p50": p50,
+        "batch_width_max": max(seen) if seen else None,
+        "launches": launches,
+        "routes": {r: after["routes"][r] - before["routes"][r]
+                   for r in after["routes"]},
+        "fallback": after["fallback"] - before["fallback"],
+        "d2h_bytes": after["d2h"] - before["d2h"],
+        "h2d_bytes": after["h2d"] - before["h2d"],
+        "server_get_mean_ms": (after["get_s"] - before["get_s"]) * 1e3
+                              / max(1.0, after["gets"] - before["gets"]),
+        "queue_wait_mean_ms": (after["wait_s"] - before["wait_s"]) * 1e3
+                              / max(1.0, after["waits"] - before["waits"]),
+    }
+
+
+async def _serve_sequential(port: int, seq: list, vol: dict) -> list:
+    """GET every needle of `seq` in turn on one keep-alive connection:
+    -> seconds per read.  Every body is byte-verified."""
+    from seaweedfs_tpu_torch.server.http import Client
+    from seaweedfs_tpu_torch.storage import types as t
+
+    client = Client("127.0.0.1", port)
+    lat = []
+    try:
+        for nid in seq:
+            _, _, digest, cookie = vol["needles"][nid]
+            t0 = time.perf_counter()
+            status, _, body = await client.request(
+                "GET", "/" + t.format_fid(1, nid, cookie))
+            lat.append(time.perf_counter() - t0)
+            if status != 200 or hashlib.sha256(body).digest() != digest:
+                raise AssertionError(f"needle {nid}: HTTP {status}, "
+                                     f"{len(body)} bytes differ from the "
+                                     "written needle")
+    finally:
+        await client.close()
+    return lat
+
+
+async def _serve_clients(port: int, seq: list, n_clients: int, reads: int,
+                         seconds: float, seed: int):
+    """`n_clients` closed-loop keep-alive clients GET needles of `seq`
+    ((nid, cookie, sha256) triples, seeded picks) until `reads` reads or
+    `seconds`: -> (seconds per read, body bytes).  Every body is
+    byte-verified."""
+    import numpy as np
+
+    from seaweedfs_tpu_torch.server.http import Client
+    from seaweedfs_tpu_torch.storage import types as t
+
+    lat: list = []
+    nbytes = [0]
+    t_end = time.monotonic() + seconds
+
+    async def client(i: int) -> None:
+        rng = np.random.default_rng(seed * 1000 + i)
+        c = Client("127.0.0.1", port)
+        try:
+            while len(lat) < reads and time.monotonic() < t_end:
+                nid, cookie, digest = seq[int(rng.integers(0, len(seq)))]
+                t0 = time.perf_counter()
+                status, _, body = await c.request(
+                    "GET", "/" + t.format_fid(1, nid, cookie))
+                lat.append(time.perf_counter() - t0)
+                if status != 200 or hashlib.sha256(body).digest() != digest:
+                    raise AssertionError(f"needle {nid}: HTTP {status}, "
+                                         f"{len(body)} bytes differ from the "
+                                         "written needle")
+                nbytes[0] += len(body)
+        finally:
+            await c.close()
+
+    await asyncio.gather(*(client(i) for i in range(n_clients)))
+    return lat, nbytes[0]
+
+
+def _client_proc(port: int, seq: list, n_clients: int, reads: int,
+                 seconds: float, seed: int) -> dict:
+    """One client process of the concurrent pass (run under spawn)."""
+    sys.path.insert(0, HERE)
+    cpu0, t0 = time.process_time(), time.monotonic()
+    lat, nbytes = asyncio.run(
+        _serve_clients(port, seq, n_clients, reads, seconds, seed))
+    return {"lat": lat, "bytes": nbytes, "start": t0, "end": time.monotonic(),
+            "cpu_s": time.process_time() - cpu0}
+
+
+def _serve_concurrent(port: int, seq: list, seed: int) -> dict:
+    """SERVE_CLIENTS clients in SERVE_CLIENT_PROCS processes: -> latencies,
+    body bytes, wall (first start to last end) and the clients' CPU s."""
+    import concurrent.futures
+    import multiprocessing
+
+    per = SERVE_CLIENTS // SERVE_CLIENT_PROCS
+    with concurrent.futures.ProcessPoolExecutor(
+            SERVE_CLIENT_PROCS,
+            mp_context=multiprocessing.get_context("spawn")) as pool:
+        futs = [pool.submit(_client_proc, port, seq, per,
+                            SERVE_READS // SERVE_CLIENT_PROCS, SERVE_SECONDS,
+                            seed * 10 + i)
+                for i in range(SERVE_CLIENT_PROCS)]
+        parts = [f.result() for f in futs]
+    return {"lat": [x for p in parts for x in p["lat"]],
+            "bytes": sum(p["bytes"] for p in parts),
+            "wall": max(p["end"] for p in parts) - min(p["start"] for p in parts),
+            "client_cpu_s": sum(p["cpu_s"] for p in parts)}
+
+
+def _proc_cpu_s(pid: int) -> float:
+    """User + system CPU seconds of process `pid` (its threads included)."""
+    with open(f"/proc/{pid}/stat") as f:
+        fields = f.read().rsplit(")", 1)[1].split()
+    return (int(fields[11]) + int(fields[12])) / os.sysconf("SC_CLK_TCK")
+
+
+def _serve_layout(workdir: str, serve_dir: str, layout: str, seq: list,
+                  vol: dict, deleted: list, seed: int, turn: int,
+                  sequential: bool) -> dict:
+    """One fresh server in `layout`: pin, then the sequential pass (when
+    `sequential`) and the concurrent pass."""
+    import urllib.request
+
+    port = _free_port()
+    log_path = os.path.join(workdir, f"serve_{turn}_{layout}.log")
+    cmd = [sys.executable, "-m", "seaweedfs_tpu_torch", "volume",
+           "-dir", serve_dir, "-port", str(port), "-mserver", "",
+           "-ec.backend", "cuda", "-ec.deviceCacheMB", str(SERVE_CACHE_MB),
+           "-ec.serving.layout", layout]
+    with open(log_path, "wb") as logf:
+        proc = subprocess.Popen(cmd, cwd=HERE, stdout=logf,
+                                stderr=subprocess.STDOUT)
+    try:
+        t0 = time.perf_counter()
+        while True:
+            if proc.poll() is not None:
+                raise AssertionError(f"volume server exited ({proc.returncode})")
+            if time.perf_counter() - t0 > SERVE_PIN_TIMEOUT:
+                raise AssertionError("volume not resident within "
+                                     f"{SERVE_PIN_TIMEOUT} s")
+            try:
+                with urllib.request.urlopen(
+                        f"http://127.0.0.1:{port}/status", timeout=10) as r:
+                    status = json.loads(r.read())
+            except OSError:
+                status = None
+            ecv = status and status["EcVolumes"]
+            if ecv and ecv[0]["serving"] and len(ecv[0]["resident"]) == 12:
+                break
+            time.sleep(0.2)
+        pin_s = time.perf_counter() - t0
+        start = _serve_counts(_scrape(port))
+        if any(start["launches"].values()) or start["batches"] \
+                or any(start["routes"].values()):
+            raise AssertionError(f"counts not 0 before the reads: {start}")
+        passes = []
+        if sequential:
+            seq_lat = asyncio.run(_serve_sequential(port, seq, vol))
+            passes.append(("sequential", seq_lat, _serve_delta(
+                start, _serve_counts(_scrape(port)))))
+            # a journaled delete answers 404 through the whole stack
+            from seaweedfs_tpu_torch.server.http import Client
+            from seaweedfs_tpu_torch.storage import types as t
+
+            async def gone():
+                c = Client("127.0.0.1", port)
+                try:
+                    return (await c.request("GET", "/" + t.format_fid(
+                        1, deleted[0], vol["needles"][deleted[0]][3])))[0]
+                finally:
+                    await c.close()
+            if asyncio.run(gone()) != 404:
+                raise AssertionError("a deleted needle did not answer 404")
+        mid = _serve_counts(_scrape(port))
+        cpu0 = _proc_cpu_s(proc.pid)
+        con = _serve_concurrent(port, [
+            (nid, vol["needles"][nid][3], vol["needles"][nid][2])
+            for nid in seq], seed)
+        server_cpu_s = _proc_cpu_s(proc.pid) - cpu0
+        passes.append(("concurrent", con["lat"], _serve_delta(
+            mid, _serve_counts(_scrape(port)))))
+    except Exception:
+        proc.kill()
+        proc.wait(30)
+        with open(log_path, "rb") as f:
+            sys.stderr.write(f.read()[-20000:].decode(errors="replace"))
+        raise
+    proc.terminate()
+    try:
+        proc.wait(30)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait(30)
+    kern = ("fused_reconstruct_blockdiag" if layout == "blockdiag"
+            else "fused_reconstruct")
+    out = {"pin_s": pin_s}
+    for name, lat, d in passes:
+        if d["routes"]["native"] or d["fallback"]:
+            raise AssertionError(f"{layout} {name}: {d['routes']['native']} "
+                                 "reads took the native route once resident")
+        if d["launches"]["gf2_matmul"] or d["launches"]["gf2_matmul_small"]:
+            raise AssertionError(f"{layout} {name}: host K1 launches "
+                                 f"{d['launches']}")
+        if not d["launches"][kern]:
+            raise AssertionError(f"{layout} {name}: no {kern} launch")
+        row = {"reads": len(lat), "p50_ms": _pct(lat, 50),
+               "p99_ms": _pct(lat, 99), "p99.9_ms": _pct(lat, 99.9),
+               "batches": d["batches"], "batch_width_p50": d["batch_width_p50"],
+               "batch_width_max": d["batch_width_max"],
+               "launches": d["launches"][kern],
+               "launches_per_batch": d["launches"][kern] / d["batches"],
+               "d2h_MB_per_batch": d["d2h_bytes"] / d["batches"] / 1e6,
+               "h2d_bytes": d["h2d_bytes"], "routes": d["routes"],
+               "server_get_mean_ms": d["server_get_mean_ms"],
+               "queue_wait_mean_ms": d["queue_wait_mean_ms"]}
+        if name == "concurrent":
+            wall = con["wall"]
+            row.update(clients=SERVE_CLIENTS, client_procs=SERVE_CLIENT_PROCS,
+                       wall_s=wall, reads_per_s=len(lat) / wall,
+                       MBps=con["bytes"] / wall / 1e6,
+                       server_cpu_s=server_cpu_s,
+                       server_cores=server_cpu_s / wall,
+                       client_cpu_s=con["client_cpu_s"],
+                       client_cores=con["client_cpu_s"] / wall)
+        out[name] = row
+    out["launches"] = sum(row["launches"] for name, row in out.items()
+                          if name != "pin_s")
+    log("serve", layout=layout, turn=turn, kernel=kern, pin_s=pin_s,
+        needles=len(seq), **{name: out[name] for name, _, _ in passes})
+    return out
+
+
+def phase_serve(torch, workdir: str, vol: dict, deg: dict, seed: int) -> dict:
+    """The volume server as an operator starts it, over the volume's
+    sidecars and 12 surviving shards (.ec00 and .ec11 still down), a fresh
+    server a turn, in turns flat, block-diagonal, block-diagonal, flat: a
+    sequential pass of HTTP reads in each layout's first turn, and a
+    concurrent pass in every turn.  -> per layout: the launches of all its
+    turns, its sequential pass and its concurrent passes."""
+    import numpy as np
+
+    from seaweedfs_tpu_torch.storage import ec
+
+    torch.cuda.empty_cache()
+    serve_dir = os.path.join(workdir, "serve")
+    os.makedirs(serve_dir)
+    base = os.path.join(workdir, "1")
+    names = [ec.to_ext(s) for s in range(14) if s not in (0, 11)]
+    for ext in names + [".ecx", ".ecj", ".vif"]:
+        if os.path.exists(base + ext):  # links: no byte is written
+            os.link(base + ext, os.path.join(serve_dir, "1" + ext))
+    deleted = set(deg["deleted"])
+    shard0 = [n for n in deg["on_shard0"] if n not in deleted]
+    others = [n for n in deg["picks"] if n not in deleted and n not in set(shard0)]
+    rng = np.random.default_rng(seed + 5)
+    seq = shard0 + rng.choice(others, size=min(SERVE_EXTRA, len(others)),
+                              replace=False).tolist()
+    out: dict = {}
+    try:
+        for turn, layout in enumerate(SERVE_TURNS):
+            first = layout not in out
+            run = _serve_layout(workdir, serve_dir, layout, seq, vol,
+                                sorted(deleted), seed, turn, first)
+            row = out.setdefault(layout, {"launches": 0, "concurrent": []})
+            row["launches"] += run["launches"]
+            row["concurrent"].append(run["concurrent"])
+            if first:
+                row["sequential"] = run["sequential"]
+    finally:
+        shutil.rmtree(serve_dir, ignore_errors=True)
+    for row in out.values():
+        row["launches_per_batch"] = (
+            sum(c["launches"] for c in row["concurrent"])
+            / sum(c["batches"] for c in row["concurrent"]))
+    return out
+
+
 # --------------------------------------------------------------- phase 6
 
 
@@ -1329,6 +1698,8 @@ def main() -> int:
         deg = phase_degraded(workdir, vol, enc["shard_size"], k1_wrappers, args.seed)
         phase = "resident_read"
         res = phase_resident(torch, workdir, vol, deg, args.seed)
+        phase = "serve"
+        serve = phase_serve(torch, workdir, vol, deg, args.seed)
         phase = "rebuild"
         reb = phase_rebuild(workdir, enc["shard_size"], k1_wrappers)
         phase = "decode"
@@ -1363,7 +1734,9 @@ def main() -> int:
             "route": "cuda",
             "source": "seaweedfs_tpu_torch/csrc/fused_reconstruct.cu",
             "replaces": f"seaweedfs_tpu/ops/rs_resident.py:{line}",
-            "launches": res[name],
+            "launches": res[name] + serve[layout]["launches"],
+            "launches_by_phase": {"resident_read": res[name],
+                                  "serve": serve[layout]["launches"]},
             "max_abs_err": max([r["max_abs_err"] for r in rows]
                                + [burst["max_abs_err"]]),
             "mismatched_bytes": sum(r["mismatched_bytes"] for r in rows)
@@ -1384,6 +1757,8 @@ def main() -> int:
                 "launches_A", "window_B_ms", "window_A_ms", "d2h_B",
                 "d2h_A", "plain_ms")},
             "launches_per_main_burst": res["per_main_burst"][name],
+            # phase 5c: the dispatcher's batches of concurrent HTTP reads
+            "launches_per_served_batch": serve[layout]["launches_per_batch"],
         })
     print(json.dumps({"kernels": [{
         "name": "gf2_matmul",

@@ -1,0 +1,39 @@
+"""CLI command registry of the port (reference: weed/command/command.go).
+
+Each command module exposes NAME, HELP, add_args(parser), and async
+run(args).  `python -m seaweedfs_tpu_torch <command> ...` dispatches here.
+The port has one command so far: `volume`.
+"""
+from __future__ import annotations
+
+import argparse
+import asyncio
+import sys
+
+from . import volume
+
+COMMANDS = {m.NAME: m for m in (volume,)}
+
+
+def parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(
+        prog="seaweedfs_tpu_torch",
+        description="SeaweedFS-compatible storage on PyTorch/CUDA",
+    )
+    sub = p.add_subparsers(dest="command", metavar="command")
+    for name, mod in sorted(COMMANDS.items()):
+        mod.add_args(sub.add_parser(name, help=mod.HELP))
+    return p
+
+
+def main(argv: list[str] | None = None) -> int:
+    p = parser()
+    args = p.parse_args(sys.argv[1:] if argv is None else argv)
+    if not args.command:
+        p.print_help()
+        return 2
+    try:
+        asyncio.run(COMMANDS[args.command].run(args))
+    except KeyboardInterrupt:
+        pass
+    return 0

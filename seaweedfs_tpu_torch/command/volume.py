@@ -1,0 +1,227 @@
+"""`volume` — run a volume server (reference: weed/command/volume.go).
+
+Port of seaweedfs_tpu/command/volume.py with the reference's flag
+spellings, for the flags this slice serves:
+
+    python3 -m seaweedfs_tpu_torch volume -dir DIR -port 8080 -mserver "" \\
+        -ec.backend cuda -ec.deviceCacheMB 16384 -ec.serving.layout flat
+
+`-ec.backend` is `cuda` (the default: the card, failing at start without
+one), `torch` (the plain PyTorch versions on the CPU) or `numpy` (the
+table oracle); there is no `auto`.  `-mserver` must be empty: the master
+heartbeat is ROADMAP A4b.
+"""
+from __future__ import annotations
+
+import argparse
+import asyncio
+import logging
+
+from ..serving.config import ServingConfig
+
+NAME = "volume"
+HELP = "start a volume server"
+
+
+def add_args(p) -> None:
+    p.add_argument("-ip", default="127.0.0.1")
+    p.add_argument("-port", type=int, default=8080)
+    p.add_argument(
+        "-dir", default=".", help="comma-separated data directories"
+    )
+    p.add_argument(
+        "-max", dest="max_volume_counts", default="8",
+        help="max volumes per dir (comma-separated to match -dir)",
+    )
+    p.add_argument(
+        "-mserver", dest="masters", default="",
+        help="comma-separated master servers; must be empty until the "
+        "heartbeat is ported (ROADMAP A4b)",
+    )
+    p.add_argument(
+        "-ec.backend", dest="ec_backend", default="cuda",
+        choices=["cuda", "torch", "numpy"],
+        help="erasure-coding kernel backend: cuda (the card; fails at "
+        "start without one), torch (plain PyTorch versions on the CPU), "
+        "numpy (the table oracle)",
+    )
+    p.add_argument(
+        "-ec.deviceCacheMB", dest="ec_device_cache_mb", type=int, default=0,
+        help="pin mounted EC shards in device memory up to this budget so "
+        "degraded reads reconstruct on the card (0 = disabled)",
+    )
+    serving_defaults = ServingConfig()
+    p.add_argument(
+        "-ec.serving.disable", dest="ec_serving_disable",
+        action="store_true",
+        help="serve every EC read on the native per-read path instead of "
+        "the resident continuous-batching dispatcher",
+    )
+    p.add_argument(
+        "-ec.serving.maxBatch", dest="ec_serving_max_batch", type=int,
+        default=serving_defaults.max_batch,
+        help="widest coalesced EC read batch (needles per device call)",
+    )
+    p.add_argument(
+        "-ec.serving.maxWaitUs", dest="ec_serving_max_wait_us", type=int,
+        default=serving_defaults.max_wait_us,
+        help="admission window (µs) a hot dispatch lane holds open for a "
+        "partial batch to fill; 0 disables",
+    )
+    p.add_argument(
+        "-ec.serving.maxInflight", dest="ec_serving_max_inflight", type=int,
+        default=serving_defaults.max_inflight,
+        help="pipelined EC read batches in flight",
+    )
+    p.add_argument(
+        "-ec.serving.maxQueue", dest="ec_serving_max_queue", type=int,
+        default=serving_defaults.max_queue,
+        help="queued EC reads beyond this fall back to the native path "
+        "(backpressure)",
+    )
+    p.add_argument(
+        "-ec.serving.layout", dest="ec_serving_layout",
+        default=serving_defaults.layout, choices=["flat", "blockdiag"],
+        help="resident reconstruct system: flat, or the g=4 "
+        "block-diagonal system (both run csrc/fused_reconstruct.cu)",
+    )
+    p.add_argument(
+        "-ec.serving.overlap.disable", dest="ec_serving_overlap_disable",
+        action="store_true",
+        help="one device pipeline slot instead of two",
+    )
+    p.add_argument(
+        "-ec.serving.zerocopy.disable", dest="ec_serving_zerocopy_disable",
+        action="store_true",
+        help="materialize needle payloads as bytes on the HTTP read path "
+        "instead of writing memoryview windows of the read buffers",
+    )
+    p.add_argument(
+        "-ec.qos.disable", dest="ec_qos_disable", action="store_true",
+        help="disable QoS admission control (tier budgets, deadline "
+        "shedding, breaker)",
+    )
+    p.add_argument(
+        "-ec.qos.interactiveQueue", dest="ec_qos_interactive_queue",
+        type=int, default=serving_defaults.qos_interactive_queue,
+        help="max interactive-tier reads queued at once",
+    )
+    p.add_argument(
+        "-ec.qos.bulkQueue", dest="ec_qos_bulk_queue", type=int,
+        default=serving_defaults.qos_bulk_queue,
+        help="max bulk-tier reads queued at once (X-Seaweed-QoS: bulk)",
+    )
+    p.add_argument(
+        "-ec.qos.interactiveDeadlineMs",
+        dest="ec_qos_interactive_deadline_ms", type=int,
+        default=serving_defaults.qos_interactive_deadline_ms,
+        help="shed an interactive read to the host path at admission when "
+        "its estimated queue wait already exceeds this (0 disables)",
+    )
+    p.add_argument(
+        "-ec.qos.bulkDeadlineMs", dest="ec_qos_bulk_deadline_ms", type=int,
+        default=serving_defaults.qos_bulk_deadline_ms,
+        help="deadline budget for bulk-tier reads (0 disables)",
+    )
+    p.add_argument(
+        "-ec.qos.tripAfter", dest="ec_qos_trip_after", type=int,
+        default=serving_defaults.qos_trip_after,
+        help="consecutive sheds that trip a tier's breaker",
+    )
+    p.add_argument(
+        "-ec.qos.recoverSeconds", dest="ec_qos_recover_seconds", type=float,
+        default=serving_defaults.qos_recover_seconds,
+        help="breaker cooldown before a half-open probe may re-admit",
+    )
+    p.add_argument(
+        "-ec.qos.stallBudgetSeconds", dest="ec_qos_stall_budget_seconds",
+        type=float, default=serving_defaults.stall_budget_seconds,
+        help="base seconds a read response may stall on a slow client "
+        "before it is disconnected (plus bytes/minRate; 0 disables)",
+    )
+    p.add_argument(
+        "-ec.qos.stallMinRateKBps", dest="ec_qos_stall_min_rate_kbps",
+        type=int, default=serving_defaults.stall_min_rate_kbps,
+        help="minimum drain rate a client must sustain for large read "
+        "responses",
+    )
+    p.add_argument(
+        "-ec.rpc.deadlineMs", dest="ec_rpc_deadline_ms", type=int,
+        default=30000,
+        help="default deadline budget stamped on requests arriving "
+        "without an X-Seaweed-Deadline-Ms header (0 = no default stamp)",
+    )
+    p.add_argument(
+        "-fileSizeLimitMB", dest="client_max_size_mb", type=int, default=256,
+        help="reject uploads larger than this",
+    )
+    p.add_argument(
+        "-concurrentUploadLimitMB", dest="concurrent_upload_limit_mb",
+        type=int, default=0, help="total in-flight upload bytes (0 = off)",
+    )
+    p.add_argument(
+        "-concurrentDownloadLimitMB", dest="concurrent_download_limit_mb",
+        type=int, default=0, help="total in-flight download bytes (0 = off)",
+    )
+
+
+def serving_config(args: argparse.Namespace) -> ServingConfig:
+    """The -ec.serving.* and -ec.qos.* flags as a validated config."""
+    return ServingConfig(
+        enabled=not args.ec_serving_disable,
+        max_batch=args.ec_serving_max_batch,
+        max_wait_us=args.ec_serving_max_wait_us,
+        max_inflight=args.ec_serving_max_inflight,
+        max_queue=args.ec_serving_max_queue,
+        layout=args.ec_serving_layout,
+        overlap=not args.ec_serving_overlap_disable,
+        zero_copy=not args.ec_serving_zerocopy_disable,
+        qos=not args.ec_qos_disable,
+        qos_interactive_queue=args.ec_qos_interactive_queue,
+        qos_bulk_queue=args.ec_qos_bulk_queue,
+        qos_interactive_deadline_ms=args.ec_qos_interactive_deadline_ms,
+        qos_bulk_deadline_ms=args.ec_qos_bulk_deadline_ms,
+        qos_trip_after=args.ec_qos_trip_after,
+        qos_recover_seconds=args.ec_qos_recover_seconds,
+        stall_budget_seconds=args.ec_qos_stall_budget_seconds,
+        stall_min_rate_kbps=args.ec_qos_stall_min_rate_kbps,
+    ).validated()
+
+
+def build_server(args: argparse.Namespace):
+    """A VolumeServer from the parsed flags (not started).  Raises on a
+    non-empty -mserver and, with -ec.backend cuda, without a card."""
+    from ..server.volume import VolumeServer
+    from ..utils import faultpolicy
+
+    faultpolicy.configure(
+        faultpolicy.FaultPolicyConfig(deadline_ms=args.ec_rpc_deadline_ms)
+    )
+    dirs = [d.strip() for d in args.dir.split(",") if d.strip()]
+    counts = [int(c) for c in str(args.max_volume_counts).split(",")]
+    if len(counts) == 1:
+        counts = counts * len(dirs)
+    return VolumeServer(
+        masters=[m.strip() for m in args.masters.split(",") if m.strip()],
+        directories=dirs,
+        ip=args.ip,
+        port=args.port,
+        max_volume_counts=counts,
+        ec_backend=args.ec_backend,
+        client_max_size_mb=args.client_max_size_mb,
+        concurrent_upload_limit_mb=args.concurrent_upload_limit_mb,
+        concurrent_download_limit_mb=args.concurrent_download_limit_mb,
+        ec_device_cache_mb=args.ec_device_cache_mb,
+        ec_serving=serving_config(args),
+    )
+
+
+async def run(args) -> None:
+    logging.basicConfig(level=logging.INFO,
+                        format="%(asctime)s %(name)s %(levelname)s %(message)s")
+    vs = build_server(args)
+    await vs.start()
+    try:
+        await asyncio.Event().wait()
+    finally:
+        await vs.stop()

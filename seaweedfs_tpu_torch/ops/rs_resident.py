@@ -29,7 +29,8 @@ What differs from the JAX package:
 
 Not ported here (ROADMAP): the mesh and pod placement (A8), scrub (A5), the
 XLA-fallback gather programs (B4), the AOT warm grid and observed-shape
-persistence, trace spans and metrics (A7), and the Store/dispatcher (A4).
+persistence, and trace spans (A7).  The Store and the serving dispatcher
+that call reconstruct_intervals are storage/store.py and serving/.
 """
 from __future__ import annotations
 

@@ -1,0 +1,536 @@
+"""VolumeServer: the HTTP half of seaweedfs_tpu/server/volume.py.
+
+Reference: weed/server/volume_server.go, volume_server_handlers*.go.  One
+asyncio process per storage node, serving one node's volumes:
+
+  - GET/HEAD/POST/PUT/DELETE on /<vid>,<fid> (server/http.py): reads serve
+    normal volumes, and EC volumes through the continuous-batching
+    dispatcher (serving/dispatcher.py), which coalesces concurrent reads of
+    a resident volume into one ragged launch of csrc/fused_reconstruct.cu
+    per batch and sends the rest down the host path;
+  - GET /status (the volumes, and each EC volume's local and resident
+    shards) and GET /metrics (stats/metrics.py, Prometheus text format).
+
+Blocking storage and device work runs via asyncio.to_thread.  A volume
+that is not local answers 404, which is what the reference answers when
+the master knows no other holder.  Not here (ROADMAP A4b): the gRPC admin
+and EC service, the master heartbeat, proxy/redirect reads, replication
+fan-out, write JWTs, TTL sweeps; image resizing waits for the images
+package; trace spans and the device ledger are A7.
+"""
+from __future__ import annotations
+
+import asyncio
+import gzip
+import logging
+import time
+from collections import deque
+
+from .. import stats
+from ..ops import rs, rs_cuda, rs_resident
+from ..serving import EcReadDispatcher, ServingConfig
+from ..storage import types as t
+from ..storage.disk_location import DiskLocation
+from ..storage.needle import FLAG_IS_COMPRESSED, CrcError, Needle
+from ..storage.store import Store
+from ..storage.volume import CookieMismatch, NotFoundError, VolumeReadOnly
+from ..utils import faultpolicy
+from .conditional import content_disposition, format_http_date, not_modified
+from .http import HTTPError, HTTPServer, Request, Response, json_response
+
+log = logging.getLogger("volume")
+
+# where the resident cache lives for each -ec.backend: the card, or the
+# kernels' plain PyTorch versions on the CPU
+_CACHE_DEVICE = {"cuda": "cuda", "torch": "cpu"}
+
+# the kernels whose launches /metrics mirrors
+_KERNELS = (
+    rs_resident.fused_reconstruct,
+    rs_resident.fused_reconstruct_blockdiag,
+    rs_cuda.gf2_matmul,
+    rs_cuda.gf2_matmul_small,
+)
+
+
+class ByteLimiter:
+    """Bound total in-flight bytes (the reference's inFlightUploadData /
+    inFlightDownloadData throttles, volume_server.go:23-53).  Admission
+    is FIFO so an oversize request (> limit, which runs alone) can't be
+    starved by a stream of small ones.  limit<=0 disables."""
+
+    def __init__(self, limit_bytes: int, timeout: float = 30.0):
+        self.limit = limit_bytes
+        self.timeout = timeout
+        self.in_flight = 0
+        self._cond = asyncio.Condition()
+        self._queue: deque = deque()
+
+    def __call__(self, n: int) -> "_ByteLease":
+        return _ByteLease(self, n)
+
+
+class _ByteLease:
+    def __init__(self, limiter: ByteLimiter, n: int):
+        self.limiter = limiter
+        self.n = n
+
+    async def __aenter__(self):
+        lim = self.limiter
+        if lim.limit <= 0:
+            return self
+        ticket = object()
+        async with lim._cond:
+            lim._queue.append(ticket)
+
+            def my_turn():
+                return lim._queue[0] is ticket and (
+                    lim.in_flight + self.n <= lim.limit
+                    or lim.in_flight == 0  # oversize requests run alone
+                )
+
+            try:
+                await asyncio.wait_for(
+                    lim._cond.wait_for(my_turn), lim.timeout
+                )
+            except asyncio.TimeoutError:
+                lim._queue.remove(ticket)
+                lim._cond.notify_all()
+                raise HTTPError(429, "too many in-flight bytes; retry later")
+            lim._queue.popleft()
+            lim.in_flight += self.n
+            lim._cond.notify_all()  # the next ticket may also fit
+        return self
+
+    async def __aexit__(self, *exc):
+        lim = self.limiter
+        if lim.limit <= 0:
+            return
+        async with lim._cond:
+            lim.in_flight -= self.n
+            lim._cond.notify_all()
+
+
+class VolumeServer:
+    def __init__(
+        self,
+        masters: list[str],
+        directories: list[str],
+        ip: str = "127.0.0.1",
+        port: int = 8080,
+        max_volume_counts: int | list[int] = 8,
+        ec_backend: str = "cuda",
+        client_max_size_mb: int = 256,
+        concurrent_upload_limit_mb: int = 0,  # 0 = unlimited
+        concurrent_download_limit_mb: int = 0,
+        ec_device_cache_mb: int = 0,  # >0: pin mounted EC shards on the card
+        ec_serving=None,  # serving.ServingConfig | None (-ec.serving.* flags)
+    ):
+        if masters:
+            raise ValueError(
+                "a master (-mserver) is not supported yet: the heartbeat "
+                "and gRPC plane are ROADMAP A4b"
+            )
+        # "cuda" without a card fails here, before anything is served
+        ec_backend = rs.resolve_backend(ec_backend)
+        # validate the serving config BEFORE the Store exists: the cache
+        # must carry the configured layout and pipeline depth from birth,
+        # since Store.__init__ starts pinning on-disk EC volumes at once
+        ec_serving = (ec_serving or ServingConfig()).validated()
+        self.ec_serving = ec_serving
+        device_cache = None
+        if ec_device_cache_mb > 0:
+            if ec_backend not in _CACHE_DEVICE:
+                raise ValueError(
+                    "-ec.deviceCacheMB needs -ec.backend cuda (or torch, "
+                    "the plain versions on the CPU)"
+                )
+            device_cache = rs_resident.DeviceShardCache(
+                budget_bytes=ec_device_cache_mb << 20,
+                layout=ec_serving.layout,
+                device=_CACHE_DEVICE[ec_backend],
+            )
+            # one pipeline slot per overlapping lane, as the reference
+            # sizes it: otherwise max_inflight lanes queue on the default
+            device_cache.pipeline.set_slots(ec_serving.pipeline_slots)
+        if isinstance(max_volume_counts, int):
+            max_volume_counts = [max_volume_counts] * len(directories)
+        if len(max_volume_counts) != len(directories):
+            raise ValueError("max_volume_counts must match directories 1:1")
+        self.store = Store(
+            [
+                DiskLocation(d, max_volume_count=c)
+                for d, c in zip(directories, max_volume_counts)
+            ],
+            ec_backend=ec_backend,
+            ec_device_cache=device_cache,
+        )
+        self.ip = ip
+        self.port = port
+        self.client_max_size_mb = client_max_size_mb
+        self.upload_limiter = ByteLimiter(concurrent_upload_limit_mb << 20)
+        self.download_limiter = ByteLimiter(concurrent_download_limit_mb << 20)
+        # one node holds the survivors: no peer shard reader (A4b)
+        self.ec_dispatcher = EcReadDispatcher(
+            self.store, lambda vid: None, ec_serving
+        )
+        self._http: HTTPServer | None = None
+        # the pipeline's byte totals already mirrored into the counters
+        self._mirrored = {"h2d": 0, "d2h": 0}
+        self._mirrored_launches = {k.__name__: 0 for k in _KERNELS}
+
+    @property
+    def url(self) -> str:
+        return f"{self.ip}:{self.port}"
+
+    # ------------------------------------------------------------------ lifecycle
+
+    async def start(self) -> None:
+        self._http = HTTPServer(
+            self._route, self.ip, self.port,
+            client_max_size=self.client_max_size_mb << 20,
+        )
+        await self._http.start()
+        self.port = self._http.port
+        log.info("volume server up http=%s", self.url)
+
+    async def stop(self) -> None:
+        if self._http is not None:
+            await self._http.stop()
+            self._http = None
+        # zero the occupancy/queue gauges: the registry outlives this
+        # server (in-process restarts)
+        self.ec_dispatcher.shutdown()
+        # off the loop: close() joins pin threads mid-upload
+        await asyncio.to_thread(self.store.close)
+
+    # ------------------------------------------------------------------ routing
+
+    async def _route(self, request: Request) -> Response:
+        if request.path == "/status" and request.method == "GET":
+            return await self.h_status(request)
+        if request.path == "/metrics" and request.method == "GET":
+            return self.h_metrics(request)
+        # the deadline front door: adopt the request's budget or stamp the
+        # default; a spent budget is 504, the honest verdict for work the
+        # client already gave up on
+        try:
+            with faultpolicy.request_scope(request.headers):
+                return await self.h_needle(request)
+        except faultpolicy.DeadlineExceeded as e:
+            raise HTTPError(504, str(e))
+
+    async def h_status(self, request: Request) -> Response:
+        """The reference's JSON status, plus each EC volume's local and
+        resident shards (its operator page shows the same)."""
+        infos = await asyncio.to_thread(self.store.volume_infos)
+        cache = self.store.ec_device_cache
+        resident = cache.resident_by_vid() if cache is not None else {}
+        ec = [
+            {
+                "id": ev.id,
+                "collection": ev.collection,
+                "shard_ids": sorted(ev.shards),
+                "resident": resident.get(ev.id, []),
+                "serving": self.store.ec_volume_is_resident(ev.id),
+            }
+            for loc in self.store.locations
+            for ev in loc.ec_volumes.values()
+        ]
+        return json_response(
+            {
+                "Version": "seaweedfs-tpu",
+                "Volumes": [vars(i) for i in infos],
+                "EcVolumes": ec,
+            }
+        )
+
+    def h_metrics(self, request: Request) -> Response:
+        self._collect_metrics()
+        return Response(
+            body=stats.generate_latest(stats.REGISTRY),
+            content_type=stats.CONTENT_TYPE_LATEST,
+        )
+
+    async def h_needle(self, request: Request) -> Response:
+        if request.method in ("GET", "HEAD"):
+            with stats.time_request(
+                stats.VOLUME_SERVER_REQUEST_COUNTER,
+                stats.VOLUME_SERVER_REQUEST_HISTOGRAM,
+                "get",
+            ):
+                return await self.h_read(request)
+        if request.method in ("POST", "PUT"):
+            with stats.time_request(
+                stats.VOLUME_SERVER_REQUEST_COUNTER,
+                stats.VOLUME_SERVER_REQUEST_HISTOGRAM,
+                "post",
+            ):
+                return await self.h_write(request)
+        if request.method == "DELETE":
+            with stats.time_request(
+                stats.VOLUME_SERVER_REQUEST_COUNTER,
+                stats.VOLUME_SERVER_REQUEST_HISTOGRAM,
+                "delete",
+            ):
+                return await self.h_delete(request)
+        raise HTTPError(405, headers={"Allow": "GET, POST, PUT, DELETE"})
+
+    def _collect_metrics(self) -> None:
+        """Refresh volume/EC gauges from store state at scrape time, and
+        mirror the pipeline's transfer bytes and the kernels' launch
+        counts into their counters."""
+        stats.VOLUME_SERVER_VOLUME_GAUGE.clear()
+        by_key: dict[tuple[str, str], int] = {}
+        for loc in self.store.locations:
+            for v in loc.volumes.values():
+                key = (v.collection, "volume")
+                by_key[key] = by_key.get(key, 0) + 1
+            for ev in loc.ec_volumes.values():
+                key = (ev.collection, "ec_shards")
+                by_key[key] = by_key.get(key, 0) + len(ev.shards)
+        for (collection, kind), count in by_key.items():
+            stats.VOLUME_SERVER_VOLUME_GAUGE.labels(
+                collection=collection, type=kind
+            ).set(count)
+        cache = self.store.ec_device_cache
+        n_resident, n_bytes = cache.stats() if cache is not None else (0, 0)
+        stats.VOLUME_SERVER_RESIDENT_SHARD_GAUGE.set(n_resident)
+        stats.VOLUME_SERVER_RESIDENT_BYTES_GAUGE.set(n_bytes)
+        if cache is not None:
+            for key, counter, total in (
+                ("h2d", stats.VOLUME_SERVER_EC_H2D_BYTES,
+                 cache.pipeline.h2d_bytes),
+                ("d2h", stats.VOLUME_SERVER_EC_D2H_BYTES,
+                 cache.pipeline.d2h_bytes),
+            ):
+                counter.inc(total - self._mirrored[key])
+                self._mirrored[key] = total
+        for kern in _KERNELS:
+            name = kern.__name__
+            stats.VOLUME_SERVER_EC_KERNEL_LAUNCHES.labels(kernel=name).inc(
+                max(0, kern.launches - self._mirrored_launches[name])
+            )
+            self._mirrored_launches[name] = kern.launches
+
+    def _parse_fid(self, request: Request) -> tuple[int, int, int]:
+        fid = request.path.strip("/").split(".")[0]
+        return t.parse_fid(fid)  # raises ValueError
+
+    async def h_read(self, request: Request) -> Response:
+        """(GetOrHeadHandler volume_server_handlers_read.go:31-235)"""
+        try:
+            vid, nid, cookie = self._parse_fid(request)
+        except ValueError as e:
+            raise HTTPError(400, str(e))
+        v = self.store.find_volume(vid)
+        ev = self.store.find_ec_volume(vid) if v is None else None
+        if v is None and ev is None:
+            raise HTTPError(404, f"volume {vid} not found anywhere")
+        # lease BEFORE the disk read so the throttle bounds memory; the
+        # index knows the size up front for normal volumes (EC locates
+        # during the read itself — those lease 0 and stay unthrottled)
+        read_deleted = request.query.get("readDeleted") == "true"
+        size_hint = 0
+        if v is not None:
+            loc = v.nm.get(nid)
+            size_hint = loc[1] if loc else 0
+            if loc is None and read_deleted:
+                size_hint = (
+                    await asyncio.to_thread(v.deleted_needle_size, nid) or 0
+                )
+        serving_cfg = self.ec_dispatcher.cfg
+        async with self.download_limiter(size_hint):
+            try:
+                if v is not None:
+                    n = await asyncio.to_thread(
+                        self.store.read_needle,
+                        vid,
+                        nid,
+                        cookie,
+                        read_deleted,
+                        serving_cfg.zero_copy,
+                    )
+                else:
+                    # resident volumes coalesce into batched device
+                    # reconstructs; the rest take the native path inside.
+                    # QoS tier + origin ride in on headers
+                    n = await self.ec_dispatcher.read(
+                        vid, nid, cookie,
+                        tier=request.headers.get("X-Seaweed-QoS", ""),
+                        origin=request.headers.get(
+                            "X-Seaweed-Read-Origin", ""
+                        ),
+                    )
+            except (NotFoundError, KeyError):
+                raise HTTPError(404)
+            except CookieMismatch:
+                raise HTTPError(403)
+            except CrcError:
+                raise HTTPError(500, "data corruption: CRC mismatch")
+            except ValueError:
+                # the volume was destroyed under us (an admin delete
+                # closed the dat file mid-read)
+                raise HTTPError(404, "volume is gone")
+            # TTL'd needles expire at read time (GetOrHeadHandler's ttl
+            # check)
+            if v is not None:
+                ttl_min = v.super_block.ttl.minutes
+                if (
+                    ttl_min
+                    and n.last_modified
+                    and n.last_modified + ttl_min * 60 < time.time()
+                ):
+                    raise HTTPError(404, "needle expired")
+            return self._respond_needle(request, n)
+
+    def _respond_needle(self, request: Request, n: Needle) -> Response:
+        headers = {"Etag": f'"{n.etag}"', "Accept-Ranges": "bytes"}
+        if n.last_modified:
+            headers["Last-Modified"] = format_http_date(n.last_modified)
+        ct = n.mime.decode() if n.mime else "application/octet-stream"
+        cd = content_disposition(
+            request, n.name.decode("utf-8", "replace") if n.name else ""
+        )
+        if cd:
+            headers["Content-Disposition"] = cd
+        if not_modified(request, headers["Etag"], n.last_modified):
+            # a 304 exists to skip the body work; keep the validators
+            return Response(304, headers=headers, content_type=ct)
+        copied = 0  # response-path bytes COPIED serving this request
+        body = n.data  # memoryview on the zero-copy parse, else bytes
+        if isinstance(body, bytes) and body:
+            copied += len(body)
+        if n.is_compressed:
+            if "gzip" in request.headers.get("Accept-Encoding", ""):
+                headers["Content-Encoding"] = "gzip"
+            else:
+                body = gzip.decompress(body)
+                copied += len(body)
+        if request.method == "HEAD":
+            stats.VOLUME_SERVER_RESPONSE_COPY_BYTES.inc(copied)
+            return Response(
+                200, headers={**headers, "Content-Length": str(len(body))},
+                content_type=ct,
+            )
+        status = 200
+        try:
+            rng = request.http_range
+        except ValueError as e:
+            raise HTTPError(400, str(e))
+        if rng.start is not None or rng.stop is not None:
+            start = rng.start or 0
+            if start < 0:  # suffix range "bytes=-N": last N bytes
+                start, stop = max(len(body) + start, 0), len(body)
+            else:
+                stop = min(
+                    rng.stop if rng.stop is not None else len(body),
+                    len(body),
+                )
+            if start >= stop:
+                raise HTTPError(
+                    416, headers={"Content-Range": f"bytes */{len(body)}"}
+                )
+            # memoryview slice = zero-copy window; a bytes slice copies
+            part = memoryview(body)[start:stop] if isinstance(
+                body, memoryview
+            ) else body[start:stop]
+            if isinstance(part, bytes):
+                copied += len(part)
+            headers["Content-Range"] = (
+                f"bytes {start}-{start + len(part) - 1}/{len(body)}"
+            )
+            body = part
+            status = 206
+        stats.VOLUME_SERVER_RESPONSE_COPY_BYTES.inc(copied)
+        return Response(
+            status, body, headers, content_type=ct,
+            stall_budget=self.ec_dispatcher.cfg.stall_budget_for(len(body)),
+        )
+
+    async def h_write(self, request: Request) -> Response:
+        """(PostHandler volume_server_handlers_write.go): parse the upload
+        and append it locally.  Replication fan-out is ROADMAP A4b: a
+        volume whose placement asks for copies refuses the write, as the
+        reference does when it finds no replica locations."""
+        try:
+            vid, nid, cookie = self._parse_fid(request)
+        except ValueError as e:
+            raise HTTPError(400, str(e))
+        v = self.store.find_volume(vid)
+        if v is None:
+            raise HTTPError(404, f"volume {vid} not local")
+        if (
+            v.super_block.replica_placement.copy_count > 1
+            and request.query.get("type") != "replicate"
+        ):
+            raise HTTPError(
+                500, "replication failed: no replica locations known"
+            )
+        # lease BEFORE buffering the body, or the throttle bounds nothing
+        async with self.upload_limiter(request.content_length or 0):
+            body = await request.read()
+            name, mime, data, compressed = self._parse_upload(
+                request.headers.get("Content-Type", ""), body
+            )
+            n = Needle(
+                id=nid,
+                cookie=cookie,
+                data=data,
+                name=name,
+                mime=mime,
+                last_modified=int(time.time()),
+                flags=FLAG_IS_COMPRESSED if compressed else 0,
+            )
+            try:
+                size = await asyncio.to_thread(self.store.write_needle, vid, n)
+            except VolumeReadOnly:
+                raise HTTPError(409, f"volume {vid} is read-only")
+        return json_response(
+            {"name": name.decode() or "", "size": size, "eTag": n.etag}
+        )
+
+    @staticmethod
+    def _parse_upload(
+        content_type: str, body: bytes
+    ) -> tuple[bytes, bytes, bytes, bool]:
+        """multipart/form-data or raw body -> (filename, mime, data,
+        is_gzipped) (needle_parse_upload.go)."""
+        if content_type.startswith("multipart/"):
+            import email
+            import email.policy
+
+            msg = email.message_from_bytes(
+                b"Content-Type: " + content_type.encode() + b"\r\n\r\n" + body,
+                policy=email.policy.HTTP,
+            )
+            for part in msg.iter_parts():
+                data = part.get_payload(decode=True) or b""
+                fname = (part.get_filename() or "").encode()
+                pmime = (part.get_content_type() or "").encode()
+                if part.get("Content-Type") is None or pmime == b"application/octet-stream":
+                    pmime = b""
+                gz = part.get("Content-Encoding") == "gzip"
+                return fname, pmime, data, gz
+            return b"", b"", b"", False
+        ct = content_type.split(";")[0].strip()
+        mime = ct.encode() if ct and ct != "application/octet-stream" else b""
+        return b"", mime, body, False
+
+    async def h_delete(self, request: Request) -> Response:
+        try:
+            vid, nid, cookie = self._parse_fid(request)
+        except ValueError as e:
+            raise HTTPError(400, str(e))
+        v = self.store.find_volume(vid)
+        if v is None:
+            ev = self.store.find_ec_volume(vid)
+            if ev is None:
+                raise HTTPError(404)
+            await asyncio.to_thread(self.store.delete_ec_needle, vid, nid)
+            return json_response({"size": 0})
+        try:
+            size = await asyncio.to_thread(self.store.delete_needle, vid, nid, cookie)
+        except CookieMismatch:
+            raise HTTPError(403)
+        return json_response({"size": size})

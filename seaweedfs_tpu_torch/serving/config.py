@@ -1,0 +1,114 @@
+"""Knobs for the continuous-batching EC serving dispatcher.
+
+Port of seaweedfs_tpu/serving/config.py for one card.  Fields that wait
+for later items of ROADMAP A are not here: `aot` (the CUDA kernels take
+runtime shapes, so no read is ever shed as a cold shape and the flag
+would do nothing), `mesh*` and `multiprocess` (A8), `tier*` (A7).
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+
+@dataclass
+class ServingConfig:
+    """Tunables for `EcReadDispatcher` (CLI: the -ec.serving.* flags)."""
+
+    # route EC reads of resident volumes through the batching dispatcher;
+    # False serves every read on the native per-read path
+    # (-ec.serving.disable)
+    enabled: bool = True
+    # widest coalesced batch (-ec.serving.maxBatch)
+    max_batch: int = 256
+    # admission window: when a dispatch slot frees and the queue holds a
+    # partial batch, wait this long for the batch to fill before
+    # dispatching.  Only applied once a drain loop is already hot (the
+    # first batch after idle dispatches immediately), so a lone request
+    # never waits.  0 disables the window.  (-ec.serving.maxWaitUs)
+    max_wait_us: int = 200
+    # pipelined batches in flight: batch N+1's device call overlaps
+    # batch N's D2H + response fan-out (-ec.serving.maxInflight)
+    max_inflight: int = 4
+    # backpressure: queued requests beyond this fall back to the native
+    # per-read path (counted in the fallback metric) instead of growing
+    # the queue without bound (-ec.serving.maxQueue)
+    max_queue: int = 2048
+    # resident system the reconstruct kernel serves through: "flat" (the
+    # port cache's default) or "blockdiag" (the g-group block-diagonal
+    # system, the JAX serving default); both run csrc/fused_reconstruct.cu
+    # (-ec.serving.layout)
+    layout: str = "flat"
+    # double-buffered device staging: 2 pipeline slots let batch N+1
+    # launch on its own stream while batch N drains its D2H; False = one
+    # slot, the serial baseline (-ec.serving.overlap.disable)
+    overlap: bool = True
+    # zero-copy response writes (-ec.serving.zerocopy.disable): needle
+    # payloads stay memoryviews over the pread/reconstruct buffers all
+    # the way into the socket write; False materializes bytes
+    zero_copy: bool = True
+    # QoS admission control (-ec.qos.disable): per-tier queue budgets,
+    # deadline-aware shedding, and a trip/recover breaker in front of
+    # the coalescer (serving/qos.py)
+    qos: bool = True
+    # per-tier queue budgets (-ec.qos.interactiveQueue /
+    # -ec.qos.bulkQueue); the defaults partition max_queue
+    qos_interactive_queue: int = 1792
+    qos_bulk_queue: int = 256
+    # deadline budgets (ms): a request whose estimated queue wait already
+    # exceeds its tier deadline sheds to the host path at admission; 0
+    # disables (-ec.qos.interactiveDeadlineMs / -ec.qos.bulkDeadlineMs)
+    qos_interactive_deadline_ms: int = 2000
+    qos_bulk_deadline_ms: int = 20000
+    # breaker: this many CONSECUTIVE sheds trip a tier's breaker for
+    # recoverSeconds, then half-open probe (-ec.qos.tripAfter /
+    # -ec.qos.recoverSeconds)
+    qos_trip_after: int = 64
+    qos_recover_seconds: float = 1.0
+    # slow-client guard: per-response stall budget = stall_budget_seconds
+    # + body_bytes / (stall_min_rate_kbps KB/s); 0 budget disables
+    # (-ec.qos.stallBudgetSeconds / -ec.qos.stallMinRateKBps)
+    stall_budget_seconds: float = 30.0
+    stall_min_rate_kbps: int = 64
+
+    @property
+    def max_wait_s(self) -> float:
+        return self.max_wait_us / 1e6
+
+    def stall_budget_for(self, nbytes: int) -> float:
+        """Total seconds a response of `nbytes` may take before the
+        dribbling client is disconnected (0 = unbounded)."""
+        if self.stall_budget_seconds <= 0:
+            return 0.0
+        return self.stall_budget_seconds + nbytes / (
+            max(1, self.stall_min_rate_kbps) * 1024.0
+        )
+
+    @property
+    def pipeline_slots(self) -> int:
+        return 2 if self.overlap else 1
+
+    def validated(self) -> "ServingConfig":
+        if self.max_batch < 1:
+            raise ValueError("max_batch must be >= 1")
+        if self.max_inflight < 1:
+            raise ValueError("max_inflight must be >= 1")
+        if self.max_queue < self.max_batch:
+            raise ValueError("max_queue must be >= max_batch")
+        if self.max_wait_us < 0:
+            raise ValueError("max_wait_us must be >= 0")
+        if self.layout not in ("flat", "blockdiag"):
+            raise ValueError("layout must be 'flat' or 'blockdiag'")
+        if self.qos_interactive_queue < 1 or self.qos_bulk_queue < 1:
+            raise ValueError("qos tier queue budgets must be >= 1")
+        if (
+            self.qos_interactive_deadline_ms < 0
+            or self.qos_bulk_deadline_ms < 0
+        ):
+            raise ValueError("qos deadlines must be >= 0 (0 disables)")
+        if self.qos_trip_after < 1:
+            raise ValueError("qos_trip_after must be >= 1")
+        if self.qos_recover_seconds <= 0:
+            raise ValueError("qos_recover_seconds must be > 0")
+        if self.stall_min_rate_kbps < 1:
+            raise ValueError("stall_min_rate_kbps must be >= 1")
+        return self

@@ -1,0 +1,256 @@
+"""Pipelined continuous-batching dispatcher for EC needle reads.
+
+Port of seaweedfs_tpu/serving/dispatcher.py.  Sits between the volume
+server's EC read handler (server/volume.py h_read) and the resident
+reconstruct path (storage/ec/volume.py read_needles_batch ->
+ops/rs_resident.py reconstruct_intervals -> one ragged launch of
+csrc/fused_reconstruct.cu per batch).  Three rules:
+
+  1. ROUTE: reads of a volume with enough resident shards to reconstruct
+     on the card ride the batching queue; everything else (no cache, pin
+     thread still running, dispatcher disabled) takes the native per-read
+     path immediately — a cold volume's concurrent disk reads must not
+     serialize behind a batch queue.
+  2. COALESCE + PIPELINE: queued reads pack into wide
+     `read_needles_batch` calls (Coalescer); up to `max_inflight` batches
+     run concurrently, each on its own thread, so batch N+1's launch
+     overlaps batch N's D2H and response fan-out.  A hot drain loop holds
+     a µs-scale admission window open so bursts fill batches instead of
+     fragmenting.
+  3. SHED: past `max_queue` queued requests the dispatcher stops
+     admitting and serves the overflow on the native path (counted in
+     the fallback series) — saturation degrades, it never grows an
+     unbounded queue.
+
+Each in-flight lane's call holds one of the cache's DevicePipeline slots
+(its own CUDA stream and pinned result buffer); the volume server sizes
+the pipeline from ServingConfig.pipeline_slots.
+
+Every decision is visible on /metrics: batch-width histogram, per-request
+queue wait, in-flight batch occupancy, fallback and route counters
+(stats/metrics.py).  Trace spans, the device ledger and the tiering heat
+signal are ROADMAP A7; peer shard reads (`remote_reader_factory` returns
+None here: one node holds the survivors) are A4b.
+"""
+from __future__ import annotations
+
+import asyncio
+import logging
+import time
+
+from .. import stats
+from ..utils import faultpolicy
+from ..utils.tasks import spawn_logged
+from .coalescer import Coalescer, ReadRequest
+from .config import ServingConfig
+from .qos import QosController, normalize_tier
+
+log = logging.getLogger("serving")
+
+
+class EcReadDispatcher:
+    """Continuous-batching front of Store.read_ec_needles_batch.
+
+    `store` needs `read_ec_needles_batch`, `read_ec_needle`, and
+    `ec_volume_is_resident`; `remote_reader_factory(vid)` supplies the
+    peer-shard hook both paths thread through (None on one node)."""
+
+    def __init__(
+        self,
+        store,
+        remote_reader_factory,
+        config: ServingConfig | None = None,
+    ):
+        self.store = store
+        self._remote_reader = remote_reader_factory
+        self.cfg = (config or ServingConfig()).validated()
+        self.coalescer = Coalescer(self.cfg.max_batch, self.cfg.max_queue)
+        self.qos = QosController.from_config(self.cfg)
+        self._inflight = 0
+        # strong refs to the live drain-lane tasks (the event loop only
+        # holds weak ones)
+        self._lanes: set = set()
+
+    # ----------------------------------------------------------- telemetry
+
+    @property
+    def queue_depth(self) -> int:
+        """Reads waiting in the coalescer right now."""
+        return len(self.coalescer)
+
+    @property
+    def inflight(self) -> int:
+        """Batches currently in flight on the device (occupancy)."""
+        return self._inflight
+
+    def shutdown(self) -> None:
+        """Clean-shutdown zeroing of the occupancy/queue gauges: the
+        registry is process-global, so a restarted server must report
+        idle until its first batch."""
+        stats.VOLUME_SERVER_EC_BATCH_INFLIGHT.set(0)
+        stats.VOLUME_SERVER_EC_QUEUE_DEPTH.set(0)
+        self.qos.shutdown()
+
+    # ------------------------------------------------------------- admission
+
+    def _route(self, route: str, origin: str) -> None:
+        """Count the admitting route; S3-originated reads are attributed
+        IN ADDITION under s3_<route>."""
+        stats.VOLUME_SERVER_EC_READ_ROUTE.labels(route=route).inc()
+        if origin == "s3":
+            stats.VOLUME_SERVER_EC_READ_ROUTE.labels(
+                route=f"s3_{route}"
+            ).inc()
+
+    async def read(
+        self,
+        vid: int,
+        nid: int,
+        cookie: int | None,
+        tier: str = "interactive",
+        origin: str = "",
+    ):
+        """Serve one EC needle read; returns a Needle or raises the
+        per-needle error (NeedleNotFound / CookieMismatch / ...).
+        `tier` is the QoS tier (unknown values map to interactive);
+        `origin` attributes the read's source in the read_route series."""
+        cfg = self.cfg
+        tier = normalize_tier(tier)
+        # refuse doomed work early: a spent deadline budget raises here
+        # (504 at the front door) instead of burning a queue slot
+        remaining_s = faultpolicy.check_remaining("ec read admission")
+        if not cfg.enabled:
+            # dispatcher disabled = the per-read behavior, device
+            # reconstruct included: an idle card on a resident volume
+            # still serves width-1 reads
+            self._route("native", origin)
+            return await self._read_native(vid, nid, cookie, use_device=True)
+        if not self.store.ec_volume_is_resident(vid):
+            self._route("native", origin)
+            return await self._read_native(vid, nid, cookie)
+        if cfg.qos and self.qos.admit(
+            tier, len(self.coalescer), cfg.max_inflight,
+            remaining_s=remaining_s,
+        ) is not None:
+            # QoS shed (tier budget / deadline / breaker): serve on the
+            # host path NOW rather than join a queue this request would
+            # time out inside
+            self._route("native", origin)
+            return await self._read_native(vid, nid, cookie)
+        loop = asyncio.get_running_loop()
+        req = ReadRequest(vid, nid, cookie, loop.create_future(), loop.time(),
+                          tier=tier)
+        if not self.coalescer.offer(req):
+            # saturated: shed to the native path rather than queue without
+            # bound; QoS sees it as overload too (breaker + shed series)
+            stats.VOLUME_SERVER_EC_BATCH_FALLBACK.inc()
+            if cfg.qos:
+                self.qos.saturated(tier)
+            self._route("native", origin)
+            return await self._read_native(vid, nid, cookie)
+        if cfg.qos:
+            # commit the admission; req.tier is cleared with qos off so
+            # the drain loop's dequeue credit stays symmetric
+            self.qos.enqueued(tier)
+        else:
+            req.tier = ""
+        self._route("batched", origin)
+        stats.VOLUME_SERVER_EC_QUEUE_DEPTH.set(len(self.coalescer))
+        self._maybe_spawn()
+        return await req.future
+
+    async def _read_native(
+        self, vid: int, nid: int, cookie: int | None, use_device: bool = False
+    ):
+        # use_device defaults False: the shed route must be the HOST
+        # reconstruct (under saturation the card is the bottleneck), and
+        # for unpinned volumes the device path is a guaranteed CacheMiss
+        # anyway.  Only the disabled-dispatcher route allows the device
+        # per-read.
+        return await asyncio.to_thread(
+            self.store.read_ec_needle,
+            vid,
+            nid,
+            cookie,
+            self._remote_reader(vid),
+            use_device,
+            self.cfg.zero_copy,
+        )
+
+    # ------------------------------------------------------------ dispatch
+
+    def _maybe_spawn(self) -> None:
+        if len(self.coalescer) and self._inflight < self.cfg.max_inflight:
+            self._inflight += 1
+            stats.VOLUME_SERVER_EC_BATCH_INFLIGHT.set(self._inflight)
+            # detached: a lane outliving its spawner's deadline budget
+            # must not doom every later batch it serves
+            with faultpolicy.detached():
+                spawn_logged(
+                    self._drain(), log, "ec-read drain lane",
+                    registry=self._lanes,
+                )
+
+    async def _drain(self) -> None:
+        """One pipeline lane: serve batches until the queue empties.
+
+        A lane's first batch on an IDLE dispatcher (no other lane in
+        flight) dispatches immediately, so a lone request keeps its idle
+        latency.  In every other state a partial queue gets the admission
+        window to fill before the take: waiting is free while the card is
+        occupied, and it is how a response-triggered re-issue burst
+        (closed-loop clients) packs into wide batches.  Each lane's
+        blocking store call runs in its own thread while the event loop
+        keeps admitting."""
+        cfg = self.cfg
+        first = self._inflight == 1  # idle spawn: skip the first window
+        try:
+            while len(self.coalescer):
+                if (
+                    not first
+                    and cfg.max_wait_us > 0
+                    and len(self.coalescer) < cfg.max_batch
+                ):
+                    await asyncio.sleep(cfg.max_wait_s)
+                first = False
+                now = asyncio.get_running_loop().time()
+                taken = self.coalescer.take()
+                stats.VOLUME_SERVER_EC_QUEUE_DEPTH.set(len(self.coalescer))
+                for vid, items in taken.items():
+                    stats.VOLUME_SERVER_EC_BATCH_SIZE.observe(len(items))
+                    for r in items:
+                        if r.tier:  # "" = enqueued with qos off
+                            self.qos.dequeued(r.tier)
+                        stats.VOLUME_SERVER_EC_BATCH_QUEUE_WAIT.observe(
+                            now - r.enqueued
+                        )
+                    await self._serve_batch(vid, items)
+        finally:
+            self._inflight -= 1
+            stats.VOLUME_SERVER_EC_BATCH_INFLIGHT.set(self._inflight)
+            self._maybe_spawn()  # raced with an offer after the loop check
+
+    async def _serve_batch(self, vid: int, items: list[ReadRequest]) -> None:
+        t0 = time.perf_counter()
+        try:
+            results = await asyncio.to_thread(
+                self.store.read_ec_needles_batch,
+                vid,
+                [(r.nid, r.cookie) for r in items],
+                self._remote_reader(vid),
+                self.cfg.zero_copy,
+            )
+        except Exception as e:  # noqa: BLE001 — volume-level failure
+            results = [e] * len(items)
+        # feed the deadline estimator: per-needle service time of THIS
+        # batch (wall across the store call / width)
+        self.qos.observe_service(
+            (time.perf_counter() - t0) / max(1, len(items))
+        )
+        for r, res in zip(items, results):
+            if r.future.done():  # client went away mid-batch
+                continue
+            if isinstance(res, Exception):
+                r.future.set_exception(res)
+            else:
+                r.future.set_result(res)

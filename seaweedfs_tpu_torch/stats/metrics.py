@@ -1,0 +1,382 @@
+"""A small standard-library metrics registry with the reference's series.
+
+Port of the volume-server serving subset of seaweedfs_tpu/stats/metrics.py,
+without prometheus_client (absent where the card runs): counters, gauges
+and histograms with labels, rendered in the Prometheus text format by
+`generate_latest` for `GET /metrics`.  As in prometheus_client, a counter
+is exposed with a `_total` suffix (added when its name lacks one) and a
+histogram as `_bucket{le=...}`, `_sum` and `_count`.
+
+Only the series the serving stack touches are here: request counters and
+latency, the volume and residency gauges, the dispatcher's batch, queue,
+in-flight, fallback and route series, QoS admission, the response copy
+and stall series, deadline refusals, the pipeline's H2D/D2H bytes, and the
+port's kernel launches.  Trace spans, the device ledger and incidents are
+ROADMAP A7.
+
+One process-wide registry, like the reference's default registry.
+"""
+from __future__ import annotations
+
+import math
+import threading
+import time
+from contextlib import contextmanager
+
+CONTENT_TYPE_LATEST = "text/plain; version=0.0.4; charset=utf-8"
+
+
+def _fmt(v: float) -> str:
+    if v == math.inf:
+        return "+Inf"
+    if float(v).is_integer():
+        return f"{float(v):.1f}"
+    return repr(float(v))
+
+
+def _label_str(names, values, extra: str = "") -> str:
+    parts = [f'{n}="{v}"' for n, v in zip(names, values)]
+    if extra:
+        parts.append(extra)
+    return "{" + ",".join(parts) + "}" if parts else ""
+
+
+class Registry:
+    def __init__(self):
+        self._metrics: list[_Metric] = []
+
+    def register(self, m: "_Metric") -> None:
+        self._metrics.append(m)
+
+    def collect(self):
+        return list(self._metrics)
+
+
+class _Metric:
+    kind = ""
+
+    def __init__(self, name, documentation, labelnames=(), registry=None):
+        self.name = name
+        self.documentation = documentation
+        self.labelnames = tuple(labelnames)
+        self._lock = threading.Lock()
+        self._children: dict[tuple, _Metric] = {}
+        self._labelvalues: tuple = ()
+        self._init_value()
+        if registry is not None:
+            registry.register(self)
+
+    def _init_value(self) -> None:
+        raise NotImplementedError
+
+    def labels(self, **kw) -> "_Metric":
+        values = tuple(str(kw[n]) for n in self.labelnames)
+        with self._lock:
+            child = self._children.get(values)
+            if child is None:
+                child = self._child()
+                child._labelvalues = values
+                self._children[values] = child
+            return child
+
+    def _child(self) -> "_Metric":
+        c = object.__new__(type(self))
+        c.__dict__.update(self.__dict__)
+        c._lock = threading.Lock()
+        c._children = {}
+        c._init_value()
+        return c
+
+    def clear(self) -> None:
+        with self._lock:
+            self._children.clear()
+
+    def _series(self):
+        """[(labelvalues, metric)] this metric exposes."""
+        if self.labelnames:
+            with self._lock:
+                return sorted(self._children.items())
+        return [((), self)]
+
+    def render(self) -> list[str]:
+        base = self.name.removesuffix("_total")
+        lines = [f"# HELP {base} {self.documentation}",
+                 f"# TYPE {base} {self.kind}"]
+        for values, m in self._series():
+            lines += m._samples(values)
+        return lines
+
+
+class Counter(_Metric):
+    kind = "counter"
+
+    def _init_value(self) -> None:
+        self._value = 0.0
+
+    def inc(self, amount: float = 1) -> None:
+        if amount < 0:
+            raise ValueError("counters only go up")
+        with self._lock:
+            self._value += amount
+
+    @property
+    def value(self) -> float:
+        return self._value
+
+    def _samples(self, values) -> list[str]:
+        return [f"{self.name.removesuffix('_total')}_total"
+                f"{_label_str(self.labelnames, values)} {_fmt(self._value)}"]
+
+
+class Gauge(_Metric):
+    kind = "gauge"
+
+    def _init_value(self) -> None:
+        self._value = 0.0
+
+    def set(self, v: float) -> None:
+        with self._lock:
+            self._value = float(v)
+
+    @property
+    def value(self) -> float:
+        return self._value
+
+    def _samples(self, values) -> list[str]:
+        return [f"{self.name}{_label_str(self.labelnames, values)} "
+                f"{_fmt(self._value)}"]
+
+
+class Histogram(_Metric):
+    kind = "histogram"
+    DEFAULT_BUCKETS = (.005, .01, .025, .05, .075, .1, .25, .5, .75, 1.0,
+                       2.5, 5.0, 7.5, 10.0)
+
+    def __init__(self, name, documentation, labelnames=(), registry=None,
+                 buckets=DEFAULT_BUCKETS):
+        self.buckets = tuple(float(b) for b in buckets)
+        if self.buckets[-1] != math.inf:
+            self.buckets += (math.inf,)
+        super().__init__(name, documentation, labelnames, registry)
+
+    def _init_value(self) -> None:
+        self._counts = [0] * len(self.buckets)
+        self._sum = 0.0
+
+    def observe(self, v: float) -> None:
+        with self._lock:
+            self._sum += v
+            for i, edge in enumerate(self.buckets):
+                if v <= edge:
+                    self._counts[i] += 1
+                    break
+
+    @property
+    def count(self) -> int:
+        return sum(self._counts)
+
+    @property
+    def sum(self) -> float:
+        return self._sum
+
+    def cumulative(self) -> list[tuple[float, int]]:
+        """[(upper edge, observations <= edge)]."""
+        out, acc = [], 0
+        for edge, c in zip(self.buckets, self._counts):
+            acc += c
+            out.append((edge, acc))
+        return out
+
+    def _samples(self, values) -> list[str]:
+        lines = [
+            f"{self.name}_bucket"
+            f"{_label_str(self.labelnames, values, f'le=\"{_fmt(edge)}\"')}"
+            f" {_fmt(acc)}"
+            for edge, acc in self.cumulative()
+        ]
+        ls = _label_str(self.labelnames, values)
+        lines.append(f"{self.name}_sum{ls} {_fmt(self._sum)}")
+        lines.append(f"{self.name}_count{ls} {_fmt(self.count)}")
+        return lines
+
+
+def generate_latest(registry: Registry) -> bytes:
+    """The registry in the Prometheus text exposition format."""
+    lines: list[str] = []
+    for m in registry.collect():
+        lines += m.render()
+    return ("\n".join(lines) + "\n").encode()
+
+
+REGISTRY = Registry()
+
+VOLUME_SERVER_REQUEST_COUNTER = Counter(
+    "SeaweedFS_volumeServer_request_total",
+    "Counter of volume server requests.",
+    ["type"],
+    registry=REGISTRY,
+)
+VOLUME_SERVER_REQUEST_HISTOGRAM = Histogram(
+    "SeaweedFS_volumeServer_request_seconds",
+    "Bucketed histogram of volume server request processing time.",
+    ["type"],
+    registry=REGISTRY,
+    buckets=(0.000005, 0.00001, 0.000025, 0.00005, 0.0001, 0.001, 0.01,
+             0.1, 1.0, 10.0),
+)
+VOLUME_SERVER_VOLUME_GAUGE = Gauge(
+    "SeaweedFS_volumeServer_volumes",
+    "Number of volumes or EC shards.",
+    ["collection", "type"],
+    registry=REGISTRY,
+)
+VOLUME_SERVER_RESIDENT_SHARD_GAUGE = Gauge(
+    "SeaweedFS_volumeServer_ec_resident_shards",
+    "EC shards pinned in device memory (the degraded-read fast path).",
+    registry=REGISTRY,
+)
+VOLUME_SERVER_RESIDENT_BYTES_GAUGE = Gauge(
+    "SeaweedFS_volumeServer_ec_resident_bytes",
+    "Device memory held by the EC shard cache (padded bytes).",
+    registry=REGISTRY,
+)
+
+# the continuous-batching EC serving dispatcher (serving/dispatcher.py)
+VOLUME_SERVER_EC_BATCH_SIZE = Histogram(
+    "SeaweedFS_volumeServer_ec_batch_size",
+    "Coalesced EC read batch width (needles per device call).",
+    registry=REGISTRY,
+    # one bucket per width: the CUDA kernels take any width, so the
+    # reference's COUNT_BUCKETS edges (its compiled shapes) mean nothing
+    # here, and exact edges give the width quantiles and maximum
+    buckets=tuple(range(1, 257)),
+)
+VOLUME_SERVER_EC_BATCH_QUEUE_WAIT = Histogram(
+    "SeaweedFS_volumeServer_ec_batch_queue_wait_seconds",
+    "Time an EC read waited in the coalescer before its batch dispatched.",
+    registry=REGISTRY,
+    buckets=(0.0001, 0.00025, 0.0005, 0.001, 0.0025, 0.005, 0.01, 0.05,
+             0.25, 1.0),
+)
+VOLUME_SERVER_EC_BATCH_INFLIGHT = Gauge(
+    "SeaweedFS_volumeServer_ec_batch_inflight",
+    "EC read batches currently in flight on the device (occupancy; "
+    "bounded by -ec.serving.maxInflight).",
+    registry=REGISTRY,
+)
+VOLUME_SERVER_EC_QUEUE_DEPTH = Gauge(
+    "SeaweedFS_volumeServer_ec_queue_depth",
+    "EC reads waiting in the serving coalescer right now (bounded by "
+    "-ec.serving.maxQueue; zeroed on clean dispatcher shutdown).",
+    registry=REGISTRY,
+)
+VOLUME_SERVER_EC_BATCH_FALLBACK = Counter(
+    "SeaweedFS_volumeServer_ec_batch_fallback_total",
+    "EC reads shed to the native per-read path because the dispatch "
+    "queue was saturated.",
+    registry=REGISTRY,
+)
+VOLUME_SERVER_EC_READ_ROUTE = Counter(
+    "SeaweedFS_volumeServer_ec_read_route_total",
+    "EC reads by serving route (batched = resident continuous-batching "
+    "path, native = per-read host path; s3_batched/s3_native count reads "
+    "the S3 gateway sent, in addition to the admitting route).",
+    ["route"],
+    registry=REGISTRY,
+)
+for _route in ("batched", "native", "s3_batched", "s3_native"):
+    VOLUME_SERVER_EC_READ_ROUTE.labels(route=_route)
+VOLUME_SERVER_RESPONSE_COPY_BYTES = Counter(
+    "SeaweedFS_volumeServer_response_copy_bytes_total",
+    "Bytes COPIED while assembling volume-server HTTP read responses "
+    "(needle-buffer materialization, range slices of bytes bodies, "
+    "decompress output); 0 for reads on the zero-copy path.",
+    registry=REGISTRY,
+)
+VOLUME_SERVER_RESPONSE_STALL_ABORTS = Counter(
+    "SeaweedFS_volumeServer_response_stall_aborts_total",
+    "HTTP read responses aborted because the client drained the body "
+    "slower than the per-response stall budget.",
+    registry=REGISTRY,
+)
+
+# QoS admission control (serving/qos.py)
+VOLUME_SERVER_EC_QOS_ADMITTED = Counter(
+    "SeaweedFS_volumeServer_ec_qos_admitted_total",
+    "EC reads admitted to the serving queue by QoS tier.",
+    ["tier"],
+    registry=REGISTRY,
+)
+VOLUME_SERVER_EC_QOS_SHED = Counter(
+    "SeaweedFS_volumeServer_ec_qos_shed_total",
+    "EC reads the QoS admission controller re-routed to the host path "
+    "before they could queue, by tier and reason (queue_budget, "
+    "deadline, breaker_open).",
+    ["tier", "reason"],
+    registry=REGISTRY,
+)
+VOLUME_SERVER_EC_QOS_QUEUE_DEPTH = Gauge(
+    "SeaweedFS_volumeServer_ec_qos_queue_depth",
+    "EC reads currently queued in the serving coalescer, by QoS tier.",
+    ["tier"],
+    registry=REGISTRY,
+)
+VOLUME_SERVER_EC_QOS_BREAKER_STATE = Gauge(
+    "SeaweedFS_volumeServer_ec_qos_breaker_state",
+    "QoS admission breaker state by tier: 0 closed, 1 half-open, 2 open.",
+    ["tier"],
+    registry=REGISTRY,
+)
+for _tier in ("interactive", "bulk"):
+    VOLUME_SERVER_EC_QOS_ADMITTED.labels(tier=_tier)
+    VOLUME_SERVER_EC_QOS_QUEUE_DEPTH.labels(tier=_tier)
+    VOLUME_SERVER_EC_QOS_BREAKER_STATE.labels(tier=_tier)
+    for _reason in ("queue_budget", "deadline", "breaker_open"):
+        VOLUME_SERVER_EC_QOS_SHED.labels(tier=_tier, reason=_reason)
+
+VOLUME_SERVER_EC_DEADLINE_EXCEEDED = Counter(
+    "SeaweedFS_volumeServer_ec_deadline_exceeded",
+    "Work refused because the request's propagated deadline budget "
+    "(X-Seaweed-Deadline-Ms) was already spent.",
+    registry=REGISTRY,
+)
+
+# the resident pipeline's transfers (ops/rs_resident.DevicePipeline's
+# h2d_bytes / d2h_bytes, mirrored at scrape time)
+VOLUME_SERVER_EC_H2D_BYTES = Counter(
+    "SeaweedFS_volumeServer_ec_h2d_bytes",
+    "Host->device bytes of the resident EC reconstruct calls (the work "
+    "list and bit masks in the launch parameters; survivor bytes stay "
+    "resident).",
+    registry=REGISTRY,
+)
+VOLUME_SERVER_EC_D2H_BYTES = Counter(
+    "SeaweedFS_volumeServer_ec_d2h_bytes",
+    "Device->host bytes of the resident EC reconstruct calls (the "
+    "reconstructed intervals at their fetch lengths).",
+    registry=REGISTRY,
+)
+# the port's own series: launches of each hand-written kernel, mirrored
+# at scrape time from the wrappers' counts
+VOLUME_SERVER_EC_KERNEL_LAUNCHES = Counter(
+    "SeaweedFS_volumeServer_ec_kernel_launches",
+    "Launches of each CUDA kernel of the EC paths in this process "
+    "(fused_reconstruct, fused_reconstruct_blockdiag, gf2_matmul, "
+    "gf2_matmul_small).",
+    ["kernel"],
+    registry=REGISTRY,
+)
+for _kernel in ("fused_reconstruct", "fused_reconstruct_blockdiag",
+                "gf2_matmul", "gf2_matmul_small"):
+    VOLUME_SERVER_EC_KERNEL_LAUNCHES.labels(kernel=_kernel)
+
+
+@contextmanager
+def time_request(counter: Counter, histogram: Histogram, kind: str):
+    """Count + time one request under the given label."""
+    counter.labels(type=kind).inc()
+    t0 = time.perf_counter()
+    try:
+        yield
+    finally:
+        histogram.labels(type=kind).observe(time.perf_counter() - t0)

@@ -13,8 +13,8 @@ store_ec.go:339-393), on the card by default.  With a DeviceShardCache
 a read, or of a whole burst (read_needles_batch), are reconstructed from the
 resident bytes in one device call instead.
 
-Remote shard reads, the hedged fan-out, the reconstruct memo and the host
-tier are later slices of the port.
+Remote shard reads, the hedged fan-out and the reconstruct memo are ROADMAP
+A4b; the host tier is A7.
 """
 from __future__ import annotations
 
@@ -108,6 +108,11 @@ class EcVolumeShard:
     def close(self) -> None:
         if not self._f.closed:
             self._f.close()
+
+    def destroy(self) -> None:
+        self.close()
+        if os.path.exists(self.path):
+            os.remove(self.path)
 
 
 class EcVolume:
@@ -291,7 +296,8 @@ class EcVolume:
         return parts[0] if len(parts) == 1 else b"".join(parts)
 
     def read_needles_batch(
-        self, needle_ids: list[int], backend: str = "cuda"
+        self, needle_ids: list[int], backend: str = "cuda",
+        zero_copy: bool = False,
     ) -> list[Needle | Exception]:
         """Serve a burst of needle reads with every missing-shard interval
         reconstructed in one reconstruct_intervals call (one ragged device
@@ -300,7 +306,11 @@ class EcVolume:
         or it lacks survivors (CacheMiss).
 
         Returns one entry per requested id, in order; a failed needle
-        (deleted, not found, corrupt) yields its exception in that slot."""
+        (deleted, not found, corrupt) yields its exception in that slot.
+        `zero_copy` keeps each needle's `data` a memoryview over its one
+        source buffer: a pread, or the bytes reconstruct_intervals copied
+        out of the pipeline slot's pinned buffer — never the pinned buffer
+        itself, which the slot's next batch overwrites."""
         plans: list[tuple[int, list] | Exception] = []
         requests: list[tuple[int, int, int]] = []
         for nid in needle_ids:
@@ -348,7 +358,7 @@ class EcVolume:
                             sid, off, size, backend, use_device=False
                         ))
                 raw = pieces[0] if len(pieces) == 1 else b"".join(pieces)
-                n = Needle.from_bytes(raw, self.version)
+                n = Needle.from_bytes(raw, self.version, copy=not zero_copy)
                 if n.id != nid:
                     raise NeedleNotFound(
                         f"ec batch read got needle {n.id:x}, expected {nid:x}"
@@ -360,12 +370,12 @@ class EcVolume:
 
     def read_needle(
         self, needle_id: int, cookie: int | None = None, backend: str = "cuda",
-        use_device: bool = True,
+        use_device: bool = True, zero_copy: bool = False,
     ) -> Needle:
         """Full needle with CRC verification (ReadEcShardNeedle
-        store_ec.go:136-174)."""
+        store_ec.go:136-174); `zero_copy` as in read_needles_batch."""
         raw = self.read_needle_bytes(needle_id, backend, use_device)
-        n = Needle.from_bytes(raw, self.version)
+        n = Needle.from_bytes(raw, self.version, copy=not zero_copy)
         if n.id != needle_id:
             raise NeedleNotFound(
                 f"ec read got needle {n.id:x}, expected {needle_id:x}"
@@ -401,6 +411,15 @@ class EcVolume:
             self._ecx.close()
         if not self._ecj.closed:
             self._ecj.close()
+
+    def destroy(self) -> None:
+        """Remove sidecars + local shards (ec_volume.go Destroy)."""
+        self.close()
+        for p in [self.ecx_path, self.ecj_path, self.base_name + ".vif"]:
+            if os.path.exists(p):
+                os.remove(p)
+        for s in self.shards.values():
+            s.destroy()
 
 
 def rebuild_ecx_file(base_name: str) -> None:

@@ -1,0 +1,436 @@
+"""Store: the volume server's registry of volumes and EC shards.
+
+Port of seaweedfs_tpu/storage/store.py (reference: weed/storage/store.go,
+store_ec.go, store_ec_delete.go) for one node.  One Store per volume-server
+process; it owns a set of DiskLocations and routes needle reads and writes
+to the right Volume or EcVolume.  EC reads of a volume whose survivors are
+pinned in the DeviceShardCache reconstruct on the card
+(EcVolume.read_needles_batch -> rs_resident.reconstruct_intervals).
+
+The Store is synchronous (file I/O + device kernels); the asyncio server
+layer calls it via ``asyncio.to_thread``.
+
+Not here, each named in ROADMAP: tier moves, vacuum, the heartbeat
+messages and their delta queues (A4b); scrub (A5); the host-RAM shard
+cache (A7).
+"""
+from __future__ import annotations
+
+import glob
+import logging
+import os
+import threading
+
+from . import needle as needle_mod
+from . import types as t
+from .disk_location import DiskLocation
+from .ec import (
+    DATA_SHARDS,
+    EcVolume,
+    ec_base_name,
+    rebuild_ec_files,
+    rebuild_ecx_file,
+    to_ext,
+    write_ec_files,
+    write_sorted_file_from_idx,
+)
+from .needle import Needle
+from .volume import CookieMismatch, NotFoundError, Volume, VolumeInfo
+
+
+def _no_remote(remote_read) -> None:
+    if remote_read is not None:
+        raise NotImplementedError(
+            "peer shard reads are not ported yet (ROADMAP A4b)"
+        )
+
+
+class Store:
+    def __init__(
+        self,
+        locations: list[DiskLocation],
+        ec_backend: str = "cuda",
+        ec_device_cache=None,  # ops.rs_resident.DeviceShardCache | None
+    ):
+        self.locations = locations
+        self.ec_backend = ec_backend
+        self.ec_device_cache = ec_device_cache
+        self.volume_size_limit = 30 * 1024 * 1024 * 1024  # set by master pulse
+        self._lock = threading.RLock()
+        # device-cache pin threads: cancellable + joined on close
+        self._closing = threading.Event()
+        self._pin_threads: list[threading.Thread] = []
+        for loc in self.locations:
+            loc.load_existing_volumes()
+        if self.ec_device_cache is not None:
+            for loc in self.locations:
+                for ev in loc.ec_volumes.values():
+                    self._pin_ec_shards_async(ev)
+
+    # -- lookup --------------------------------------------------------------
+
+    def find_volume(self, vid: int) -> Volume | None:
+        for loc in self.locations:
+            v = loc.volumes.get(vid)
+            if v is not None:
+                return v
+        return None
+
+    def find_ec_volume(self, vid: int) -> EcVolume | None:
+        for loc in self.locations:
+            ev = loc.ec_volumes.get(vid)
+            if ev is not None:
+                return ev
+        return None
+
+    def ec_volume_is_resident(self, vid: int) -> bool:
+        """Routing predicate for the serving dispatcher: True when the
+        vid's shard set is pinned deep enough that a coalesced batch
+        becomes one resident reconstruct call.  False while the pin
+        thread is still uploading (reads fall to the host path instead of
+        queuing behind a batch that can't use the card)."""
+        if self.ec_device_cache is None:
+            return False
+        return (
+            self.find_ec_volume(vid) is not None
+            and self.ec_device_cache.resident_count(vid) >= DATA_SHARDS
+        )
+
+    def volume_infos(self) -> list[VolumeInfo]:
+        return [
+            v.info() for loc in self.locations for v in loc.volumes.values()
+        ]
+
+    # -- volume lifecycle (store.go:200-320) ---------------------------------
+
+    def add_volume(
+        self,
+        vid: int,
+        collection: str = "",
+        replica_placement: str | t.ReplicaPlacement = "000",
+        ttl: str | t.TTL = "",
+        version: int = needle_mod.CURRENT_VERSION,
+    ) -> Volume:
+        with self._lock:
+            if self.find_volume(vid) is not None:
+                raise ValueError(f"volume {vid} already exists")
+            loc = self._pick_location()
+            if loc is None:
+                raise RuntimeError("no disk location has free slots")
+            if isinstance(replica_placement, str):
+                replica_placement = t.ReplicaPlacement.parse(replica_placement)
+            if isinstance(ttl, str):
+                ttl = t.TTL.parse(ttl)
+            v = Volume(
+                loc.directory, vid, collection, replica_placement, ttl, version
+            )
+            loc.volumes[vid] = v
+            return v
+
+    def _pick_location(self) -> DiskLocation | None:
+        best = None
+        for loc in self.locations:
+            if loc.free_slots() <= 0:
+                continue
+            if best is None or loc.free_slots() > best.free_slots():
+                best = loc
+        return best
+
+    def delete_volume(self, vid: int) -> None:
+        with self._lock:
+            for loc in self.locations:
+                v = loc.volumes.pop(vid, None)
+                if v is not None:
+                    v.destroy()
+                    return
+        raise NotFoundError(f"volume {vid} not found")
+
+    def unmount_volume(self, vid: int) -> None:
+        with self._lock:
+            for loc in self.locations:
+                v = loc.volumes.pop(vid, None)
+                if v is not None:
+                    v.close()
+                    return
+        raise NotFoundError(f"volume {vid} not found")
+
+    def mount_volume(self, vid: int) -> None:
+        with self._lock:
+            for loc in self.locations:
+                if vid in loc.volumes:
+                    return
+                for dat in glob.glob(os.path.join(loc.directory, f"*{vid}.dat")):
+                    stem = os.path.basename(dat)[: -len(".dat")]
+                    collection, _, vid_s = stem.rpartition("_")
+                    if vid_s != str(vid):
+                        continue
+                    loc.volumes[vid] = Volume(loc.directory, vid, collection)
+                    return
+        raise NotFoundError(f"volume {vid} not found on disk")
+
+    def mark_volume_readonly(self, vid: int, read_only: bool = True) -> None:
+        v = self.find_volume(vid)
+        if v is None:
+            raise NotFoundError(f"volume {vid} not found")
+        v.read_only = read_only
+        if not read_only:
+            v.full = False  # admin override re-opens a size-locked volume
+
+    # -- needle ops ----------------------------------------------------------
+
+    def write_needle(self, vid: int, n: Needle) -> int:
+        v = self.find_volume(vid)
+        if v is None:
+            raise NotFoundError(f"volume {vid} not found")
+        # soft limit, as the reference: the limit-crossing write itself
+        # still lands, THEN the volume stops accepting appends
+        v.append_needle(n)
+        if not v.full and v.content_size > self.volume_size_limit:
+            v.full = True
+        return n.size
+
+    def read_needle(
+        self,
+        vid: int,
+        needle_id: int,
+        cookie: int | None = None,
+        read_deleted: bool = False,
+        zero_copy: bool = False,
+    ) -> Needle:
+        v = self.find_volume(vid)
+        if v is not None:
+            return v.read(
+                needle_id, cookie, read_deleted=read_deleted,
+                zero_copy=zero_copy,
+            )
+        ev = self.find_ec_volume(vid)
+        if ev is not None:
+            return self.read_ec_needle(vid, needle_id, cookie, zero_copy=zero_copy)
+        raise NotFoundError(f"volume {vid} not found")
+
+    def delete_needle(self, vid: int, needle_id: int, cookie: int | None = None) -> int:
+        v = self.find_volume(vid)
+        if v is None:
+            raise NotFoundError(f"volume {vid} not found")
+        return v.delete(needle_id, cookie)
+
+    # -- EC shard lifecycle (store_ec.go) ------------------------------------
+
+    def ec_generate(self, vid: int) -> None:
+        """Stripe a local volume into .ec00-.ec13 + .ecx + .vif
+        (VolumeEcShardsGenerate volume_grpc_erasure_coding.go:38-81), the
+        GF(256) math on the configured backend (the card by default)."""
+        v = self.find_volume(vid)
+        if v is None:
+            raise NotFoundError(f"volume {vid} not found")
+        v.sync()
+        base = Volume.base_name(v.dir, vid, v.collection)
+        write_ec_files(base, backend=self.ec_backend)
+        write_sorted_file_from_idx(base)
+
+    def ec_rebuild(
+        self, vid: int, collection: str = "", fsync: bool = False
+    ) -> list[int]:
+        """Rebuild whatever shards are missing from the local >=10
+        (VolumeEcShardsRebuild volume_grpc_erasure_coding.go:84-123).
+        Returns rebuilt shard ids."""
+        base = self._ec_base(vid, collection)
+        if base is None:
+            raise NotFoundError(f"ec volume {vid} not found")
+        rebuilt = rebuild_ec_files(base, backend=self.ec_backend, fsync=fsync)
+        rebuild_ecx_file(base)
+        return rebuilt
+
+    def _ec_base(self, vid: int, collection: str = "") -> str | None:
+        """Directory-resolved EC base name: prefer a mounted EcVolume's dir,
+        else any location holding shard/sidecar files."""
+        ev = self.find_ec_volume(vid)
+        if ev is not None:
+            return ev.base_name
+        for loc in self.locations:
+            base = ec_base_name(loc.directory, vid, collection)
+            if os.path.exists(base + ".ecx") or os.path.exists(base + to_ext(0)):
+                return base
+        return None
+
+    def mount_ec_shards(self, vid: int, shard_ids: list[int], collection: str = "") -> None:
+        """(VolumeEcShardsMount volume_grpc_erasure_coding.go:267-287)"""
+        with self._lock:
+            ev = self.find_ec_volume(vid)
+            if ev is None:
+                loc = self._location_with_ec_files(vid, collection)
+                if loc is None:
+                    raise NotFoundError(f"ec volume {vid} has no local files")
+                ev = EcVolume(loc.directory, vid, collection)
+                loc.ec_volumes[vid] = ev
+            for sid in shard_ids:
+                ev.add_shard(sid)
+        if self.ec_device_cache is not None:
+            self._pin_ec_shards_async(ev)
+
+    def _pin_ec_shards_async(self, ev: EcVolume) -> None:
+        """Pin a volume's local shards in device memory off the caller's
+        thread, so the upload never blocks the store lock, a mount or
+        server startup.  Until the thread finishes, ec_volume_is_resident
+        is False and reads take the native route.  Nothing compiles: the
+        CUDA kernels take runtime shapes, so there is no warm step."""
+        cache = self.ec_device_cache
+        if self._closing.is_set():
+            return
+
+        def pin():
+            try:
+                ev.load_shards_to_device(
+                    cache, should_stop=self._closing.is_set
+                )
+            except Exception:
+                logging.getLogger(__name__).exception(
+                    "ec device-cache pinning failed for volume %d", ev.id
+                )
+                # a claim never backed by a resident shard would block
+                # another location's healthy copy until restart
+                cache.release_pin_source(ev.id, ev.dir)
+
+        # prune finished threads so mount/unmount churn doesn't pile up
+        self._pin_threads = [t for t in self._pin_threads if t.is_alive()]
+        th = threading.Thread(target=pin, name=f"ec-pin-{ev.id}", daemon=True)
+        self._pin_threads.append(th)
+        th.start()
+
+    def _location_with_ec_files(self, vid: int, collection: str) -> DiskLocation | None:
+        for loc in self.locations:
+            if os.path.exists(ec_base_name(loc.directory, vid, collection) + ".ecx"):
+                return loc
+        return None
+
+    def unmount_ec_shards(self, vid: int, shard_ids: list[int]) -> None:
+        with self._lock:
+            ev = self.find_ec_volume(vid)
+            if ev is None:
+                return
+            for sid in shard_ids:
+                s = ev.delete_shard(sid)
+                if s is not None:
+                    s.close()
+            if not ev.shards:
+                for loc in self.locations:
+                    if loc.ec_volumes.get(vid) is ev:
+                        del loc.ec_volumes[vid]
+                ev.close()
+                # whole-vid release: the claim must not outlive the
+                # unmounted volume and block a later pinner
+                cache = self.ec_device_cache
+                if cache is not None and cache.pin_source(vid) == ev.dir:
+                    cache.evict(vid)
+
+    def delete_ec_shards(self, vid: int, shard_ids: list[int], collection: str = "") -> None:
+        """Unmount + remove the shard files; drop sidecars when the last
+        shard goes (VolumeEcShardsDelete volume_grpc_erasure_coding.go:181-236)."""
+        with self._lock:
+            ev = self.find_ec_volume(vid)
+            if ev is not None:
+                collection = ev.collection
+            self.unmount_ec_shards(vid, shard_ids)
+            base = self._ec_base(vid, collection)
+            if base is None:
+                return
+            for sid in shard_ids:
+                p = base + to_ext(sid)
+                if os.path.exists(p):
+                    os.remove(p)
+            if not any(os.path.exists(base + to_ext(i)) for i in range(14)):
+                for ext in (".ecx", ".ecj", ".vif"):
+                    if os.path.exists(base + ext):
+                        os.remove(base + ext)
+
+    def destroy_ec_volume(self, vid: int) -> None:
+        with self._lock:
+            for loc in self.locations:
+                ev = loc.ec_volumes.pop(vid, None)
+                if ev is not None:
+                    ev.destroy()
+
+    # -- EC reads ------------------------------------------------------------
+
+    def read_ec_needle(
+        self,
+        vid: int,
+        needle_id: int,
+        cookie: int | None = None,
+        remote_read=None,
+        use_device: bool = True,
+        zero_copy: bool = False,
+    ) -> Needle:
+        """(ReadEcShardNeedle store_ec.go:136-174): local shards, then a
+        degraded reconstruction from the local survivors.
+        `use_device=False` forces the host reconstruct even when the
+        volume is resident (the dispatcher's shed path).  `remote_read`
+        must be None: peer shard reads are ROADMAP A4b."""
+        _no_remote(remote_read)
+        ev = self.find_ec_volume(vid)
+        if ev is None:
+            raise NotFoundError(f"ec volume {vid} not found")
+        return ev.read_needle(
+            needle_id, cookie, backend=self.ec_backend,
+            use_device=use_device, zero_copy=zero_copy,
+        )
+
+    def read_ec_needles_batch(
+        self,
+        vid: int,
+        requests: list[tuple[int, int | None]],  # (needle_id, cookie)
+        remote_read=None,
+        zero_copy: bool = False,
+    ) -> list[Needle | Exception]:
+        """Serve a burst of EC needle reads in one coalesced call: every
+        degraded-read reconstruction in the batch becomes one ragged
+        resident launch (EcVolume.read_needles_batch).  One result slot per
+        request; a bad needle yields its exception without failing the
+        rest."""
+        _no_remote(remote_read)
+        ev = self.find_ec_volume(vid)
+        if ev is None:
+            raise NotFoundError(f"ec volume {vid} not found")
+        results = ev.read_needles_batch(
+            [nid for nid, _ in requests], backend=self.ec_backend,
+            zero_copy=zero_copy,
+        )
+        out: list[Needle | Exception] = []
+        for (nid, cookie), r in zip(requests, results):
+            if (
+                isinstance(r, Needle)
+                and cookie is not None
+                and r.cookie != cookie
+            ):
+                out.append(CookieMismatch(f"cookie mismatch for {nid:x}"))
+            else:
+                out.append(r)
+        return out
+
+    def read_ec_shard_interval(self, vid: int, shard_id: int, offset: int, size: int) -> bytes:
+        """A raw shard range (VolumeEcShardRead
+        volume_grpc_erasure_coding.go:309-375, served to peers in A4b)."""
+        ev = self.find_ec_volume(vid)
+        if ev is None:
+            raise NotFoundError(f"ec volume {vid} not found")
+        shard = ev.shards.get(shard_id)
+        if shard is None:
+            raise NotFoundError(f"ec volume {vid} shard {shard_id} not local")
+        return shard.read_at(offset, size)
+
+    def delete_ec_needle(self, vid: int, needle_id: int) -> None:
+        """Local tombstone."""
+        ev = self.find_ec_volume(vid)
+        if ev is None:
+            raise NotFoundError(f"ec volume {vid} not found")
+        ev.delete_needle(needle_id)
+
+    def close(self) -> None:
+        # stop + join the pin threads FIRST: a daemon thread torn down
+        # mid-upload at interpreter exit can take the process with it
+        self._closing.set()
+        for th in self._pin_threads:
+            th.join(timeout=60)
+        self._pin_threads.clear()
+        for loc in self.locations:
+            loc.close()

@@ -1,17 +1,18 @@
 """Volume: one append-only `.dat` needle log + `.idx` index + in-memory map.
 
-Port of the write/read/sync/close subset of seaweedfs_tpu/storage/volume.py
-(reference: weed/storage/volume.go, volume_write.go, volume_read.go,
-volume_loading.go) — what a volume needs to be written, `.idx`-indexed and
-handed to the EC encoder.  Semantics preserved:
+Port of the subset of seaweedfs_tpu/storage/volume.py that the EC encoder,
+Store and the volume server call (reference: weed/storage/volume.go,
+volume_write.go, volume_read.go, volume_loading.go).  Semantics preserved:
   - superblock at offset 0; needles appended 8-byte aligned
   - write: append record, then index entry (a crash between the two is
     recovered at load by trusting .dat over .idx)
   - read: offset/size from the map, pread, cookie check, CRC check
   - delete: append a tombstone needle (empty body) + tombstone idx entry
+  - read(read_deleted=True) serves a deleted-but-not-vacuumed needle;
+    read(zero_copy=True) keeps `data` a memoryview over the one pread
 
 Tiered (remote) volumes, the persistent needle maps, vacuum and tail sync
-are not part of this slice.
+are ROADMAP A4b.
 """
 from __future__ import annotations
 
@@ -20,6 +21,7 @@ import os
 import struct
 import threading
 import time
+from dataclasses import dataclass
 
 from . import idx as idx_mod
 from . import needle as needle_mod
@@ -41,6 +43,21 @@ class VolumeReadOnly(RuntimeError):
     pass
 
 
+@dataclass
+class VolumeInfo:
+    id: int
+    collection: str
+    size: int
+    file_count: int
+    delete_count: int
+    deleted_bytes: int
+    read_only: bool
+    replica_placement: str
+    ttl: str
+    version: int
+    compact_revision: int
+
+
 class Volume:
     def __init__(
         self,
@@ -55,6 +72,9 @@ class Volume:
         self.id = vid
         self.collection = collection
         self.read_only = False
+        # size-induced write lock (reference noWriteCanDelete): the volume
+        # stops accepting appends but still takes deletes
+        self.full = False
         self._lock = threading.RLock()
         base = self.base_name(dirname, vid, collection)
         self.dat_path = base + ".dat"
@@ -148,7 +168,7 @@ class Volume:
         """Append; returns (actual_offset, size).  The volume's syncWrite
         (volume_write.go:93): record first, then index entry."""
         with self._lock:
-            if self.read_only:
+            if self.read_only or self.full:
                 raise VolumeReadOnly(f"volume {self.id} is read-only")
             record = n.to_bytes(self.version)
             self._dat.seek(0, os.SEEK_END)
@@ -213,21 +233,59 @@ class Volume:
 
     # -- read path -----------------------------------------------------------
 
-    def _read_at(self, offset: int, size: int) -> Needle:
+    def _read_at(self, offset: int, size: int, zero_copy: bool = False) -> Needle:
         total = needle_mod.actual_size(size, self.version)
         buf = os.pread(self._dat.fileno(), total, offset)
-        return Needle.from_bytes(buf, self.version)
+        # zero_copy: data stays a memoryview over this pread's own buffer
+        return Needle.from_bytes(buf, self.version, copy=not zero_copy)
 
-    def read(self, needle_id: int, cookie: int | None = None) -> Needle:
+    def read(
+        self,
+        needle_id: int,
+        cookie: int | None = None,
+        read_deleted: bool = False,
+        zero_copy: bool = False,
+    ) -> Needle:
         loc = self.nm.get(needle_id)
-        if loc is None:
-            raise NotFoundError(
-                f"needle {needle_id:x} not found in volume {self.id}"
-            )
-        n = self._read_at(loc[0], loc[1])
+        if loc is not None:
+            n = self._read_at(loc[0], loc[1], zero_copy=zero_copy)
+        else:
+            n = self._read_tombstoned(needle_id) if read_deleted else None
+            if n is None:
+                raise NotFoundError(
+                    f"needle {needle_id:x} not found in volume {self.id}"
+                )
         if cookie is not None and n.cookie != cookie:
             raise CookieMismatch(f"cookie mismatch for needle {needle_id:x}")
         return n
+
+    def _tombstoned_location(self, needle_id: int) -> tuple[int, int] | None:
+        """(offset, original size) of a deleted-but-not-vacuumed needle:
+        the map keeps the original record's offset under the tombstone,
+        and the record's own header carries the pre-delete size."""
+        raw = self.nm.get_any(needle_id)
+        if raw is None:
+            return None
+        hdr = os.pread(self._dat.fileno(), t.NEEDLE_HEADER_SIZE, raw[0])
+        if len(hdr) < t.NEEDLE_HEADER_SIZE:
+            return None
+        _, _, size = Needle.parse_header(hdr)
+        if not t.size_is_valid(size):
+            return None
+        return raw[0], size
+
+    def deleted_needle_size(self, needle_id: int) -> int | None:
+        """Size a ?readDeleted=true read would return (throttle hints)."""
+        loc = self._tombstoned_location(needle_id)
+        return loc[1] if loc else None
+
+    def _read_tombstoned(self, needle_id: int) -> Needle | None:
+        """Deleted-but-not-vacuumed needle (?readDeleted=true, reference
+        ReadOption.ReadDeleted)."""
+        loc = self._tombstoned_location(needle_id)
+        if loc is None:
+            return None
+        return self._read_at(loc[0], loc[1])
 
     def has(self, needle_id: int) -> bool:
         return self.nm.has(needle_id)
@@ -238,6 +296,22 @@ class Volume:
     def content_size(self) -> int:
         self._dat.flush()
         return os.path.getsize(self.dat_path)
+
+    def info(self) -> VolumeInfo:
+        s = self.nm.stats
+        return VolumeInfo(
+            id=self.id,
+            collection=self.collection,
+            size=self.content_size,
+            file_count=len(self.nm),
+            delete_count=s.deleted_count,
+            deleted_bytes=s.deleted_bytes,
+            read_only=self.read_only or self.full,
+            replica_placement=str(self.super_block.replica_placement),
+            ttl=str(self.super_block.ttl),
+            version=self.version,
+            compact_revision=self.super_block.compaction_revision,
+        )
 
     def sync(self) -> None:
         with self._lock:
@@ -257,3 +331,10 @@ class Volume:
                 self._idx.close()
             if clean and os.path.exists(self.note_path):
                 os.remove(self.note_path)
+
+    def destroy(self) -> None:
+        self.close()
+        for p in (self.dat_path, self.idx_path, self.note_path,
+                  self.base_name(self.dir, self.id, self.collection) + ".vif"):
+            if os.path.exists(p):
+                os.remove(p)

@@ -495,3 +495,159 @@ def test_ec_volume_resident_on_card(cuda_device, tmp_path):
     finally:
         ev.close()
     assert cache.shard_ids(1) == []
+
+
+# --- the volume server on the card ---------------------------------------
+
+
+@pytest.mark.parametrize("layout", ["flat", "blockdiag"])
+def test_volume_server_serves_from_the_card(cuda_device, tmp_path, layout):
+    """The HTTP server over a degraded EC volume (shards 0 and 11 gone)
+    pinned on the card: concurrent reads are byte-equal, every read after
+    the pin routes `batched` (no host K1 launch), the fused kernel launches
+    at most once a batch (a batch here never outgrows one launch's work
+    list or its 32 MiB output), and the pipeline has the configured
+    slots."""
+    import asyncio
+    import json
+
+    from seaweedfs_tpu_torch import stats
+    from seaweedfs_tpu_torch.server.http import Client
+    from seaweedfs_tpu_torch.server.volume import VolumeServer
+    from seaweedfs_tpu_torch.serving import ServingConfig
+    from seaweedfs_tpu_torch.storage import types as t
+
+    rng = np.random.default_rng(17)
+    items = [(i, int(rng.integers(0, 1 << 32)),
+              rng.bytes(int(rng.choice([100, 5000, 70000, 120000]))))
+             for i in range(1, 41)]
+    v = Volume(str(tmp_path), 1)
+    for nid, cookie, data in items:
+        v.write(nid, cookie, data)
+    v.close()
+    base = str(tmp_path / "1")
+    ec.write_ec_files(base)
+    ec.write_sorted_file_from_idx(base)
+    for ext in (".dat", ".idx", ec.to_ext(0), ec.to_ext(11)):
+        os.remove(base + ext)
+    kern = (rs_resident.fused_reconstruct_blockdiag if layout == "blockdiag"
+            else rs_resident.fused_reconstruct)
+    route = stats.VOLUME_SERVER_EC_READ_ROUTE
+
+    async def go():
+        vs = VolumeServer([], [str(tmp_path)], port=0, ec_backend="cuda",
+                          ec_device_cache_mb=2048,
+                          ec_serving=ServingConfig(layout=layout))
+        await vs.start()
+        try:
+            cache = vs.store.ec_device_cache
+            assert cache.device.type == "cuda" and cache.layout == layout
+            assert cache.pipeline.slots == vs.ec_serving.pipeline_slots == 2
+            c = Client("127.0.0.1", vs.port)
+            for _ in range(600):
+                st = json.loads((await c.request("GET", "/status"))[2])
+                if st["EcVolumes"][0]["serving"] and \
+                        len(st["EcVolumes"][0]["resident"]) == 12:
+                    break
+                await asyncio.sleep(0.05)
+            await c.close()
+            assert vs.store.ec_volume_is_resident(1)
+            l0, b0 = kern.launches, stats.VOLUME_SERVER_EC_BATCH_SIZE.count
+            k0 = rs_cuda.gf2_matmul.launches + rs_cuda.gf2_matmul_small.launches
+            r0 = {r: route.labels(route=r).value for r in ("batched", "native")}
+
+            async def client(i):
+                cl = Client("127.0.0.1", vs.port)
+                try:
+                    for k in range(i, i + 20):
+                        nid, cookie, data = items[k % len(items)]
+                        status, _, body = await cl.request(
+                            "GET", "/" + t.format_fid(1, nid, cookie))
+                        assert (status, body) == (200, data), nid
+                finally:
+                    await cl.close()
+
+            await asyncio.gather(*(client(i) for i in range(16)))
+            batches = stats.VOLUME_SERVER_EC_BATCH_SIZE.count - b0
+            launches = kern.launches - l0
+            routes = {r: route.labels(route=r).value - r0[r]
+                      for r in ("batched", "native")}
+            assert routes == {"batched": 16 * 20, "native": 0}
+            assert 0 < launches <= batches < 16 * 20
+            assert rs_cuda.gf2_matmul.launches + \
+                rs_cuda.gf2_matmul_small.launches == k0
+        finally:
+            await vs.stop()
+
+    asyncio.run(go())
+
+
+def test_volume_server_cache_follows_overlap(cuda_device, tmp_path):
+    from seaweedfs_tpu_torch.server.volume import VolumeServer
+    from seaweedfs_tpu_torch.serving import ServingConfig
+
+    vs = VolumeServer([], [str(tmp_path)], port=0, ec_backend="cuda",
+                      ec_device_cache_mb=64,
+                      ec_serving=ServingConfig(overlap=False))
+    try:
+        assert vs.store.ec_device_cache.pipeline.slots == 1
+        assert vs.store.ec_device_cache.layout == "flat"
+    finally:
+        vs.store.close()
+
+
+def test_two_lanes_keep_their_bodies_on_card(cuda_device, tmp_path):
+    """Two threads batch-read disjoint needle sets through the Store at
+    once, zero-copy, keeping every result until the end: no body is a view
+    of a pipeline slot's pinned buffer, which the slot's next batch
+    overwrites."""
+    import threading
+
+    from seaweedfs_tpu_torch.storage.disk_location import DiskLocation
+    from seaweedfs_tpu_torch.storage.store import Store
+
+    rng = np.random.default_rng(23)
+    items = [(i, int(rng.integers(0, 1 << 32)),
+              rng.bytes(int(rng.choice([100, 5000, 70000, 120000]))))
+             for i in range(1, 41)]
+    v = Volume(str(tmp_path), 1)
+    for nid, cookie, data in items:
+        v.write(nid, cookie, data)
+    v.close()
+    base = str(tmp_path / "1")
+    ec.write_ec_files(base)
+    ec.write_sorted_file_from_idx(base)
+    for ext in (".dat", ".idx", ec.to_ext(0), ec.to_ext(11)):
+        os.remove(base + ext)
+    cache = rs_resident.DeviceShardCache(shard_quantum=1 << 22)
+    store = Store([DiskLocation(str(tmp_path))], ec_device_cache=cache)
+    try:
+        for _ in range(600):
+            if cache.resident_count(1) == 12:
+                break
+            threading.Event().wait(0.05)
+        assert store.ec_volume_is_resident(1)
+        halves = (items[0::2], items[1::2])
+        kept: list = [[], []]
+        errors: list = []
+
+        def lane(i):
+            try:
+                for _ in range(8):
+                    kept[i].append(store.read_ec_needles_batch(
+                        1, [(n, c) for n, c, _ in halves[i]], zero_copy=True))
+            except Exception as e:  # noqa: BLE001 — asserted below
+                errors.append(e)
+
+        threads = [threading.Thread(target=lane, args=(i,)) for i in (0, 1)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(120)
+        assert not errors and not any(th.is_alive() for th in threads)
+        for i in (0, 1):
+            assert len(kept[i]) == 8
+            for got in kept[i]:
+                assert [bytes(n.data) for n in got] == [d for _, _, d in halves[i]]
+    finally:
+        store.close()

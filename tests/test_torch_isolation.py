@@ -1,6 +1,7 @@
 """The PyTorch port stands alone: it imports nothing of JAX or of the JAX
-package, and its entry points run on the card or raise — none of them
-drops to the CPU on its own."""
+package, nor the server packages the machine with the card lacks
+(aiohttp, grpc, google.protobuf, prometheus_client), and its entry points
+run on the card or raise — none of them drops to the CPU on its own."""
 import ast
 import os
 import pkgutil
@@ -20,9 +21,16 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG_DIR = os.path.dirname(seaweedfs_tpu_torch.__file__)
 
 
+# JAX and the JAX package; and what the card's machine does not have
+FORBIDDEN_ROOTS = ("jax", "jaxlib", "seaweedfs_tpu", "aiohttp", "grpc",
+                   "prometheus_client")
+FORBIDDEN_PACKAGES = ("google.protobuf",)
+
+
 def _forbidden(name: str) -> bool:
     root = name.split(".")[0]
-    return root in ("jax", "jaxlib", "seaweedfs_tpu")
+    return root in FORBIDDEN_ROOTS or any(
+        name == p or name.startswith(p + ".") for p in FORBIDDEN_PACKAGES)
 
 
 def _port_modules():
@@ -34,22 +42,31 @@ def _port_modules():
 
 def test_forbidden_names():
     assert _forbidden("jax.numpy") and _forbidden("seaweedfs_tpu.ops.rs")
+    for name in ("aiohttp", "aiohttp.web", "grpc", "grpc.aio",
+                 "google.protobuf", "google.protobuf.message",
+                 "prometheus_client"):
+        assert _forbidden(name), name
     assert not _forbidden("seaweedfs_tpu_torch.ops.rs")
+    assert not _forbidden("google") and not _forbidden("google.cloud")
 
 
 def test_importing_every_port_module_loads_no_jax():
-    """A fresh interpreter that refuses jax and seaweedfs_tpu[.*] imports
-    every port module and chip_smoke, and ends with neither loaded."""
+    """A fresh interpreter that refuses jax, seaweedfs_tpu[.*] and the
+    server packages the card's machine lacks imports every port module and
+    chip_smoke, and ends with none of them loaded."""
     code = f"""
 import importlib, importlib.abc, sys
+def bad_name(name):
+    return name.split(".")[0] in {FORBIDDEN_ROOTS!r} or any(
+        name == p or name.startswith(p + ".") for p in {FORBIDDEN_PACKAGES!r})
 class Refuse(importlib.abc.MetaPathFinder):
     def find_spec(self, name, path, target=None):
-        if name.split(".")[0] in ("jax", "jaxlib", "seaweedfs_tpu"):
+        if bad_name(name):
             raise ImportError("port imported " + name)
 sys.meta_path.insert(0, Refuse())
 for m in {_port_modules()!r} + ["chip_smoke"]:
     importlib.import_module(m)
-bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "seaweedfs_tpu")]
+bad = [m for m in sys.modules if bad_name(m)]
 assert not bad, bad
 print("clean", len([m for m in sys.modules if m.startswith("seaweedfs_tpu_torch")]))
 """
@@ -64,7 +81,8 @@ print("clean", len([m for m in sys.modules if m.startswith("seaweedfs_tpu_torch"
 
 
 def test_no_jax_import_statements():
-    """Static check of every port source and chip_smoke.py."""
+    """Static check of every port source and chip_smoke.py (also for the
+    server packages the card's machine lacks)."""
     paths = [os.path.join(REPO, "chip_smoke.py")]
     for root, _, files in os.walk(PKG_DIR):
         paths += [os.path.join(root, f) for f in files if f.endswith(".py")]

@@ -1,0 +1,432 @@
+"""The port's volume server over HTTP (server/http.py, server/volume.py,
+command/volume.py) on the CPU.
+
+The server runs on port 0 over a directory holding a normal volume and a
+degraded EC volume (shards 0 and 11 removed) resident in a CPU
+DeviceShardCache, and concurrent clients on standard-library asyncio
+streams (and http.client) read every needle: each body must equal the
+written bytes and the JAX package's Store's needle on the same files.
+Status codes, headers, conditional reads, ranges, uploads and deletes
+mirror tests/test_serving_e2e.py and tests/test_conditional_get.py.
+"""
+import asyncio
+import functools
+import http.client
+import json
+import os
+import shutil
+import subprocess
+import sys
+import time
+
+import pytest
+
+from seaweedfs_tpu.storage import disk_location as jax_dl
+from seaweedfs_tpu.storage import store as jax_store
+from seaweedfs_tpu_torch import command, stats
+from seaweedfs_tpu_torch.ops import rs_resident
+from seaweedfs_tpu_torch.server import volume as server_volume
+from seaweedfs_tpu_torch.server.conditional import format_http_date
+from seaweedfs_tpu_torch.server.http import Client
+from seaweedfs_tpu_torch.serving import ServingConfig
+from seaweedfs_tpu_torch.storage import types as t
+
+from test_torch_store import EC_VID, VID, build_dir
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+MIB = 1 << 20
+
+
+@pytest.fixture(scope="module")
+def source(tmp_path_factory):
+    d = tmp_path_factory.mktemp("vs_src")
+    plain, coded = build_dir(str(d))
+    ref = jax_store.Store([jax_dl.DiskLocation(str(d))], ec_backend="numpy")
+    want = {nid: bytes(ref.read_ec_needle(EC_VID, nid, cookie).data)
+            for nid, cookie, _ in coded}
+    ref.close()
+    return str(d), plain, coded, want
+
+
+@pytest.fixture
+def data_dir(source, tmp_path):
+    src, plain, coded, want = source
+    shutil.copytree(src, tmp_path / "d")
+    return str(tmp_path / "d"), plain, coded, want
+
+
+@pytest.fixture(autouse=True)
+def small_cache(monkeypatch):
+    """The server's cache with 1 MiB padding quanta (the default 64 MiB
+    pads 12 survivors to 800 MB of CPU memory)."""
+    monkeypatch.setattr(
+        server_volume.rs_resident, "DeviceShardCache",
+        functools.partial(rs_resident.DeviceShardCache, shard_quantum=MIB),
+    )
+
+
+def fid(vid, nid, cookie):
+    return "/" + t.format_fid(vid, nid, cookie)
+
+
+async def started(d, **kw):
+    vs = server_volume.VolumeServer(
+        [], [d], port=0, ec_backend="torch", ec_device_cache_mb=256, **kw)
+    await vs.start()
+    c = Client("127.0.0.1", vs.port)
+    t_end = time.monotonic() + 30
+    while time.monotonic() < t_end:
+        _, _, body = await c.request("GET", "/status")
+        ecv = json.loads(body)["EcVolumes"]
+        if ecv and ecv[0]["serving"] and len(ecv[0]["resident"]) == 12:
+            break
+        await asyncio.sleep(0.02)
+    else:
+        raise AssertionError("EC volume never became resident")
+    await c.close()
+    return vs
+
+
+def _routes():
+    return {r: stats.VOLUME_SERVER_EC_READ_ROUTE.labels(route=r).value
+            for r in ("batched", "native")}
+
+
+def test_concurrent_reads_byte_equal(data_dir):
+    d, plain, coded, want = data_dir
+
+    async def go():
+        vs = await started(d)
+        try:
+            r0 = _routes()
+            b0 = stats.VOLUME_SERVER_EC_BATCH_SIZE.count
+
+            async def client(i):
+                c = Client("127.0.0.1", vs.port)
+                try:
+                    for k in range(i, i + 24):
+                        nid, cookie, data = coded[k % len(coded)]
+                        status, h, body = await c.request(
+                            "GET", fid(EC_VID, nid, cookie))
+                        assert status == 200, (nid, status)
+                        assert body == data == want[nid]
+                        assert h["Content-Type"] == "application/x-test"
+                    for nid, cookie, data in plain:
+                        status, _, body = await c.request(
+                            "GET", fid(VID, nid, cookie))
+                        assert (status, body) == (200, data)
+                finally:
+                    await c.close()
+
+            await asyncio.gather(*(client(i) for i in range(16)))
+            routes = {k: v - r0[k] for k, v in _routes().items()}
+            batches = stats.VOLUME_SERVER_EC_BATCH_SIZE.count - b0
+            assert routes == {"batched": 16 * 24, "native": 0}
+            assert 1 <= batches < 16 * 24
+            c = Client("127.0.0.1", vs.port)
+            _, _, body = await c.request("GET", "/metrics")
+            text = body.decode()
+            assert 'SeaweedFS_volumeServer_ec_read_route_total{route="batched"}' in text
+            assert "SeaweedFS_volumeServer_ec_resident_shards 12.0" in text
+            assert 'SeaweedFS_volumeServer_volumes{collection="",type="ec_shards"} 12.0' in text
+            _, _, body = await c.request("GET", "/status")
+            st = json.loads(body)
+            assert [v["id"] for v in st["Volumes"]] == [VID]
+            assert st["EcVolumes"][0]["shard_ids"] == [
+                s for s in range(14) if s not in (0, 11)]
+            await c.close()
+        finally:
+            await vs.stop()
+
+    asyncio.run(go())
+
+
+def test_status_codes_and_headers(data_dir):
+    d, plain, coded, _ = data_dir
+    nid, cookie, data = coded[0]
+
+    async def go():
+        vs = await started(d)
+        c = Client("127.0.0.1", vs.port)
+        try:
+            url = fid(EC_VID, nid, cookie)
+            status, h, body = await c.request("GET", url)
+            assert status == 200 and body == data
+            etag, lm = h["Etag"], h["Last-Modified"]
+            assert lm == format_http_date(1_700_000_000)
+            assert h["Accept-Ranges"] == "bytes"
+            assert h["Content-Disposition"] == f'inline; filename="f{nid}"'
+            for hdrs, code in (
+                ({"If-None-Match": etag}, 304),
+                ({"If-None-Match": f"W/{etag}"}, 304),
+                ({"If-None-Match": '"deadbeef"'}, 200),
+                ({"If-Modified-Since": lm}, 304),
+                ({"If-Modified-Since": format_http_date(1_600_000_000)}, 200),
+            ):
+                status, h2, body = await c.request("GET", url, hdrs)
+                assert status == code, hdrs
+                if code == 304:
+                    assert body == b"" and h2["Etag"] == etag
+            status, h, body = await c.request("GET", url, {"Range": "bytes=10-99"})
+            assert (status, body) == (206, data[10:100])
+            assert h["Content-Range"] == f"bytes 10-99/{len(data)}"
+            status, _, body = await c.request("GET", url, {"Range": "bytes=-7"})
+            assert (status, body) == (206, data[-7:])
+            status, h, _ = await c.request(
+                "GET", url, {"Range": f"bytes={len(data)}-"})
+            assert status == 416 and h["Content-Range"] == f"bytes */{len(data)}"
+            status, h, body = await c.request("HEAD", url)
+            assert status == 200 and body == b""
+            assert int(h["Content-Length"]) == len(data)
+            for path, code in (
+                (fid(EC_VID, nid, cookie ^ 1), 403),
+                (fid(EC_VID, 0xDEAD, 1), 404),
+                (fid(77, 1, 1), 404),
+                (fid(VID, plain[0][0], plain[0][1] ^ 1), 403),
+                (fid(VID, 0xDEAD, 1), 404),
+                ("/not-a-fid", 400),
+            ):
+                assert (await c.request("GET", path))[0] == code, path
+            # a spent deadline budget answers 504 at admission
+            status, _, _ = await c.request(
+                "GET", url, {"X-Seaweed-Deadline-Ms": "0.000001"})
+            assert status == 504
+            assert (await c.request("PATCH", url))[0] == 405
+        finally:
+            await c.close()
+            await vs.stop()
+
+    asyncio.run(go())
+
+
+def test_crc_mismatch_is_500(data_dir):
+    d, plain, _, _ = data_dir
+    nid, cookie, data = plain[2]
+    dat = os.path.join(d, f"{VID}.dat")
+    with open(dat, "rb") as f:
+        raw = f.read()
+    pos = raw.index(data[:64])
+    with open(dat, "r+b") as f:  # flip one body byte
+        f.seek(pos + 5)
+        f.write(bytes([raw[pos + 5] ^ 0xFF]))
+
+    async def go():
+        vs = await started(d)
+        c = Client("127.0.0.1", vs.port)
+        try:
+            status, _, body = await c.request("GET", fid(VID, nid, cookie))
+            assert status == 500 and b"CRC" in body
+        finally:
+            await c.close()
+            await vs.stop()
+
+    asyncio.run(go())
+
+
+def test_upload_read_delete_round_trip(data_dir):
+    d, plain, coded, _ = data_dir
+
+    async def go():
+        vs = await started(d)
+        c = Client("127.0.0.1", vs.port)
+        try:
+            url = fid(VID, 0x4242, 0x1234)
+            status, _, body = await c.request(
+                "POST", url, {"Content-Type": "text/plain"}, b"hello volume")
+            size = json.loads(body)["size"]
+            assert status == 200 and size > 12  # the needle's stored size
+            status, h, body = await c.request("GET", url)
+            assert (status, body) == (200, b"hello volume")
+            assert h["Content-Type"] == "text/plain"
+            boundary = "XyZ"
+            form = (f"--{boundary}\r\nContent-Disposition: form-data; "
+                    f'name="file"; filename="a.bin"\r\nContent-Type: '
+                    f"image/png\r\n\r\n").encode() + b"\x89PNG..." + \
+                f"\r\n--{boundary}--\r\n".encode()
+            url2 = fid(VID, 0x4343, 0x99)
+            status, _, body = await c.request(
+                "POST", url2,
+                {"Content-Type": f"multipart/form-data; boundary={boundary}"},
+                form)
+            assert status == 200 and json.loads(body)["name"] == "a.bin"
+            status, h, body = await c.request("GET", url2)
+            assert (status, body) == (200, b"\x89PNG...")
+            assert h["Content-Type"] == "image/png"
+            assert h["Content-Disposition"] == 'inline; filename="a.bin"'
+            assert (await c.request("DELETE", fid(VID, 0x4242, 0x1)))[0] == 403
+            status, _, body = await c.request("DELETE", url)
+            assert status == 200 and json.loads(body)["size"] == size
+            assert (await c.request("GET", url))[0] == 404
+            assert (await c.request("POST", fid(77, 1, 1), body=b"x"))[0] == 404
+            # an EC delete tombstones locally; the needle then reads 404
+            nid, cookie, _ = coded[1]
+            status, _, _ = await c.request("DELETE", fid(EC_VID, nid, cookie))
+            assert status == 200
+            assert (await c.request("GET", fid(EC_VID, nid, cookie)))[0] == 404
+        finally:
+            await c.close()
+            await vs.stop()
+
+    asyncio.run(go())
+
+
+def test_standard_library_client_and_body_cap(data_dir):
+    """http.client (in a thread) reads, and an upload past
+    -fileSizeLimitMB is refused with 413 before its body is read."""
+    d, plain, coded, _ = data_dir
+
+    async def go():
+        vs = await started(d, client_max_size_mb=1)
+
+        def std_reads():
+            conn = http.client.HTTPConnection("127.0.0.1", vs.port, timeout=30)
+            try:
+                for nid, cookie, data in coded[:6]:
+                    conn.request("GET", fid(EC_VID, nid, cookie))
+                    r = conn.getresponse()
+                    assert (r.status, r.read()) == (200, data)
+                conn.request("POST", fid(VID, 9, 9), body=b"x" * (2 * MIB),
+                             headers={"Content-Type": "application/octet-stream"})
+                return conn.getresponse().status
+            finally:
+                conn.close()
+
+        try:
+            assert await asyncio.to_thread(std_reads) == 413
+        finally:
+            await vs.stop()
+
+    asyncio.run(go())
+
+
+def test_http_server_edge_cases():
+    """server/http.py alone: chunked bodies, malformed requests, the body
+    cap before an `Expect: 100-continue` body is sent, and a stop with a
+    keep-alive client still connected."""
+    from seaweedfs_tpu_torch.server.http import HTTPServer, Response
+
+    async def handler(req):
+        return Response(200, b"got %d" % len(await req.read()))
+
+    async def raw(port, data):
+        r, w = await asyncio.open_connection("127.0.0.1", port)
+        w.write(data)
+        await w.drain()
+        out = await asyncio.wait_for(r.read(), 10)
+        w.close()
+        return out.split(b"\r\n")[0], out.rsplit(b"\r\n\r\n", 1)[-1]
+
+    async def go():
+        s = HTTPServer(handler, port=0, client_max_size=100)
+        await s.start()
+        try:
+            assert await raw(s.port, (
+                b"POST / HTTP/1.1\r\nTransfer-Encoding: chunked\r\n"
+                b"Connection: close\r\n\r\n5\r\nhello\r\n3\r\nabc\r\n0\r\n\r\n"
+            )) == (b"HTTP/1.1 200 OK", b"got 8")
+            for data, status in (
+                (b"POST / HTTP/1.1\r\nTransfer-Encoding: chunked\r\n\r\n"
+                 b"zz\r\n", b"400"),
+                (b"POST / HTTP/1.1\r\nContent-Length: abc\r\n\r\n", b"400"),
+                (b"GARBAGE\r\n\r\n", b"400"),
+                (b"GET / HTTP/2.0\r\n\r\n", b"505"),
+                (b"POST / HTTP/1.1\r\nContent-Length: 1000\r\n"
+                 b"Expect: 100-continue\r\n\r\n", b"413"),
+            ):
+                assert (await raw(s.port, data))[0].split()[1] == status, data
+            c = Client("127.0.0.1", s.port)
+            assert (await c.request("GET", "/"))[2] == b"got 0"
+        finally:
+            await asyncio.wait_for(s.stop(), 10)  # the client is connected
+
+    asyncio.run(go())
+
+
+def test_pipeline_slots_follow_the_config(data_dir):
+    d = data_dir[0]
+    for overlap, slots in ((True, 2), (False, 1)):
+        vs = server_volume.VolumeServer(
+            [], [d], port=0, ec_backend="torch", ec_device_cache_mb=64,
+            ec_serving=ServingConfig(overlap=overlap, layout="blockdiag"))
+        try:
+            cache = vs.store.ec_device_cache
+            assert cache.pipeline.slots == slots == vs.ec_serving.pipeline_slots
+            assert cache.layout == "blockdiag" and cache.device.type == "cpu"
+        finally:
+            vs.store.close()
+
+
+def test_server_refuses_a_master_and_a_cache_on_numpy(tmp_path):
+    with pytest.raises(ValueError, match="A4b"):
+        server_volume.VolumeServer(["127.0.0.1:9333"], [str(tmp_path)],
+                                   ec_backend="torch")
+    with pytest.raises(ValueError, match="deviceCacheMB"):
+        server_volume.VolumeServer([], [str(tmp_path)], ec_backend="numpy",
+                                   ec_device_cache_mb=16)
+
+
+# --------------------------------------------------------------------- CLI
+
+
+def test_cli_flags_parse_with_the_reference_spellings(tmp_path):
+    p = command.parser()
+    args = p.parse_args(["volume", "-dir", str(tmp_path), "-port", "0"])
+    assert args.ec_backend == "cuda" and args.masters == ""
+    cfg = command.volume.serving_config(args)
+    assert cfg == ServingConfig()
+    args = p.parse_args([
+        "volume", "-dir", str(tmp_path), "-ip", "0.0.0.0", "-port", "9",
+        "-max", "3", "-mserver", "", "-ec.backend", "torch",
+        "-ec.deviceCacheMB", "64", "-ec.serving.disable",
+        "-ec.serving.maxBatch", "32", "-ec.serving.maxWaitUs", "50",
+        "-ec.serving.maxInflight", "2", "-ec.serving.maxQueue", "64",
+        "-ec.serving.layout", "blockdiag", "-ec.serving.overlap.disable",
+        "-ec.serving.zerocopy.disable", "-ec.qos.disable",
+        "-ec.qos.interactiveQueue", "40", "-ec.qos.bulkQueue", "8",
+        "-ec.qos.interactiveDeadlineMs", "100", "-ec.qos.bulkDeadlineMs", "0",
+        "-ec.qos.tripAfter", "5", "-ec.qos.recoverSeconds", "0.5",
+        "-ec.qos.stallBudgetSeconds", "3", "-ec.qos.stallMinRateKBps", "7",
+        "-ec.rpc.deadlineMs", "1500",
+    ])
+    cfg = command.volume.serving_config(args)
+    assert cfg == ServingConfig(
+        enabled=False, max_batch=32, max_wait_us=50, max_inflight=2,
+        max_queue=64, layout="blockdiag", overlap=False, zero_copy=False,
+        qos=False, qos_interactive_queue=40, qos_bulk_queue=8,
+        qos_interactive_deadline_ms=100, qos_bulk_deadline_ms=0,
+        qos_trip_after=5, qos_recover_seconds=0.5, stall_budget_seconds=3.0,
+        stall_min_rate_kbps=7)
+    vs = command.volume.build_server(args)
+    try:
+        assert vs.store.ec_backend == "torch"
+        assert vs.store.ec_device_cache.pipeline.slots == 1
+        assert vs.store.locations[0].max_volume_count == 3
+    finally:
+        vs.store.close()
+        from seaweedfs_tpu_torch.utils import faultpolicy
+
+        faultpolicy.configure(faultpolicy.FaultPolicyConfig())
+    with pytest.raises(SystemExit):
+        p.parse_args(["volume", "-ec.backend", "auto"])
+    with pytest.raises(ValueError, match="A4b"):
+        command.volume.build_server(
+            p.parse_args(["volume", "-dir", str(tmp_path), "-mserver", "m:1",
+                          "-ec.backend", "torch"]))
+
+
+def test_cli_cuda_without_a_card_fails_at_start(tmp_path):
+    """`python -m seaweedfs_tpu_torch volume` with the default
+    -ec.backend cuda exits non-zero at start where there is no card,
+    before it serves anything."""
+    import torch
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    proc = subprocess.run(
+        [sys.executable, "-m", "seaweedfs_tpu_torch", "volume",
+         "-dir", str(tmp_path), "-port", "0"],
+        cwd=REPO, capture_output=True, text=True, timeout=120,
+    )
+    assert proc.returncode != 0
+    assert "CUDA device" in proc.stderr
+    assert "volume server up" not in proc.stderr
