@@ -3,8 +3,9 @@
 
     python3 chip_smoke.py [--seed N] [--volume-gib G]
 
-Builds the port's kernels (csrc/gf2_matmul.cu, gf2_matmul_small.cu and
-fused_reconstruct.cu, nvcc for sm_90a, one library) and host library
+Builds the port's kernels (csrc/gf2_matmul.cu, gf2_matmul_small.cu,
+fused_reconstruct.cu and scrub.cu, one nvcc for each source, all started
+together, linked into one library for sm_90a) and host library
 (csrc/host/*.cpp, g++) from this checkout, holds each kernel byte-equal to
 its plain PyTorch version on the card at the shapes the main path gives it,
 then runs the EC main path through the port's entry points on a real
@@ -48,6 +49,21 @@ volume:
                  widths, launches and D2H bytes per batch from /metrics
   6. rebuild     shards 0, 5, 10, 13 removed: rebuild_ec_files +
                  rebuild_ecx_file, sha256 of every rebuilt shard
+  6a. scrub      all 14 shards pinned through a port Store (15.75 GiB
+                 padded): Store.scrub_ec in both layouts, clean ([0, 0, 0,
+                 0], as verify_ec_files on the same files), corrupted on the
+                 card ([1, 1, 5, 1], partials equal to the plain version's)
+                 and restored; the scrub kernel's time against its bound,
+                 80 D2H bytes a call, the file scrub and the CPU codec on
+                 the same host; a pass over the cache with in-memory
+                 volumes of two spans beside it
+  6b. scrub_serve
+                 the volume server with -ec.scrub.intervalSeconds 2 over
+                 vid 1 (14 shards), vid 2 (hard links minus shards 0 and
+                 11, served) and a small corrupt vid 3 (29.5 GiB of HBM):
+                 the corrupt gauge, one pass launch per span class a cycle,
+                 64 clients reading vid 2 meanwhile, and the device ledger's
+                 split from /debug/device/attribution
   7. decode      original .dat deleted: write_dat_file, sha256 of the .dat
 
 Every phase is fatal.  Prints one line per phase, a {"kernels": [...]}
@@ -61,6 +77,7 @@ from __future__ import annotations
 
 import argparse
 import asyncio
+import contextlib
 import hashlib
 import itertools
 import json
@@ -174,8 +191,31 @@ def phase_device(torch) -> dict:
         "build_wall_s": round(time.perf_counter() - t0, 3),
     }
     log("device", **info, gf2_matmul_kernels=k1,
-        fused_reconstruct_kernels=_fused_build_facts(_build))
+        fused_reconstruct_kernels=_fused_build_facts(_build),
+        scrub_kernels=_scrub_build_facts(_build))
     return info
+
+
+def _scrub_build_facts(_build) -> list:
+    """Each scrub_kernel instantiation (data and parity shards unrolled:
+    10 x 4, or 16 x 8 predicated) from the build's -Xptxas -v log:
+    registers and spills."""
+    import re
+
+    facts, cur = [], None
+    for line in _build.build_logs.get("swfs_kernels", "").splitlines():
+        if "Compiling entry function" in line:
+            m = re.search(r"scrub_kernelILi(\d+)ELi(\d+)E", line)
+            cur = {"k": int(m.group(1)), "p": int(m.group(2))} if m else None
+        elif cur is not None and "spill stores" in line:
+            cur["spill_stores"] = int(line.split("bytes spill stores")[0].split(",")[-1])
+        elif cur is not None and "Used" in line and "registers" in line:
+            cur["registers"] = int(line.split("Used")[1].split()[0])
+            facts.append(cur)
+            cur = None
+    if not facts:
+        raise AssertionError("the build log names no scrub_kernel")
+    return facts
 
 
 def _fused_build_facts(_build) -> list:
@@ -1361,11 +1401,11 @@ async def _serve_sequential(port: int, seq: list, vol: dict) -> list:
 
 
 async def _serve_clients(port: int, seq: list, n_clients: int, reads: int,
-                         seconds: float, seed: int):
+                         seconds: float, seed: int, vid: int = 1):
     """`n_clients` closed-loop keep-alive clients GET needles of `seq`
-    ((nid, cookie, sha256) triples, seeded picks) until `reads` reads or
-    `seconds`: -> (seconds per read, body bytes).  Every body is
-    byte-verified."""
+    ((nid, cookie, sha256) triples, seeded picks) of volume `vid` until
+    `reads` reads or `seconds`: -> (seconds per read, body bytes).  Every
+    body is byte-verified."""
     import numpy as np
 
     from seaweedfs_tpu_torch.server.http import Client
@@ -1383,7 +1423,7 @@ async def _serve_clients(port: int, seq: list, n_clients: int, reads: int,
                 nid, cookie, digest = seq[int(rng.integers(0, len(seq)))]
                 t0 = time.perf_counter()
                 status, _, body = await c.request(
-                    "GET", "/" + t.format_fid(1, nid, cookie))
+                    "GET", "/" + t.format_fid(vid, nid, cookie))
                 lat.append(time.perf_counter() - t0)
                 if status != 200 or hashlib.sha256(body).digest() != digest:
                     raise AssertionError(f"needle {nid}: HTTP {status}, "
@@ -1398,19 +1438,21 @@ async def _serve_clients(port: int, seq: list, n_clients: int, reads: int,
 
 
 def _client_proc(port: int, seq: list, n_clients: int, reads: int,
-                 seconds: float, seed: int) -> dict:
+                 seconds: float, seed: int, vid: int = 1) -> dict:
     """One client process of the concurrent pass (run under spawn)."""
     sys.path.insert(0, HERE)
     cpu0, t0 = time.process_time(), time.monotonic()
     lat, nbytes = asyncio.run(
-        _serve_clients(port, seq, n_clients, reads, seconds, seed))
+        _serve_clients(port, seq, n_clients, reads, seconds, seed, vid))
     return {"lat": lat, "bytes": nbytes, "start": t0, "end": time.monotonic(),
             "cpu_s": time.process_time() - cpu0}
 
 
-def _serve_concurrent(port: int, seq: list, seed: int) -> dict:
-    """SERVE_CLIENTS clients in SERVE_CLIENT_PROCS processes: -> latencies,
-    body bytes, wall (first start to last end) and the clients' CPU s."""
+def _serve_concurrent(port: int, seq: list, seed: int, vid: int = 1,
+                      reads: int = SERVE_READS) -> dict:
+    """SERVE_CLIENTS clients in SERVE_CLIENT_PROCS processes reading volume
+    `vid`, `reads` reads in all: -> latencies, body bytes, wall (first start
+    to last end) and the clients' CPU s."""
     import concurrent.futures
     import multiprocessing
 
@@ -1419,8 +1461,8 @@ def _serve_concurrent(port: int, seq: list, seed: int) -> dict:
             SERVE_CLIENT_PROCS,
             mp_context=multiprocessing.get_context("spawn")) as pool:
         futs = [pool.submit(_client_proc, port, seq, per,
-                            SERVE_READS // SERVE_CLIENT_PROCS, SERVE_SECONDS,
-                            seed * 10 + i)
+                            reads // SERVE_CLIENT_PROCS, SERVE_SECONDS,
+                            seed * 10 + i, vid)
                 for i in range(SERVE_CLIENT_PROCS)]
         parts = [f.result() for f in futs]
     return {"lat": [x for p in parts for x in p["lat"]],
@@ -1436,6 +1478,34 @@ def _proc_cpu_s(pid: int) -> float:
     return (int(fields[11]) + int(fields[12])) / os.sysconf("SC_CLK_TCK")
 
 
+@contextlib.contextmanager
+def _volume_server(args: list, log_path: str):
+    """`python3 -m seaweedfs_tpu_torch volume ARGS` as an operator starts
+    it, its output in `log_path`: yields the process; on an error in the
+    block the server is killed and its log's tail printed; it is stopped
+    on the way out either way."""
+    cmd = [sys.executable, "-m", "seaweedfs_tpu_torch", "volume", *args]
+    with open(log_path, "wb") as logf:
+        proc = subprocess.Popen(cmd, cwd=HERE, stdout=logf,
+                                stderr=subprocess.STDOUT)
+    try:
+        yield proc
+    except BaseException:
+        proc.kill()
+        proc.wait(30)
+        with open(log_path, "rb") as f:
+            sys.stderr.write(f.read()[-20000:].decode(errors="replace"))
+        raise
+    finally:
+        if proc.poll() is None:
+            proc.terminate()
+            try:
+                proc.wait(30)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.wait(30)
+
+
 def _serve_layout(workdir: str, serve_dir: str, layout: str, seq: list,
                   vol: dict, deleted: list, seed: int, turn: int,
                   sequential: bool) -> dict:
@@ -1445,14 +1515,10 @@ def _serve_layout(workdir: str, serve_dir: str, layout: str, seq: list,
 
     port = _free_port()
     log_path = os.path.join(workdir, f"serve_{turn}_{layout}.log")
-    cmd = [sys.executable, "-m", "seaweedfs_tpu_torch", "volume",
-           "-dir", serve_dir, "-port", str(port), "-mserver", "",
-           "-ec.backend", "cuda", "-ec.deviceCacheMB", str(SERVE_CACHE_MB),
-           "-ec.serving.layout", layout]
-    with open(log_path, "wb") as logf:
-        proc = subprocess.Popen(cmd, cwd=HERE, stdout=logf,
-                                stderr=subprocess.STDOUT)
-    try:
+    args = ["-dir", serve_dir, "-port", str(port), "-mserver", "",
+            "-ec.backend", "cuda", "-ec.deviceCacheMB", str(SERVE_CACHE_MB),
+            "-ec.serving.layout", layout]
+    with _volume_server(args, log_path) as proc:
         t0 = time.perf_counter()
         while True:
             if proc.poll() is not None:
@@ -1501,18 +1567,6 @@ def _serve_layout(workdir: str, serve_dir: str, layout: str, seq: list,
         server_cpu_s = _proc_cpu_s(proc.pid) - cpu0
         passes.append(("concurrent", con["lat"], _serve_delta(
             mid, _serve_counts(_scrape(port)))))
-    except Exception:
-        proc.kill()
-        proc.wait(30)
-        with open(log_path, "rb") as f:
-            sys.stderr.write(f.read()[-20000:].decode(errors="replace"))
-        raise
-    proc.terminate()
-    try:
-        proc.wait(30)
-    except subprocess.TimeoutExpired:
-        proc.kill()
-        proc.wait(30)
     kern = ("fused_reconstruct_blockdiag" if layout == "blockdiag"
             else "fused_reconstruct")
     out = {"pin_s": pin_s}
@@ -1633,6 +1687,409 @@ def phase_rebuild(workdir: str, shard_size: int, k1: tuple) -> dict:
     return {"wall_s": wall, "launches": launches, "load_paths": paths}
 
 
+# -------------------------------------------------------------- phase 6a
+
+# the scrub's cache: volume 1's 14 shards (15.75 GiB padded) and the
+# in-memory volumes beside them
+SCRUB_BUDGET = 24 << 30
+SCRUB_TIMED = 10
+# the CPU native codec's span in the comparison: this much of each data
+# shard file, read into memory first
+NATIVE_SPAN = 64 << 20
+# in-memory volumes of phase 6a: (vid, shard bytes), two span classes
+MEM_VOLUMES = [(101, 32 << 20), (102, 32 << 20), (103, 32 << 20),
+               (104, 32 << 20), (105, (8 << 20) + 17), (106, (8 << 20) + 17)]
+NO_SCRUB_LIBRARY_CALL = ("no single PyTorch call recomputes the parity, "
+                         "compares it and counts per segment")
+
+
+def _scrub_bound(rr, n_lanes: int, vols: int = 1) -> tuple[float, str]:
+    """Least time for one scrub call: the 14 shards' first n_lanes bytes
+    read once and the int32 [V, 4, n_seg] partials written once, against
+    the int8 ops of the parity product the function needs (4 rows by 10
+    shards in bits, 2*32*80 a column)."""
+    n_seg = rr._scrub_segments(n_lanes, rr._SCRUB_SEG.bit_length() - 1)
+    nbytes = vols * (14 * n_lanes + 4 * 4 * n_seg)
+    return _roofline(nbytes, vols * 2 * (8 * 4) * (8 * 10) * n_lanes)
+
+
+def _flip(torch, buf, positions) -> None:
+    """XOR 0x5A into the resident buffer at `positions`, in place."""
+    idx = torch.tensor(positions, dtype=torch.long, device=buf.device)
+    buf[idx] ^= 0x5A
+    torch.cuda.synchronize()
+
+
+def phase_scrub(torch, workdir: str, seed: int) -> dict:
+    """All 14 shards of volume 1 pinned through a port Store: the resident
+    scrub in both layouts, clean, corrupted on the card ([1, 1, 5, 1]) and
+    restored, held to verify_ec_files on the same files and to the plain
+    version's partials; then a pass over the cache with in-memory volumes
+    of two spans beside it.  -> the scrub kernel's numbers."""
+    import numpy as np
+
+    from seaweedfs_tpu_torch.ops import gf256, rs_cpu
+    from seaweedfs_tpu_torch.ops import rs_resident as rr
+    from seaweedfs_tpu_torch.storage import ec
+    from seaweedfs_tpu_torch.storage.disk_location import DiskLocation
+    from seaweedfs_tpu_torch.storage.store import Store
+
+    torch.cuda.empty_cache()
+    scrub_dir = os.path.join(workdir, "scrub")
+    os.makedirs(scrub_dir)
+    base = os.path.join(workdir, "1")
+    for ext in [ec.to_ext(s) for s in range(14)] + [".ecx", ".ecj", ".vif"]:
+        if os.path.exists(base + ext):  # links: no byte is written
+            os.link(base + ext, os.path.join(scrub_dir, "1" + ext))
+    cache = rr.DeviceShardCache(device="cuda", budget_bytes=SCRUB_BUDGET)
+    t0 = time.perf_counter()
+    store = Store([DiskLocation(scrub_dir)], ec_backend="cuda",
+                  ec_device_cache=cache)
+    launches = 0
+
+    def window(fn):
+        """Run `fn` on the main path with the scrub count set to 0 just
+        before it and read just after: -> (its result, launches)."""
+        rr.scrub.launches = 0
+        out = fn()
+        torch.cuda.synchronize()
+        return out, rr.scrub.launches
+
+    try:
+        ev = store.find_ec_volume(1)
+        while cache.resident_count(1) < 14:
+            if time.perf_counter() - t0 > SERVE_PIN_TIMEOUT:
+                raise AssertionError(f"pinned {cache.shard_ids(1)}")
+            time.sleep(0.1)
+        torch.cuda.synchronize()
+        pin_s = time.perf_counter() - t0
+        true_size = cache.shard_size(1, 0)
+        if not ev.is_device_resident():
+            raise AssertionError("volume 1 is not resident")
+
+        def scrub_both():
+            got = {}
+            for layout in ("flat", "blockdiag"):
+                cache.layout = layout
+                t1 = time.perf_counter()
+                got[layout] = store.scrub_ec(ev)
+                got[layout]["wall_s"] = time.perf_counter() - t1
+            return got
+
+        d2h0 = rr.scrub.d2h_bytes
+        clean, n = window(scrub_both)
+        launches += n
+        d2h_per_call = (rr.scrub.d2h_bytes - d2h0) / n
+        for layout, r in clean.items():
+            if (r["backend"], r["parity_mismatch_bytes"]) != (
+                    "device_resident", [0, 0, 0, 0]):
+                raise AssertionError(f"clean {layout} scrub: {r}")
+        if n != 2 or d2h_per_call != 80:
+            raise AssertionError(f"{n} launches, {d2h_per_call} D2H bytes a call")
+        # the same files through the file-backed scrub, and the CPU codec
+        t1 = time.perf_counter()
+        file_mism, file_span = ec.verify_ec_files(base, backend="cuda")
+        file_wall = time.perf_counter() - t1
+        if file_mism != clean["flat"]["parity_mismatch_bytes"]:
+            raise AssertionError(f"verify_ec_files found {file_mism}")
+        data = np.stack([np.fromfile(base + ec.to_ext(s), dtype=np.uint8,
+                                     count=NATIVE_SPAN) for s in range(10)])
+        parity = gf256.build_matrix(10, 14)[10:]
+        t1 = time.perf_counter()
+        rs_cpu.apply_matrix_native(parity, data)
+        native_s = time.perf_counter() - t1
+        log("scrub", state="clean", shard_bytes=true_size, pin_s=pin_s,
+            padded_bytes=cache.bytes_used,
+            resident={k: {"mismatch": r["parity_mismatch_bytes"],
+                          "bytes_verified": r["bytes_verified"],
+                          "wall_s": r["wall_s"],
+                          "GBps": 14 * r["bytes_verified"] / r["wall_s"] / 1e9}
+                      for k, r in clean.items()},
+            launches=n, d2h_bytes_per_call=d2h_per_call,
+            verify_ec_files={"mismatch": file_mism, "bytes_verified": file_span,
+                             "wall_s": file_wall,
+                             "GBps": 14 * file_span / file_wall / 1e9},
+            rs_cpu_native={"span_bytes_per_shard": NATIVE_SPAN,
+                           "seconds": native_s,
+                           "GBps": 14 * NATIVE_SPAN / native_s / 1e9,
+                           "volume_s_at_that_rate": native_s * true_size
+                           / NATIVE_SPAN})
+
+        # corrupt on the card: parity shard 12 at both ends of the first
+        # counting segment and at the true end, data shard 3 once
+        seg = rr._SCRUB_SEG
+        par_at = [0, seg - 1, seg, true_size - 1]
+        data_at = [2 * seg + 12345]
+        _flip(torch, cache.get(1, 12), par_at)
+        _flip(torch, cache.get(1, 3), data_at)
+        bad, n = window(scrub_both)
+        launches += n
+        for layout, r in bad.items():
+            if r["parity_mismatch_bytes"] != [1, 1, 5, 1]:
+                raise AssertionError(f"corrupt {layout} scrub: {r}")
+        # the partials against the plain version, and the kernel's time
+        vol = tuple(cache.get(1, s) for s in range(14))
+        rows = {}
+        for layout, groups in (("flat", 1), ("blockdiag", cache.groups)):
+            n_lanes = bad[layout]["bytes_verified"]
+            a = rr._scrub_matrix(10, 14, groups, "cuda")
+            got = rr.scrub(a, [vol], n_lanes=n_lanes, groups=groups)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            want = rr._scrub_torch(a, [vol], k=10, n_lanes=n_lanes,
+                                   groups=groups,
+                                   seg_log2=seg.bit_length() - 1)
+            torch.cuda.synchronize()
+            plain_ms = (time.perf_counter() - t1) * 1e3
+            diff = (got.long() - want.long()).abs()
+            ms = _median_ms(torch, lambda: rr.scrub(
+                a, [vol], n_lanes=n_lanes, groups=groups), SCRUB_TIMED)
+            bound_ms, bound_by = _scrub_bound(rr, n_lanes)
+            rows[layout] = {
+                "n_lanes": n_lanes, "partials": got[0].tolist(),
+                "max_abs_err": int(diff.max()),
+                "mismatched_bytes": int((diff != 0).sum()),
+                "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                "bound_by": bound_by, "share_of_bound": bound_ms / ms,
+                "GBps": 14 * n_lanes / ms / 1e6}
+            if diff.any():
+                raise AssertionError(f"{layout} partials {got[0].tolist()} "
+                                     f"differ from the plain {want[0].tolist()}")
+        _flip(torch, cache.get(1, 12), par_at)  # XOR again: restored
+        _flip(torch, cache.get(1, 3), data_at)
+        restored, n = window(scrub_both)
+        launches += n
+        if any(r["parity_mismatch_bytes"] != [0] * 4 for r in restored.values()):
+            raise AssertionError(f"restored scrub: {restored}")
+        log("scrub", state="corrupted then restored",
+            parity_shard_12_bytes=par_at, data_shard_3_bytes=data_at,
+            corrupt={k: r["parity_mismatch_bytes"] for k, r in bad.items()},
+            restored={k: r["parity_mismatch_bytes"] for k, r in restored.items()},
+            kernel=rows, library_ms=None, library_note=NO_SCRUB_LIBRARY_CALL)
+
+        # in-memory volumes beside volume 1, one of them corrupt
+        rng = np.random.default_rng(seed + 7)
+        want_mem = {}
+        for vid, size in MEM_VOLUMES:
+            d = rng.integers(0, 256, (10, size), dtype=np.uint8)
+            shards = np.concatenate([d, rs_cpu.apply_matrix_native(parity, d)])
+            want_mem[vid] = [0, 0, 0, 0]
+            if vid == 103:
+                shards[11, 12345] ^= 1
+                shards[0, size - 1] ^= 1
+                want_mem[vid] = [1, 2, 1, 1]
+            for sid in range(14):
+                cache.put(vid, sid, shards[sid])
+        cache.layout = "flat"
+
+        def pass_and_singles():
+            return (rr.scrub_all_resident(cache),
+                    {vid: rr.scrub_volume(cache, vid)
+                     for vid in [1] + [v for v, _ in MEM_VOLUMES]})
+
+        ((res, st), singles), n = window(pass_and_singles)
+        launches += n
+        if res != singles or st != {"device_calls": 3, "volumes": 7}:
+            raise AssertionError(f"pass {res} {st} against {singles}")
+        if any(res[v][0] != want_mem[v] for v in want_mem):
+            raise AssertionError(f"in-memory verdicts {res}")
+        log("scrub", state="pass over the cache", volumes=st["volumes"],
+            device_calls=st["device_calls"], launches=n,
+            spans=sorted({span for _, span in res.values()}),
+            verdicts={v: r[0] for v, r in res.items()})
+    finally:
+        store.close()
+        cache.clear()
+        shutil.rmtree(scrub_dir, ignore_errors=True)
+        torch.cuda.empty_cache()
+    return {"launches": launches, "rows": rows,
+            "d2h_bytes_per_call": d2h_per_call}
+
+
+# -------------------------------------------------------------- phase 6b
+
+SCRUB_SERVE_CACHE_MB = 32 << 10
+SCRUB_INTERVAL_S = 2
+# reads of phase 6b's concurrent pass: half of 5c's, so the phase keeps
+# the script well inside its time limit; reads/s is what is compared
+SCRUB_SERVE_READS = SERVE_READS // 2
+SMALL_VOLUME_BYTES = 64 << 20
+
+
+def _get_json(port: int, path: str) -> dict:
+    import urllib.request
+
+    with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}",
+                                timeout=30) as r:
+        return json.loads(r.read())
+
+
+def _small_volume(dirname: str, vid: int, seed: int) -> None:
+    """A SMALL_VOLUME_BYTES volume written and EC-encoded by the port, its
+    .dat and .idx removed and one parity byte (.ec10) flipped on disk."""
+    import numpy as np
+
+    from seaweedfs_tpu_torch.storage import ec
+    from seaweedfs_tpu_torch.storage.needle import Needle
+    from seaweedfs_tpu_torch.storage.volume import Volume
+
+    rng = np.random.default_rng(seed)
+    v = Volume(dirname, vid)
+    nid = 0
+    while v.content_size < SMALL_VOLUME_BYTES:
+        nid += 1
+        v.append_needle(Needle(id=nid, cookie=int(rng.integers(0, 1 << 32)),
+                               data=rng.bytes(int(rng.integers(4096, 1 << 20)))))
+    v.sync()
+    v.close()
+    base = os.path.join(dirname, str(vid))
+    ec.write_ec_files(base, backend="cuda")
+    ec.write_sorted_file_from_idx(base)
+    for ext in (".dat", ".idx"):
+        os.remove(base + ext)
+    with open(base + ec.to_ext(10), "r+b") as f:
+        f.seek(1000)
+        b = f.read(1)
+        f.seek(1000)
+        f.write(bytes([b[0] ^ 0xFF]))
+
+
+def phase_scrub_serve(torch, workdir: str, vol: dict, deg: dict,
+                      serve: dict, seed: int) -> dict:
+    """The volume server with the scrub loop running (-ec.scrub.
+    intervalSeconds) over three volumes: vid 1 (all 14 shards, full width),
+    vid 2 (the same files minus shards 0 and 11, served) and vid 3 (a small
+    volume with a corrupt parity byte on disk).  The loop's pass over the
+    cache flags vid 3 and launches once per span class a cycle while 64
+    clients read vid 2; the device ledger splits the card's time."""
+    import numpy as np
+
+    from seaweedfs_tpu_torch.storage import ec
+
+    torch.cuda.empty_cache()
+    serve_dir = os.path.join(workdir, "scrub_serve")
+    os.makedirs(serve_dir)
+    base = os.path.join(workdir, "1")
+    with open(base + ".vif") as f:
+        vif = json.load(f)
+    if set(vif) - {"version"} or os.path.getsize(base + ".ecx") % 16:
+        raise AssertionError(f"a sidecar holds more than needle entries: {vif}")
+    for ext in [ec.to_ext(s) for s in range(14)] + [".ecx", ".ecj", ".vif"]:
+        if os.path.exists(base + ext):  # links: no byte is written
+            os.link(base + ext, os.path.join(serve_dir, "1" + ext))
+            if ext not in (ec.to_ext(0), ec.to_ext(11)):
+                os.link(base + ext, os.path.join(serve_dir, "2" + ext))
+    _small_volume(serve_dir, 3, seed + 11)
+    deleted = set(deg["deleted"])
+    picks = [n for n in deg["picks"] if n not in deleted]
+    rng = np.random.default_rng(seed + 13)
+    seq = rng.choice(picks, size=min(len(picks), 4000), replace=False).tolist()
+
+    port = _free_port()
+    args = ["-dir", serve_dir, "-port", str(port), "-mserver", "",
+            "-ec.backend", "cuda", "-ec.deviceCacheMB", str(SCRUB_SERVE_CACHE_MB),
+            "-ec.scrub.intervalSeconds", str(SCRUB_INTERVAL_S)]
+    try:
+        with _volume_server(args, os.path.join(workdir, "scrub_serve.log")) \
+                as proc:
+            out = _scrub_serve_run(proc, port, vol, seq, serve, seed)
+    finally:
+        shutil.rmtree(serve_dir, ignore_errors=True)
+    return out
+
+
+def _scrub_serve_run(proc, port: int, vol: dict, seq: list, serve: dict,
+                     seed: int) -> dict:
+    """Phase 6b against the started server `proc` on `port`."""
+    mk = 'SeaweedFS_volumeServer_ec_scrub_device_dispatch_total{mode="megakernel"}'
+    pv = 'SeaweedFS_volumeServer_ec_scrub_device_dispatch_total{mode="per_volume"}'
+    gauge = "SeaweedFS_volumeServer_ec_scrub_corrupt_volumes"
+    kern = 'SeaweedFS_volumeServer_ec_kernel_launches_total{kernel="scrub"}'
+    t0 = time.perf_counter()
+    want = {1: 14, 2: 12, 3: 14}
+    while True:
+        if proc.poll() is not None:
+            raise AssertionError(f"volume server exited ({proc.returncode})")
+        if time.perf_counter() - t0 > 2 * SERVE_PIN_TIMEOUT:
+            raise AssertionError("volumes not resident in time")
+        try:
+            ecv = _get_json(port, "/status")["EcVolumes"]
+        except OSError:
+            ecv = []
+        got = {v["id"]: len(v["resident"]) for v in ecv}
+        if got == want:
+            break
+        time.sleep(0.2)
+    pin_s = time.perf_counter() - t0
+    # cycles that began while the volumes were pinning may have scrubbed
+    # one by one; two whole passes (4 dispatches) after residency, the
+    # loop is in its steady state and vid 3 is flagged
+    t1 = time.perf_counter()
+    mk_resident = _scrape(port)[mk]
+    while True:
+        m = _scrape(port)
+        if m.get(gauge) == 1 and m[mk] >= mk_resident + 4:
+            break
+        if time.perf_counter() - t1 > 10 * SCRUB_INTERVAL_S + 60:
+            raise AssertionError(f"corrupt gauge {m.get(gauge)}, "
+                                 f"megakernel {m[mk]}")
+        time.sleep(0.2)
+    steady_s = time.perf_counter() - t1
+    m0, w0 = _scrape(port), time.perf_counter()
+    ledger0 = _get_json(port, "/debug/device/attribution")
+    before = _serve_counts(m0)
+    con = _serve_concurrent(port, [
+        (nid, vol["needles"][nid][3], vol["needles"][nid][2])
+        for nid in seq], seed + 17, vid=2, reads=SCRUB_SERVE_READS)
+    m1, w1 = _scrape(port), time.perf_counter()
+    ledger1 = _get_json(port, "/debug/device/attribution")
+    d = _serve_delta(before, _serve_counts(m1))
+    if d["routes"]["native"] or d["fallback"]:
+        raise AssertionError(f"{d['routes']['native']} reads of vid 2 took "
+                             "the native route once resident")
+    if m1[pv] != m0[pv] or m1[gauge] != 1:
+        raise AssertionError(f"per_volume {m0[pv]} -> {m1[pv]} during "
+                             f"the pass, gauge {m1[gauge]}")
+    cycles_mk = m1[mk] - m0[mk]
+    if cycles_mk < 2:
+        raise AssertionError(f"{cycles_mk} megakernel dispatches during "
+                             "the concurrent pass")
+    wl = ledger1["workloads"]
+    if wl.get("untagged", {}).get("busy_s", 0.0) != 0.0:
+        raise AssertionError(f"untagged device time: {wl['untagged']}")
+
+    def busy(doc, cls):
+        return doc["workloads"].get(cls, {}).get("busy_s", 0.0)
+
+    split = {cls: {"busy_s": busy(ledger1, cls),
+                   "busy_s_during_pass": busy(ledger1, cls) - busy(ledger0, cls),
+                   "dispatches": wl.get(cls, {}).get("dispatches", 0)}
+             for cls in ("scrub", "serving_interactive", "serving_bulk")}
+    wall = con["wall"]
+    flat = serve["flat"]["concurrent"][0]
+    out = {"launches": int(m1[kern]), "pin_s": pin_s,
+           "reads_per_s": len(con["lat"]) / wall,
+           "megakernel_per_s": cycles_mk / (w1 - w0)}
+    log("scrub_serve", volumes=want, pin_s=pin_s,
+        steady_after_s=steady_s, corrupt_volumes=m1[gauge],
+        megakernel_dispatches=m1[mk],
+        per_volume_dispatches_while_pinning=m0[pv],
+        megakernel_during_pass=cycles_mk,
+        per_volume_during_pass=m1[pv] - m0[pv],
+        megakernel_per_cycle_expected=2,
+        scrub_interval_s=SCRUB_INTERVAL_S, scrub_launches=m1[kern],
+        reads=len(con["lat"]), wall_s=wall,
+        reads_per_s=out["reads_per_s"],
+        p50_ms=_pct(con["lat"], 50), p99_ms=_pct(con["lat"], 99),
+        MBps=con["bytes"] / wall / 1e6,
+        serve_flat_turn0_reads_per_s=flat["reads_per_s"],
+        serve_flat_turn0_p50_ms=flat["p50_ms"],
+        batches=d["batches"], routes=d["routes"],
+        ledger=split, ledger_total_busy_s=ledger1["total_busy_seconds"],
+        untagged_busy_s=0.0)
+    return out
+
+
 # --------------------------------------------------------------- phase 7
 
 
@@ -1702,6 +2159,10 @@ def main() -> int:
         serve = phase_serve(torch, workdir, vol, deg, args.seed)
         phase = "rebuild"
         reb = phase_rebuild(workdir, enc["shard_size"], k1_wrappers)
+        phase = "scrub"
+        scr = phase_scrub(torch, workdir, args.seed)
+        phase = "scrub_serve"
+        scs = phase_scrub_serve(torch, workdir, vol, deg, serve, args.seed)
         phase = "decode"
         phase_decode(workdir, vol)
     except Exception:  # noqa: BLE001 — every phase is fatal
@@ -1719,6 +2180,36 @@ def main() -> int:
         print(f"chip_smoke: a K1 kernel was not launched on the main path: "
               f"{launches}", file=sys.stderr)
         return 1
+    if not scr["launches"] or not scs["launches"]:
+        print(f"chip_smoke: the scrub kernel was not launched on the main "
+              f"path: {scr['launches']}, {scs['launches']}", file=sys.stderr)
+        return 1
+    srow = scr["rows"]
+    scrub_entry = {
+        "name": "scrub",
+        "route": "cuda",
+        "source": "seaweedfs_tpu_torch/csrc/scrub.cu",
+        "replaces": "seaweedfs_tpu/ops/rs_resident.py:2873",
+        "also_replaces": ["seaweedfs_tpu/ops/rs_resident.py:2901",
+                          "seaweedfs_tpu/ops/rs_resident.py:3074"],
+        "launches": scr["launches"] + scs["launches"],
+        "launches_by_phase": {"scrub": scr["launches"],
+                              "scrub_serve": scs["launches"]},
+        "max_abs_err": max(r["max_abs_err"] for r in srow.values()),
+        "mismatched_bytes": sum(r["mismatched_bytes"] for r in srow.values()),
+        "shape": f"volume 1: 14 x {srow['flat']['n_lanes']} resident bytes, flat",
+        "ms": srow["flat"]["ms"],
+        "plain_ms": srow["flat"]["plain_ms"],
+        "bound_ms": srow["flat"]["bound_ms"],
+        "bound_by": srow["flat"]["bound_by"],
+        "library_ms": None,
+        "library_note": NO_SCRUB_LIBRARY_CALL,
+        "blockdiag": {key: srow["blockdiag"][key] for key in (
+            "n_lanes", "ms", "plain_ms", "bound_ms", "bound_by",
+            "share_of_bound")},
+        "share_of_bound": srow["flat"]["share_of_bound"],
+        "d2h_bytes_per_call": scr["d2h_bytes_per_call"],
+    }
     small_row = shapes["reconstruct_1row_64k"]
     flat = shapes["encode_flat"]
     resident = []
@@ -1797,7 +2288,7 @@ def main() -> int:
         "bound_ms": small_row["bound_ms"],
         "bound_by": small_row["bound_by"],
         "library_ms": small_row["library_ms"],
-    }, *resident]}), flush=True)
+    }, *resident, scrub_entry]}), flush=True)
     print(SMI, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": info["kind"], "count": info["count"]}}),

@@ -4,7 +4,8 @@ Port of seaweedfs_tpu/command/volume.py with the reference's flag
 spellings, for the flags this slice serves:
 
     python3 -m seaweedfs_tpu_torch volume -dir DIR -port 8080 -mserver "" \\
-        -ec.backend cuda -ec.deviceCacheMB 16384 -ec.serving.layout flat
+        -ec.backend cuda -ec.deviceCacheMB 16384 -ec.serving.layout flat \\
+        -ec.scrub.intervalSeconds 60
 
 `-ec.backend` is `cuda` (the default: the card, failing at start without
 one), `torch` (the plain PyTorch versions on the CPU) or `numpy` (the
@@ -49,6 +50,25 @@ def add_args(p) -> None:
         "-ec.deviceCacheMB", dest="ec_device_cache_mb", type=int, default=0,
         help="pin mounted EC shards in device memory up to this budget so "
         "degraded reads reconstruct on the card (0 = disabled)",
+    )
+    p.add_argument(
+        "-ec.scrub.intervalSeconds", dest="ec_scrub_interval_seconds",
+        type=int, default=0,
+        help="periodically verify EC parity of locally-complete volumes "
+        "(device-resident when pinned; 0 = disabled)",
+    )
+    p.add_argument(
+        "-ec.scrub.megakernel.disable", dest="ec_scrub_megakernel_disable",
+        action="store_true",
+        help="scrub resident EC volumes one device call per volume instead "
+        "of one pass over the whole cache per cycle",
+    )
+    p.add_argument(
+        "-obs.ledger.disable", dest="obs_ledger_disable",
+        action="store_true",
+        help="disable the per-workload device-time ledger (the "
+        "SeaweedFS_volumeServer_device_* attribution series stop moving; "
+        "workload tagging context still propagates)",
     )
     serving_defaults = ServingConfig()
     p.add_argument(
@@ -191,9 +211,11 @@ def serving_config(args: argparse.Namespace) -> ServingConfig:
 def build_server(args: argparse.Namespace):
     """A VolumeServer from the parsed flags (not started).  Raises on a
     non-empty -mserver and, with -ec.backend cuda, without a card."""
+    from ..obs import devledger
     from ..server.volume import VolumeServer
     from ..utils import faultpolicy
 
+    devledger.configure(enabled=not args.obs_ledger_disable)
     faultpolicy.configure(
         faultpolicy.FaultPolicyConfig(deadline_ms=args.ec_rpc_deadline_ms)
     )
@@ -213,6 +235,8 @@ def build_server(args: argparse.Namespace):
         concurrent_download_limit_mb=args.concurrent_download_limit_mb,
         ec_device_cache_mb=args.ec_device_cache_mb,
         ec_serving=serving_config(args),
+        ec_scrub_interval_seconds=args.ec_scrub_interval_seconds,
+        ec_scrub_megakernel=not args.ec_scrub_megakernel_disable,
     )
 
 

@@ -3,17 +3,19 @@
 Two shared libraries, each compiled from the sources in this package into
 ``seaweedfs_tpu_torch/_build/`` (git-ignored) and loaded with ctypes:
 
-  * ``kernels()`` — ``csrc/gf2_matmul.cu``, ``csrc/gf2_matmul_small.cu``
-    and ``csrc/fused_reconstruct.cu`` with ``nvcc`` for ``sm_90a`` into one
-    library: a plain C interface, so the build takes seconds (no PyTorch
-    headers).
+  * ``kernels()`` — ``csrc/gf2_matmul.cu``, ``csrc/gf2_matmul_small.cu``,
+    ``csrc/fused_reconstruct.cu`` and ``csrc/scrub.cu`` with ``nvcc`` for
+    ``sm_90a`` into one library: a plain C interface, so the build takes
+    seconds (no PyTorch headers).
   * ``host()`` — ``csrc/host/crc32c.cpp`` and ``gf256.cpp`` with ``g++``:
     CRC32C and the CPU GF(256) codec (the CPU yardstick).
 
-The output name carries a hash of the sources and flags, so an edited
-source rebuilds and two processes never load each other's half-written
-file (each builds into a temporary name and renames).  A failed build
-raises: no caller carries on without the library.
+Each source compiles to an object in its own compiler process, all started
+together, and the objects link into the library.  The output name carries
+a hash of the sources and flags, so an edited source rebuilds and two
+processes never load each other's half-written file (each builds into a
+temporary name and renames).  A failed build raises: no caller carries on
+without the library.
 """
 from __future__ import annotations
 
@@ -31,10 +33,10 @@ BUILD_DIR = os.path.join(_PKG, "_build")
 
 _NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",  # each kernel's registers and shared memory, in the log
 ]
-_GXX_FLAGS = ["-O3", "-fPIC", "-shared", "-std=c++17", "-Wall"]
+_GXX_FLAGS = ["-O3", "-fPIC", "-std=c++17", "-Wall"]
 
 # one lock per library, so the two builds can run at the same time
 _locks = {name: threading.Lock()
@@ -74,15 +76,31 @@ def _build(name: str, compiler: str, flags: list[str], sources: list[str]) -> st
         return so
     tmp = f"{so}.{os.getpid()}.tmp"
     t0 = time.perf_counter()
-    proc = subprocess.run(
-        [compiler, *flags, "-o", tmp, *sources],
-        capture_output=True, text=True, timeout=600,
-    )
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"building {name} failed ({compiler}):\n{proc.stdout}{proc.stderr}"
-        )
-    build_logs[name] = proc.stdout + proc.stderr
+    objs = [f"{tmp}.{i}.o" for i in range(len(sources))]
+    procs = [
+        subprocess.Popen([compiler, *flags, "-c", "-o", obj, src],
+                         stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                         text=True)
+        for src, obj in zip(sources, objs)
+    ]
+    try:
+        logs = [f"== {os.path.basename(src)}\n{proc.communicate(timeout=600)[0]}"
+                for src, proc in zip(sources, procs)]
+        failed = any(proc.returncode != 0 for proc in procs)
+        if not failed:
+            link = subprocess.run([compiler, *flags, "-shared", "-o", tmp, *objs],
+                                  capture_output=True, text=True, timeout=600)
+            logs.append(link.stdout + link.stderr)
+            failed = link.returncode != 0
+    finally:
+        for proc in procs:
+            proc.kill()
+        for obj in objs:
+            if os.path.exists(obj):
+                os.remove(obj)
+    if failed:
+        raise RuntimeError(f"building {name} failed ({compiler}):\n" + "".join(logs))
+    build_logs[name] = "".join(logs)
     with open(f"{log}.{os.getpid()}.tmp", "w") as f:
         f.write(build_logs[name])
     os.replace(f"{log}.{os.getpid()}.tmp", log)
@@ -158,6 +176,25 @@ def _bind_kernels(lib: ctypes.CDLL) -> None:
     lib.fused_reconstruct_limits.restype = None
     lib.fused_reconstruct_error_string.argtypes = [ctypes.c_int]
     lib.fused_reconstruct_error_string.restype = ctypes.c_char_p
+    fn = lib.scrub_launch
+    fn.argtypes = [
+        ctypes.c_void_p,  # masks u8 [groups*p*8, 16] on the host
+        ctypes.c_int,  # k (data shards)
+        ctypes.c_int,  # p (parity shards)
+        ctypes.c_int,  # groups (1: the flat system)
+        ctypes.POINTER(ctypes.c_void_p),  # vols*(k+p) shard device pointers
+        ctypes.c_int,  # vols
+        ctypes.c_long,  # n_lanes
+        ctypes.c_int,  # seg_log2
+        ctypes.c_void_p,  # partials int32 [vols, p, n_seg] on the device
+        ctypes.c_void_p,  # cudaStream_t
+    ]
+    fn.restype = ctypes.c_int
+    lib.scrub_limits.argtypes = [ctypes.POINTER(ctypes.c_long)] + [
+        ctypes.POINTER(ctypes.c_int)] * 3
+    lib.scrub_limits.restype = None
+    lib.scrub_error_string.argtypes = [ctypes.c_int]
+    lib.scrub_error_string.restype = ctypes.c_char_p
 
 
 def _bind_host(lib: ctypes.CDLL) -> None:
@@ -175,13 +212,13 @@ def _bind_host(lib: ctypes.CDLL) -> None:
 
 
 def kernels() -> ctypes.CDLL:
-    """The CUDA kernel library (csrc/gf2_matmul.cu, gf2_matmul_small.cu and
-    fused_reconstruct.cu), typed."""
+    """The CUDA kernel library (csrc/gf2_matmul.cu, gf2_matmul_small.cu,
+    fused_reconstruct.cu and scrub.cu), typed."""
     return _load(
         "swfs_kernels", _nvcc, _NVCC_FLAGS,
-        [os.path.join(_CSRC, "gf2_matmul.cu"),
-         os.path.join(_CSRC, "gf2_matmul_small.cu"),
-         os.path.join(_CSRC, "fused_reconstruct.cu")], _bind_kernels,
+        [os.path.join(_CSRC, name) for name in (
+            "gf2_matmul.cu", "gf2_matmul_small.cu", "fused_reconstruct.cu",
+            "scrub.cu")], _bind_kernels,
     )
 
 

@@ -27,9 +27,14 @@ What differs from the JAX package:
   * nothing compiles per shape, so ColdShape is never raised (it stays a
     CacheMiss subclass so callers read the same).
 
-Not ported here (ROADMAP): the mesh and pod placement (A8), scrub (A5), the
+The parity scrub (scrub_volume, scrub_all_resident) runs the hand-written
+kernel of csrc/scrub.cu through `scrub`: the resident data shards are read
+once, the parity is recomputed and compared in registers, and only the
+int32 mismatch partials come down.
+
+Not ported here (ROADMAP): the mesh and pod placement (A8), the
 XLA-fallback gather programs (B4), the AOT warm grid and observed-shape
-persistence, and trace spans (A7).  The Store and the serving dispatcher
+persistence, and trace spans (A7a).  The Store and the serving dispatcher
 that call reconstruct_intervals are storage/store.py and serving/.
 """
 from __future__ import annotations
@@ -44,6 +49,8 @@ from collections import OrderedDict
 import numpy as np
 import torch
 
+from ..obs import devledger
+from ..stats import metrics as stats_metrics
 from . import _build, gf256, rs_cuda
 
 DATA_SHARDS = 10
@@ -204,6 +211,10 @@ class DevicePipeline:
                 if wall > 0:
                     self.last_overlap = self._busy_s / wall
                 self._cond.notify()
+            # the slot's seconds are the device section's busy time, so the
+            # ledger's per-class sums conserve against total_busy_s (the
+            # workload and device ride the caller's context)
+            devledger.record(busy_s=dur, queue_wait_s=t0 - t_req)
 
 
 # --- the cache --------------------------------------------------------------
@@ -1122,6 +1133,7 @@ def reconstruct_intervals(
     sub_out: list[bytes | None] = [None] * len(subs)
     pipe = cache.pipeline
     with pipe.slot() as pslot:
+        moved = 0
         if pslot.stream is None:
             for part, words, fetches, deltas in calls:
                 out, offsets, _ = _dispatch_call(
@@ -1129,8 +1141,12 @@ def reconstruct_intervals(
                     groups, tile)
                 _trim(out.numpy(), part, deltas, offsets, sub_out)
         else:
-            _run_on_stream(pipe, pslot, calls, survivors, events, a_prep,
-                           len(use), w_true, groups, tile, sub_out)
+            moved = _run_on_stream(pipe, pslot, calls, survivors, events,
+                                   a_prep, len(use), w_true, groups, tile,
+                                   sub_out)
+        # busy seconds and queue wait are the slot's (recorded on exit);
+        # dispatches and boundary bytes are this batch's
+        devledger.record(dispatches=len(calls), nbytes=moved)
     outputs: list[list[bytes]] = [[] for _ in requests]
     for (idx, *_), piece in zip(subs, sub_out):
         outputs[idx].append(piece)  # subs are in offset order per request
@@ -1138,8 +1154,11 @@ def reconstruct_intervals(
 
 
 def _run_on_stream(pipe, pslot, calls, survivors, events, a_prep, n_use,
-                   w_true, groups, tile, sub_out) -> None:
+                   w_true, groups, tile, sub_out) -> int:
+    """Enqueue and drain a batch's calls on the slot's stream; -> the
+    bytes they moved across PCIe (parameters up, results down)."""
     stream, arena = pslot.stream, pslot.arena
+    moved = 0
     pending: list[tuple] = []
 
     def drain() -> None:
@@ -1179,7 +1198,9 @@ def _run_on_stream(pipe, pslot, calls, survivors, events, a_prep, n_use,
             # the work list and masks cross PCIe in the launch itself
             pipe.h2d_bytes += sent
             pipe.d2h_bytes += nbytes
+            moved += sent + nbytes
         drain()
+    return moved
 
 
 def make_batched_call(
@@ -1225,3 +1246,361 @@ def make_batched_call(
         return out.reshape(-1)
 
     return thunk
+
+
+# --- parity scrub -------------------------------------------------------------
+#
+# The port of the JAX package's scrub half: scrub_volume and
+# scrub_all_resident recompute every parity byte of fully resident volumes
+# from their resident data shards and count the mismatching bytes per
+# parity shard.  One launch of csrc/scrub.cu (`scrub` below) reads the 14
+# resident shards once and keeps the recomputed parity in registers; only
+# the int32 [V, p, n_seg] mismatch partials come down.  What differs from
+# the JAX package: no stacked operand or recomputed parity is
+# materialised, so nothing bounds a fused call but the 32 volumes one
+# launch's parameters hold (the JAX package's 256 MiB stack cap and its
+# power-of-two volume padding are gone), and the device section runs in a
+# pipeline slot of the cache, like a serving batch, so its busy seconds
+# conserve into DevicePipeline.total_busy_s.
+
+# per-segment mismatch sums stay < 2^28 < int31, so a wholesale-corrupt
+# multi-GB shard cannot wrap the int32 partials; the host adds the
+# [p, n_seg] partials with 64-bit integers.  A power of two >= 2^12.
+_SCRUB_SEG = 1 << 28
+# most volumes one scrub launch takes (csrc/scrub.cu's parameter block)
+_SCRUB_STACK_CAP = 32
+# csrc/scrub.cu's walk (checked against the library when it loads): bytes
+# a block covers, bytes of one step of it (256 threads x 16 bytes), and
+# the least seg_log2 (a step lies in one counting segment)
+SCRUB_SPAN = 64 * 1024
+SCRUB_STEP = 4096
+SCRUB_MIN_SEG_LOG2 = 12
+
+
+def _scrub_segments(n_lanes: int, seg_log2: int) -> int:
+    return (n_lanes + (1 << seg_log2) - 1) >> seg_log2
+
+
+def _scrub_torch(a, vols, *, k, n_lanes, groups, seg_log2) -> torch.Tensor:
+    """Plain version of csrc/scrub.cu, computed as the JAX package's
+    _scrub_call / _scrub_call_blockdiag / _scrub_all_call do: per volume,
+    the segment-stacked operand (row jg*k + i is data shard i's bytes
+    [jg*seg, (jg+1)*seg), seg = n_lanes / groups), one apply of the
+    (block-diagonal) parity system (rs_cuda._apply_torch), output row
+    jg*p + j compared with parity shard j's segment jg, and the
+    mismatches summed per counting segment (jg*seg + c) >> seg_log2,
+    column by column in windows of _PLAIN_COLS so that it runs over a
+    whole volume on the card.  -> [V, p, n_seg] int32."""
+    p = len(vols[0]) - k
+    dev = vols[0][0].device
+    seg = n_lanes // groups
+    n_seg = _scrub_segments(n_lanes, seg_log2)
+    out = torch.zeros((len(vols), p, n_seg), dtype=torch.int64, device=dev)
+    for v, shards in enumerate(vols):
+        for lo in range(0, seg, _PLAIN_COLS):
+            hi = min(seg, lo + _PLAIN_COLS)
+            x = torch.stack([shards[i][jg * seg + lo : jg * seg + hi]
+                             for jg in range(groups) for i in range(k)])
+            y = rs_cuda._apply_torch(a, x, groups * p)
+            for jg in range(groups):
+                q = torch.arange(jg * seg + lo, jg * seg + hi, device=dev)
+                for j in range(p):
+                    diff = y[jg * p + j] != shards[k + j][jg * seg + lo :
+                                                         jg * seg + hi]
+                    out[v, j] += torch.bincount(q[diff] >> seg_log2,
+                                                minlength=n_seg)
+    return out.to(torch.int32)
+
+
+def _scrub_model(masks: np.ndarray, vols, *, k: int, n_lanes: int,
+                 groups: int, seg_log2: int) -> tuple[np.ndarray, list]:
+    """numpy model of a launch of csrc/scrub.cu: block (volume v, span) walks
+    its SCRUB_SPAN bytes in SCRUB_STEP steps, each thread's 16 bytes q..q+15
+    take group jg = the boundaries seg, 2*seg, ... at or below q and the
+    masks of (jg, row j, bit i) (output bit = parity of mask & byte, over
+    the k data shards), each thread counts mismatching bytes per row, and
+    the block adds its counts for a segment when a step enters the next
+    segment and at its end.  -> (partials [V, p, n_seg] int64, the adds in
+    block order: (v, j, segment, count), zero counts skipped as the kernel
+    skips them)."""
+    p = len(vols[0]) - k
+    seg = n_lanes // groups
+    n_seg = _scrub_segments(n_lanes, seg_log2)
+    table = masks.reshape(groups, p, 8, 16)[..., :k]
+    bounds = np.arange(1, groups) * seg
+    local = np.arange(SCRUB_STEP // 16) * 16
+    out = np.zeros((len(vols), p, n_seg), dtype=np.int64)
+    adds: list[tuple[int, int, int, int]] = []
+    for v, shards in enumerate(vols):
+        for span0 in range(0, n_lanes, SCRUB_SPAN):
+            cnt = np.zeros((p, local.size), dtype=np.int64)
+            cur = span0 >> seg_log2
+
+            def flush():
+                for j in range(p):
+                    total = int(cnt[j].sum())
+                    if total:
+                        out[v, j, cur] += total
+                        adds.append((v, j, cur, total))
+                cnt[:] = 0
+
+            for base in range(span0, span0 + SCRUB_SPAN, SCRUB_STEP):
+                if base >= n_lanes:
+                    break
+                if base >> seg_log2 != cur:
+                    flush()
+                    cur = base >> seg_log2
+                live = np.flatnonzero(base + local < n_lanes)
+                q = base + local[live]
+                jg = np.repeat((q[:, None] >= bounds).sum(axis=1), 16)
+                cols = (q[:, None] + np.arange(16)).reshape(-1)
+                xs = np.stack([shards[s][cols] for s in range(k)], axis=1)
+                for j in range(p):
+                    m = table[jg, j]  # [bytes, 8, k]
+                    y = np.bitwise_xor.reduce(m & xs[:, None, :], axis=2)
+                    bits = (np.unpackbits(y[..., None], axis=-1).sum(-1)
+                            & 1).astype(np.int64)
+                    par = (bits << np.arange(8)).sum(-1)
+                    bad = par != shards[k + j][cols]
+                    cnt[j, live] += bad.reshape(-1, 16).sum(axis=1)
+            flush()
+    return out, adds
+
+
+def _check_scrub(a, vols, k, n_lanes, groups, seg_log2) -> None:
+    """Host checks of a scrub call, shared by both routes; raises on any
+    violation before any device work."""
+    if not vols or len(vols) > _SCRUB_STACK_CAP:
+        raise ValueError(f"a scrub takes 1..{_SCRUB_STACK_CAP} volumes, "
+                         f"got {len(vols)}")
+    n = len(vols[0])
+    if n <= k or any(len(vol) != n for vol in vols):
+        raise ValueError(f"every volume needs the same {k} data shards and "
+                         "at least one parity shard")
+    dev = a.device
+    for vol in vols:
+        for s in vol:
+            if s.dtype != torch.uint8 or s.dim() != 1 or not s.is_contiguous():
+                raise TypeError("shards must be contiguous 1-D uint8 tensors")
+            if s.device != dev:
+                raise ValueError(f"matrix on {dev} but a shard on {s.device}")
+            if s.numel() < n_lanes:
+                raise ValueError(f"n_lanes {n_lanes} runs past a "
+                                 f"{s.numel()}-byte shard")
+    if a.dtype != torch.int8 or a.dim() != 2 or a.shape[0] % 8 or a.shape[1] % 8:
+        raise TypeError(f"matrix must be bit-major int8, got {a.dtype} "
+                        f"{tuple(a.shape)}")
+    p = n - k
+    if groups * k > a.shape[1] // 8 or groups * p > a.shape[0] // 8:
+        raise ValueError(f"{groups} groups of {p}x{k} exceed the matrix "
+                         f"{tuple(a.shape)}")
+    if n_lanes <= 0 or n_lanes % (groups * LANE):
+        raise ValueError(f"n_lanes {n_lanes} is not a positive multiple of "
+                         f"{groups}*{LANE}")
+    if seg_log2 < SCRUB_MIN_SEG_LOG2:
+        raise ValueError(f"seg_log2 {seg_log2} < {SCRUB_MIN_SEG_LOG2}")
+
+
+@functools.cache
+def _scrub_lib():
+    """The kernel library, csrc/scrub.cu's constants checked against this
+    module's."""
+    lib = _build.kernels()
+    span, step = ctypes.c_long(), ctypes.c_int()
+    vols, seg_min = ctypes.c_int(), ctypes.c_int()
+    lib.scrub_limits(ctypes.byref(span), ctypes.byref(step),
+                     ctypes.byref(vols), ctypes.byref(seg_min))
+    got = (span.value, step.value, vols.value, seg_min.value)
+    want = (SCRUB_SPAN, SCRUB_STEP, _SCRUB_STACK_CAP, SCRUB_MIN_SEG_LOG2)
+    if got != want:
+        raise RuntimeError(f"csrc/scrub.cu has (span, step, volumes, "
+                           f"seg_log2) {got}; rs_resident expects {want}")
+    return lib
+
+
+def scrub(a, vols, *, n_lanes: int, k: int = DATA_SHARDS, groups: int = 1,
+          seg_log2: int | None = None) -> torch.Tensor:
+    """Parity scrub of up to 32 volumes in one call (the port of the JAX
+    `_scrub_call`, `_scrub_call_blockdiag` and `_scrub_all_call`): `vols`
+    holds each volume's k data shards then p parity shards, 1-D uint8
+    tensors of at least n_lanes bytes; `a` the prepared parity system,
+    flat (groups 1) or the g-group block-diagonal one.  -> int32 [V, p,
+    n_seg] on the shards' device: the mismatching bytes of parity row j
+    over the first n_lanes bytes per 2^seg_log2-byte counting segment
+    (seg_log2 defaults to _SCRUB_SEG's).  CPU shards take the plain
+    version; CUDA shards launch csrc/scrub.cu on the current stream or
+    raise.  `.launches` counts launches."""
+    if seg_log2 is None:
+        seg_log2 = _SCRUB_SEG.bit_length() - 1
+    _check_scrub(a, vols, k, n_lanes, groups, seg_log2)
+    dev = vols[0][0].device
+    if dev.type == "cpu":
+        return _scrub_torch(a, vols, k=k, n_lanes=n_lanes, groups=groups,
+                            seg_log2=seg_log2)
+    if dev.type != "cuda":
+        raise ValueError(f"no scrub kernel for {dev}")
+    if any(s.data_ptr() % 16 for vol in vols for s in vol):
+        raise ValueError("shard buffers must be 16-byte aligned")
+    lib = _scrub_lib()
+    p = len(vols[0]) - k
+    masks = _bit_masks(a, k, p, groups, p)
+    out = torch.empty((len(vols), p, _scrub_segments(n_lanes, seg_log2)),
+                      dtype=torch.int32, device=dev)
+    ptrs = [s.data_ptr() for vol in vols for s in vol]
+    with torch.cuda.device(dev):
+        rc = lib.scrub_launch(
+            masks.ctypes.data, k, p, groups, (ctypes.c_void_p * len(ptrs))(*ptrs),
+            len(vols), n_lanes, seg_log2, out.data_ptr(),
+            torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"scrub_launch failed ({rc}): "
+                           f"{lib.scrub_error_string(rc).decode()}")
+    with _launch_lock:
+        scrub.launches += 1
+    return out
+
+
+scrub.launches = 0
+# bytes the scrub calls copied to the host (only their partials)
+scrub.d2h_bytes = 0
+
+
+def _scrub_matrix(data_shards: int, total_shards: int, groups: int,
+                  device: str) -> torch.Tensor:
+    """The prepared RS parity rows (gf256.build_matrix(k, n)[k:]): the flat
+    system, or the g-group block-diagonal one the reads use."""
+    parity_m = gf256.build_matrix(data_shards, total_shards)[data_shards:]
+    if groups > 1:
+        return _prepared_blockdiag(parity_m.tobytes(), *parity_m.shape,
+                                   groups, device)
+    return rs_cuda._prepared(parity_m.tobytes(), *parity_m.shape, device)
+
+
+def _scrub_run(cache, a, got, n_lanes: int, groups: int, k: int) -> np.ndarray:
+    """One scrub call in a pipeline slot of the cache, tagged "scrub" in the
+    device ledger.  `got` is each volume's [(buffer, put event)] from
+    _get_ready.  On the card it runs on the slot's stream after the puts'
+    events, with every buffer kept from reuse until the stream is done
+    with it (an eviction mid-scrub frees nothing the kernel reads).  ->
+    host int64 [V, p, n_seg] partials."""
+    vols = [tuple(buf for buf, _ in vol) for vol in got]
+    with devledger.workload("scrub"), cache.pipeline.slot() as pslot:
+        if pslot.stream is None:
+            host = scrub(a, vols, n_lanes=n_lanes, k=k, groups=groups).numpy()
+        else:
+            stream = pslot.stream
+            with torch.cuda.device(cache.device), torch.cuda.stream(stream):
+                for vol in got:
+                    for buf, ev in vol:
+                        if ev is not None:
+                            stream.wait_event(ev)
+                        buf.record_stream(stream)
+                out = scrub(a, vols, n_lanes=n_lanes, k=k, groups=groups)
+                host = out.cpu().numpy()  # the only D2H
+            with _launch_lock:
+                scrub.d2h_bytes += host.nbytes
+        # busy seconds are the slot's (recorded on exit)
+        devledger.record(dispatches=1, nbytes=host.nbytes)
+    return host.astype(np.int64)
+
+
+def _scrub_span(size: int, quant: int) -> int:
+    """The verified span: the true shard size rounded up to `quant`
+    (LANE, or groups*LANE block-diagonal); the cache's zero padding covers
+    the rest, and parity of zeros is zero."""
+    return -(-size // quant) * quant
+
+
+def scrub_volume(
+    cache: DeviceShardCache,
+    vid: int,
+    data_shards: int = DATA_SHARDS,
+    total_shards: int = TOTAL_SHARDS,
+    layout: str | None = None,
+) -> tuple[list[int], int]:
+    """Parity scrub of a fully resident volume: -> (per-parity-shard
+    mismatch byte counts, bytes verified per shard).  Raises CacheMiss
+    unless ALL shards are resident and of one size, or when one is evicted
+    between the listing and the call.  The verified span rounds the true
+    shard size up to LANE (block-diagonal: to groups*LANE, so every segment
+    slice stays lane-aligned).  `layout` (None = the cache's) picks the
+    flat or block-diagonal system; one launch of csrc/scrub.cu either way."""
+    if layout is None:
+        layout = cache.layout
+    if layout not in LAYOUTS:
+        raise ValueError(f"unknown resident layout {layout!r}")
+    resident = cache.shard_ids(vid)
+    if len(resident) < total_shards:
+        raise CacheMiss(
+            f"vid {vid}: {len(resident)}/{total_shards} shards resident"
+        )
+    sizes = {cache.shard_size(vid, s) for s in range(total_shards)}
+    if len(sizes) != 1:
+        raise CacheMiss(f"vid {vid}: resident shard sizes differ: {sizes}")
+    true_size = sizes.pop()
+    got = [cache._get_ready(vid, s) for s in range(total_shards)]
+    if any(buf is None for buf, _ in got):
+        raise CacheMiss(f"vid {vid}: shard evicted mid-scrub")
+    groups = cache.groups if layout == "blockdiag" else 1
+    n_lanes = _scrub_span(true_size, groups * LANE)
+    a = _scrub_matrix(data_shards, total_shards, groups, str(cache.device))
+    partials = _scrub_run(cache, a, [got], n_lanes, groups, data_shards)
+    stats_metrics.VOLUME_SERVER_EC_SCRUB_DISPATCH.labels(
+        mode="per_volume"
+    ).inc()
+    return [int(row.sum()) for row in partials[0]], n_lanes
+
+
+def scrub_all_resident(
+    cache: DeviceShardCache,
+    data_shards: int = DATA_SHARDS,
+    total_shards: int = TOTAL_SHARDS,
+    layout: str | None = None,
+    vids: list[int] | None = None,
+) -> tuple[dict[int, tuple[list[int], int]], dict]:
+    """Parity-scrub EVERY fully resident volume (or the `vids` subset) in
+    as few launches as possible: volumes with equal verified spans (and
+    placement) stack into one launch of csrc/scrub.cu, up to
+    _SCRUB_STACK_CAP a launch.  -> ({vid: (per-parity-shard mismatch byte
+    counts, bytes verified per shard)}, {"device_calls", "volumes"}).
+    Volumes that do not qualify (not fully resident, mixed sizes, evicted
+    mid-pass) are absent from the result: the caller's per-volume path
+    owns them."""
+    if layout is None:
+        layout = cache.layout
+    if layout not in LAYOUTS:
+        raise ValueError(f"unknown resident layout {layout!r}")
+    groups = cache.groups if layout == "blockdiag" else 1
+    if vids is None:
+        vids = sorted(cache.resident_by_vid())
+    # ((n_lanes, placement), [(vid, [(buffer, event)])]): only fully
+    # resident, uniform-size volumes qualify (scrub_volume's rule)
+    stacks: dict[tuple[int, int], list[tuple[int, list]]] = {}
+    for vid in vids:
+        if cache.resident_count(vid) < total_shards:
+            continue
+        sizes = {cache.shard_size(vid, s) for s in range(total_shards)}
+        if len(sizes) != 1 or None in sizes:
+            continue
+        got = [cache._get_ready(vid, s) for s in range(total_shards)]
+        if any(buf is None for buf, _ in got):
+            continue
+        n_lanes = _scrub_span(sizes.pop(), groups * LANE)
+        place = cache.placement(vid)
+        stacks.setdefault((n_lanes, 0 if place is None else place), []).append(
+            (vid, got))
+    a = _scrub_matrix(data_shards, total_shards, groups, str(cache.device))
+    results: dict[int, tuple[list[int], int]] = {}
+    device_calls = 0
+    for (n_lanes, _place), members in sorted(stacks.items()):
+        for start in range(0, len(members), _SCRUB_STACK_CAP):
+            chunk = members[start : start + _SCRUB_STACK_CAP]
+            partials = _scrub_run(cache, a, [got for _, got in chunk],
+                                  n_lanes, groups, data_shards)
+            device_calls += 1
+            stats_metrics.VOLUME_SERVER_EC_SCRUB_DISPATCH.labels(
+                mode="megakernel"
+            ).inc()
+            for (vid, _), vol_partials in zip(chunk, partials):
+                results[vid] = ([int(r.sum()) for r in vol_partials], n_lanes)
+    return results, {"device_calls": device_calls, "volumes": len(results)}

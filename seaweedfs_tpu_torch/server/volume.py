@@ -9,14 +9,21 @@ asyncio process per storage node, serving one node's volumes:
     a resident volume into one ragged launch of csrc/fused_reconstruct.cu
     per batch and sends the rest down the host path;
   - GET /status (the volumes, and each EC volume's local and resident
-    shards) and GET /metrics (stats/metrics.py, Prometheus text format).
+    shards), GET /metrics (stats/metrics.py, Prometheus text format) and
+    GET /debug/device/attribution (the device-time ledger,
+    obs/devledger.py: busy seconds, dispatches, bytes and queue wait per
+    workload class);
+  - with -ec.scrub.intervalSeconds, an idle loop that parity-scrubs every
+    locally complete EC volume each interval: the resident ones in one
+    pass of csrc/scrub.cu over the cache, the rest from their files, and
+    reports the corrupt ones on a gauge.
 
 Blocking storage and device work runs via asyncio.to_thread.  A volume
 that is not local answers 404, which is what the reference answers when
 the master knows no other holder.  Not here (ROADMAP A4b): the gRPC admin
 and EC service, the master heartbeat, proxy/redirect reads, replication
 fan-out, write JWTs, TTL sweeps; image resizing waits for the images
-package; trace spans and the device ledger are A7.
+package; trace spans and /debug/profile are A7a.
 """
 from __future__ import annotations
 
@@ -27,14 +34,17 @@ import time
 from collections import deque
 
 from .. import stats
+from ..obs import devledger
 from ..ops import rs, rs_cuda, rs_resident
 from ..serving import EcReadDispatcher, ServingConfig
 from ..storage import types as t
 from ..storage.disk_location import DiskLocation
+from ..storage.ec.layout import TOTAL_SHARDS
 from ..storage.needle import FLAG_IS_COMPRESSED, CrcError, Needle
 from ..storage.store import Store
 from ..storage.volume import CookieMismatch, NotFoundError, VolumeReadOnly
 from ..utils import faultpolicy
+from ..utils.tasks import spawn_logged
 from .conditional import content_disposition, format_http_date, not_modified
 from .http import HTTPError, HTTPServer, Request, Response, json_response
 
@@ -50,6 +60,7 @@ _KERNELS = (
     rs_resident.fused_reconstruct_blockdiag,
     rs_cuda.gf2_matmul,
     rs_cuda.gf2_matmul_small,
+    rs_resident.scrub,
 )
 
 
@@ -125,6 +136,9 @@ class VolumeServer:
         concurrent_download_limit_mb: int = 0,
         ec_device_cache_mb: int = 0,  # >0: pin mounted EC shards on the card
         ec_serving=None,  # serving.ServingConfig | None (-ec.serving.* flags)
+        ec_scrub_interval_seconds: int = 0,  # >0: periodic parity scrub
+        ec_scrub_megakernel: bool = True,  # one pass over the resident
+        # volumes per cycle (-ec.scrub.megakernel.disable)
     ):
         if masters:
             raise ValueError(
@@ -165,6 +179,9 @@ class VolumeServer:
             ec_backend=ec_backend,
             ec_device_cache=device_cache,
         )
+        self.ec_scrub_interval_seconds = ec_scrub_interval_seconds
+        self.ec_scrub_megakernel = ec_scrub_megakernel
+        self._tasks: list[asyncio.Task] = []
         self.ip = ip
         self.port = port
         self.client_max_size_mb = client_max_size_mb
@@ -193,8 +210,16 @@ class VolumeServer:
         await self._http.start()
         self.port = self._http.port
         log.info("volume server up http=%s", self.url)
+        if self.ec_scrub_interval_seconds > 0:
+            self._tasks.append(
+                spawn_logged(self._ec_scrub_forever(), log, "ec scrub loop")
+            )
 
     async def stop(self) -> None:
+        for task in self._tasks:
+            task.cancel()
+        await asyncio.gather(*self._tasks, return_exceptions=True)
+        self._tasks.clear()
         if self._http is not None:
             await self._http.stop()
             self._http = None
@@ -211,6 +236,9 @@ class VolumeServer:
             return await self.h_status(request)
         if request.path == "/metrics" and request.method == "GET":
             return self.h_metrics(request)
+        if (request.path == "/debug/device/attribution"
+                and request.method == "GET"):
+            return self.h_debug_device_attribution(request)
         # the deadline front door: adopt the request's budget or stamp the
         # default; a spent budget is 504, the honest verdict for work the
         # client already gave up on
@@ -275,6 +303,86 @@ class VolumeServer:
             ):
                 return await self.h_delete(request)
         raise HTTPError(405, headers={"Allow": "GET, POST, PUT, DELETE"})
+
+    def h_debug_device_attribution(self, request: Request) -> Response:
+        """GET /debug/device/attribution: the device-time ledger — busy
+        seconds, dispatches, bytes and queue wait per workload class, with
+        the per-device breakdown."""
+        return json_response({
+            "node": self.url,
+            "enabled": devledger.LEDGER.enabled,
+            "total_busy_seconds": devledger.LEDGER.total_busy_s(),
+            "workloads": devledger.LEDGER.snapshot(),
+        })
+
+    async def _ec_scrub_forever(self) -> None:
+        """Periodic parity scrub of every locally complete EC volume
+        (-ec.scrub.intervalSeconds).  Resident volumes scrub on the card
+        (one pass over the cache first, unless -ec.scrub.megakernel.disable),
+        the rest from their files.  Corruption is logged and counted on
+        SeaweedFS_volumeServer_ec_scrub_corrupt_volumes: detection, not
+        repair (ec.rebuild repairs)."""
+        # (location dir, vid) -> last KNOWN verdict.  A scrub that fails
+        # keeps the previous verdict: a volume that was corrupt last cycle
+        # and is unreadable now must not clear the alert.
+        verdicts: dict[tuple[str, int], bool] = {}
+
+        def _record(key: tuple[str, int], r: dict) -> None:
+            # one home for the verdict bookkeeping, so the pass and the
+            # per-volume branch can never report corruption differently
+            bad = sum(r["parity_mismatch_bytes"])
+            verdicts[key] = bool(bad)
+            if bad:
+                log.error(
+                    "ec volume %d FAILED parity scrub: %s mismatch "
+                    "bytes (backend=%s) — run ec.rebuild",
+                    key[1], r["parity_mismatch_bytes"], r["backend"],
+                )
+
+        while True:  # until stop() cancels it
+            await asyncio.sleep(self.ec_scrub_interval_seconds)
+            seen: set[tuple[str, int]] = set()
+            # the pass first: every fully resident volume in one launch
+            # per span class; the loop below takes its verdicts and scrubs
+            # only the rest (file-backed or unpinned copies) one by one
+            mega: dict = {}
+            if self.ec_scrub_megakernel:
+                try:
+                    mega = await asyncio.to_thread(
+                        self.store.scrub_all_resident
+                    )
+                except Exception:  # noqa: BLE001 — fall back per volume
+                    log.exception("ec scrub pass over the cache failed")
+            for loc in self.store.locations:
+                # a vid mounted in two locations is two shard sets, each
+                # scrubbed
+                for vid, ev in list(loc.ec_volumes.items()):
+                    key = (loc.directory, vid)
+                    seen.add(key)
+                    if len(ev.shards) < TOTAL_SHARDS:
+                        # locally incomplete: nothing to verify here
+                        verdicts.pop(key, None)
+                        continue
+                    r = mega.get(vid)
+                    if r is not None and r["dir"] == loc.directory:
+                        _record(key, r)  # the pass verified these bytes
+                        continue
+                    try:
+                        r = await asyncio.to_thread(self.store.scrub_ec, ev)
+                    except FileNotFoundError:
+                        verdicts.pop(key, None)  # shards went away
+                        continue
+                    except Exception:  # noqa: BLE001 — transient IO or an
+                        # unmount mid-scrub: keep the last verdict
+                        log.exception("ec scrub failed for volume %d", vid)
+                        continue
+                    _record(key, r)
+            for key in list(verdicts):
+                if key not in seen:  # unmounted since last cycle
+                    del verdicts[key]
+            stats.VOLUME_SERVER_SCRUB_CORRUPT_GAUGE.set(
+                sum(verdicts.values())
+            )
 
     def _collect_metrics(self) -> None:
         """Refresh volume/EC gauges from store state at scrape time, and
@@ -414,10 +522,10 @@ class VolumeServer:
                 content_type=ct,
             )
         status = 200
-        try:
-            rng = request.http_range
-        except ValueError as e:
-            raise HTTPError(400, str(e))
+        # a malformed Range header raises ValueError out of the handler, so
+        # the server answers 500, as the reference does (its aiohttp
+        # request.http_range raises outside any handler try)
+        rng = request.http_range
         if rng.start is not None or rng.stop is not None:
             start = rng.start or 0
             if start < 0:  # suffix range "bytes=-N": last N bytes
@@ -450,9 +558,12 @@ class VolumeServer:
 
     async def h_write(self, request: Request) -> Response:
         """(PostHandler volume_server_handlers_write.go): parse the upload
-        and append it locally.  Replication fan-out is ROADMAP A4b: a
-        volume whose placement asks for copies refuses the write, as the
-        reference does when it finds no replica locations."""
+        and append it locally, then fan out to the replicas.  Replication
+        fan-out is ROADMAP A4b: without a master no replica location is
+        known, so a volume whose placement asks for copies answers 500
+        "replication failed" after the append, as the reference does, and
+        tombstones the needle again only when the write created it (a
+        rolled-back overwrite would destroy the prior version)."""
         try:
             vid, nid, cookie = self._parse_fid(request)
         except ValueError as e:
@@ -460,13 +571,6 @@ class VolumeServer:
         v = self.store.find_volume(vid)
         if v is None:
             raise HTTPError(404, f"volume {vid} not local")
-        if (
-            v.super_block.replica_placement.copy_count > 1
-            and request.query.get("type") != "replicate"
-        ):
-            raise HTTPError(
-                500, "replication failed: no replica locations known"
-            )
         # lease BEFORE buffering the body, or the throttle bounds nothing
         async with self.upload_limiter(request.content_length or 0):
             body = await request.read()
@@ -482,10 +586,25 @@ class VolumeServer:
                 last_modified=int(time.time()),
                 flags=FLAG_IS_COMPRESSED if compressed else 0,
             )
+            existed = v.has(nid)
             try:
                 size = await asyncio.to_thread(self.store.write_needle, vid, n)
             except VolumeReadOnly:
                 raise HTTPError(409, f"volume {vid} is read-only")
+            if (
+                request.query.get("type") != "replicate"
+                and v.super_block.replica_placement.copy_count > 1
+            ):
+                if not existed:
+                    try:
+                        await asyncio.to_thread(
+                            self.store.delete_needle, vid, nid, cookie
+                        )
+                    except Exception:  # noqa: BLE001 — best effort
+                        log.exception("rollback of %d,%x failed", vid, nid)
+                raise HTTPError(
+                    500, "replication failed: no replica locations known"
+                )
         return json_response(
             {"name": name.decode() or "", "size": size, "eTag": n.etag}
         )

@@ -28,9 +28,11 @@ the pipeline from ServingConfig.pipeline_slots.
 
 Every decision is visible on /metrics: batch-width histogram, per-request
 queue wait, in-flight batch occupancy, fallback and route counters
-(stats/metrics.py).  Trace spans, the device ledger and the tiering heat
-signal are ROADMAP A7; peer shard reads (`remote_reader_factory` returns
-None here: one node holds the survivors) are A4b.
+(stats/metrics.py), and each batch's device section is tagged
+serving_interactive or serving_bulk in the device ledger
+(obs/devledger.py).  Trace spans and the tiering heat signal are ROADMAP
+A7; peer shard reads (`remote_reader_factory` returns None here: one node
+holds the survivors) are A4b.
 """
 from __future__ import annotations
 
@@ -39,6 +41,7 @@ import logging
 import time
 
 from .. import stats
+from ..obs import devledger
 from ..utils import faultpolicy
 from ..utils.tasks import spawn_logged
 from .coalescer import Coalescer, ReadRequest
@@ -232,14 +235,25 @@ class EcReadDispatcher:
 
     async def _serve_batch(self, vid: int, items: list[ReadRequest]) -> None:
         t0 = time.perf_counter()
+        # device-ledger class for the batch: a batch is bulk-tier only when
+        # every member is (a mixed batch serves an interactive reader, so it
+        # attributes interactive); "" = qos off = interactive.
+        # asyncio.to_thread copies the context, so the tag reaches the
+        # device section in ops/rs_resident
+        wl = (
+            "serving_bulk"
+            if items and all(r.tier == "bulk" for r in items)
+            else "serving_interactive"
+        )
         try:
-            results = await asyncio.to_thread(
-                self.store.read_ec_needles_batch,
-                vid,
-                [(r.nid, r.cookie) for r in items],
-                self._remote_reader(vid),
-                self.cfg.zero_copy,
-            )
+            with devledger.workload(wl):
+                results = await asyncio.to_thread(
+                    self.store.read_ec_needles_batch,
+                    vid,
+                    [(r.nid, r.cookie) for r in items],
+                    self._remote_reader(vid),
+                    self.cfg.zero_copy,
+                )
         except Exception as e:  # noqa: BLE001 — volume-level failure
             results = [e] * len(items)
         # feed the deadline estimator: per-needle service time of THIS

@@ -10,9 +10,10 @@ histogram as `_bucket{le=...}`, `_sum` and `_count`.
 Only the series the serving stack touches are here: request counters and
 latency, the volume and residency gauges, the dispatcher's batch, queue,
 in-flight, fallback and route series, QoS admission, the response copy
-and stall series, deadline refusals, the pipeline's H2D/D2H bytes, and the
-port's kernel launches.  Trace spans, the device ledger and incidents are
-ROADMAP A7.
+and stall series, deadline refusals, the pipeline's H2D/D2H bytes, the
+port's kernel launches, the parity scrub's corrupt-volume gauge and
+dispatch counter, and the device-time ledger's four series
+(obs/devledger.py).  Trace spans and incidents are ROADMAP A7a.
 
 One process-wide registry, like the reference's default registry.
 """
@@ -356,18 +357,74 @@ VOLUME_SERVER_EC_D2H_BYTES = Counter(
     "reconstructed intervals at their fetch lengths).",
     registry=REGISTRY,
 )
+VOLUME_SERVER_SCRUB_CORRUPT_GAUGE = Gauge(
+    "SeaweedFS_volumeServer_ec_scrub_corrupt_volumes",
+    "EC volumes whose last parity scrub found mismatching bytes.",
+    registry=REGISTRY,
+)
+VOLUME_SERVER_EC_SCRUB_DISPATCH = Counter(
+    "SeaweedFS_volumeServer_ec_scrub_device_dispatch_total",
+    "Device dispatches spent scrubbing resident EC volumes, by mode: "
+    "per_volume = one call per volume (scrub_volume), megakernel = one "
+    "launch covering a stack of up to 32 pinned volumes of one span "
+    "(scrub_all_resident).",
+    ["mode"],
+    registry=REGISTRY,
+)
+for _mode in ("per_volume", "megakernel"):
+    VOLUME_SERVER_EC_SCRUB_DISPATCH.labels(mode=_mode)
+
+# device-time attribution ledger (obs/devledger.py): every device section
+# is tagged with a workload class and lands here per class per device;
+# the class busy sums reconcile against the DevicePipeline and bulk Codec
+# wall clocks (tests pin the conservation)
+DEVICE_WORKLOADS = (
+    "serving_interactive", "serving_bulk", "ingest", "scrub", "repair",
+    "warmup", "bulk", "untagged",
+)
+VOLUME_SERVER_DEVICE_BUSY_SECONDS = Counter(
+    "SeaweedFS_volumeServer_device_busy_seconds",
+    "Device busy seconds (the wall of each device section) attributed per "
+    "workload class and device (default for the card, host for CPU "
+    "codec legs; untagged = a dispatch that escaped the workload tagging "
+    "— should stay 0).",
+    ["workload", "device"],
+    registry=REGISTRY,
+)
+VOLUME_SERVER_DEVICE_DISPATCHES = Counter(
+    "SeaweedFS_volumeServer_device_dispatches",
+    "Device dispatches (kernel calls / codec legs) per workload class and "
+    "device.",
+    ["workload", "device"],
+    registry=REGISTRY,
+)
+VOLUME_SERVER_DEVICE_DISPATCH_BYTES = Counter(
+    "SeaweedFS_volumeServer_device_dispatch_bytes",
+    "Bytes moved across the device boundary (H2D + D2H) per workload "
+    "class and device.",
+    ["workload", "device"],
+    registry=REGISTRY,
+)
+VOLUME_SERVER_DEVICE_QUEUE_WAIT_SECONDS = Counter(
+    "SeaweedFS_volumeServer_device_queue_wait_seconds",
+    "Seconds workloads spent queued for a device pipeline slot per "
+    "workload class and device.",
+    ["workload", "device"],
+    registry=REGISTRY,
+)
+
 # the port's own series: launches of each hand-written kernel, mirrored
 # at scrape time from the wrappers' counts
 VOLUME_SERVER_EC_KERNEL_LAUNCHES = Counter(
     "SeaweedFS_volumeServer_ec_kernel_launches",
     "Launches of each CUDA kernel of the EC paths in this process "
     "(fused_reconstruct, fused_reconstruct_blockdiag, gf2_matmul, "
-    "gf2_matmul_small).",
+    "gf2_matmul_small, scrub).",
     ["kernel"],
     registry=REGISTRY,
 )
 for _kernel in ("fused_reconstruct", "fused_reconstruct_blockdiag",
-                "gf2_matmul", "gf2_matmul_small"):
+                "gf2_matmul", "gf2_matmul_small", "scrub"):
     VOLUME_SERVER_EC_KERNEL_LAUNCHES.labels(kernel=_kernel)
 
 

@@ -42,6 +42,7 @@ from concurrent.futures import Future, ThreadPoolExecutor
 import numpy as np
 import torch
 
+from ...obs import devledger
 from ...ops import rs, rs_cuda
 from .layout import DATA_SHARDS
 
@@ -76,10 +77,18 @@ class Codec:
     this kernel), D2H into a pinned buffer, synchronise the stream.
     backend "torch" runs the same leg on CPU tensors (the plain version);
     "numpy" runs the table oracle.  The CPU backends get the worker thread
-    only when `threaded` (the overlap mode)."""
+    only when `threaded` (the overlap mode).
 
-    def __init__(self, matrix: np.ndarray, backend: str, threaded: bool = False):
+    Each leg is tagged `workload` in the device ledger (the reference's
+    classes: "bulk" for encode, "repair" for rebuild, "scrub" for verify)
+    inside the leg itself, since the worker thread never sees the
+    submitter's context, and records the same seconds it adds to busy_s
+    (device label "host" for the CPU backends)."""
+
+    def __init__(self, matrix: np.ndarray, backend: str, threaded: bool = False,
+                 workload: str = "bulk"):
         self.backend = rs.resolve_backend(backend)
+        self.workload = workload
         self.matrix = np.asarray(matrix, dtype=np.uint8)
         self.rows = self.matrix.shape[0]
         self.busy_s = 0.0
@@ -109,9 +118,16 @@ class Codec:
         return self._timed_leg(shards)
 
     def _timed_leg(self, shards: np.ndarray) -> np.ndarray:
+        device = None if self._cuda else "host"
         t0 = time.perf_counter()
-        out = self._leg(shards)
-        self.busy_s += time.perf_counter() - t0
+        with devledger.workload(self.workload, device=device):
+            out = self._leg(shards)
+        dur = time.perf_counter() - t0
+        self.busy_s += dur
+        devledger.record(
+            workload=self.workload, device=device, busy_s=dur, dispatches=1,
+            nbytes=int(shards.nbytes) + int(out.nbytes),
+        )
         return out
 
     def _host_leg(self, shards: np.ndarray) -> np.ndarray:

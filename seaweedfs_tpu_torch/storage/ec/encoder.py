@@ -120,7 +120,7 @@ def write_ec_files(
     use_overlap = bulk.DEFAULT_OVERLAP if overlap is None else bool(overlap)
     codec = bulk.Codec(
         gf256.parity_matrix(DATA_SHARDS, TOTAL_SHARDS), backend,
-        threaded=use_overlap,
+        threaded=use_overlap, workload="bulk",
     )
     _save_vif_from_superblock(dat_path, base_name)
 
@@ -196,7 +196,7 @@ def rebuild_ec_files(
     )
     stride = _resolve_stride(stride)
     use_overlap = bulk.DEFAULT_OVERLAP if overlap is None else bool(overlap)
-    codec = bulk.Codec(rmat, backend, threaded=use_overlap)
+    codec = bulk.Codec(rmat, backend, threaded=use_overlap, workload="repair")
 
     shard_size = os.path.getsize(base_name + to_ext(present[0]))
     inputs = {i: open(base_name + to_ext(i), "rb") for i in use}
@@ -257,7 +257,7 @@ def verify_ec_files(
     use_overlap = bulk.DEFAULT_OVERLAP if overlap is None else bool(overlap)
     codec = bulk.Codec(
         gf256.parity_matrix(DATA_SHARDS, TOTAL_SHARDS), backend,
-        threaded=use_overlap,
+        threaded=use_overlap, workload="scrub",
     )
     mism = np.zeros(TOTAL_SHARDS - DATA_SHARDS, dtype=np.int64)
     handles = [open(p, "rb") for p in paths]

@@ -10,9 +10,13 @@ pinned in the DeviceShardCache reconstruct on the card
 The Store is synchronous (file I/O + device kernels); the asyncio server
 layer calls it via ``asyncio.to_thread``.
 
+The parity scrub (scrub_ec_volume, scrub_ec, scrub_all_resident) runs on
+the card when every shard of a volume is resident (one launch of
+csrc/scrub.cu a volume, or one for up to 32 volumes of one span) and
+streams the shard files through verify_ec_files otherwise.
+
 Not here, each named in ROADMAP: tier moves, vacuum, the heartbeat
-messages and their delta queues (A4b); scrub (A5); the host-RAM shard
-cache (A7).
+messages and their delta queues (A4b); the host-RAM shard cache (A7b).
 """
 from __future__ import annotations
 
@@ -20,6 +24,7 @@ import glob
 import logging
 import os
 import threading
+import time
 
 from . import needle as needle_mod
 from . import types as t
@@ -349,6 +354,97 @@ class Store:
                 ev = loc.ec_volumes.pop(vid, None)
                 if ev is not None:
                     ev.destroy()
+
+    # -- parity scrub (store.go's VolumeEcShardsVerify backend) ---------------
+
+    def scrub_ec_volume(self, vid: int) -> dict:
+        """Parity scrub of a mounted EC volume: recompute parity and count
+        mismatching bytes per parity shard, on the card when every shard
+        is resident (only the mismatch partials come down), else by
+        streaming the shard files through the codec.  -> {parity_mismatch_
+        bytes, backend, seconds, bytes_verified}."""
+        ev = self.find_ec_volume(vid)
+        if ev is None:
+            raise NotFoundError(f"ec volume {vid} not found")
+        return self.scrub_ec(ev)
+
+    def scrub_all_resident(self) -> dict[int, dict]:
+        """Parity-scrub every fully device-resident EC volume in one pass
+        over the cache (rs_resident.scrub_all_resident: one launch per
+        span class and 32 volumes).  -> {vid: result dict in the scrub_ec
+        shape, plus "dir" (the pinned location, the only location whose
+        files the resident verdict speaks for) and "device_calls" /
+        "volumes_in_pass" of the shared pass}.  Volumes not covered (not
+        fully resident, mixed sizes, unpinned location) are absent: the
+        caller's per-volume path owns them."""
+        cache = self.ec_device_cache
+        if cache is None:
+            return {}
+        from ..ops import rs_resident
+
+        eligible: dict[int, EcVolume] = {}
+        with self._lock:
+            for loc in self.locations:
+                for vid, ev in loc.ec_volumes.items():
+                    # scrub_ec's attribution rule: the resident verdict
+                    # speaks only for the pinned location's files
+                    if ev.is_device_resident():
+                        eligible[vid] = ev
+        if not eligible:
+            return {}
+        t0 = time.time()
+        results, pass_stats = rs_resident.scrub_all_resident(
+            cache, vids=sorted(eligible)
+        )
+        wall = time.time() - t0
+        # the shared pass's wall apportioned by span: per-volume seconds
+        # sum back to the pass wall
+        total_span = sum(span for _m, span in results.values()) or 1
+        return {
+            vid: {
+                "parity_mismatch_bytes": mism,
+                "backend": "device_megakernel",
+                "seconds": wall * span / total_span,
+                "bytes_verified": span,
+                "dir": eligible[vid].dir,
+                "device_calls": pass_stats["device_calls"],
+                "volumes_in_pass": pass_stats["volumes"],
+            }
+            for vid, (mism, span) in results.items()
+        }
+
+    def scrub_ec(self, ev: EcVolume) -> dict:
+        """Scrub one specific EcVolume object (a vid can be mounted in
+        several disk locations; resolving by vid would always scrub the
+        first location's copy).  The resident path speaks only for the
+        location whose shard files were pinned (EcVolume.
+        is_device_resident); another location's copy scrubs its own files."""
+        t0 = time.time()
+        if self.ec_device_cache is not None and ev.is_device_resident():
+            from ..ops import rs_resident
+
+            try:
+                mism, span = rs_resident.scrub_volume(
+                    self.ec_device_cache, ev.id
+                )
+                return {
+                    "parity_mismatch_bytes": mism,
+                    "backend": "device_resident",
+                    "seconds": time.time() - t0,
+                    "bytes_verified": span,
+                }
+            except rs_resident.CacheMiss:
+                pass
+        from ..ops import rs
+        from .ec.encoder import verify_ec_files
+
+        mism, span = verify_ec_files(ev.base_name, backend=self.ec_backend)
+        return {
+            "parity_mismatch_bytes": mism,
+            "backend": rs.resolve_backend(self.ec_backend),
+            "seconds": time.time() - t0,
+            "bytes_verified": span,
+        }
 
     # -- EC reads ------------------------------------------------------------
 

@@ -651,3 +651,171 @@ def test_two_lanes_keep_their_bodies_on_card(cuda_device, tmp_path):
                 assert [bytes(n.data) for n in got] == [d for _, _, d in halves[i]]
     finally:
         store.close()
+
+
+# --- the parity scrub (csrc/scrub.cu) ---------------------------------------
+
+
+def _scrub_volumes(n_vols, size, seed, flips=()):
+    """n_vols RS(10,4) volumes of `size`-byte shards (numpy, seeded), each
+    a [14, size] array; `flips` (volume, shard, byte) XORs 0x5A in."""
+    out = []
+    for v in range(n_vols):
+        data = _rand((10, size), seed + v)
+        out.append(RSCodec(backend="numpy").encode_all(data))
+    for v, sid, byte in flips:
+        out[v][sid, byte] ^= 0x5A
+    return out
+
+
+def _on_card(shards, n_lanes, device):
+    """Each shard on the card, zero-padded past n_lanes as the cache pads."""
+    pad = n_lanes - shards.shape[1] + 4096
+    return tuple(torch.from_numpy(np.pad(s, (0, pad))).to(device)
+                 for s in shards)
+
+
+@pytest.mark.parametrize("layout", ["flat", "blockdiag"])
+@pytest.mark.parametrize("n_vols,size,seg_log2", [
+    (1, 300_000, 28), (1, 300_000, 12), (3, (1 << 20) + 37, 13),
+    (32, 70_001, 28), (2, 5 * 65536 + 128, 12),
+])
+def test_scrub_kernel_matches_plain_and_model(cuda_device, layout, n_vols,
+                                              size, seg_log2):
+    groups = 4 if layout == "blockdiag" else 1
+    n_lanes = rs_resident._scrub_span(size, groups * 128)
+    flips = [(0, 12, 0), (0, 12, size - 1), (0, 3, size // 2),
+             (n_vols - 1, 10, 4096 * 3 + 5), (n_vols - 1, 0, 65536 + 17)]
+    flips = [f for f in flips if f[2] < size]
+    vols = _scrub_volumes(n_vols, size, seed=size % 97, flips=flips)
+    a = rs_resident._scrub_matrix(10, 14, groups, str(cuda_device))
+    card = [_on_card(v, n_lanes, cuda_device) for v in vols]
+    before = rs_resident.scrub.launches
+    got = rs_resident.scrub(a, card, n_lanes=n_lanes, groups=groups,
+                            seg_log2=seg_log2)
+    torch.cuda.synchronize()
+    assert rs_resident.scrub.launches == before + 1
+    assert got.dtype == torch.int32
+    assert got.shape == (n_vols, 4, rs_resident._scrub_segments(n_lanes, seg_log2))
+    plain = rs_resident._scrub_torch(a, card, k=10, n_lanes=n_lanes,
+                                     groups=groups, seg_log2=seg_log2)
+    assert torch.equal(got, plain)
+    if n_vols <= 3:
+        host = [tuple(s.cpu().numpy() for s in v) for v in card]
+        model, _ = rs_resident._scrub_model(
+            rs_resident._bit_masks(a, 10, 4, groups, 4), host, k=10,
+            n_lanes=n_lanes, groups=groups, seg_log2=seg_log2)
+        assert np.array_equal(got.cpu().numpy(), model)
+    # each flip is one mismatching byte in every parity row it reaches: a
+    # parity flip in its own row, a data flip in all four (the RS parity
+    # matrix has no zero entry)
+    want = np.zeros((n_vols, 4), dtype=np.int64)
+    for v, sid, _ in flips:
+        if sid >= 10:
+            want[v, sid - 10] += 1
+        else:
+            want[v] += 1
+    assert np.array_equal(got.cpu().numpy().sum(-1), want)
+
+
+def test_scrub_volume_on_card_equals_cpu(cuda_device):
+    """scrub_volume and scrub_all_resident on a CUDA cache give the CPU
+    cache's counts and spans, in both layouts, with 16 bytes of partials
+    per volume and segment the only D2H."""
+    vols = _scrub_volumes(3, 200_003, seed=4, flips=[(1, 11, 7), (2, 5, 99)])
+    vols[2] = vols[2][:, :150_000].copy()  # another span class
+    for layout in ("flat", "blockdiag"):
+        caches = [rs_resident.DeviceShardCache(shard_quantum=1 << 20,
+                                               layout=layout, device=d)
+                  for d in ("cpu", cuda_device)]
+        for cache in caches:
+            for vid, shards in enumerate(vols, start=1):
+                for sid in range(14):
+                    cache.put(vid, sid, shards[sid])
+        d2h = rs_resident.scrub.d2h_bytes
+        got = [rs_resident.scrub_volume(caches[1], vid) for vid in (1, 2, 3)]
+        assert rs_resident.scrub.d2h_bytes == d2h + 3 * 16
+        assert got == [rs_resident.scrub_volume(caches[0], vid)
+                       for vid in (1, 2, 3)]
+        assert [g[0] for g in got] == [[0, 0, 0, 0], [0, 1, 0, 0],
+                                       [1, 1, 1, 1]]
+        res, st = rs_resident.scrub_all_resident(caches[1])
+        assert st == {"device_calls": 2, "volumes": 3}
+        assert res == rs_resident.scrub_all_resident(caches[0])[0]
+        assert res == {vid: g for vid, g in zip((1, 2, 3), got)}
+        for cache in caches:
+            cache.clear()
+
+
+def test_scrub_all_resident_stacks_32_a_launch(cuda_device):
+    vols = _scrub_volumes(33, 4096 * 3, seed=9, flips=[(32, 13, 1)])
+    cache = rs_resident.DeviceShardCache(shard_quantum=1 << 20,
+                                         device=cuda_device)
+    for vid, shards in enumerate(vols):
+        for sid in range(14):
+            cache.put(vid, sid, shards[sid])
+    before = rs_resident.scrub.launches
+    res, st = rs_resident.scrub_all_resident(cache)
+    assert st == {"device_calls": 2, "volumes": 33}
+    assert rs_resident.scrub.launches == before + 2
+    assert res[32] == ([0, 0, 0, 1], 4096 * 3)
+    assert all(res[v] == ([0] * 4, 4096 * 3) for v in range(32))
+
+
+def test_scrub_shard_evicted_mid_scrub(cuda_device):
+    """A shard evicted between the listing and the call is a CacheMiss; a
+    shard evicted after the call took its buffers is still read whole
+    (the buffers outlive the eviction until the kernel is done)."""
+    vols = _scrub_volumes(1, 100_000, seed=2, flips=[(0, 13, 5)])
+    cache = rs_resident.DeviceShardCache(shard_quantum=1 << 20,
+                                         device=cuda_device)
+    for sid in range(14):
+        cache.put(1, sid, vols[0][sid])
+    real = cache._get_ready
+
+    def evicting(vid, sid):
+        if sid == 0:
+            cache.evict(vid, 13)
+        return real(vid, sid)
+
+    cache._get_ready = evicting
+    with pytest.raises(rs_resident.CacheMiss, match="evicted"):
+        rs_resident.scrub_volume(cache, 1)
+    cache._get_ready = real
+    cache.put(1, 13, vols[0][13])
+    run = rs_resident._scrub_run
+
+    def evict_then_run(c, a, got, *args):
+        c.evict(1)
+        torch.cuda.empty_cache()
+        return run(c, a, got, *args)
+
+    rs_resident._scrub_run = evict_then_run
+    try:
+        assert rs_resident.scrub_volume(cache, 1) == ([0, 0, 0, 1], 100_096)
+    finally:
+        rs_resident._scrub_run = run
+    assert cache.resident_count(1) == 0
+
+
+def test_scrub_refuses_bad_arguments(cuda_device):
+    vols = _scrub_volumes(1, 8192, seed=1)
+    card = [_on_card(vols[0], 8192, cuda_device)]
+    a = rs_resident._scrub_matrix(10, 14, 1, str(cuda_device))
+    before = rs_resident.scrub.launches
+    with pytest.raises(ValueError, match="multiple"):
+        rs_resident.scrub(a, card, n_lanes=8192 + 64)
+    with pytest.raises(ValueError, match="seg_log2"):
+        rs_resident.scrub(a, card, n_lanes=8192, seg_log2=11)
+    with pytest.raises(ValueError, match="runs past"):
+        rs_resident.scrub(a, card, n_lanes=1 << 20)
+    with pytest.raises(ValueError, match="volumes"):
+        rs_resident.scrub(a, card * 33, n_lanes=8192)
+    big = torch.empty(card[0][0].numel() + 1, dtype=torch.uint8,
+                      device=cuda_device)
+    shifted = [(big[1:],) + card[0][1:]]
+    with pytest.raises(ValueError, match="aligned"):
+        rs_resident.scrub(a, shifted, n_lanes=8192)
+    with pytest.raises(ValueError):
+        rs_resident.scrub(a.cpu(), card, n_lanes=8192)
+    assert rs_resident.scrub.launches == before

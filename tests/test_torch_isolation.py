@@ -50,6 +50,18 @@ def test_forbidden_names():
     assert not _forbidden("google") and not _forbidden("google.cloud")
 
 
+def test_every_port_module_is_walked():
+    """The walk the import checks use reaches every module of the port,
+    the device ledger and the scrub's modules among them."""
+    mods = set(_port_modules())
+    for name in ("seaweedfs_tpu_torch.obs", "seaweedfs_tpu_torch.obs.devledger",
+                 "seaweedfs_tpu_torch.ops.rs_resident",
+                 "seaweedfs_tpu_torch.storage.store",
+                 "seaweedfs_tpu_torch.server.volume",
+                 "seaweedfs_tpu_torch.stats.metrics"):
+        assert name in mods, name
+
+
 def test_importing_every_port_module_loads_no_jax():
     """A fresh interpreter that refuses jax, seaweedfs_tpu[.*] and the
     server packages the card's machine lacks imports every port module and

@@ -430,3 +430,90 @@ def test_cli_cuda_without_a_card_fails_at_start(tmp_path):
     assert proc.returncode != 0
     assert "CUDA device" in proc.stderr
     assert "volume server up" not in proc.stderr
+
+
+# --- behaviour held to the reference server ---------------------------------
+
+
+async def _both_servers(tmp_path):
+    """The port's and the JAX package's volume servers in process, each over
+    its own directory with volume 3 placed 001 (two copies), no master."""
+    from seaweedfs_tpu.server.volume import VolumeServer as RefVolumeServer
+
+    port_dir, ref_dir = tmp_path / "port", tmp_path / "ref"
+    port_dir.mkdir()
+    ref_dir.mkdir()
+    port = server_volume.VolumeServer([], [str(port_dir)], port=0,
+                                      ec_backend="numpy")
+    ref = RefVolumeServer(masters=[], directories=[str(ref_dir)], port=0,
+                          grpc_port=0, ec_backend="numpy")
+    for vs in (port, ref):
+        vs.store.add_volume(3, replica_placement="001")
+    await port.start()
+    await ref.start(heartbeat=False)
+    return port, ref
+
+
+async def _ask(vs, method, path, headers=None, body=b""):
+    c = Client("127.0.0.1", vs.port)  # one connection a request: a 500 may close it
+    try:
+        return await c.request(method, path, headers, body)
+    finally:
+        await c.close()
+
+
+def test_refused_replicated_write_matches_reference(tmp_path):
+    """A plain write to a volume placed 001 finds no replica without a
+    master: both servers append, answer 500, and tombstone the needle again
+    only when the write created it — an overwrite keeps the new bytes."""
+    path = "/3,01637037d6"
+
+    async def go():
+        port, ref = await _both_servers(tmp_path)
+        try:
+            for vs in (port, ref):
+                status, _, _ = await _ask(vs, "POST", path + "?type=replicate",
+                                          body=b"first")
+                assert status == 200
+            got = [await _ask(vs, "POST", path, body=b"second")
+                   for vs in (port, ref)]
+            assert [g[0] for g in got] == [500, 500]
+            assert all(b"replication failed" in g[2] for g in got)
+            after = [await _ask(vs, "GET", path) for vs in (port, ref)]
+            assert [(a[0], a[2]) for a in after] == [(200, b"second")] * 2
+            # a create that fails its fan-out leaves the needle absent
+            fresh = "/3,02637037d6"
+            got = [(await _ask(vs, "POST", fresh, body=b"new"))[0]
+                   for vs in (port, ref)]
+            assert got == [500, 500]
+            got = [(await _ask(vs, "GET", fresh))[0] for vs in (port, ref)]
+            assert got == [404, 404]
+        finally:
+            await port.stop()
+            await ref.stop()
+
+    asyncio.run(go())
+
+
+@pytest.mark.parametrize("rng", ["bytes=3-2", "bytes=0-1,3-4", "bytes=x"])
+def test_malformed_range_matches_reference(tmp_path, rng):
+    """A malformed Range header is a 500 from both servers: the reference's
+    range parse raises outside any handler try, and the port follows it
+    (a 4xx waits for a change to the reference)."""
+    path = "/3,01637037d6"
+
+    async def go():
+        port, ref = await _both_servers(tmp_path)
+        try:
+            got = []
+            for vs in (port, ref):
+                await _ask(vs, "POST", path + "?type=replicate", body=b"0123456789")
+                ok = await _ask(vs, "GET", path, {"Range": "bytes=2-4"})
+                assert (ok[0], ok[2]) == (206, b"234")
+                got.append((await _ask(vs, "GET", path, {"Range": rng}))[0])
+            assert got == [500, 500]
+        finally:
+            await port.stop()
+            await ref.stop()
+
+    asyncio.run(go())
