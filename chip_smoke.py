@@ -14,7 +14,9 @@ volume:
   1. device      CUDA device, nvcc and driver versions, both builds; the
                  gf2_matmul kernels' registers and shared memory (nvcc
                  -Xptxas -v) and their tensor-core instructions (cuobjdump
-                 -sass: BMMA); the fused_reconstruct kernels' registers
+                 -sass: BMMA); the fused_reconstruct kernels' registers;
+                 the scrub kernels' registers and shared memory, the
+                 tensor-core form's BMMA and its blocks an SM
   2. kernel      gf2_matmul and gf2_matmul_small (the CUDA-core K1,
                  which takes the small one-row calls) vs _apply_torch (+
                  numpy oracle sample), timed in turns (small, tensor-core,
@@ -54,9 +56,11 @@ volume:
                  0], as verify_ec_files on the same files), corrupted on the
                  card ([1, 1, 5, 1], partials equal to the plain version's)
                  and restored; the scrub kernel's time against its bound,
-                 80 D2H bytes a call, the file scrub and the CPU codec on
-                 the same host; a pass over the cache with in-memory
-                 volumes of two spans beside it
+                 in turns with its earlier CUDA-core form (tensor cores,
+                 CUDA cores, CUDA cores, tensor cores), 80 D2H bytes a
+                 call, the file scrub and the CPU codec on the same host;
+                 a pass over the cache with in-memory volumes of two spans
+                 beside it
   6b. scrub_serve
                  the volume server with -ec.scrub.intervalSeconds 2 over
                  vid 1 (14 shards), vid 2 (hard links minus shards 0 and
@@ -197,25 +201,64 @@ def phase_device(torch) -> dict:
 
 
 def _scrub_build_facts(_build) -> list:
-    """Each scrub_kernel instantiation (data and parity shards unrolled:
-    10 x 4, or 16 x 8 predicated) from the build's -Xptxas -v log:
-    registers and spills."""
+    """Each scrub kernel instantiation from the build's -Xptxas -v log
+    (registers, spills, static shared memory) and, for the tensor-core
+    kernel (N-blocks of 4 parity rows: 1 or 2), its tensor-core
+    instructions from cuobjdump -sass of the library and the blocks an SM
+    holds at RS(10,4), flat and block-diagonal; the CUDA-core form (data
+    and parity shards unrolled: 10 x 4, or 16 x 8 predicated) is timed
+    beside it.  Fails if a tensor-core instantiation has no BMMA."""
     import re
 
-    facts, cur = [], None
+    from seaweedfs_tpu_torch.ops import rs_resident as rr
+
+    mma = re.compile(r"scrub_mma_kernelILi(\d)E")
+    cores = re.compile(r"cuda_cores12scrub_kernelILi(\d+)ELi(\d+)E")
+
+    def name(line):
+        m = mma.search(line)
+        if m:
+            return f"tensor cores, {m.group(1)} N-block(s)"
+        m = cores.search(line)
+        return f"CUDA cores, {m.group(1)} x {m.group(2)}" if m else None
+
+    facts: dict = {}
+    cur = None
     for line in _build.build_logs.get("swfs_kernels", "").splitlines():
         if "Compiling entry function" in line:
-            m = re.search(r"scrub_kernelILi(\d+)ELi(\d+)E", line)
-            cur = {"k": int(m.group(1)), "p": int(m.group(2))} if m else None
-        elif cur is not None and "spill stores" in line:
-            cur["spill_stores"] = int(line.split("bytes spill stores")[0].split(",")[-1])
-        elif cur is not None and "Used" in line and "registers" in line:
-            cur["registers"] = int(line.split("Used")[1].split()[0])
-            facts.append(cur)
+            cur = name(line)
+            if cur:
+                facts[cur] = {}
+        elif cur and "spill stores" in line:
+            facts[cur]["spill_stores"] = int(line.split("bytes spill stores")[0].split(",")[-1])
+        elif cur and "Used" in line and "registers" in line:
+            facts[cur]["registers"] = int(line.split("Used")[1].split()[0])
+            sm = re.search(r"(\d+) bytes smem", line)
+            facts[cur]["static_smem"] = int(sm.group(1)) if sm else 0
             cur = None
-    if not facts:
-        raise AssertionError("the build log names no scrub_kernel")
-    return facts
+    sass = subprocess.run(["cuobjdump", "-sass", _build.kernels()._name],
+                          capture_output=True, text=True, check=True).stdout
+    cur = None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            cur = name(line)
+        elif cur and ("BMMA" in line or "IMMA" in line):
+            op = line.split("*/")[1].split()[0] if "*/" in line else "MMA"
+            ops = facts.setdefault(cur, {}).setdefault("tensor_ops", {})
+            ops[op] = ops.get(op, 0) + 1
+    tensor = {k: v for k, v in facts.items() if k.startswith("tensor")}
+    if len(tensor) != 2 or any(not any(op.startswith("BMMA") for op in
+                                       f.get("tensor_ops", {}))
+                               for f in tensor.values()):
+        raise AssertionError(f"a tensor-core scrub kernel has no BMMA in its "
+                             f"SASS: {facts}")
+    if not any(k.startswith("CUDA cores") for k in facts):
+        raise AssertionError("the build log names no CUDA-core scrub kernel")
+    lib = rr._scrub_lib()
+    per_sm = {layout: lib.scrub_blocks_per_sm(10, 4, groups)
+              for layout, groups in (("flat", 1), ("blockdiag", 4))}
+    return [{"instance": k, **v} for k, v in sorted(facts.items())] + [
+        {"blocks_per_sm_rs10_4": per_sm}]
 
 
 def _fused_build_facts(_build) -> list:
@@ -1842,19 +1885,35 @@ def phase_scrub(torch, workdir: str, seed: int) -> dict:
             torch.cuda.synchronize()
             plain_ms = (time.perf_counter() - t1) * 1e3
             diff = (got.long() - want.long()).abs()
-            ms = _median_ms(torch, lambda: rr.scrub(
-                a, [vol], n_lanes=n_lanes, groups=groups), SCRUB_TIMED)
+            old = rr.scrub_cuda_cores(a, [vol], n_lanes=n_lanes, groups=groups)
+            old_diff = (old.long() - want.long()).abs()
+            # in turns: tensor cores, CUDA cores, CUDA cores, tensor cores
+            turns = {"ms": [], "previous_ms": []}
+            for key in ("ms", "previous_ms", "previous_ms", "ms"):
+                fn = rr.scrub if key == "ms" else rr.scrub_cuda_cores
+                turns[key].append(_median_ms(torch, lambda: fn(
+                    a, [vol], n_lanes=n_lanes, groups=groups), SCRUB_TIMED))
+            ms = statistics.mean(turns["ms"])
+            prev_ms = statistics.mean(turns["previous_ms"])
             bound_ms, bound_by = _scrub_bound(rr, n_lanes)
             rows[layout] = {
                 "n_lanes": n_lanes, "partials": got[0].tolist(),
                 "max_abs_err": int(diff.max()),
                 "mismatched_bytes": int((diff != 0).sum()),
-                "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-                "bound_by": bound_by, "share_of_bound": bound_ms / ms,
-                "GBps": 14 * n_lanes / ms / 1e6}
-            if diff.any():
-                raise AssertionError(f"{layout} partials {got[0].tolist()} "
-                                     f"differ from the plain {want[0].tolist()}")
+                "ms": ms, "ms_turns": turns["ms"], "plain_ms": plain_ms,
+                "bound_ms": bound_ms, "bound_by": bound_by,
+                "share_of_bound": bound_ms / ms,
+                "GBps": 14 * n_lanes / ms / 1e6,
+                # the earlier CUDA-core kernel, timed in the same turns
+                "previous_ms": prev_ms,
+                "previous_ms_turns": turns["previous_ms"],
+                "previous_share_of_bound": bound_ms / prev_ms,
+                "previous_max_abs_err": int(old_diff.max())}
+            if diff.any() or old_diff.any():
+                raise AssertionError(
+                    f"{layout} partials {got[0].tolist()} (CUDA cores "
+                    f"{old[0].tolist()}) differ from the plain "
+                    f"{want[0].tolist()}")
         _flip(torch, cache.get(1, 12), par_at)  # XOR again: restored
         _flip(torch, cache.get(1, 3), data_at)
         restored, n = window(scrub_both)
@@ -1865,6 +1924,8 @@ def phase_scrub(torch, workdir: str, seed: int) -> dict:
             parity_shard_12_bytes=par_at, data_shard_3_bytes=data_at,
             corrupt={k: r["parity_mismatch_bytes"] for k, r in bad.items()},
             restored={k: r["parity_mismatch_bytes"] for k, r in restored.items()},
+            # Store.scrub_ec walls after the clean pass's first calls
+            wall_s={k: [bad[k]["wall_s"], restored[k]["wall_s"]] for k in bad},
             kernel=rows, library_ms=None, library_note=NO_SCRUB_LIBRARY_CALL)
 
         # in-memory volumes beside volume 1, one of them corrupt
@@ -2204,9 +2265,12 @@ def main() -> int:
         "bound_by": srow["flat"]["bound_by"],
         "library_ms": None,
         "library_note": NO_SCRUB_LIBRARY_CALL,
+        "redesigned": "PR 7",
+        # the CUDA-core kernel it replaced, timed in turns with it
+        "previous_ms": srow["flat"]["previous_ms"],
         "blockdiag": {key: srow["blockdiag"][key] for key in (
-            "n_lanes", "ms", "plain_ms", "bound_ms", "bound_by",
-            "share_of_bound")},
+            "n_lanes", "ms", "previous_ms", "plain_ms", "bound_ms",
+            "bound_by", "share_of_bound")},
         "share_of_bound": srow["flat"]["share_of_bound"],
         "d2h_bytes_per_call": scr["d2h_bytes_per_call"],
     }

@@ -176,23 +176,36 @@ def _bind_kernels(lib: ctypes.CDLL) -> None:
     lib.fused_reconstruct_limits.restype = None
     lib.fused_reconstruct_error_string.argtypes = [ctypes.c_int]
     lib.fused_reconstruct_error_string.restype = ctypes.c_char_p
-    fn = lib.scrub_launch
-    fn.argtypes = [
-        ctypes.c_void_p,  # masks u8 [groups*p*8, 16] on the host
-        ctypes.c_int,  # k (data shards)
-        ctypes.c_int,  # p (parity shards)
-        ctypes.c_int,  # groups (1: the flat system)
-        ctypes.POINTER(ctypes.c_void_p),  # vols*(k+p) shard device pointers
-        ctypes.c_int,  # vols
-        ctypes.c_long,  # n_lanes
-        ctypes.c_int,  # seg_log2
-        ctypes.c_void_p,  # partials int32 [vols, p, n_seg] on the device
-        ctypes.c_void_p,  # cudaStream_t
-    ]
-    fn.restype = ctypes.c_int
+    # the tensor-core scrub and its earlier CUDA-core form take the same
+    # arguments
+    for fn in (lib.scrub_launch, lib.scrub_cuda_cores_launch):
+        fn.argtypes = [
+            ctypes.c_void_p,  # masks u8 [groups*p*8, 16] on the host
+            ctypes.c_int,  # k (data shards)
+            ctypes.c_int,  # p (parity shards)
+            ctypes.c_int,  # groups (1: the flat system)
+            ctypes.POINTER(ctypes.c_void_p),  # vols*(k+p) shard device pointers
+            ctypes.c_int,  # vols
+            ctypes.c_long,  # n_lanes
+            ctypes.c_int,  # seg_log2
+            ctypes.c_void_p,  # partials int32 [vols, p, n_seg] on the device
+            ctypes.c_void_p,  # cudaStream_t
+        ]
+        fn.restype = ctypes.c_int
     lib.scrub_limits.argtypes = [ctypes.POINTER(ctypes.c_long)] + [
         ctypes.POINTER(ctypes.c_int)] * 3
     lib.scrub_limits.restype = None
+    fn = lib.scrub_fragments
+    fn.argtypes = [
+        ctypes.c_void_p,  # masks u8 [groups*p*8, 16] on the host
+        ctypes.c_int,  # k
+        ctypes.c_int,  # p
+        ctypes.c_int,  # groups
+        ctypes.c_void_p,  # out uint32 [groups*ceil(p/4)*128] on the host
+    ]
+    fn.restype = ctypes.c_int
+    lib.scrub_blocks_per_sm.argtypes = [ctypes.c_int] * 3
+    lib.scrub_blocks_per_sm.restype = ctypes.c_int
     lib.scrub_error_string.argtypes = [ctypes.c_int]
     lib.scrub_error_string.restype = ctypes.c_char_p
 

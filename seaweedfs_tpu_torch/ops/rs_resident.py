@@ -1251,12 +1251,12 @@ def make_batched_call(
 # --- parity scrub -------------------------------------------------------------
 #
 # The port of the JAX package's scrub half: scrub_volume and
-# scrub_all_resident recompute every parity byte of fully resident volumes
-# from their resident data shards and count the mismatching bytes per
+# scrub_all_resident check every parity byte of fully resident volumes
+# against their resident data shards and count the mismatching bytes per
 # parity shard.  One launch of csrc/scrub.cu (`scrub` below) reads the 14
-# resident shards once and keeps the recomputed parity in registers; only
-# the int32 [V, p, n_seg] mismatch partials come down.  What differs from
-# the JAX package: no stacked operand or recomputed parity is
+# resident shards once and computes each byte's syndrome on the tensor
+# cores; only the int32 [V, p, n_seg] mismatch partials come down.  What
+# differs from the JAX package: no stacked operand or recomputed parity is
 # materialised, so nothing bounds a fused call but the 32 volumes one
 # launch's parameters hold (the JAX package's 256 MiB stack cap and its
 # power-of-two volume padding are gone), and the device section runs in a
@@ -1269,12 +1269,15 @@ def make_batched_call(
 _SCRUB_SEG = 1 << 28
 # most volumes one scrub launch takes (csrc/scrub.cu's parameter block)
 _SCRUB_STACK_CAP = 32
-# csrc/scrub.cu's walk (checked against the library when it loads): bytes
-# a block covers, bytes of one step of it (256 threads x 16 bytes), and
-# the least seg_log2 (a step lies in one counting segment)
-SCRUB_SPAN = 64 * 1024
-SCRUB_STEP = 4096
+# csrc/scrub.cu's walk (checked against the library when it loads): shard
+# bytes a tile covers (tiles are aligned to it), columns of a warp's pass
+# (the unit whose block-diagonal group is picked once), and the least
+# seg_log2 (a tile lies in one counting segment)
+SCRUB_TILE = 2048
+SCRUB_PASS_COLS = 64
 SCRUB_MIN_SEG_LOG2 = 12
+# K slots of the syndrome: k data then p parity shards, k + p <= 16
+SCRUB_SLOTS = 16
 
 
 def _scrub_segments(n_lanes: int, seg_log2: int) -> int:
@@ -1312,59 +1315,126 @@ def _scrub_torch(a, vols, *, k, n_lanes, groups, seg_log2) -> torch.Tensor:
     return out.to(torch.int32)
 
 
+def _scrub_masks(a: torch.Tensor, k: int, p: int, groups: int) -> np.ndarray:
+    """The scrub kernels' mask table: _bit_masks(a, k, p, groups, p) with
+    the syndrome bytes added.  Row (jg*p + j)*8 + i of the [groups*p*8,
+    16] u8 table is K slot s's mask for output bit i of parity row j in
+    group jg: byte s < k the data shard's mask of the prepared matrix,
+    byte k + j the stored parity bit (1 << i), every other byte 0; so
+    parity(popcount(slots & row)) is (recomputed bit i) XOR (stored bit
+    i), and a byte verifies iff all 8 are 0."""
+    if k + p > SCRUB_SLOTS:
+        raise ValueError(f"{k}+{p} shards exceed the syndrome's "
+                         f"{SCRUB_SLOTS} slots")
+    table = _bit_masks(a, k, p, groups, p).reshape(groups, p, 8, 16).copy()
+    bits = np.arange(8)
+    for j in range(p):
+        table[:, j, bits, k + j] = 1 << bits
+    return table.reshape(-1, 16)
+
+
+def _scrub_fragments(masks: np.ndarray, p: int, groups: int) -> np.ndarray:
+    """numpy mirror of csrc/scrub.cu's scrub_fragments: the mask table in
+    the tensor-core kernel's B-fragment order, [groups, n_blk, 4, 32]
+    uint32 (n_blk = ceil(p / 4) N-blocks of 4 rows, 4 n-tiles, 32 lanes):
+    lane (g, t)'s word for n-tile q of N-block nb holds at byte r slot
+    t + 4r of row 4*nb + g//2, bit 2q + g%2 (zero past row p)."""
+    n_blk = -(-p // 4)
+    rows = np.zeros((groups, 4 * n_blk, 8, 16), dtype=np.uint32)
+    rows[:, :p] = masks.reshape(groups, p, 8, 16)
+    lane = np.arange(32)
+    g, t = lane >> 2, lane & 3
+    row = (4 * np.arange(n_blk)[:, None, None] + (g >> 1))  # [n_blk, 1, 32]
+    bit = (2 * np.arange(4)[None, :, None] + (g & 1))       # [1, 4, 32]
+    out = np.zeros((groups, n_blk, 4, 32), dtype=np.uint32)
+    for r in range(4):
+        out |= rows[:, row, bit, t + 4 * r] << np.uint32(8 * r)
+    return out
+
+
+_POPCOUNT8 = np.array([bin(i).count("1") for i in range(256)], dtype=np.uint8)
+
+
+def _scrub_bad(frags: np.ndarray, shards, *, k: int, lo: int, hi: int,
+               seg: int, groups: int) -> np.ndarray:
+    """The tensor-core kernel's verdict on columns [lo, hi), modelled
+    through its fragments: each column's A word for lane t holds slot
+    t + 4r at byte r (a 4x4 byte transpose of the loaded rows), each
+    count is popcount(A & B) summed over the 4 lanes t of a column of B,
+    and a (column, row) mismatches iff one of its 8 counts is odd.  The
+    group is picked per SCRUB_PASS_COLS-column pass.  -> [p, hi - lo]
+    bool."""
+    p = len(shards) - k
+    n_blk = frags.shape[1]
+    x = np.zeros((SCRUB_SLOTS, hi - lo), dtype=np.uint32)
+    for s, shard in enumerate(shards):
+        x[s] = shard[lo:hi]
+    a = np.zeros((4, hi - lo), dtype=np.uint32)
+    for r in range(4):
+        a |= x[4 * r : 4 * r + 4] << np.uint32(8 * r)  # lane t: slot t + 4r
+    q0 = np.arange(lo, hi) // SCRUB_PASS_COLS * SCRUB_PASS_COLS
+    jg = (q0[:, None] >= np.arange(1, groups) * seg).sum(axis=1)
+    # counts [cols, nb, q, g]: B column g of n-tile q, summed over lanes t
+    b = frags[jg].reshape(hi - lo, n_blk, 4, 8, 4)
+    anded = np.ascontiguousarray(a.T[:, None, None, None, :] & b)
+    counts = _POPCOUNT8[anded.view(np.uint8)].sum(axis=-1, dtype=np.int64)
+    # column g is row 4*nb + g//2, bit 2q + g%2
+    odd = (counts & 1).reshape(hi - lo, n_blk, 4, 4, 2)
+    return odd.any(axis=(2, 4)).reshape(hi - lo, 4 * n_blk)[:, :p].T
+
+
 def _scrub_model(masks: np.ndarray, vols, *, k: int, n_lanes: int,
-                 groups: int, seg_log2: int) -> tuple[np.ndarray, list]:
-    """numpy model of a launch of csrc/scrub.cu: block (volume v, span) walks
-    its SCRUB_SPAN bytes in SCRUB_STEP steps, each thread's 16 bytes q..q+15
-    take group jg = the boundaries seg, 2*seg, ... at or below q and the
-    masks of (jg, row j, bit i) (output bit = parity of mask & byte, over
-    the k data shards), each thread counts mismatching bytes per row, and
-    the block adds its counts for a segment when a step enters the next
-    segment and at its end.  -> (partials [V, p, n_seg] int64, the adds in
-    block order: (v, j, segment, count), zero counts skipped as the kernel
-    skips them)."""
+                 groups: int, seg_log2: int,
+                 blocks: int = 264) -> tuple[np.ndarray, list]:
+    """numpy model of a launch of csrc/scrub.cu's tensor-core kernel:
+    `blocks` persistent blocks (264 on the H100, two an SM) walk the
+    (volume, SCRUB_TILE-byte tile) pairs, volume-major, each taking every
+    blocks-th pair; each tile's mismatches come from the syndrome model
+    (_scrub_bad, through the B fragments of `masks`); a block adds its
+    counts per row when its next tile lies in another (volume, counting
+    segment), and at its end.  -> (partials [V, p, n_seg] int64, the adds
+    in block order: (block, v, j, segment, count), zero counts skipped as
+    the kernel skips them)."""
     p = len(vols[0]) - k
     seg = n_lanes // groups
     n_seg = _scrub_segments(n_lanes, seg_log2)
-    table = masks.reshape(groups, p, 8, 16)[..., :k]
-    bounds = np.arange(1, groups) * seg
-    local = np.arange(SCRUB_STEP // 16) * 16
+    frags = _scrub_fragments(masks, p, groups)
+    tiles = -(-n_lanes // SCRUB_TILE)
+    # per_tile[v][j, tile]: the tile's mismatching bytes of row j
+    per_tile = []
+    for shards in vols:
+        counts = np.zeros((p, tiles * SCRUB_TILE), dtype=np.int64)
+        for lo in range(0, n_lanes, 1 << 15):
+            hi = min(n_lanes, lo + (1 << 15))
+            counts[:, lo:hi] = _scrub_bad(frags, shards, k=k, lo=lo, hi=hi,
+                                          seg=seg, groups=groups)
+        per_tile.append(counts.reshape(p, tiles, SCRUB_TILE).sum(axis=2))
     out = np.zeros((len(vols), p, n_seg), dtype=np.int64)
-    adds: list[tuple[int, int, int, int]] = []
-    for v, shards in enumerate(vols):
-        for span0 in range(0, n_lanes, SCRUB_SPAN):
-            cnt = np.zeros((p, local.size), dtype=np.int64)
-            cur = span0 >> seg_log2
-
-            def flush():
-                for j in range(p):
-                    total = int(cnt[j].sum())
-                    if total:
-                        out[v, j, cur] += total
-                        adds.append((v, j, cur, total))
-                cnt[:] = 0
-
-            for base in range(span0, span0 + SCRUB_SPAN, SCRUB_STEP):
-                if base >= n_lanes:
-                    break
-                if base >> seg_log2 != cur:
-                    flush()
-                    cur = base >> seg_log2
-                live = np.flatnonzero(base + local < n_lanes)
-                q = base + local[live]
-                jg = np.repeat((q[:, None] >= bounds).sum(axis=1), 16)
-                cols = (q[:, None] + np.arange(16)).reshape(-1)
-                xs = np.stack([shards[s][cols] for s in range(k)], axis=1)
-                for j in range(p):
-                    m = table[jg, j]  # [bytes, 8, k]
-                    y = np.bitwise_xor.reduce(m & xs[:, None, :], axis=2)
-                    bits = (np.unpackbits(y[..., None], axis=-1).sum(-1)
-                            & 1).astype(np.int64)
-                    par = (bits << np.arange(8)).sum(-1)
-                    bad = par != shards[k + j][cols]
-                    cnt[j, live] += bad.reshape(-1, 16).sum(axis=1)
-            flush()
+    adds: list[tuple[int, int, int, int, int]] = []
+    total = len(vols) * tiles
+    for blk in range(min(blocks, total)):
+        cnt = np.zeros(p, dtype=np.int64)
+        cur = None
+        for f in range(blk, total, blocks):
+            v, tile = divmod(f, tiles)
+            key = (v, (tile * SCRUB_TILE) >> seg_log2)
+            if cur is not None and key != cur:
+                _scrub_model_add(out, adds, blk, cur, cnt)
+            cur = key
+            cnt += per_tile[v][:, tile]
+        _scrub_model_add(out, adds, blk, cur, cnt)
     return out, adds
+
+
+def _scrub_model_add(out, adds, blk, key, cnt) -> None:
+    """A block's flush in the model: one add per row with a non-zero
+    count, then the counts restart."""
+    v, sid = key
+    for j, c in enumerate(cnt.tolist()):
+        if c:
+            out[v, j, sid] += c
+            adds.append((blk, v, j, sid, c))
+    cnt[:] = 0
 
 
 def _check_scrub(a, vols, k, n_lanes, groups, seg_log2) -> None:
@@ -1406,16 +1476,41 @@ def _scrub_lib():
     """The kernel library, csrc/scrub.cu's constants checked against this
     module's."""
     lib = _build.kernels()
-    span, step = ctypes.c_long(), ctypes.c_int()
+    tile, cols = ctypes.c_long(), ctypes.c_int()
     vols, seg_min = ctypes.c_int(), ctypes.c_int()
-    lib.scrub_limits(ctypes.byref(span), ctypes.byref(step),
+    lib.scrub_limits(ctypes.byref(tile), ctypes.byref(cols),
                      ctypes.byref(vols), ctypes.byref(seg_min))
-    got = (span.value, step.value, vols.value, seg_min.value)
-    want = (SCRUB_SPAN, SCRUB_STEP, _SCRUB_STACK_CAP, SCRUB_MIN_SEG_LOG2)
+    got = (tile.value, cols.value, vols.value, seg_min.value)
+    want = (SCRUB_TILE, SCRUB_PASS_COLS, _SCRUB_STACK_CAP, SCRUB_MIN_SEG_LOG2)
     if got != want:
-        raise RuntimeError(f"csrc/scrub.cu has (span, step, volumes, "
+        raise RuntimeError(f"csrc/scrub.cu has (tile, pass columns, volumes, "
                            f"seg_log2) {got}; rs_resident expects {want}")
     return lib
+
+
+def _scrub_launch(entry: str, a, vols, n_lanes: int, k: int, groups: int,
+                  seg_log2: int) -> torch.Tensor:
+    """One launch of csrc/scrub.cu's C entry `entry` on the current stream
+    over checked CUDA shards; raises if it does not launch.  -> the int32
+    [V, p, n_seg] partials on the card."""
+    if any(s.data_ptr() % 16 for vol in vols for s in vol):
+        raise ValueError("shard buffers must be 16-byte aligned")
+    lib = _scrub_lib()
+    p = len(vols[0]) - k
+    masks = _scrub_masks(a, k, p, groups)
+    dev = vols[0][0].device
+    out = torch.empty((len(vols), p, _scrub_segments(n_lanes, seg_log2)),
+                      dtype=torch.int32, device=dev)
+    ptrs = [s.data_ptr() for vol in vols for s in vol]
+    with torch.cuda.device(dev):
+        rc = getattr(lib, entry)(
+            masks.ctypes.data, k, p, groups, (ctypes.c_void_p * len(ptrs))(*ptrs),
+            len(vols), n_lanes, seg_log2, out.data_ptr(),
+            torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"{entry} failed ({rc}): "
+                           f"{lib.scrub_error_string(rc).decode()}")
+    return out
 
 
 def scrub(a, vols, *, n_lanes: int, k: int = DATA_SHARDS, groups: int = 1,
@@ -1428,8 +1523,8 @@ def scrub(a, vols, *, n_lanes: int, k: int = DATA_SHARDS, groups: int = 1,
     n_seg] on the shards' device: the mismatching bytes of parity row j
     over the first n_lanes bytes per 2^seg_log2-byte counting segment
     (seg_log2 defaults to _SCRUB_SEG's).  CPU shards take the plain
-    version; CUDA shards launch csrc/scrub.cu on the current stream or
-    raise.  `.launches` counts launches."""
+    version; CUDA shards launch csrc/scrub.cu's tensor-core kernel on the
+    current stream or raise.  `.launches` counts launches."""
     if seg_log2 is None:
         seg_log2 = _SCRUB_SEG.bit_length() - 1
     _check_scrub(a, vols, k, n_lanes, groups, seg_log2)
@@ -1439,22 +1534,7 @@ def scrub(a, vols, *, n_lanes: int, k: int = DATA_SHARDS, groups: int = 1,
                             seg_log2=seg_log2)
     if dev.type != "cuda":
         raise ValueError(f"no scrub kernel for {dev}")
-    if any(s.data_ptr() % 16 for vol in vols for s in vol):
-        raise ValueError("shard buffers must be 16-byte aligned")
-    lib = _scrub_lib()
-    p = len(vols[0]) - k
-    masks = _bit_masks(a, k, p, groups, p)
-    out = torch.empty((len(vols), p, _scrub_segments(n_lanes, seg_log2)),
-                      dtype=torch.int32, device=dev)
-    ptrs = [s.data_ptr() for vol in vols for s in vol]
-    with torch.cuda.device(dev):
-        rc = lib.scrub_launch(
-            masks.ctypes.data, k, p, groups, (ctypes.c_void_p * len(ptrs))(*ptrs),
-            len(vols), n_lanes, seg_log2, out.data_ptr(),
-            torch.cuda.current_stream().cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"scrub_launch failed ({rc}): "
-                           f"{lib.scrub_error_string(rc).decode()}")
+    out = _scrub_launch("scrub_launch", a, vols, n_lanes, k, groups, seg_log2)
     with _launch_lock:
         scrub.launches += 1
     return out
@@ -1463,6 +1543,30 @@ def scrub(a, vols, *, n_lanes: int, k: int = DATA_SHARDS, groups: int = 1,
 scrub.launches = 0
 # bytes the scrub calls copied to the host (only their partials)
 scrub.d2h_bytes = 0
+
+
+def scrub_cuda_cores(a, vols, *, n_lanes: int, k: int = DATA_SHARDS,
+                     groups: int = 1,
+                     seg_log2: int | None = None) -> torch.Tensor:
+    """`scrub` on csrc/scrub.cu's earlier CUDA-core kernel
+    (scrub_cuda_cores_launch): the same arguments and partials.  Kept to be
+    timed beside the tensor-core kernel; nothing on the main path calls
+    it.  CPU shards take the plain version; CUDA shards launch or raise.
+    `.launches` counts launches."""
+    if seg_log2 is None:
+        seg_log2 = _SCRUB_SEG.bit_length() - 1
+    _check_scrub(a, vols, k, n_lanes, groups, seg_log2)
+    if vols[0][0].device.type != "cuda":
+        return scrub(a, vols, n_lanes=n_lanes, k=k, groups=groups,
+                     seg_log2=seg_log2)
+    out = _scrub_launch("scrub_cuda_cores_launch", a, vols, n_lanes, k,
+                        groups, seg_log2)
+    with _launch_lock:
+        scrub_cuda_cores.launches += 1
+    return out
+
+
+scrub_cuda_cores.launches = 0
 
 
 def _scrub_matrix(data_shards: int, total_shards: int, groups: int,

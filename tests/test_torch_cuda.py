@@ -675,47 +675,123 @@ def _on_card(shards, n_lanes, device):
                  for s in shards)
 
 
+def _code_volumes(n_vols, size, seed, k, p, flips=(), dense=False):
+    """n_vols RS(k, k+p) volumes of `size`-byte shards (numpy, seeded);
+    `flips` (volume, shard, byte) XOR 0x5A in; `dense` replaces every
+    parity byte with a random one."""
+    parity_m = gf256.build_matrix(k, k + p)[k:]
+    out = []
+    for v in range(n_vols):
+        rng = np.random.default_rng(seed + v)
+        data = rng.integers(0, 256, (k, size), dtype=np.uint8)
+        par = (rng.integers(0, 256, (p, size), dtype=np.uint8) if dense
+               else rs_cpu.apply_matrix_numpy(parity_m, data))
+        out.append(np.concatenate([data, par]))
+    for v, sid, byte in flips:
+        out[v][sid, byte] ^= 0x5A
+    return out
+
+
+def _mismatch_oracle(vols, k):
+    """numpy: mismatching bytes per volume and parity row, [V, p]."""
+    p = vols[0].shape[0] - k
+    parity_m = gf256.build_matrix(k, k + p)[k:]
+    return np.array([(rs_cpu.apply_matrix_numpy(parity_m, v[:k]) != v[k:])
+                     .sum(axis=1) for v in vols])
+
+
+# (volumes, shard bytes, seg_log2, (k, p), dense parity)
+SCRUB_CASES = [
+    (1, 300_000, 28, (10, 4), False), (1, 300_000, 12, (10, 4), False),
+    (3, (1 << 20) + 37, 13, (10, 4), False), (32, 70_001, 28, (10, 4), False),
+    (2, 5 * 65536 + 128, 12, (10, 4), False),
+    # every parity byte wrong: the counts, not only sparse flips
+    (1, 300_000, 13, (10, 4), True), (4, 70_001, 12, (8, 8), True),
+    # n_lanes ends mid-tile; block-diagonal group boundaries mid-tile
+    (2, 5 * 4096 + 600, 12, (10, 4), False),
+    # other codes, k + p <= 16 slots
+    (2, 70_001, 13, (6, 3), False), (2, 70_001, 12, (12, 4), False),
+    (2, 70_001, 15, (8, 8), False),
+]
+
+
 @pytest.mark.parametrize("layout", ["flat", "blockdiag"])
-@pytest.mark.parametrize("n_vols,size,seg_log2", [
-    (1, 300_000, 28), (1, 300_000, 12), (3, (1 << 20) + 37, 13),
-    (32, 70_001, 28), (2, 5 * 65536 + 128, 12),
-])
+@pytest.mark.parametrize("n_vols,size,seg_log2,code,dense", SCRUB_CASES)
 def test_scrub_kernel_matches_plain_and_model(cuda_device, layout, n_vols,
-                                              size, seg_log2):
-    groups = 4 if layout == "blockdiag" else 1
+                                              size, seg_log2, code, dense):
+    k, p = code
+    groups = (4 if 4 * p <= 16 else 2) if layout == "blockdiag" else 1
     n_lanes = rs_resident._scrub_span(size, groups * 128)
-    flips = [(0, 12, 0), (0, 12, size - 1), (0, 3, size // 2),
-             (n_vols - 1, 10, 4096 * 3 + 5), (n_vols - 1, 0, 65536 + 17)]
+    flips = [(0, k + 2 if p > 2 else k, 0), (0, k + 2 if p > 2 else k, size - 1),
+             (0, 3, size // 2), (n_vols - 1, k, 4096 * 3 + 5),
+             (n_vols - 1, 0, 65536 + 17)]
     flips = [f for f in flips if f[2] < size]
-    vols = _scrub_volumes(n_vols, size, seed=size % 97, flips=flips)
-    a = rs_resident._scrub_matrix(10, 14, groups, str(cuda_device))
+    vols = _code_volumes(n_vols, size, seed=size % 97, k=k, p=p, flips=flips,
+                         dense=dense)
+    a = rs_resident._scrub_matrix(k, k + p, groups, str(cuda_device))
     card = [_on_card(v, n_lanes, cuda_device) for v in vols]
     before = rs_resident.scrub.launches
-    got = rs_resident.scrub(a, card, n_lanes=n_lanes, groups=groups,
+    got = rs_resident.scrub(a, card, n_lanes=n_lanes, k=k, groups=groups,
                             seg_log2=seg_log2)
     torch.cuda.synchronize()
     assert rs_resident.scrub.launches == before + 1
     assert got.dtype == torch.int32
-    assert got.shape == (n_vols, 4, rs_resident._scrub_segments(n_lanes, seg_log2))
-    plain = rs_resident._scrub_torch(a, card, k=10, n_lanes=n_lanes,
+    assert got.shape == (n_vols, p, rs_resident._scrub_segments(n_lanes, seg_log2))
+    plain = rs_resident._scrub_torch(a, card, k=k, n_lanes=n_lanes,
                                      groups=groups, seg_log2=seg_log2)
     assert torch.equal(got, plain)
     if n_vols <= 3:
         host = [tuple(s.cpu().numpy() for s in v) for v in card]
         model, _ = rs_resident._scrub_model(
-            rs_resident._bit_masks(a, 10, 4, groups, 4), host, k=10,
+            rs_resident._scrub_masks(a, k, p, groups), host, k=k,
             n_lanes=n_lanes, groups=groups, seg_log2=seg_log2)
         assert np.array_equal(got.cpu().numpy(), model)
-    # each flip is one mismatching byte in every parity row it reaches: a
-    # parity flip in its own row, a data flip in all four (the RS parity
-    # matrix has no zero entry)
-    want = np.zeros((n_vols, 4), dtype=np.int64)
-    for v, sid, _ in flips:
-        if sid >= 10:
-            want[v, sid - 10] += 1
-        else:
-            want[v] += 1
-    assert np.array_equal(got.cpu().numpy().sum(-1), want)
+    assert np.array_equal(got.cpu().numpy().sum(-1), _mismatch_oracle(vols, k))
+
+
+@pytest.mark.parametrize("layout", ["flat", "blockdiag"])
+@pytest.mark.parametrize("code,dense", [((10, 4), False), ((10, 4), True),
+                                        ((6, 3), False), ((8, 8), True)])
+def test_scrub_cuda_cores_variant_equals_kernel(cuda_device, layout, code,
+                                                dense):
+    """The earlier CUDA-core kernel (timed beside the tensor-core one in
+    chip_smoke.py) gives the tensor-core kernel's partials; each counts
+    only its own launches."""
+    k, p = code
+    groups = (4 if 4 * p <= 16 else 2) if layout == "blockdiag" else 1
+    size = 3 * 65536 + 1000
+    n_lanes = rs_resident._scrub_span(size, groups * 128)
+    vols = _code_volumes(3, size, seed=7, k=k, p=p,
+                         flips=[(1, k, 5), (2, 1, size - 1)], dense=dense)
+    a = rs_resident._scrub_matrix(k, k + p, groups, str(cuda_device))
+    card = [_on_card(v, n_lanes, cuda_device) for v in vols]
+    tc, cc = rs_resident.scrub.launches, rs_resident.scrub_cuda_cores.launches
+    got = rs_resident.scrub(a, card, n_lanes=n_lanes, k=k, groups=groups,
+                            seg_log2=12)
+    old = rs_resident.scrub_cuda_cores(a, card, n_lanes=n_lanes, k=k,
+                                       groups=groups, seg_log2=12)
+    torch.cuda.synchronize()
+    assert torch.equal(got, old)
+    assert (rs_resident.scrub.launches, rs_resident.scrub_cuda_cores.launches) \
+        == (tc + 1, cc + 1)
+    assert np.array_equal(got.cpu().numpy().sum(-1), _mismatch_oracle(vols, k))
+
+
+@pytest.mark.parametrize("k,p,groups", [(10, 4, 1), (10, 4, 4), (6, 3, 5),
+                                        (8, 8, 2), (12, 4, 4), (1, 1, 8)])
+def test_scrub_fragments_equal_the_model(cuda_device, k, p, groups):
+    """The C entry's B fragments (scrub_fragments, what scrub_launch puts
+    in the kernel's parameters) equal the numpy mirror the model uses, and
+    the launch's persistent grid fits at least one block an SM."""
+    a = rs_resident._scrub_matrix(k, k + p, groups, str(cuda_device))
+    masks = rs_resident._scrub_masks(a, k, p, groups)
+    want = rs_resident._scrub_fragments(masks, p, groups)
+    out = np.zeros(want.size, dtype=np.uint32)
+    lib = rs_resident._scrub_lib()
+    assert lib.scrub_fragments(masks.ctypes.data, k, p, groups,
+                               out.ctypes.data) == want.size
+    assert np.array_equal(out, want.reshape(-1))
+    assert lib.scrub_blocks_per_sm(k, p, groups) >= 1
 
 
 def test_scrub_volume_on_card_equals_cpu(cuda_device):
@@ -760,6 +836,16 @@ def test_scrub_all_resident_stacks_32_a_launch(cuda_device):
     assert rs_resident.scrub.launches == before + 2
     assert res[32] == ([0, 0, 0, 1], 4096 * 3)
     assert all(res[v] == ([0] * 4, 4096 * 3) for v in range(32))
+    # the same 33 volumes straight through the wrapper: 32 a launch, so
+    # two launches, each equal to the plain version
+    a = rs_resident._scrub_matrix(10, 14, 1, str(cuda_device))
+    card = [tuple(cache.get(vid, s) for s in range(14)) for vid in range(33)]
+    for chunk in (card[:32], card[32:]):
+        got = rs_resident.scrub(a, chunk, n_lanes=4096 * 3, seg_log2=12)
+        assert torch.equal(got, rs_resident._scrub_torch(
+            a, chunk, k=10, n_lanes=4096 * 3, groups=1, seg_log2=12))
+    with pytest.raises(ValueError, match="volumes"):
+        rs_resident.scrub(a, card, n_lanes=4096 * 3)
 
 
 def test_scrub_shard_evicted_mid_scrub(cuda_device):

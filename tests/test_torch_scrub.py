@@ -79,7 +79,7 @@ CASES = {
     "data_byte": (100_000, ((3, 4242),), [1, 1, 1, 1]),
     "many": (100_000, ((10, 0), (10, 99_999), (11, 5), (13, 65_536),
                        (0, 12), (9, 70_000), (12, 12)), [4, 3, 2, 3]),
-    # not a multiple of the kernel's 4 KiB step, of LANE or of 4*LANE
+    # not a multiple of the kernel's 2 KiB tile, of LANE or of 4*LANE
     "ragged_size": (70_001, ((13, 70_000), (2, 69_999)), [1, 1, 1, 2]),
 }
 
@@ -176,8 +176,8 @@ def _segment_oracle(shards, n_lanes, seg_log2):
 def test_scrub_segments_on_the_port(monkeypatch, layout, seg_log2):
     """Several counting segments (the port's segment constant set small):
     the partials equal a numpy oracle and the model of the kernel's walk,
-    whose 64 KiB spans straddle segments, and whose block-diagonal groups
-    begin mid-step."""
+    whose blocks' tiles lie in several segments, and whose block-diagonal
+    groups begin mid-tile."""
     size = 5 * 65536 + 300
     flips = ((12, 0), (12, 4095), (12, 4096), (10, size - 1), (7, 8191),
              (13, 3 * 65536 + 17), (11, 2 * 4096 + 1), (12, 40_000))
@@ -195,24 +195,29 @@ def test_scrub_segments_on_the_port(monkeypatch, layout, seg_log2):
     plain = rs_resident.scrub(a, [vol], n_lanes=n_lanes, groups=groups,
                               seg_log2=seg_log2)
     assert np.array_equal(plain[0].numpy(), oracle)
-    model, adds = rs_resident._scrub_model(
-        rs_resident._bit_masks(a, 10, 4, groups, 4),
-        [tuple(s.numpy() for s in vol)], k=10, n_lanes=n_lanes,
-        groups=groups, seg_log2=seg_log2)
+    masks = rs_resident._scrub_masks(a, 10, 4, groups)
+    host = [tuple(s.numpy() for s in vol)]
+    model, _ = rs_resident._scrub_model(masks, host, k=10, n_lanes=n_lanes,
+                                        groups=groups, seg_log2=seg_log2)
     assert np.array_equal(model[0], oracle)
-    # one add per (row, segment) of each span with a non-zero count, and
-    # a span that covers several segments adds to each of them
+    # three blocks walk the tiles: one add per (row, segment) a block's
+    # tiles enter with a non-zero count, and a block whose tiles lie in
+    # several segments adds to each of them
+    few, adds = rs_resident._scrub_model(masks, host, k=10, n_lanes=n_lanes,
+                                         groups=groups, seg_log2=seg_log2,
+                                         blocks=3)
+    assert np.array_equal(few, model)
     assert all(c > 0 for *_, c in adds)
-    per_span: dict = {}
-    for _, _, sid, _ in adds:
-        per_span.setdefault((sid << seg_log2) // rs_resident.SCRUB_SPAN,
-                            set()).add(sid)
-    assert max(len(s) for s in per_span.values()) > 1
+    assert len({a[:4] for a in adds}) == len(adds)
+    per_block: dict = {}
+    for blk, _, _, sid, _ in adds:
+        per_block.setdefault(blk, set()).add(sid)
+    assert max(len(s) for s in per_block.values()) > 1
 
 
 def test_model_equals_plain_across_groups_and_volumes():
     """The model of the kernel's walk against the plain version on three
-    volumes, the block-diagonal group boundaries off every 4 KiB step."""
+    volumes, the block-diagonal group boundaries off every 2 KiB tile."""
     vols = [volume(size, seed=size, flips=((10 + size % 4, size // 3),
                                            (size % 10, size - 1)))
             for size in (3 * 65536 + 4096 + 640, 20_480, 9_000)]
@@ -224,11 +229,138 @@ def test_model_equals_plain_across_groups_and_volumes():
         plain = rs_resident.scrub(a, tens, n_lanes=n_lanes, groups=groups,
                                   seg_log2=12)
         model, _ = rs_resident._scrub_model(
-            rs_resident._bit_masks(a, 10, 4, groups, 4),
+            rs_resident._scrub_masks(a, 10, 4, groups),
             [tuple(t.numpy() for t in v) for v in tens], k=10,
             n_lanes=n_lanes, groups=groups, seg_log2=12)
         assert np.array_equal(plain.numpy(), model)
-        assert (n_lanes // groups) % 4096  # a boundary falls mid-step
+        # a boundary falls mid-tile
+        assert (n_lanes // groups) % rs_resident.SCRUB_TILE
+
+
+# codes the syndrome covers, k + p <= 16 slots: (k, p) -> the groups of
+# the block-diagonal layout (groups * p <= 16 rows in the mask table)
+CODES = {(10, 4): 4, (6, 3): 4, (12, 4): 4, (8, 8): 2}
+CODE_SIZE = 70_001  # not a multiple of LANE or of the 2 KiB tile
+
+
+def _code_volumes(k, p, n_vols, seed, corruption):
+    """n_vols [k + p, CODE_SIZE] volumes of the RS(k, k+p) code; "sparse"
+    flips a few bytes of data and parity, "dense" replaces every parity
+    byte with a random one (almost every byte mismatches)."""
+    parity_m = gf256.build_matrix(k, k + p)[k:]
+    out = []
+    for v in range(n_vols):
+        rng = np.random.default_rng(seed + v)
+        data = rng.integers(0, 256, (k, CODE_SIZE), dtype=np.uint8)
+        par = rs_cpu.apply_matrix_numpy(parity_m, data)
+        if corruption == "dense":
+            par = rng.integers(0, 256, par.shape, dtype=np.uint8)
+        shards = np.concatenate([data, par])
+        if corruption == "sparse":
+            for sid, byte in ((k, 0), (k + p - 1, CODE_SIZE - 1),
+                              (0, 4095 + v), (k - 1, 40_000), (k, 32_768)):
+                shards[sid, byte] ^= 0x5A
+        out.append(shards)
+    return out
+
+
+def _padded(vols, n_lanes):
+    return [tuple(np.pad(s, (0, n_lanes - s.size)) for s in v) for v in vols]
+
+
+@pytest.mark.parametrize("corruption", ["sparse", "dense"])
+@pytest.mark.parametrize("layout", ["flat", "blockdiag"])
+@pytest.mark.parametrize("code", sorted(CODES), ids=lambda c: f"{c[0]}+{c[1]}")
+def test_syndrome_equals_plain_and_jax(code, layout, corruption):
+    """The syndrome form (_scrub_masks, the B fragments and the model of
+    the kernel's walk) against the plain version and the JAX package's
+    _scrub_call / _scrub_call_blockdiag (one volume) and _scrub_all_call
+    (two volumes lane-stacked) on the same volumes, for codes other than
+    RS(10,4) and parity that is wrong almost everywhere."""
+    import jax.numpy as jnp
+
+    k, p = code
+    groups = CODES[code] if layout == "blockdiag" else 1
+    n_lanes = rs_resident._scrub_span(CODE_SIZE, groups * 128)
+    vols = _padded(_code_volumes(k, p, 2, seed=k * p, corruption=corruption),
+                   n_lanes)
+    a = rs_resident._scrub_matrix(k, k + p, groups, "cpu")
+    plain = rs_resident.scrub(
+        a, [tuple(torch.from_numpy(s) for s in v) for v in vols],
+        n_lanes=n_lanes, k=k, groups=groups).numpy()
+    masks = rs_resident._scrub_masks(a, k, p, groups)
+    model, _ = rs_resident._scrub_model(masks, vols, k=k, n_lanes=n_lanes,
+                                        groups=groups, seg_log2=28)
+    assert np.array_equal(model, plain)
+
+    parity_m = gf256.build_matrix(k, k + p)[k:]
+    a_blk = jax_rr._prepared_blockdiag_matrix(parity_m.tobytes(), p, k,
+                                              groups)
+    dev = [tuple(jnp.asarray(s) for s in v) for v in vols]
+    if groups == 1:
+        one = jax_rr._scrub_call(
+            jax_rr._prepared_matrix(parity_m.tobytes(), p, k), dev[0][:k],
+            dev[0][k:], n_lanes=n_lanes, kernel="xla", interpret=True)
+    else:
+        one = jax_rr._scrub_call_blockdiag(
+            a_blk, dev[0][:k], dev[0][k:], n_lanes=n_lanes, groups=groups,
+            kernel="xla", interpret=True)
+    both = jax_rr._scrub_all_call(
+        a_blk, tuple(s for v in dev for s in v), n_lanes=n_lanes,
+        groups=groups, vols=2, k=k, p=p, kernel="xla", interpret=True)
+    assert np.array_equal(np.asarray(one), plain[0])
+    assert np.array_equal(np.asarray(both), plain)
+    if corruption == "dense":
+        assert (plain.sum(axis=-1) > 0.99 * CODE_SIZE).all()
+    else:
+        assert plain.sum() > 0
+
+
+@pytest.mark.parametrize("seg_log2", [12, 13, 15])
+@pytest.mark.parametrize("layout", ["flat", "blockdiag"])
+@pytest.mark.parametrize("code", sorted(CODES), ids=lambda c: f"{c[0]}+{c[1]}")
+def test_syndrome_segments_equal_plain(code, layout, seg_log2):
+    """Per counting segment, the model of the tensor-core kernel equals
+    the plain version for every code, both layouts and small segments."""
+    k, p = code
+    groups = CODES[code] if layout == "blockdiag" else 1
+    n_lanes = rs_resident._scrub_span(CODE_SIZE, groups * 128)
+    vols = _padded(_code_volumes(k, p, 1, seed=seg_log2, corruption="sparse"),
+                   n_lanes)
+    a = rs_resident._scrub_matrix(k, k + p, groups, "cpu")
+    plain = rs_resident.scrub(
+        a, [tuple(torch.from_numpy(s) for s in v) for v in vols],
+        n_lanes=n_lanes, k=k, groups=groups, seg_log2=seg_log2).numpy()
+    model, _ = rs_resident._scrub_model(
+        rs_resident._scrub_masks(a, k, p, groups), vols, k=k,
+        n_lanes=n_lanes, groups=groups, seg_log2=seg_log2)
+    assert np.array_equal(model, plain)
+    assert (plain > 0).sum() > 1
+
+
+def test_scrub_masks_hold_the_syndrome_bytes():
+    """_scrub_masks is _bit_masks plus byte k + j = 1 << i in row (j, i);
+    the fragments carry slot t + 4r at byte r of lane (g, t)'s word."""
+    k, p, groups = 6, 3, 4
+    a = rs_resident._scrub_matrix(k, k + p, groups, "cpu")
+    bits = rs_resident._bit_masks(a, k, p, groups, p).reshape(groups, p, 8, 16)
+    masks = rs_resident._scrub_masks(a, k, p, groups).reshape(groups, p, 8, 16)
+    assert np.array_equal(masks[..., :k], bits[..., :k])
+    for j in range(p):
+        for i in range(8):
+            want = np.zeros(16 - k, dtype=np.uint8)
+            want[j] = 1 << i
+            assert (masks[:, j, i, k:] == want).all()
+    frags = rs_resident._scrub_fragments(masks.reshape(-1, 16), p, groups)
+    assert frags.shape == (groups, 1, 4, 32)
+    lane = 4 * 5 + 2  # g 5, t 2: row 2, bit 2q + 1
+    for q in range(4):
+        row = masks[3, 2, 2 * q + 1]
+        assert frags[3, 0, q, lane] == int.from_bytes(
+            bytes(row[[2, 6, 10, 14]]), "little")
+    with pytest.raises(ValueError, match="slots"):
+        rs_resident._scrub_masks(rs_resident._scrub_matrix(14, 17, 1, "cpu"),
+                                 14, 3, 1)
 
 
 def test_scrub_refuses_bad_calls_on_the_cpu():
