@@ -11,7 +11,8 @@ its plain PyTorch version on the card at the shapes the main path gives it,
 then runs the EC main path through the port's entry points on a real
 volume:
 
-  1. device      CUDA device, nvcc and driver versions, both builds; the
+  1. device      `python3 -m seaweedfs_tpu_torch version`; CUDA device,
+                 nvcc and driver versions, both builds; the
                  gf2_matmul kernels' registers and shared memory (nvcc
                  -Xptxas -v) and their tensor-core instructions (cuobjdump
                  -sass: BMMA); the fused_reconstruct kernels' registers;
@@ -22,7 +23,8 @@ volume:
                  numpy oracle sample), timed in turns (small, tensor-core,
                  tensor-core, small) at the main path's shapes: encode,
                  rebuild, the host degraded read's 4 KiB, 64 KiB, 256 KiB
-                 and 1 MiB one-row reconstructs
+                 and 1 MiB one-row reconstructs; utils/devtime's kernel
+                 time of the flat encode beside its CUDA-event median
   2b. resident_kernel
                  fused_reconstruct and fused_reconstruct_blockdiag vs their
                  plain versions (+ numpy oracle sample) on 10 x 256 MiB
@@ -48,7 +50,14 @@ volume:
                  shard 0 plus 400 others one at a time (each layout's first
                  turn), then 64 concurrent keep-alive clients; every
                  body byte-verified, no native route once resident; batch
-                 widths, launches and D2H bytes per batch from /metrics
+                 widths, launches and D2H bytes per batch from /metrics;
+                 the trace plane: per-stage means and the critical-path
+                 composition of the GET route from /metrics, the slowest
+                 traced GET's /debug/critpath and /debug/tail, a 5 s
+                 /debug/profile capture (SWFS_DEBUG=1) in each layout's
+                 second turn (the card's kernel-busy share), and two
+                 short flat turns, with -obs.disable (tracing's cost) and
+                 with -obs.tail.disable (the tail store's share of it)
   6. rebuild     shards 0, 5, 10, 13 removed: rebuild_ec_files +
                  rebuild_ecx_file, sha256 of every rebuilt shard
   6a. scrub      all 14 shards pinned through a port Store (15.75 GiB
@@ -179,7 +188,14 @@ def phase_device(torch) -> dict:
     if errors:
         raise errors[0]
     k1 = _k1_build_facts(_build)
+    version = subprocess.run(
+        [sys.executable, "-m", "seaweedfs_tpu_torch", "version"], cwd=HERE,
+        capture_output=True, text=True, check=True, timeout=120,
+    ).stdout.strip()
+    if not version.startswith("seaweedfs-tpu-torch "):
+        raise AssertionError(f"version printed {version!r}")
     info = {
+        "version": version,
         "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count(),
         "torch": torch.__version__,
@@ -377,6 +393,7 @@ def phase_kernel(torch, seed: int) -> dict:
     import numpy as np
 
     from seaweedfs_tpu_torch.ops import gf256, rs_cpu, rs_cuda
+    from seaweedfs_tpu_torch.utils import devtime
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev)
@@ -471,6 +488,14 @@ def phase_kernel(torch, seed: int) -> dict:
             row["ms_turns"] = turns[1:3]
             row["small_ms_turns"] = [turns[0], turns[3]]
             row["ms"] = statistics.mean(row["ms_turns"])
+            if name == "encode_flat":
+                # the kernels' own time from a torch.profiler capture of
+                # the same calls: at most the event bracket, plus noise
+                row["devtime_ms"] = devtime.device_avg_ms(tc, n=20, warmup=2)
+                if not 0 < row["devtime_ms"] <= 1.25 * row["ms"]:
+                    raise AssertionError(
+                        f"{name}: devtime {row['devtime_ms']} ms against the "
+                        f"CUDA-event median {row['ms']} ms")
             row["small_ms"] = statistics.mean(row["small_ms_turns"])
             row["plain_ms"] = _median_ms(
                 torch, lambda: rs_cuda._apply_torch(a, next(xs), m_out), 5,
@@ -1335,6 +1360,17 @@ SERVE_PIN_TIMEOUT = 180.0
 # the layouts in turns, so neither always runs first on a warmer host
 SERVE_TURNS = ("flat", "blockdiag", "blockdiag", "flat")
 SERVE_CACHE_MB = RESIDENT_BUDGET >> 20
+# the trace plane: every needle GET is traced under this route; each
+# layout's second turn runs its server with SWFS_DEBUG=1 and takes a
+# /debug/profile capture this long, this long after its clients start
+GET_ROUTE = "GET /<fid>"
+PROFILE_TURNS = (1, 3)
+PROFILE_SECONDS = 5.0
+PROFILE_DELAY_S = 3.0
+# the added turns, flat and concurrent only: -obs.disable (tracing's
+# cost), then -obs.tail.disable (the tail store's share of it)
+COST_TURNS = (("-obs.disable",), ("-obs.tail.disable",))
+COST_READS = 10_000
 
 
 def _free_port() -> int:
@@ -1363,6 +1399,11 @@ def _scrape(port: int) -> dict:
 
 def _serve_counts(m: dict) -> dict:
     """The serving series phase 5c reads, from one _scrape."""
+    from seaweedfs_tpu_torch.stats.metrics import CRITPATH_SEGMENTS, TRACE_STAGES
+
+    stage = 'SeaweedFS_request_stage_seconds_%s{stage="%s"}'
+    crit = ('SeaweedFS_critpath_seconds_total{route="%s",segment="%s"}'
+            % (GET_ROUTE, "%s"))
     widths = {}
     prev = 0.0
     for w in range(1, 257):
@@ -1387,6 +1428,16 @@ def _serve_counts(m: dict) -> dict:
         "gets": m.get('SeaweedFS_volumeServer_request_seconds_count{type="get"}', 0.0),
         "wait_s": m["SeaweedFS_volumeServer_ec_batch_queue_wait_seconds_sum"],
         "waits": m["SeaweedFS_volumeServer_ec_batch_queue_wait_seconds_count"],
+        # the trace plane: per-stage histograms, the GET route's
+        # critical-path counters, and the ledger's device calls
+        "stages": {st: (m[stage % ("count", st)], m[stage % ("sum", st)])
+                   for st in TRACE_STAGES},
+        "crit": {seg: m.get(crit % seg, 0.0) for seg in CRITPATH_SEGMENTS},
+        "crit_route_s": m.get('SeaweedFS_critpath_route_seconds_total'
+                              f'{{route="{GET_ROUTE}"}}', 0.0),
+        "ledger_calls": m.get(
+            'SeaweedFS_volumeServer_device_dispatches_total'
+            '{workload="serving_interactive",device="default"}', 0.0),
     }
 
 
@@ -1416,7 +1467,133 @@ def _serve_delta(before: dict, after: dict) -> dict:
                               / max(1.0, after["gets"] - before["gets"]),
         "queue_wait_mean_ms": (after["wait_s"] - before["wait_s"]) * 1e3
                               / max(1.0, after["waits"] - before["waits"]),
+        "stages": {
+            st: {"count": after["stages"][st][0] - before["stages"][st][0],
+                 "sum_s": after["stages"][st][1] - before["stages"][st][1]}
+            for st in after["stages"]},
+        "crit_s": {seg: after["crit"][seg] - before["crit"][seg]
+                   for seg in after["crit"]},
+        "crit_route_s": after["crit_route_s"] - before["crit_route_s"],
+        "ledger_calls": after["ledger_calls"] - before["ledger_calls"],
     }
+
+
+def _trace_checks(name: str, d: dict, traces: int, kern: str,
+                  tail: bool = True) -> dict:
+    """The trace plane's accounting over one pass of `traces` traced GETs
+    (`d` from _serve_delta): fatal where it does not add up.  -> the
+    per-stage means and the critical-path composition of the GET route
+    (fed by the tail store: with `tail` False it must not move)."""
+    st = d["stages"]
+    crit_sum = sum(d["crit_s"].values())
+    if abs(crit_sum - d["crit_route_s"]) > 1e-6 * max(1, traces):
+        raise AssertionError(f"{name}: critical-path segments sum to "
+                             f"{crit_sum} s, the route to {d['crit_route_s']} s")
+    if (d["crit_route_s"] > 0) != tail:
+        raise AssertionError(f"{name}: the GET route's critical path moved "
+                             f"{d['crit_route_s']} s with the tail store "
+                             f"{'on' if tail else 'off'}")
+    batched = d["routes"]["batched"]
+    calls = d["launches"][kern]
+    checks = {
+        # every batch runs under one batch_dispatch span
+        "batch_dispatch == batches": st["batch_dispatch"]["count"] == d["batches"],
+        # every batch with a degraded read packs and executes once; a batch
+        # whose needles all lie on local shards has no device call
+        "device_execute == batch_pack": (st["device_execute"]["count"]
+                                         == st["batch_pack"]["count"]),
+        "device_execute <= batches": st["device_execute"]["count"] <= d["batches"],
+        # one D2H span a device call, one launch a call, one ledger
+        # dispatch a call
+        "d2h_copy == launches": st["d2h_copy"]["count"] == calls,
+        "d2h_copy == ledger calls": st["d2h_copy"]["count"] == d["ledger_calls"],
+        # nothing is copied up: the work list rides in the parameters
+        "h2d_copy == 0": st["h2d_copy"]["count"] == 0,
+        # the drain loop observes one queue_wait a batched read
+        "queue_wait == batched reads": st["queue_wait"]["count"] == batched,
+    }
+    if not all(checks.values()):
+        raise AssertionError(f"{name}: trace accounting {checks}: "
+                             f"stages {st}, batches {d['batches']}, "
+                             f"launches {calls}, reads {batched}")
+    return {
+        "stage_mean_ms": {k: v["sum_s"] * 1e3 / v["count"]
+                          for k, v in st.items() if v["count"]},
+        "stage_count": {k: v["count"] for k, v in st.items() if v["count"]},
+        "batches_without_device_call": d["batches"]
+                                       - st["device_execute"]["count"],
+        "critpath_route_s": d["crit_route_s"],
+        "critpath_share": {seg: v / d["crit_route_s"]
+                           for seg, v in d["crit_s"].items()}
+                          if d["crit_route_s"] else {},
+    }
+
+
+def _trace_docs(port: int) -> dict:
+    """/debug/traces?limit=16, then /debug/critpath of the slowest of
+    them, and /debug/tail's GET route."""
+    traces = _get_json(port, "/debug/traces?limit=16")["traces"]
+    gets = [t for t in traces if t["name"].startswith("GET /")]
+    if not gets:
+        raise AssertionError(f"no traced GET in /debug/traces: {traces[:2]}")
+    slow = max(gets, key=lambda t: t["duration_us"])
+    crit = _get_json(port, f"/debug/critpath?id={slow['trace_id']}")
+    if abs(sum(crit["segments_us"].values()) - crit["total_us"]) > 6:
+        raise AssertionError(f"critpath segments {crit['segments_us']} do not "
+                             f"sum to {crit['total_us']} us")
+    tail = _get_json(port, "/debug/tail")
+    return {
+        "slowest_of_16": {
+            "duration_ms": slow["duration_us"] / 1e3,
+            "spans": [(sp["name"], sp["duration_us"] / 1e3)
+                      for sp in slow["spans"]],
+            "segments_us": crit["segments_us"],
+            "coverage_pct": crit["coverage_pct"],
+        },
+        "tail": {"route": tail["routes"].get(GET_ROUTE),
+                 "pinned": len(tail["pinned"])},
+    }
+
+
+def _profile_window(port: int, delay_s: float, out: dict) -> None:
+    """In a thread: after `delay_s`, a PROFILE_SECONDS /debug/profile
+    capture of the server on `port` (its status and document into
+    `out`)."""
+    import urllib.error
+    import urllib.request
+
+    time.sleep(delay_s)
+    try:
+        with urllib.request.urlopen(
+                f"http://127.0.0.1:{port}/debug/profile?seconds="
+                f"{PROFILE_SECONDS}", timeout=300) as r:
+            out["status"], out["doc"] = r.status, json.loads(r.read())
+    except urllib.error.HTTPError as e:
+        out["status"], out["doc"] = e.code, e.read().decode(errors="replace")
+    except OSError as e:
+        out["status"], out["doc"] = None, repr(e)
+
+
+def _profile_summary(doc: dict) -> dict:
+    """Kernel events of a /debug/profile capture by name (count, total
+    ms) and the card's kernel-busy share of its window."""
+    from seaweedfs_tpu_torch.utils import devtime
+
+    path = os.path.join(doc["trace_dir"], "trace.json")
+    events = devtime.kernel_events(path)
+    by_name: dict = {}
+    for name, _, dur in events:
+        row = by_name.setdefault(name, {"count": 0, "ms": 0.0})
+        row["count"] += 1
+        row["ms"] += dur / 1e3
+    busy_us, end = 0.0, float("-inf")
+    for _, ts, dur in events:
+        if ts + dur > end:
+            busy_us += ts + dur - max(ts, end)
+            end = ts + dur
+    return {"window_s": doc["seconds"], "trace_bytes": os.path.getsize(path),
+            "kernels": by_name, "kernel_busy_ms": busy_us / 1e3,
+            "kernel_busy_share": busy_us / 1e6 / doc["seconds"]}
 
 
 async def _serve_sequential(port: int, seq: list, vol: dict) -> list:
@@ -1431,24 +1608,27 @@ async def _serve_sequential(port: int, seq: list, vol: dict) -> list:
         for nid in seq:
             _, _, digest, cookie = vol["needles"][nid]
             t0 = time.perf_counter()
-            status, _, body = await client.request(
+            status, headers, body = await client.request(
                 "GET", "/" + t.format_fid(1, nid, cookie))
             lat.append(time.perf_counter() - t0)
             if status != 200 or hashlib.sha256(body).digest() != digest:
                 raise AssertionError(f"needle {nid}: HTTP {status}, "
                                      f"{len(body)} bytes differ from the "
                                      "written needle")
+            if "X-Seaweed-Trace-Id" not in headers:
+                raise AssertionError(f"needle {nid}: no trace header")
     finally:
         await client.close()
     return lat
 
 
 async def _serve_clients(port: int, seq: list, n_clients: int, reads: int,
-                         seconds: float, seed: int, vid: int = 1):
+                         seconds: float, seed: int, vid: int = 1,
+                         traced: bool = True):
     """`n_clients` closed-loop keep-alive clients GET needles of `seq`
     ((nid, cookie, sha256) triples, seeded picks) of volume `vid` until
     `reads` reads or `seconds`: -> (seconds per read, body bytes).  Every
-    body is byte-verified."""
+    body is byte-verified, and carries the trace header iff `traced`."""
     import numpy as np
 
     from seaweedfs_tpu_torch.server.http import Client
@@ -1465,13 +1645,16 @@ async def _serve_clients(port: int, seq: list, n_clients: int, reads: int,
             while len(lat) < reads and time.monotonic() < t_end:
                 nid, cookie, digest = seq[int(rng.integers(0, len(seq)))]
                 t0 = time.perf_counter()
-                status, _, body = await c.request(
+                status, headers, body = await c.request(
                     "GET", "/" + t.format_fid(vid, nid, cookie))
                 lat.append(time.perf_counter() - t0)
                 if status != 200 or hashlib.sha256(body).digest() != digest:
                     raise AssertionError(f"needle {nid}: HTTP {status}, "
                                          f"{len(body)} bytes differ from the "
                                          "written needle")
+                if ("X-Seaweed-Trace-Id" in headers) != traced:
+                    raise AssertionError(f"needle {nid}: trace header "
+                                         f"{'missing' if traced else 'sent'}")
                 nbytes[0] += len(body)
         finally:
             await c.close()
@@ -1481,18 +1664,19 @@ async def _serve_clients(port: int, seq: list, n_clients: int, reads: int,
 
 
 def _client_proc(port: int, seq: list, n_clients: int, reads: int,
-                 seconds: float, seed: int, vid: int = 1) -> dict:
+                 seconds: float, seed: int, vid: int = 1,
+                 traced: bool = True) -> dict:
     """One client process of the concurrent pass (run under spawn)."""
     sys.path.insert(0, HERE)
     cpu0, t0 = time.process_time(), time.monotonic()
-    lat, nbytes = asyncio.run(
-        _serve_clients(port, seq, n_clients, reads, seconds, seed, vid))
+    lat, nbytes = asyncio.run(_serve_clients(
+        port, seq, n_clients, reads, seconds, seed, vid, traced))
     return {"lat": lat, "bytes": nbytes, "start": t0, "end": time.monotonic(),
             "cpu_s": time.process_time() - cpu0}
 
 
 def _serve_concurrent(port: int, seq: list, seed: int, vid: int = 1,
-                      reads: int = SERVE_READS) -> dict:
+                      reads: int = SERVE_READS, traced: bool = True) -> dict:
     """SERVE_CLIENTS clients in SERVE_CLIENT_PROCS processes reading volume
     `vid`, `reads` reads in all: -> latencies, body bytes, wall (first start
     to last end) and the clients' CPU s."""
@@ -1505,7 +1689,7 @@ def _serve_concurrent(port: int, seq: list, seed: int, vid: int = 1,
             mp_context=multiprocessing.get_context("spawn")) as pool:
         futs = [pool.submit(_client_proc, port, seq, per,
                             reads // SERVE_CLIENT_PROCS, SERVE_SECONDS,
-                            seed * 10 + i, vid)
+                            seed * 10 + i, vid, traced)
                 for i in range(SERVE_CLIENT_PROCS)]
         parts = [f.result() for f in futs]
     return {"lat": [x for p in parts for x in p["lat"]],
@@ -1522,15 +1706,16 @@ def _proc_cpu_s(pid: int) -> float:
 
 
 @contextlib.contextmanager
-def _volume_server(args: list, log_path: str):
+def _volume_server(args: list, log_path: str, env: dict | None = None):
     """`python3 -m seaweedfs_tpu_torch volume ARGS` as an operator starts
-    it, its output in `log_path`: yields the process; on an error in the
-    block the server is killed and its log's tail printed; it is stopped
-    on the way out either way."""
+    it (with `env` added to its environment), its output in `log_path`:
+    yields the process; on an error in the block the server is killed and
+    its log's tail printed; it is stopped on the way out either way."""
     cmd = [sys.executable, "-m", "seaweedfs_tpu_torch", "volume", *args]
     with open(log_path, "wb") as logf:
         proc = subprocess.Popen(cmd, cwd=HERE, stdout=logf,
-                                stderr=subprocess.STDOUT)
+                                stderr=subprocess.STDOUT,
+                                env={**os.environ, **(env or {})})
     try:
         yield proc
     except BaseException:
@@ -1551,17 +1736,29 @@ def _volume_server(args: list, log_path: str):
 
 def _serve_layout(workdir: str, serve_dir: str, layout: str, seq: list,
                   vol: dict, deleted: list, seed: int, turn: int,
-                  sequential: bool) -> dict:
-    """One fresh server in `layout`: pin, then the sequential pass (when
-    `sequential`) and the concurrent pass."""
+                  sequential: bool, profile: bool = False,
+                  flags: tuple = (), reads: int = SERVE_READS) -> dict:
+    """One fresh server in `layout` (with the -obs `flags`): pin, then the
+    sequential pass (when `sequential`) and the concurrent pass of `reads`
+    reads, with its trace accounting (unless -obs.disable) and the trace
+    documents (unless -obs.tail.disable too), and, when `profile`, a
+    /debug/profile capture in its middle (the server runs with
+    SWFS_DEBUG=1)."""
     import urllib.request
 
+    traced = "-obs.disable" not in flags
+    tail = traced and "-obs.tail.disable" not in flags
     port = _free_port()
     log_path = os.path.join(workdir, f"serve_{turn}_{layout}.log")
     args = ["-dir", serve_dir, "-port", str(port), "-mserver", "",
             "-ec.backend", "cuda", "-ec.deviceCacheMB", str(SERVE_CACHE_MB),
-            "-ec.serving.layout", layout]
-    with _volume_server(args, log_path) as proc:
+            "-ec.serving.layout", layout, *flags]
+    # the server's captures land under the work directory
+    env = {"TMPDIR": os.path.join(workdir, "tmp")}
+    os.makedirs(env["TMPDIR"], exist_ok=True)
+    if profile:
+        env["SWFS_DEBUG"] = "1"
+    with _volume_server(args, log_path, env) as proc:
         t0 = time.perf_counter()
         while True:
             if proc.poll() is not None:
@@ -1603,15 +1800,37 @@ def _serve_layout(workdir: str, serve_dir: str, layout: str, seq: list,
             if asyncio.run(gone()) != 404:
                 raise AssertionError("a deleted needle did not answer 404")
         mid = _serve_counts(_scrape(port))
+        prof: dict = {}
+        if profile:
+            window = threading.Thread(
+                target=_profile_window, args=(port, PROFILE_DELAY_S, prof),
+                daemon=True)
+            window.start()
         cpu0 = _proc_cpu_s(proc.pid)
         con = _serve_concurrent(port, [
             (nid, vol["needles"][nid][3], vol["needles"][nid][2])
-            for nid in seq], seed)
+            for nid in seq], seed, reads=reads, traced=traced)
         server_cpu_s = _proc_cpu_s(proc.pid) - cpu0
         passes.append(("concurrent", con["lat"], _serve_delta(
             mid, _serve_counts(_scrape(port)))))
-    kern = ("fused_reconstruct_blockdiag" if layout == "blockdiag"
-            else "fused_reconstruct")
+        kern = ("fused_reconstruct_blockdiag" if layout == "blockdiag"
+                else "fused_reconstruct")
+        trace = {}
+        if traced:
+            trace = _trace_checks(f"{layout} turn {turn}", passes[-1][2],
+                                  len(con["lat"]), kern, tail)
+        if tail:
+            trace.update(_trace_docs(port))
+        if profile:
+            window.join()
+            if prof.get("status") != 200:
+                raise AssertionError(f"/debug/profile answered "
+                                     f"{prof.get('status')}: {prof.get('doc')}")
+            trace["profile"] = _profile_summary(prof["doc"])
+            if not any("fused_reconstruct" in k
+                       for k in trace["profile"]["kernels"]):
+                raise AssertionError("no fused_reconstruct kernel event in "
+                                     f"the capture: {trace['profile']}")
     out = {"pin_s": pin_s}
     for name, lat, d in passes:
         if d["routes"]["native"] or d["fallback"]:
@@ -1640,12 +1859,16 @@ def _serve_layout(workdir: str, serve_dir: str, layout: str, seq: list,
                        server_cpu_s=server_cpu_s,
                        server_cores=server_cpu_s / wall,
                        client_cpu_s=con["client_cpu_s"],
-                       client_cores=con["client_cpu_s"] / wall)
+                       client_cores=con["client_cpu_s"] / wall,
+                       obs_flags=list(flags), profiled=profile)
         out[name] = row
     out["launches"] = sum(row["launches"] for name, row in out.items()
                           if name != "pin_s")
+    out["trace"] = trace
     log("serve", layout=layout, turn=turn, kernel=kern, pin_s=pin_s,
         needles=len(seq), **{name: out[name] for name, _, _ in passes})
+    if trace:
+        log("serve_trace", layout=layout, turn=turn, **trace)
     return out
 
 
@@ -1679,18 +1902,42 @@ def phase_serve(torch, workdir: str, vol: dict, deg: dict, seed: int) -> dict:
         for turn, layout in enumerate(SERVE_TURNS):
             first = layout not in out
             run = _serve_layout(workdir, serve_dir, layout, seq, vol,
-                                sorted(deleted), seed, turn, first)
-            row = out.setdefault(layout, {"launches": 0, "concurrent": []})
+                                sorted(deleted), seed, turn, first,
+                                profile=turn in PROFILE_TURNS)
+            row = out.setdefault(layout, {"launches": 0, "concurrent": [],
+                                          "trace": []})
             row["launches"] += run["launches"]
             row["concurrent"].append(run["concurrent"])
+            row["trace"].append(run["trace"])
             if first:
                 row["sequential"] = run["sequential"]
+        # tracing's cost: flat turns with -obs.disable and with
+        # -obs.tail.disable, concurrent only
+        out["flat"]["cost_turns"] = {}
+        for i, flags in enumerate(COST_TURNS):
+            run = _serve_layout(workdir, serve_dir, "flat", seq, vol,
+                                sorted(deleted), seed, len(SERVE_TURNS) + i,
+                                False, flags=flags, reads=COST_READS)
+            out["flat"]["launches"] += run["launches"]
+            out["flat"]["cost_turns"][flags[0]] = run["concurrent"]
     finally:
         shutil.rmtree(serve_dir, ignore_errors=True)
-    for row in out.values():
+    for layout, row in out.items():
         row["launches_per_batch"] = (
             sum(c["launches"] for c in row["concurrent"])
             / sum(c["batches"] for c in row["concurrent"]))
+        summary = {
+            "stage_mean_ms": [t["stage_mean_ms"] for t in row["trace"]],
+            "critpath_share": [t["critpath_share"] for t in row["trace"]],
+            "kernel_busy_share": [t["profile"]["kernel_busy_share"]
+                                  for t in row["trace"] if "profile" in t],
+            "reads_per_s": [c["reads_per_s"] for c in row["concurrent"]],
+            "p50_ms": [c["p50_ms"] for c in row["concurrent"]],
+        }
+        for flag, c in row.get("cost_turns", {}).items():
+            summary[flag] = {"reads_per_s": c["reads_per_s"],
+                             "p50_ms": c["p50_ms"]}
+        log("serve_trace_summary", layout=layout, **summary)
     return out
 
 

@@ -2,7 +2,7 @@
 
 Each command module exposes NAME, HELP, add_args(parser), and async
 run(args).  `python -m seaweedfs_tpu_torch <command> ...` dispatches here.
-The port has one command so far: `volume`.
+The port has two commands so far: `volume` and `version`.
 """
 from __future__ import annotations
 
@@ -10,9 +10,9 @@ import argparse
 import asyncio
 import sys
 
-from . import volume
+from . import version, volume
 
-COMMANDS = {m.NAME: m for m in (volume,)}
+COMMANDS = {m.NAME: m for m in (version, volume)}
 
 
 def parser() -> argparse.ArgumentParser:

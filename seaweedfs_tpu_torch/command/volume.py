@@ -10,7 +10,9 @@ spellings, for the flags this slice serves:
 `-ec.backend` is `cuda` (the default: the card, failing at start without
 one), `torch` (the plain PyTorch versions on the CPU) or `numpy` (the
 table oracle); there is no `auto`.  `-mserver` must be empty: the master
-heartbeat is ROADMAP A4b.
+heartbeat is ROADMAP A4b.  The -obs.* flags are the reference's
+(seaweedfs_tpu/command/common_args.py), less the incident bundler's, which
+wait for the master (ROADMAP A7c).
 """
 from __future__ import annotations
 
@@ -63,13 +65,7 @@ def add_args(p) -> None:
         help="scrub resident EC volumes one device call per volume instead "
         "of one pass over the whole cache per cycle",
     )
-    p.add_argument(
-        "-obs.ledger.disable", dest="obs_ledger_disable",
-        action="store_true",
-        help="disable the per-workload device-time ledger (the "
-        "SeaweedFS_volumeServer_device_* attribution series stop moving; "
-        "workload tagging context still propagates)",
-    )
+    add_obs_args(p)
     serving_defaults = ServingConfig()
     p.add_argument(
         "-ec.serving.disable", dest="ec_serving_disable",
@@ -185,6 +181,121 @@ def add_args(p) -> None:
     )
 
 
+def add_obs_args(p) -> None:
+    """The -obs.* request-tracing, flight-recorder, timeline, tail and
+    ledger flags (ObsConfig and IncidentConfig are the single sources of
+    the defaults)."""
+    from ..obs import IncidentConfig, ObsConfig
+
+    d = ObsConfig()
+    di = IncidentConfig()
+    p.add_argument(
+        "-obs.disable", dest="obs_disable", action="store_true",
+        help="disable request tracing (/debug/traces stays empty; the "
+        "per-stage histograms keep recording)",
+    )
+    p.add_argument(
+        "-obs.slowMs", dest="obs_slow_ms", type=float, default=d.slow_ms,
+        help="log any request whose end-to-end trace exceeds this many "
+        "milliseconds, with its per-stage breakdown (0 = off)",
+    )
+    p.add_argument(
+        "-obs.traceRing", dest="obs_trace_ring", type=int,
+        default=d.trace_ring,
+        help="completed traces kept in memory for /debug/traces",
+    )
+    p.add_argument(
+        "-obs.incident.disable", dest="obs_incident_disable",
+        action="store_true",
+        help="disable the flight recorder (decision events — QoS sheds, "
+        "breaker flips, dispatcher saturation, spent deadlines, stall "
+        "aborts — stop landing in /debug/incident)",
+    )
+    p.add_argument(
+        "-obs.incident.events", dest="obs_incident_events", type=int,
+        default=di.events,
+        help="flight-recorder events kept in memory per process "
+        "(newest win), served at /debug/incident",
+    )
+    p.add_argument(
+        "-obs.ledger.disable", dest="obs_ledger_disable",
+        action="store_true",
+        help="disable the per-workload device-time ledger (the "
+        "SeaweedFS_volumeServer_device_* attribution series stop moving; "
+        "workload tagging context still propagates)",
+    )
+    p.add_argument(
+        "-obs.timeline.disable", dest="obs_timeline_disable",
+        action="store_true",
+        help="disable the flight-timeline sampler (/debug/timeline "
+        "stays empty)",
+    )
+    p.add_argument(
+        "-obs.timeline.intervalSeconds",
+        dest="obs_timeline_interval_seconds", type=float,
+        default=d.timeline_interval_seconds,
+        help="seconds between flight-timeline samples",
+    )
+    p.add_argument(
+        "-obs.timeline.window", dest="obs_timeline_window", type=int,
+        default=d.timeline_window,
+        help="flight-timeline samples kept (the ring bound; default 120 "
+        "≈ two minutes at the 1s interval)",
+    )
+    p.add_argument(
+        "-obs.tail.disable", dest="obs_tail_disable", action="store_true",
+        help="disable tail-based trace retention (/debug/tail answers "
+        "404; slow traces churn out of the ring like fast ones and "
+        "SeaweedFS_critpath_seconds stops accumulating)",
+    )
+    p.add_argument(
+        "-obs.tail.ring", dest="obs_tail_ring", type=int,
+        default=d.tail_ring,
+        help="pinned slow/incident span trees kept per process "
+        "(newest pins win; fast requests never evict a pin)",
+    )
+    p.add_argument(
+        "-obs.tail.alpha", dest="obs_tail_alpha", type=float,
+        default=d.tail_alpha,
+        help="EWMA smoothing factor for the per-route p99 estimate "
+        "that gates tail pinning (0 < alpha <= 1)",
+    )
+    p.add_argument(
+        "-obs.tail.floorMs", dest="obs_tail_floor_ms", type=float,
+        default=d.tail_floor_ms,
+        help="also pin any request at least this slow, regardless of "
+        "its route's p99 estimate (0 = off)",
+    )
+
+
+def apply_obs_args(args: argparse.Namespace) -> None:
+    """Process-global, like the metrics registry: call once at entry."""
+    from ..obs import IncidentConfig, ObsConfig, configure, devledger, incident
+
+    configure(
+        ObsConfig(
+            enabled=not args.obs_disable,
+            slow_ms=args.obs_slow_ms,
+            trace_ring=args.obs_trace_ring,
+            ledger_enabled=not args.obs_ledger_disable,
+            timeline_enabled=not args.obs_timeline_disable,
+            timeline_interval_seconds=args.obs_timeline_interval_seconds,
+            timeline_window=args.obs_timeline_window,
+            tail_enabled=not args.obs_tail_disable,
+            tail_ring=args.obs_tail_ring,
+            tail_alpha=args.obs_tail_alpha,
+            tail_floor_ms=args.obs_tail_floor_ms,
+        )
+    )
+    devledger.configure(enabled=not args.obs_ledger_disable)
+    incident.configure(
+        IncidentConfig(
+            enabled=not args.obs_incident_disable,
+            events=args.obs_incident_events,
+        )
+    )
+
+
 def serving_config(args: argparse.Namespace) -> ServingConfig:
     """The -ec.serving.* and -ec.qos.* flags as a validated config."""
     return ServingConfig(
@@ -211,11 +322,10 @@ def serving_config(args: argparse.Namespace) -> ServingConfig:
 def build_server(args: argparse.Namespace):
     """A VolumeServer from the parsed flags (not started).  Raises on a
     non-empty -mserver and, with -ec.backend cuda, without a card."""
-    from ..obs import devledger
     from ..server.volume import VolumeServer
     from ..utils import faultpolicy
 
-    devledger.configure(enabled=not args.obs_ledger_disable)
+    apply_obs_args(args)
     faultpolicy.configure(
         faultpolicy.FaultPolicyConfig(deadline_ms=args.ec_rpc_deadline_ms)
     )

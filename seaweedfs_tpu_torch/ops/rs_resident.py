@@ -32,10 +32,23 @@ kernel of csrc/scrub.cu through `scrub`: the resident data shards are read
 once, the parity is recomputed and compared in registers, and only the
 int32 mismatch partials come down.
 
+reconstruct_intervals is traced as the reference's is (obs/trace.py):
+`batch_pack` around the packing, `device_execute` around the slot (launch
+to the kernel's completion) and `d2h_copy` around each call's copy and
+trim.  On the card each launch records an event right after the kernel
+and another after its D2H, both enqueued before any wait: the drain waits
+on the first inside `device_execute`, then opens `d2h_copy` around the
+second, so the kernel's time never reads as copy time and the stream
+never idles for the split.  Nothing is copied up (the work list rides in
+the launch's parameters), so there is no `h2d_copy` span.  `hot_shapes`
+keeps a dispatch count and a dispatch->ready latency EWMA per call class
+(kernel, system, output size) for /debug/device/hot.
+
 Not ported here (ROADMAP): the mesh and pod placement (A8), the
-XLA-fallback gather programs (B4), the AOT warm grid and observed-shape
-persistence, and trace spans (A7a).  The Store and the serving dispatcher
-that call reconstruct_intervals are storage/store.py and serving/.
+XLA-fallback gather programs (B4), and the AOT warm grid and observed-shape
+persistence (nothing compiles per shape here).  The Store and the serving
+dispatcher that call reconstruct_intervals are storage/store.py and
+serving/.
 """
 from __future__ import annotations
 
@@ -50,6 +63,7 @@ import numpy as np
 import torch
 
 from ..obs import devledger
+from ..obs import trace as obs_trace
 from ..stats import metrics as stats_metrics
 from . import _build, gf256, rs_cuda
 
@@ -1127,44 +1141,75 @@ def reconstruct_intervals(
         layout = cache.layout
     if layout not in LAYOUTS:
         raise ValueError(f"unknown resident layout {layout!r}")
-    (calls, subs, survivors, events, a_prep, use, w_true, groups,
-     tile) = _pack_calls(cache, vid, requests, layout, data_shards,
-                         total_shards)
+    with obs_trace.span(
+        "batch_pack", requests=len(requests), layout=layout
+    ):
+        (calls, subs, survivors, events, a_prep, use, w_true, groups,
+         tile) = _pack_calls(cache, vid, requests, layout, data_shards,
+                             total_shards)
+    kernel = (fused_reconstruct_blockdiag if groups > 1
+              else fused_reconstruct).__name__
+    keys = [_call_key(kernel, groups, w_true, sum(fetches), len(part))
+            for part, _, fetches, _ in calls]
+    # the device-execute stage of the request trace: the launches up to
+    # each kernel's completion, annotated with what the batch moved
+    dev_span = obs_trace.span(
+        "device_execute", requests=len(requests), layout=layout,
+        kernel=kernel,
+    )
     sub_out: list[bytes | None] = [None] * len(subs)
     pipe = cache.pipeline
-    with pipe.slot() as pslot:
-        moved = 0
+    with pipe.slot() as pslot, dev_span:
         if pslot.stream is None:
-            for part, words, fetches, deltas in calls:
+            h2d = d2h = 0
+            for (part, words, fetches, deltas), key in zip(calls, keys):
+                t_dispatch = time.perf_counter()
                 out, offsets, _ = _dispatch_call(
                     a_prep, survivors, words, fetches, len(use), w_true,
                     groups, tile)
-                _trim(out.numpy(), part, deltas, offsets, sub_out)
+                _note_call_latency(key, time.perf_counter() - t_dispatch)
+                with obs_trace.span("d2h_copy", bytes=int(out.numel())):
+                    _trim(out.numpy(), part, deltas, offsets, sub_out)
+                d2h += int(out.numel())
         else:
-            moved = _run_on_stream(pipe, pslot, calls, survivors, events,
-                                   a_prep, len(use), w_true, groups, tile,
-                                   sub_out)
+            h2d, d2h = _run_on_stream(pipe, pslot, calls, keys, survivors,
+                                      events, a_prep, len(use), w_true,
+                                      groups, tile, sub_out)
+        # the reference's keys: no call compiles here (compile_misses 0),
+        # and h2d_bytes are the launches' parameter bytes
+        dev_span.annotate(
+            device_calls=len(calls), compile_misses=0, h2d_bytes=h2d,
+            d2h_bytes=d2h, slot_wait_us=int(pslot.wait_s * 1e6),
+        )
         # busy seconds and queue wait are the slot's (recorded on exit);
         # dispatches and boundary bytes are this batch's
-        devledger.record(dispatches=len(calls), nbytes=moved)
+        devledger.record(dispatches=len(calls),
+                         nbytes=h2d + d2h if pslot.stream is not None else 0)
     outputs: list[list[bytes]] = [[] for _ in requests]
     for (idx, *_), piece in zip(subs, sub_out):
         outputs[idx].append(piece)  # subs are in offset order per request
     return [b"".join(parts) for parts in outputs]
 
 
-def _run_on_stream(pipe, pslot, calls, survivors, events, a_prep, n_use,
-                   w_true, groups, tile, sub_out) -> int:
+def _run_on_stream(pipe, pslot, calls, keys, survivors, events, a_prep,
+                   n_use, w_true, groups, tile, sub_out) -> tuple[int, int]:
     """Enqueue and drain a batch's calls on the slot's stream; -> the
-    bytes they moved across PCIe (parameters up, results down)."""
+    bytes they moved across PCIe (parameters up, results down).  Each
+    call enqueues its launch, an event (`ready`), its D2H and a second
+    event (`done`) before anything is waited on; the drain waits on
+    `ready` inside the caller's device_execute span, then on `done`
+    inside a d2h_copy span."""
     stream, arena = pslot.stream, pslot.arena
-    moved = 0
+    h2d = d2h = 0
     pending: list[tuple] = []
 
     def drain() -> None:
-        for part, deltas, offsets, host, done in pending:
-            done.synchronize()
-            _trim(host.numpy(), part, deltas, offsets, sub_out)
+        for part, deltas, offsets, host, ready, done, key, t0 in pending:
+            ready.synchronize()  # the kernel's completion boundary
+            _note_call_latency(key, time.perf_counter() - t0)
+            with obs_trace.span("d2h_copy", bytes=int(host.numel())):
+                done.synchronize()
+                _trim(host.numpy(), part, deltas, offsets, sub_out)
         pending.clear()
 
     with torch.cuda.device(pipe.device), torch.cuda.stream(stream):
@@ -1182,25 +1227,99 @@ def _run_on_stream(pipe, pslot, calls, survivors, events, a_prep, n_use,
             max(max(sizes), min(sum(sizes), _MAX_PENDING_OUT))
         )
         off = 0
-        for (part, words, fetches, deltas), nbytes in zip(calls, sizes):
+        for (part, words, fetches, deltas), nbytes, key in zip(
+                calls, sizes, keys):
             if pending and off + nbytes > result.numel():
                 drain()
                 off = 0
+            t0 = time.perf_counter()
             out, offsets, sent = _dispatch_call(
                 a_prep, survivors, words, fetches, n_use, w_true, groups,
                 tile)
+            ready = torch.cuda.Event()
+            ready.record(stream)
             host = result[off : off + nbytes]
             host.copy_(out, non_blocking=True)
             done = torch.cuda.Event()
             done.record(stream)
-            pending.append((part, deltas, offsets, host, done))
+            pending.append((part, deltas, offsets, host, ready, done, key,
+                            t0))
             off += nbytes
             # the work list and masks cross PCIe in the launch itself
             pipe.h2d_bytes += sent
             pipe.d2h_bytes += nbytes
-            moved += sent + nbytes
+            h2d += sent
+            d2h += nbytes
         drain()
-    return moved
+    return h2d, d2h
+
+
+# --- the hot-call view ----------------------------------------------------------
+#
+# The reference keys /debug/device/hot by compiled shape.  Nothing compiles
+# per shape here (the kernels take runtime shapes and a ragged work list),
+# so the view keys by call class: the kernel, its system (groups, wanted
+# rows) and the call's output bytes and sub-requests rounded up to a
+# power of two.  key -> [dispatches, latency EWMA s, last dispatch unix s]
+_call_stats: dict[tuple, list] = {}
+_call_lock = threading.Lock()
+# EWMA weight: ~last 10 dispatches of the class (the reference's)
+_CALL_EWMA_ALPHA = 0.2
+
+
+def _pow2_ceil(n: int) -> int:
+    return 1 << max(0, int(n) - 1).bit_length()
+
+
+def _call_key(kernel: str, groups: int, w_true: int, out_bytes: int,
+              n_sub: int) -> tuple:
+    return (kernel, groups, w_true, _pow2_ceil(out_bytes), _pow2_ceil(n_sub))
+
+
+def _note_call_latency(key: tuple, seconds: float) -> None:
+    """Record one device call's dispatch -> kernel-complete wall seconds
+    (calls pipelined in one batch include their wait behind the earlier
+    ones: an observed service latency, not a pure kernel time)."""
+    now = time.time()
+    with _call_lock:
+        rec = _call_stats.get(key)
+        if rec is None:
+            _call_stats[key] = [1, seconds, now]
+            return
+        rec[0] += 1
+        rec[1] += _CALL_EWMA_ALPHA * (seconds - rec[1])
+        rec[2] = now
+
+
+def hot_shapes(limit: int = 10) -> list[dict]:
+    """The hottest call classes, most-dispatched first: dispatches,
+    per-dispatch latency EWMA, last-seen age — the /debug/device/hot
+    payload."""
+    with _call_lock:
+        items = sorted(
+            _call_stats.items(), key=lambda kv: -kv[1][0]
+        )[: max(0, limit)]
+    now = time.time()
+    return [
+        {
+            "kernel": kernel,
+            "groups": groups,
+            "w_true": w_true,
+            "out_bytes_bucket": out_bucket,
+            "count_bucket": n_bucket,
+            "dispatches": count,
+            "ewma_ms": round(ewma_s * 1e3, 3),
+            "last_dispatch_age_s": round(max(0.0, now - last), 3),
+        }
+        for (kernel, groups, w_true, out_bucket, n_bucket), (
+            count, ewma_s, last) in items
+    ]
+
+
+def aot_stats() -> dict:
+    """The reference's AOT warm-grid census.  The kernels here take
+    runtime shapes, so nothing is compiled ahead of time: empty."""
+    return {}
 
 
 def make_batched_call(

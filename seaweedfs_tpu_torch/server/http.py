@@ -13,7 +13,8 @@ loop: it must hand disk and device work to `asyncio.to_thread`.
 
 A response body larger than one socket buffer is written under its
 `stall_budget` (seconds, 0 = none): a client that drains it slower than
-that is disconnected instead of holding the needle's buffers open.
+that is disconnected instead of holding the needle's buffers open (and the
+abort is recorded in the flight recorder, obs/incident.py).
 """
 from __future__ import annotations
 
@@ -300,6 +301,12 @@ class HTTPServer:
                 await asyncio.wait_for(writer.drain(), resp.stall_budget)
             except asyncio.TimeoutError:
                 stats.VOLUME_SERVER_RESPONSE_STALL_ABORTS.inc()
+                from ..obs import incident as obs_incident
+
+                obs_incident.record(
+                    "stall_abort", bytes=len(body),
+                    budget_s=round(resp.stall_budget, 1),
+                )
                 log.warning(
                     "read response stalled past its %.1fs budget (%d bytes); "
                     "disconnecting slow client", resp.stall_budget, len(body),

@@ -13,6 +13,15 @@ asyncio process per storage node, serving one node's volumes:
     GET /debug/device/attribution (the device-time ledger,
     obs/devledger.py: busy seconds, dispatches, bytes and queue wait per
     workload class);
+  - the observability plane (obs/): every data request is traced
+    (obs.middleware, which is also the deadline front door) and served at
+    GET /debug/traces; GET /debug/critpath?id= attributes one request's
+    time to the six critical-path segments; GET /debug/tail holds the
+    tail store's route stats and pinned slow trees; GET /debug/incident
+    the flight recorder; GET /debug/timeline the ~1 s flight timeline;
+    GET /debug/device/hot the resident calls by class; and, with
+    SWFS_DEBUG=1, GET /debug/profile?seconds=N a torch.profiler capture
+    of the live process;
   - with -ec.scrub.intervalSeconds, an idle loop that parity-scrubs every
     locally complete EC volume each interval: the resident ones in one
     pass of csrc/scrub.cu over the cache, the rest from their files, and
@@ -23,18 +32,24 @@ that is not local answers 404, which is what the reference answers when
 the master knows no other holder.  Not here (ROADMAP A4b): the gRPC admin
 and EC service, the master heartbeat, proxy/redirect reads, replication
 fan-out, write JWTs, TTL sweeps; image resizing waits for the images
-package; trace spans and /debug/profile are A7a.
+package; the timeline's heartbeat shipping and /debug/stacks wait for the
+master (A7c).
 """
 from __future__ import annotations
 
 import asyncio
+import functools
 import gzip
 import logging
+import os
 import time
 from collections import deque
 
-from .. import stats
+from .. import obs, stats
 from ..obs import devledger
+from ..obs import tailstore as tailstore_mod
+from ..obs import timeline as timeline_mod
+from ..obs import trace as obs_trace
 from ..ops import rs, rs_cuda, rs_resident
 from ..serving import EcReadDispatcher, ServingConfig
 from ..storage import types as t
@@ -43,7 +58,6 @@ from ..storage.ec.layout import TOTAL_SHARDS
 from ..storage.needle import FLAG_IS_COMPRESSED, CrcError, Needle
 from ..storage.store import Store
 from ..storage.volume import CookieMismatch, NotFoundError, VolumeReadOnly
-from ..utils import faultpolicy
 from ..utils.tasks import spawn_logged
 from .conditional import content_disposition, format_http_date, not_modified
 from .http import HTTPError, HTTPServer, Request, Response, json_response
@@ -192,6 +206,26 @@ class VolumeServer:
             self.store, lambda vid: None, ec_serving
         )
         self._http: HTTPServer | None = None
+        # the flight timeline (obs/timeline.py) and the tail store
+        # (obs/tailstore.py), built in start() as the -obs.* flags say
+        self.timeline = None
+        self.tailstore = None
+        # GET routes: path -> handler (/debug/profile only with
+        # SWFS_DEBUG=1: a capture reveals internals and costs the card
+        # attention)
+        self._get_routes = {
+            "/status": self.h_status,
+            "/metrics": self.h_metrics,
+            "/debug/traces": obs.traces_handler,
+            "/debug/critpath": obs.critpath_handler(),
+            "/debug/tail": self.h_debug_tail,
+            "/debug/incident": obs.incident.incident_handler,
+            "/debug/device/hot": obs.device_hot_handler,
+            "/debug/timeline": self.h_debug_timeline,
+            "/debug/device/attribution": self.h_debug_device_attribution,
+        }
+        if os.environ.get("SWFS_DEBUG") == "1":
+            self._get_routes["/debug/profile"] = obs.profile_handler
         # the pipeline's byte totals already mirrored into the counters
         self._mirrored = {"h2d": 0, "d2h": 0}
         self._mirrored_launches = {k.__name__: 0 for k in _KERNELS}
@@ -203,8 +237,11 @@ class VolumeServer:
     # ------------------------------------------------------------------ lifecycle
 
     async def start(self) -> None:
+        # obs.middleware: the trace and the deadline front door around
+        # every request
         self._http = HTTPServer(
-            self._route, self.ip, self.port,
+            functools.partial(obs.middleware("volume"), handler=self._route),
+            self.ip, self.port,
             client_max_size=self.client_max_size_mb << 20,
         )
         await self._http.start()
@@ -214,6 +251,17 @@ class VolumeServer:
             self._tasks.append(
                 spawn_logged(self._ec_scrub_forever(), log, "ec scrub loop")
             )
+        if obs_trace.CONFIG.timeline_enabled:
+            self.timeline = timeline_mod.TimelineSampler(
+                node=self.url
+            ).install()
+            self._tasks.append(
+                spawn_logged(
+                    self._timeline_forever(), log, "timeline sampler loop"
+                )
+            )
+        if obs_trace.CONFIG.tail_enabled:
+            self.tailstore = tailstore_mod.TailStore(node=self.url).install()
 
     async def stop(self) -> None:
         for task in self._tasks:
@@ -226,27 +274,66 @@ class VolumeServer:
         # zero the occupancy/queue gauges: the registry outlives this
         # server (in-process restarts)
         self.ec_dispatcher.shutdown()
+        # unhook the finished-trace taps: the process-global observer list
+        # outlives this server (in-process restarts)
+        if self.timeline is not None:
+            self.timeline.uninstall()
+        if self.tailstore is not None:
+            self.tailstore.uninstall()
         # off the loop: close() joins pin threads mid-upload
         await asyncio.to_thread(self.store.close)
 
     # ------------------------------------------------------------------ routing
 
     async def _route(self, request: Request) -> Response:
-        if request.path == "/status" and request.method == "GET":
-            return await self.h_status(request)
-        if request.path == "/metrics" and request.method == "GET":
-            return self.h_metrics(request)
-        if (request.path == "/debug/device/attribution"
-                and request.method == "GET"):
-            return self.h_debug_device_attribution(request)
-        # the deadline front door: adopt the request's budget or stamp the
-        # default; a spent budget is 504, the honest verdict for work the
-        # client already gave up on
+        """The routes above, then every other path as a needle; the
+        middleware (obs.middleware) has already opened the request's trace
+        and deadline scope around this."""
+        if request.method in ("GET", "HEAD"):
+            handler = self._get_routes.get(request.path)
+            if handler is not None:
+                return await handler(request)
+        if request.path.startswith("/debug/"):
+            # never a fid: an unknown (or SWFS_DEBUG-gated) debug route
+            raise HTTPError(404, f"no route {request.path}")
+        return await self.h_needle(request)
+
+    async def _timeline_forever(self) -> None:
+        """~1 s flight-timeline sampling (-obs.timeline.intervalSeconds):
+        each tick snapshots the ledger/QoS/cache counters into one
+        clock-aligned sample of the local ring."""
+        interval = obs_trace.CONFIG.timeline_interval_seconds
+        while True:  # until stop() cancels it
+            await asyncio.sleep(interval)
+            try:
+                self.timeline.sample()
+            except Exception:  # noqa: BLE001 — sampling must never die
+                log.exception("timeline sample failed")
+
+    async def h_debug_timeline(self, request: Request) -> Response:
+        """GET /debug/timeline?window=S: this node's flight-timeline ring,
+        oldest first (the trailing S seconds when given)."""
+        window = request.query.get("window")
         try:
-            with faultpolicy.request_scope(request.headers):
-                return await self.h_needle(request)
-        except faultpolicy.DeadlineExceeded as e:
-            raise HTTPError(504, str(e))
+            window_s = float(window) if window else None
+        except ValueError:
+            raise HTTPError(400, "window must be numeric")
+        samples = (
+            self.timeline.snapshot(window_s)
+            if self.timeline is not None
+            else []
+        )
+        return json_response({"node": self.url, "samples": samples})
+
+    async def h_debug_tail(self, request: Request) -> Response:
+        """GET /debug/tail: the tail ring's per-route stats + pinned
+        slow/incident span trees (?id= resolves one full tree)."""
+        if self.tailstore is None:
+            return json_response(
+                {"error": "tail retention disabled (-obs.tail.disable)"},
+                status=404,
+            )
+        return await obs.tail_handler(self.tailstore)(request)
 
     async def h_status(self, request: Request) -> Response:
         """The reference's JSON status, plus each EC volume's local and
@@ -273,7 +360,7 @@ class VolumeServer:
             }
         )
 
-    def h_metrics(self, request: Request) -> Response:
+    async def h_metrics(self, request: Request) -> Response:
         self._collect_metrics()
         return Response(
             body=stats.generate_latest(stats.REGISTRY),
@@ -304,7 +391,7 @@ class VolumeServer:
                 return await self.h_delete(request)
         raise HTTPError(405, headers={"Allow": "GET, POST, PUT, DELETE"})
 
-    def h_debug_device_attribution(self, request: Request) -> Response:
+    async def h_debug_device_attribution(self, request: Request) -> Response:
         """GET /debug/device/attribution: the device-time ledger — busy
         seconds, dispatches, bytes and queue wait per workload class, with
         the per-device breakdown."""

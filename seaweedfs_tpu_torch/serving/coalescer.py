@@ -1,7 +1,6 @@
 """Admission queue packing concurrent EC needle reads into batches.
 
-Port of seaweedfs_tpu/serving/coalescer.py (without the trace context a
-request carries there).  Pure bookkeeping — no asyncio scheduling, no
+Port of seaweedfs_tpu/serving/coalescer.py.  Pure bookkeeping — no asyncio scheduling, no
 device calls — so the packing, saturation and FIFO rules are testable
 without a server.  The dispatcher owns timing (admission window,
 pipelining); the coalescer owns what rides in each batch.
@@ -21,6 +20,10 @@ class ReadRequest:
     cookie: int | None
     future: asyncio.Future
     enqueued: float  # loop.time() at admission, for the queue-wait series
+    # (trace, parent_span_id) captured at admission: the drain task that
+    # serves this request runs outside the request's context, so the
+    # trace must ride the queue with the request (obs/trace.py)
+    obs_ctx: object | None = None
     # QoS tier this request was admitted under (serving/qos.py): the
     # drain loop must credit the SAME tier's budget back at take time
     tier: str = "interactive"

@@ -30,9 +30,14 @@ Every decision is visible on /metrics: batch-width histogram, per-request
 queue wait, in-flight batch occupancy, fallback and route counters
 (stats/metrics.py), and each batch's device section is tagged
 serving_interactive or serving_bulk in the device ledger
-(obs/devledger.py).  Trace spans and the tiering heat signal are ROADMAP
-A7; peer shard reads (`remote_reader_factory` returns None here: one node
-holds the survivors) are A4b.
+(obs/devledger.py).  Each request's trace (obs/trace.py) gets its
+`queue_wait` spans (admission -> take, and its whole residency up to the
+waiter's resume) and its batch's stages: the batch runs under a stage sink
+and a `batch_dispatch` span, and what the sink collected is replayed onto
+every member trace.  Saturation is recorded in the flight recorder
+(obs/incident.py).  The tiering heat signal is ROADMAP A7b; peer shard
+reads (`remote_reader_factory` returns None here: one node holds the
+survivors) are A4b.
 """
 from __future__ import annotations
 
@@ -40,8 +45,9 @@ import asyncio
 import logging
 import time
 
-from .. import stats
+from .. import obs, stats
 from ..obs import devledger
+from ..obs import incident as obs_incident
 from ..utils import faultpolicy
 from ..utils.tasks import spawn_logged
 from .coalescer import Coalescer, ReadRequest
@@ -142,11 +148,17 @@ class EcReadDispatcher:
             return await self._read_native(vid, nid, cookie)
         loop = asyncio.get_running_loop()
         req = ReadRequest(vid, nid, cookie, loop.create_future(), loop.time(),
-                          tier=tier)
+                          obs_ctx=obs.current(), tier=tier)
         if not self.coalescer.offer(req):
             # saturated: shed to the native path rather than queue without
             # bound; QoS sees it as overload too (breaker + shed series)
             stats.VOLUME_SERVER_EC_BATCH_FALLBACK.inc()
+            # flight recorder: the raw saturation decision (also visible
+            # when -ec.qos.disable leaves no QoS layer to record it)
+            obs_incident.record(
+                "dispatch_saturated", vid=vid, tier=tier,
+                queue_depth=len(self.coalescer),
+            )
             if cfg.qos:
                 self.qos.saturated(tier)
             self._route("native", origin)
@@ -160,7 +172,21 @@ class EcReadDispatcher:
         self._route("batched", origin)
         stats.VOLUME_SERVER_EC_QUEUE_DEPTH.set(len(self.coalescer))
         self._maybe_spawn()
-        return await req.future
+        t_resident = time.perf_counter()
+        try:
+            return await req.future
+        finally:
+            # the request's WHOLE dispatcher residency, enqueue -> waiter
+            # resume, as a low-priority queue_wait span (observe=False:
+            # the histogram sample is the drain loop's).  The batch stage
+            # spans outrank it in critical-path attribution, so all it
+            # claims is the slice nothing else covers — chiefly the
+            # future-resume gap where the batch is done but the event
+            # loop has not scheduled this coroutine yet.
+            obs.record_span(
+                req.obs_ctx, "queue_wait", t_resident,
+                time.perf_counter() - t_resident, observe=False,
+            )
 
     async def _read_native(
         self, vid: int, nid: int, cookie: int | None, use_device: bool = False
@@ -186,9 +212,14 @@ class EcReadDispatcher:
         if len(self.coalescer) and self._inflight < self.cfg.max_inflight:
             self._inflight += 1
             stats.VOLUME_SERVER_EC_BATCH_INFLIGHT.set(self._inflight)
-            # detached: a lane outliving its spawner's deadline budget
-            # must not doom every later batch it serves
-            with faultpolicy.detached():
+            # detached: the new task copies this context, and a drain
+            # lane spawned from a traced request would otherwise append
+            # every LATER request's batch spans to the spawner's
+            # (finished) trace — member traces ride ReadRequest.obs_ctx
+            # instead.  The deadline detaches for the same reason: a lane
+            # outliving its spawner's budget must not doom every later
+            # batch it serves.
+            with obs.detached(), faultpolicy.detached():
                 spawn_logged(
                     self._drain(), log, "ec-read drain lane",
                     registry=self._lanes,
@@ -217,6 +248,7 @@ class EcReadDispatcher:
                     await asyncio.sleep(cfg.max_wait_s)
                 first = False
                 now = asyncio.get_running_loop().time()
+                now_pc = time.perf_counter()
                 taken = self.coalescer.take()
                 stats.VOLUME_SERVER_EC_QUEUE_DEPTH.set(len(self.coalescer))
                 for vid, items in taken.items():
@@ -224,8 +256,12 @@ class EcReadDispatcher:
                     for r in items:
                         if r.tier:  # "" = enqueued with qos off
                             self.qos.dequeued(r.tier)
-                        stats.VOLUME_SERVER_EC_BATCH_QUEUE_WAIT.observe(
-                            now - r.enqueued
+                        wait = now - r.enqueued
+                        stats.VOLUME_SERVER_EC_BATCH_QUEUE_WAIT.observe(wait)
+                        # the trace's view of the same wait: admission ->
+                        # batch take, per request
+                        obs.record_span(
+                            r.obs_ctx, "queue_wait", now_pc - wait, wait
                         )
                     await self._serve_batch(vid, items)
         finally:
@@ -234,6 +270,10 @@ class EcReadDispatcher:
             self._maybe_spawn()  # raced with an offer after the loop check
 
     async def _serve_batch(self, vid: int, items: list[ReadRequest]) -> None:
+        # one batch serves many traces: the worker's stage spans
+        # (shard_read / batch_pack / device_execute / d2h_copy) land in a
+        # sink and are replayed onto every member trace afterwards —
+        # observe=False so the stage histograms count each stage once
         t0 = time.perf_counter()
         # device-ledger class for the batch: a batch is bulk-tier only when
         # every member is (a mixed batch serves an interactive reader, so it
@@ -245,22 +285,33 @@ class EcReadDispatcher:
             if items and all(r.tier == "bulk" for r in items)
             else "serving_interactive"
         )
-        try:
-            with devledger.workload(wl):
-                results = await asyncio.to_thread(
-                    self.store.read_ec_needles_batch,
-                    vid,
-                    [(r.nid, r.cookie) for r in items],
-                    self._remote_reader(vid),
-                    self.cfg.zero_copy,
-                )
-        except Exception as e:  # noqa: BLE001 — volume-level failure
-            results = [e] * len(items)
+        with obs.stage_sink() as sink:
+            try:
+                with devledger.workload(wl), obs.span(
+                    "batch_dispatch", needles=len(items), vid=vid
+                ):
+                    results = await asyncio.to_thread(
+                        self.store.read_ec_needles_batch,
+                        vid,
+                        [(r.nid, r.cookie) for r in items],
+                        self._remote_reader(vid),
+                        self.cfg.zero_copy,
+                    )
+            except Exception as e:  # noqa: BLE001 — volume-level failure
+                results = [e] * len(items)
         # feed the deadline estimator: per-needle service time of THIS
         # batch (wall across the store call / width)
         self.qos.observe_service(
             (time.perf_counter() - t0) / max(1, len(items))
         )
+        for r in items:
+            if r.obs_ctx is None:
+                continue
+            for stage, (dur, calls, ann) in sink.items():
+                obs.record_span(
+                    r.obs_ctx, stage, t0, dur, observe=False,
+                    annotations={"calls": calls, **ann},
+                )
         for r, res in zip(items, results):
             if r.future.done():  # client went away mid-batch
                 continue

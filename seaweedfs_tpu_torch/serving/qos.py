@@ -1,8 +1,9 @@
 """QoS admission control for the EC serving dispatcher.
 
-Port of seaweedfs_tpu/serving/qos.py without the flight-recorder records
-(ROADMAP A7).  Three policies in front of the queue, all exported as
-`SeaweedFS_volumeServer_ec_qos_*` series:
+Port of seaweedfs_tpu/serving/qos.py.  Three policies in front of the
+queue, all exported as `SeaweedFS_volumeServer_ec_qos_*` series, and every
+shed and breaker transition recorded in the flight recorder
+(obs/incident.py), stamped with the ambient trace:
 
   1. TIER BUDGETS — requests carry a tier ("interactive" front-door
      reads vs "bulk" background traffic, from the X-Seaweed-QoS header);
@@ -25,6 +26,7 @@ from dataclasses import dataclass
 from typing import TYPE_CHECKING, Callable
 
 from .. import stats
+from ..obs import incident as obs_incident
 
 if TYPE_CHECKING:
     from .config import ServingConfig
@@ -192,7 +194,14 @@ class QosController:
         pol = self.policies[tier]
         br = self._breakers[tier]
         if br.state != self._published_state[tier]:
-            # breaker TRANSITION: the gauge is only touched on changes
+            # breaker TRANSITION: the gauge flip doubles as the flight
+            # recorder's moment — "when exactly did the front door trip"
+            names = ("closed", "half_open", "open")
+            prev = self._published_state[tier]
+            obs_incident.record(
+                "qos_breaker", tier=tier, state=names[br.state],
+                prev=names[prev] if 0 <= prev < len(names) else "unset",
+            )
             self._published_state[tier] = br.state
             stats.VOLUME_SERVER_EC_QOS_BREAKER_STATE.labels(tier=tier).set(
                 br.state
@@ -201,6 +210,9 @@ class QosController:
             stats.VOLUME_SERVER_EC_QOS_SHED.labels(
                 tier=tier, reason=SHED_BREAKER_OPEN
             ).inc()
+            obs_incident.record(
+                "qos_shed", tier=tier, reason=SHED_BREAKER_OPEN
+            )
             return SHED_BREAKER_OPEN
         # the effective deadline: the tier policy's, tightened by the
         # request's own remaining budget when one was propagated
@@ -224,6 +236,10 @@ class QosController:
             stats.VOLUME_SERVER_EC_QOS_SHED.labels(
                 tier=tier, reason=reason
             ).inc()
+            obs_incident.record(
+                "qos_shed", tier=tier, reason=reason,
+                queue_depth=queue_depth,
+            )
             return reason
         return None
 
@@ -236,6 +252,10 @@ class QosController:
         stats.VOLUME_SERVER_EC_QOS_SHED.labels(
             tier=tier, reason=SHED_QUEUE_BUDGET
         ).inc()
+        obs_incident.record(
+            "qos_shed", tier=tier, reason=SHED_QUEUE_BUDGET,
+            saturated=True,
+        )
 
     # ----------------------------------------------------------- accounting
 

@@ -12,8 +12,10 @@ latency, the volume and residency gauges, the dispatcher's batch, queue,
 in-flight, fallback and route series, QoS admission, the response copy
 and stall series, deadline refusals, the pipeline's H2D/D2H bytes, the
 port's kernel launches, the parity scrub's corrupt-volume gauge and
-dispatch counter, and the device-time ledger's four series
-(obs/devledger.py).  Trace spans and incidents are ROADMAP A7a.
+dispatch counter, the device-time ledger's four series
+(obs/devledger.py), the per-stage request-tracing histogram
+(obs/trace.py) and the critical-path counters (obs/critpath.py,
+obs/tailstore.py).
 
 One process-wide registry, like the reference's default registry.
 """
@@ -51,6 +53,20 @@ class Registry:
 
     def collect(self):
         return list(self._metrics)
+
+    def get_sample_value(self, name: str, labels: dict | None = None):
+        """The value of one exposed sample (prometheus_client's lookup):
+        `name` as rendered (a counter's `_total`, a histogram's `_sum` /
+        `_count`), `labels` its label set; None when absent."""
+        want = dict(labels or {})
+        for m in self.collect():
+            for values, child in m._series():
+                if dict(zip(m.labelnames, values)) != want:
+                    continue
+                for suffix, value in child._values():
+                    if m.name.removesuffix("_total") + suffix == name:
+                        return value
+        return None
 
 
 class _Metric:
@@ -124,6 +140,9 @@ class Counter(_Metric):
     def value(self) -> float:
         return self._value
 
+    def _values(self) -> list[tuple[str, float]]:
+        return [("_total", self._value)]
+
     def _samples(self, values) -> list[str]:
         return [f"{self.name.removesuffix('_total')}_total"
                 f"{_label_str(self.labelnames, values)} {_fmt(self._value)}"]
@@ -142,6 +161,9 @@ class Gauge(_Metric):
     @property
     def value(self) -> float:
         return self._value
+
+    def _values(self) -> list[tuple[str, float]]:
+        return [("", self._value)]
 
     def _samples(self, values) -> list[str]:
         return [f"{self.name}{_label_str(self.labelnames, values)} "
@@ -187,6 +209,9 @@ class Histogram(_Metric):
             acc += c
             out.append((edge, acc))
         return out
+
+    def _values(self) -> list[tuple[str, float]]:
+        return [("_sum", self._sum), ("_count", float(self.count))]
 
     def _samples(self, values) -> list[str]:
         lines = [
@@ -426,6 +451,71 @@ VOLUME_SERVER_EC_KERNEL_LAUNCHES = Counter(
 for _kernel in ("fused_reconstruct", "fused_reconstruct_blockdiag",
                 "gf2_matmul", "gf2_matmul_small", "scrub"):
     VOLUME_SERVER_EC_KERNEL_LAUNCHES.labels(kernel=_kernel)
+
+
+# request tracing stages (obs/trace.py spans): one histogram family,
+# labeled by stage, µs-resolution buckets — the per-stage view that lets
+# a tail regression name its stage instead of hiding in the aggregate
+# request histogram.  Stages are pre-registered so /metrics always
+# exposes every stage series, even before the first request exercises a
+# path (h2d_copy stays at 0 here: the resident call copies nothing up,
+# its work list rides in the launch's parameters).
+TRACE_STAGES = (
+    "queue_wait",        # coalescer admission -> batch take (dispatcher)
+    "batch_dispatch",    # one coalesced batch through the store call
+    "batch_pack",        # host-side planning + vector staging of a batch
+    "h2d_copy",          # shipping the packed vectors host -> device
+    "device_execute",    # rs_resident reconstruct (launch -> kernel done)
+    "d2h_copy",          # fetching reconstructed bytes device -> host
+    "host_reconstruct",  # host GF(256) reconstruct (K1 or the plain version)
+    "shard_read",        # .ecx index lookups + local shard preads
+    "remote_shard_read", # peer shard interval fetch (VolumeEcShardRead)
+    "chunk_fetch",       # filer -> volume server chunk read
+    "bulk_read",         # bulk EC pipeline reader leg (stripe preads)
+    "bulk_device",       # bulk EC pipeline codec leg (stage+H2D+kernel+D2H)
+    "bulk_write",        # bulk EC pipeline writer leg (shard writes/compare)
+)
+# the reference's fixed bucket ladder (its heartbeat stage digests ride
+# on exactly these edges, +Inf appended)
+STAGE_SECONDS_BUCKETS = (0.000005, 0.00001, 0.000025, 0.00005, 0.0001,
+                         0.00025, 0.0005, 0.001, 0.0025, 0.005, 0.01,
+                         0.05, 0.25, 1.0)
+REQUEST_STAGE_SECONDS = Histogram(
+    "SeaweedFS_request_stage_seconds",
+    "Per-stage serving time from the request-tracing spans "
+    "(obs/trace.py); stage names cover the EC read path end to end.",
+    ["stage"],
+    registry=REGISTRY,
+    buckets=STAGE_SECONDS_BUCKETS,
+)
+for _stage in TRACE_STAGES:
+    REQUEST_STAGE_SECONDS.labels(stage=_stage)
+
+# critical-path attribution (obs/critpath.py): every finished ROOT trace
+# has its client-visible wall time bucketed into exactly these six
+# segments (trace stages map onto the first five; whatever no span
+# covers is `untraced`), so the per-route composition is a counter
+# ratio.  The segment label universe is fixed here; routes register
+# lazily.
+CRITPATH_SEGMENTS = ("queue_wait", "device_execute", "host_reconstruct",
+                     "disk", "network_gap", "untraced")
+CRITPATH_SECONDS = Counter(
+    "SeaweedFS_critpath_seconds",
+    "Client-visible request seconds attributed to each critical-path "
+    "segment per route (obs/tailstore.py feeds every finished root "
+    "trace through obs/critpath.py's bucketing); the six segments of "
+    "one route sum to that route's SeaweedFS_critpath_route_seconds.",
+    ["route", "segment"],
+    registry=REGISTRY,
+)
+CRITPATH_ROUTE_SECONDS = Counter(
+    "SeaweedFS_critpath_route_seconds",
+    "Total client-visible request seconds per route — the denominator "
+    "the per-segment SeaweedFS_critpath_seconds composition is read "
+    "against (segments sum to this by construction).",
+    ["route"],
+    registry=REGISTRY,
+)
 
 
 @contextmanager

@@ -411,3 +411,28 @@ def run(
         raise
     t["device_busy_s"] = codec.busy_s
     return t
+
+
+def publish(name: str, t: dict) -> None:
+    """Record one finished run's legs as the bulk_read / bulk_device /
+    bulk_write trace stages (the caller's active trace when the pipeline
+    ran under a traced request; the per-stage histogram either way).
+    Call after wall_s is filled.  The reference's bulk throughput series
+    are not ported (the port's metrics are the serving subset)."""
+    from ...obs import trace as obs_trace
+
+    ctx = obs_trace.current()
+    t0 = time.perf_counter() - float(t.get("wall_s", 0.0))
+    anns = {"pipeline": name, "batches": t.get("batches", 0)}
+    # stage names spelled out per leg, so each TRACE_STAGES entry has a
+    # literal call site
+    obs_trace.record_span(
+        ctx, "bulk_read", t0, float(t.get("read_s", 0.0)), annotations=anns
+    )
+    obs_trace.record_span(
+        ctx, "bulk_device", t0, float(t.get("device_busy_s", 0.0)),
+        annotations=anns,
+    )
+    obs_trace.record_span(
+        ctx, "bulk_write", t0, float(t.get("write_s", 0.0)), annotations=anns
+    )

@@ -157,6 +157,7 @@ def write_ec_files(
         for o in outputs:
             o.close()
     t["wall_s"] = time.perf_counter() - t_start
+    bulk.publish("encode", t)
     if stats is not None:
         stats.update(t)
     return dat_size
@@ -229,6 +230,7 @@ def rebuild_ec_files(
     # head, so a missing .vif can be restored exactly like encode does
     _save_vif_from_superblock(base_name + to_ext(0), base_name)
     t["wall_s"] = time.perf_counter() - t_start
+    bulk.publish("rebuild", t)
     if stats is not None:
         stats.update(t)
     return missing
@@ -289,6 +291,7 @@ def verify_ec_files(
         for h in handles:
             h.close()
     t["wall_s"] = time.perf_counter() - t_start
+    bulk.publish("verify", t)
     if stats is not None:
         stats.update(t)
     return [int(v) for v in mism], shard_size

@@ -13,6 +13,11 @@ store_ec.go:339-393), on the card by default.  With a DeviceShardCache
 a read, or of a whole burst (read_needles_batch), are reconstructed from the
 resident bytes in one device call instead.
 
+Every read is traced as the reference's is (obs/trace.py): the `.ecx`
+locate and each local pread are `shard_read` spans, the host degraded read
+a `shard_read` gather then a `host_reconstruct`, and the resident call
+carries its own spans (ops/rs_resident.py).
+
 Remote shard reads, the hedged fan-out and the reconstruct memo are ROADMAP
 A4b; the host tier is A7.
 """
@@ -23,6 +28,7 @@ import threading
 
 import numpy as np
 
+from ...obs import trace as obs_trace
 from ...ops import rs, rs_resident
 from .. import needle as needle_mod
 from .. import types as t
@@ -246,7 +252,10 @@ class EcVolume:
         shard_id, off = interval.to_shard_and_offset()
         shard = self.shards.get(shard_id)
         if shard is not None:
-            return shard.read_at(off, interval.size)
+            with obs_trace.span(
+                "shard_read", shard=shard_id, bytes=interval.size
+            ):
+                return shard.read_at(off, interval.size)
         return self._reconstruct_interval(
             shard_id, off, interval.size, backend, use_device
         )
@@ -268,30 +277,37 @@ class EcVolume:
             except rs_resident.CacheMiss:
                 self.device_misses += 1
         got: dict[int, np.ndarray] = {}
-        for sid in range(TOTAL_SHARDS):
-            if sid == missing_shard:
-                continue
-            shard = self.shards.get(sid)
-            if shard is None:
-                continue
-            buf = shard.read_at(off, size)
-            if len(buf) == size:
-                got[sid] = np.frombuffer(buf, dtype=np.uint8)
-            if len(got) >= DATA_SHARDS:
-                break
+        with obs_trace.span("shard_read", op="gather_survivors") as gather:
+            for sid in range(TOTAL_SHARDS):
+                if sid == missing_shard:
+                    continue
+                shard = self.shards.get(sid)
+                if shard is None:
+                    continue
+                buf = shard.read_at(off, size)
+                if len(buf) == size:
+                    got[sid] = np.frombuffer(buf, dtype=np.uint8)
+                if len(got) >= DATA_SHARDS:
+                    break
+            # remote=0: no peer shard reader on one node (A4b)
+            gather.annotate(survivors=len(got), remote=0,
+                            bytes=size * len(got))
         if len(got) < DATA_SHARDS:
             raise InsufficientShards(
                 f"ec volume {self.id}: {len(got)} shards reachable, "
                 f"{DATA_SHARDS} needed to recover shard {missing_shard}"
             )
-        codec = rs.RSCodec(backend=backend)
-        out = codec.reconstruct(got, wanted=[missing_shard])
-        return out[missing_shard].tobytes()
+        with obs_trace.span("host_reconstruct", backend=backend, bytes=size):
+            codec = rs.RSCodec(backend=backend)
+            out = codec.reconstruct(got, wanted=[missing_shard])
+            return out[missing_shard].tobytes()
 
     def read_needle_bytes(
         self, needle_id: int, backend: str = "cuda", use_device: bool = True
     ) -> bytes:
-        _, _, intervals = self.locate_needle(needle_id)
+        # the .ecx binary search is a real disk read serving the request
+        with obs_trace.span("shard_read", op="locate"):
+            _, _, intervals = self.locate_needle(needle_id)
         parts = [self.read_interval(iv, backend, use_device) for iv in intervals]
         return parts[0] if len(parts) == 1 else b"".join(parts)
 
@@ -313,21 +329,26 @@ class EcVolume:
         itself, which the slot's next batch overwrites."""
         plans: list[tuple[int, list] | Exception] = []
         requests: list[tuple[int, int, int]] = []
-        for nid in needle_ids:
-            try:
-                _, _, intervals = self.locate_needle(nid)
-            except (NeedleNotFound, OSError) as e:
-                plans.append(e)
-                continue
-            parts: list = []
-            for iv in intervals:
-                sid, off = iv.to_shard_and_offset()
-                if sid in self.shards:
-                    parts.append(("local", sid, off, iv.size))
-                else:
-                    parts.append(("recon", len(requests)))
-                    requests.append((sid, off, iv.size))
-            plans.append((nid, parts))
+        # locate = one .ecx binary search (disk preads) per needle: the
+        # batch's index-lookup cost, visible as its own trace stage
+        with obs_trace.span(
+            "shard_read", op="locate", needles=len(needle_ids)
+        ):
+            for nid in needle_ids:
+                try:
+                    _, _, intervals = self.locate_needle(nid)
+                except (NeedleNotFound, OSError) as e:
+                    plans.append(e)
+                    continue
+                parts: list = []
+                for iv in intervals:
+                    sid, off = iv.to_shard_and_offset()
+                    if sid in self.shards:
+                        parts.append(("local", sid, off, iv.size))
+                    else:
+                        parts.append(("recon", len(requests)))
+                        requests.append((sid, off, iv.size))
+                plans.append((nid, parts))
 
         recon: list[bytes] | None = None
         if requests and self.device_cache is not None:
@@ -349,7 +370,10 @@ class EcVolume:
                 for p in parts:
                     if p[0] == "local":
                         _, sid, off, size = p
-                        pieces.append(self.shards[sid].read_at(off, size))
+                        with obs_trace.span(
+                            "shard_read", shard=sid, bytes=size
+                        ):
+                            pieces.append(self.shards[sid].read_at(off, size))
                     elif recon is not None:
                         pieces.append(recon[p[1]])
                     else:

@@ -5,7 +5,8 @@ configured default); it rides a contextvar, so it crosses awaits and
 `asyncio.to_thread` hops; and admission refuses doomed work early
 (`check_remaining`) instead of burning a queue slot on a request its
 client already abandoned.  A spent budget surfaces as DeadlineExceeded,
-which the volume server answers with 504.
+which the volume server answers with 504, and is recorded in the flight
+recorder (obs/incident.py).
 
 The peer half of the reference module (hedged gathers, retry budgets,
 per-peer latency EWMAs, gRPC metadata) belongs to the RPC plane, ROADMAP
@@ -69,12 +70,15 @@ def remaining_s() -> float | None:
 
 
 def check_remaining(what: str = "") -> float | None:
-    """Remaining budget, raising DeadlineExceeded (counted) when it is
-    already spent — the refuse-doomed-work-early gate every admission
-    point shares."""
+    """Remaining budget, raising DeadlineExceeded (counted + recorded)
+    when it is already spent — the refuse-doomed-work-early gate every
+    admission point shares."""
     rem = remaining_s()
     if rem is not None and rem <= 0:
         stats.VOLUME_SERVER_EC_DEADLINE_EXCEEDED.inc()
+        from ..obs import incident as obs_incident
+
+        obs_incident.record("deadline_exceeded", what=what)
         raise DeadlineExceeded(
             f"{what or 'request'}: deadline budget spent "
             f"({-rem * 1e3:.1f}ms past)"

@@ -905,3 +905,171 @@ def test_scrub_refuses_bad_arguments(cuda_device):
     with pytest.raises(ValueError):
         rs_resident.scrub(a.cpu(), card, n_lanes=8192)
     assert rs_resident.scrub.launches == before
+
+
+# --- the observability plane on the card -------------------------------------
+
+
+@pytest.mark.parametrize("layout", ["flat", "blockdiag"])
+def test_traced_resident_call_splits_at_the_kernel(cuda_device, layout,
+                                                   monkeypatch):
+    """A traced reconstruct_intervals on the card: device_execute holds
+    the kernel's CUDA-event time, and d2h_copy opens only after the
+    kernel's completion event fired.  A device spin before the launch
+    makes the kernel finish ~20 ms after it was enqueued: that wait lands
+    in device_execute, never in d2h_copy."""
+    from seaweedfs_tpu_torch import obs
+
+    data = _rand((10, 1 << 20), 23)
+    shards = RSCodec(backend="numpy").encode_all(data)
+    cache = rs_resident.DeviceShardCache(shard_quantum=1 << 22, layout=layout)
+    for sid in range(14):
+        if sid not in (0, 11):
+            cache.put(5, sid, shards[sid])
+    reqs = [(0, 4096 * i + 7, 3000) for i in range(64)]
+    rs_resident.reconstruct_intervals(cache, 5, reqs)  # warm the slot
+    real = rs_resident._dispatch_call
+    timed = []
+    spin_cycles = 40_000_000  # ~20 ms at the H100's clocks
+
+    def spun(*a, **kw):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(spin_cycles)
+        start.record()
+        out = real(*a, **kw)
+        end.record()
+        timed.append((start, end))
+        return out
+
+    monkeypatch.setattr(rs_resident, "_dispatch_call", spun)
+    t, tok = obs.start_trace("GET /5,ab", "volume")
+    try:
+        got = rs_resident.reconstruct_intervals(cache, 5, reqs)
+    finally:
+        obs.finish_trace(t, tok, 200)
+    for (sid, off, size), g in zip(reqs, got):
+        assert g == shards[sid][off : off + size].tobytes()
+    assert len(timed) == 1
+    kernel_ms = timed[0][0].elapsed_time(timed[0][1])
+    spans = {s.name: s for s in t.spans}
+    assert [s.name for s in t.spans] == ["batch_pack", "device_execute",
+                                         "d2h_copy"]
+    dev, d2h = spans["device_execute"], spans["d2h_copy"]
+    assert d2h.parent_id == dev.span_id
+    assert dev.duration * 1e3 >= kernel_ms
+    # d2h_copy starts after the spin and the kernel, inside device_execute
+    assert (d2h.start - dev.start) * 1e3 >= kernel_ms
+    assert (d2h.start - dev.start) * 1e3 >= 10.0
+    assert d2h.duration * 1e3 < 10.0
+    assert dev.annotations["kernel"] == (
+        "fused_reconstruct_blockdiag" if layout == "blockdiag"
+        else "fused_reconstruct")
+    assert dev.annotations["d2h_bytes"] == d2h.annotations["bytes"] > 0
+    assert dev.annotations["h2d_bytes"] > 0  # the launch's parameters
+
+
+def test_debug_profile_on_a_live_server_returns_kernel_events(
+        cuda_device, tmp_path, monkeypatch):
+    """With SWFS_DEBUG=1, /debug/profile?seconds=N captures the live
+    server on torch.profiler while clients read: the exported trace holds
+    the fused reconstruct kernel's events."""
+    import asyncio
+    import json
+
+    from seaweedfs_tpu_torch.server.http import Client
+    from seaweedfs_tpu_torch.server.volume import VolumeServer
+    from seaweedfs_tpu_torch.storage import types as t
+    from seaweedfs_tpu_torch.utils import devtime
+
+    monkeypatch.setenv("SWFS_DEBUG", "1")
+    monkeypatch.setenv("TMPDIR", str(tmp_path))
+    import tempfile
+
+    monkeypatch.setattr(tempfile, "tempdir", None)
+    rng = np.random.default_rng(29)
+    items = [(i, int(rng.integers(0, 1 << 32)), rng.bytes(20000))
+             for i in range(1, 41)]
+    vdir = tmp_path / "v"
+    vdir.mkdir()
+    v = Volume(str(vdir), 1)
+    for nid, cookie, data in items:
+        v.write(nid, cookie, data)
+    v.close()
+    base = str(vdir / "1")
+    ec.write_ec_files(base)
+    ec.write_sorted_file_from_idx(base)
+    for ext in (".dat", ".idx", ec.to_ext(0), ec.to_ext(11)):
+        os.remove(base + ext)
+
+    async def go():
+        vs = VolumeServer([], [str(vdir)], port=0, ec_backend="cuda",
+                          ec_device_cache_mb=2048)
+        await vs.start()
+        try:
+            c = Client("127.0.0.1", vs.port)
+            for _ in range(600):
+                st = json.loads((await c.request("GET", "/status"))[2])
+                if st["EcVolumes"][0]["serving"]:
+                    break
+                await asyncio.sleep(0.05)
+            stop = asyncio.Event()
+
+            async def reader(i):
+                cl = Client("127.0.0.1", vs.port)
+                try:
+                    k = i
+                    while not stop.is_set():
+                        nid, cookie, data = items[k % len(items)]
+                        status, _, body = await cl.request(
+                            "GET", "/" + t.format_fid(1, nid, cookie))
+                        assert (status, body) == (200, data)
+                        k += 1
+                finally:
+                    await cl.close()
+
+            readers = [asyncio.ensure_future(reader(i)) for i in range(8)]
+            capture = asyncio.ensure_future(
+                c.request("GET", "/debug/profile?seconds=2"))
+            await asyncio.sleep(0.5)
+            c2 = Client("127.0.0.1", vs.port)
+            busy = (await c2.request("GET", "/debug/profile?seconds=1"))[0]
+            await c2.close()
+            status, _, body = await capture
+            stop.set()
+            await asyncio.gather(*readers)
+            await c.close()
+            return status, json.loads(body), busy
+        finally:
+            await vs.stop()
+
+    status, doc, busy = asyncio.run(go())
+    assert busy == 409  # single flight
+    assert status == 200, doc
+    assert set(doc) == {"trace_dir", "seconds", "started_unix_ms",
+                        "hot_shapes"}
+    events = devtime.kernel_events(os.path.join(doc["trace_dir"],
+                                                "trace.json"))
+    names = {name for name, _, _ in events}
+    assert any("fused_reconstruct" in n for n in names), names
+    assert doc["hot_shapes"] and doc["hot_shapes"][0]["dispatches"] > 0
+
+
+def test_device_avg_ms_is_kernel_time(cuda_device):
+    """devtime.device_avg_ms sums the capture's kernel records: at or
+    under a CUDA-event bracket of the same calls, and above 0."""
+    from seaweedfs_tpu_torch.utils import devtime
+
+    a = rs_cuda.prepare_matrix(gf256.parity_matrix(10, 14), cuda_device)
+    x = torch.from_numpy(_rand((10, 4 << 20), 31)).to(cuda_device)
+    fn = lambda: rs_cuda.gf2_matmul(a, x, 4)  # noqa: E731
+    dev_ms = devtime.device_avg_ms(fn, n=10)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(10):
+        fn()
+    end.record()
+    end.synchronize()
+    bracket_ms = start.elapsed_time(end) / 10
+    assert 0 < dev_ms <= bracket_ms * 1.25

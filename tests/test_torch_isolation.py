@@ -55,6 +55,15 @@ def test_every_port_module_is_walked():
     the device ledger and the scrub's modules among them."""
     mods = set(_port_modules())
     for name in ("seaweedfs_tpu_torch.obs", "seaweedfs_tpu_torch.obs.devledger",
+                 "seaweedfs_tpu_torch.obs.config",
+                 "seaweedfs_tpu_torch.obs.trace",
+                 "seaweedfs_tpu_torch.obs.incident",
+                 "seaweedfs_tpu_torch.obs.critpath",
+                 "seaweedfs_tpu_torch.obs.tailstore",
+                 "seaweedfs_tpu_torch.obs.timeline",
+                 "seaweedfs_tpu_torch.obs.profile",
+                 "seaweedfs_tpu_torch.utils.devtime",
+                 "seaweedfs_tpu_torch.command.version",
                  "seaweedfs_tpu_torch.ops.rs_resident",
                  "seaweedfs_tpu_torch.storage.store",
                  "seaweedfs_tpu_torch.server.volume",
@@ -90,6 +99,60 @@ print("clean", len([m for m in sys.modules if m.startswith("seaweedfs_tpu_torch"
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.startswith("clean")
     assert int(proc.stdout.split()[1]) >= len(_port_modules())
+
+
+def test_obs_handlers_run_without_aiohttp():
+    """The observability plane imports, and its handlers answer, in an
+    interpreter where aiohttp (and JAX, and the JAX package) cannot be
+    imported: no handler reaches for it lazily either.  /debug/profile
+    takes a real (CPU) capture."""
+    code = f"""
+import asyncio, importlib.abc, json, os, sys, tempfile
+from types import SimpleNamespace
+def bad_name(name):
+    return name.split(".")[0] in {FORBIDDEN_ROOTS!r} or any(
+        name == p or name.startswith(p + ".") for p in {FORBIDDEN_PACKAGES!r})
+class Refuse(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path, target=None):
+        if bad_name(name):
+            raise ImportError("port imported " + name)
+sys.meta_path.insert(0, Refuse())
+from seaweedfs_tpu_torch import obs
+from seaweedfs_tpu_torch.obs import incident, profile, tailstore, timeline
+def req(**q):
+    return SimpleNamespace(query={{k: str(v) for k, v in q.items()}})
+async def go():
+    t, tok = obs.start_trace("GET /1,ab", "volume")
+    obs.finish_trace(t, tok, 200)
+    store = tailstore.TailStore(node="n").install()
+    out = {{}}
+    for name, h, q in (
+        ("traces", obs.traces_handler, {{}}),
+        ("critpath", obs.critpath_handler(), {{"id": t.trace_id}}),
+        ("tail", obs.tail_handler(store), {{}}),
+        ("incident", incident.incident_handler, {{}}),
+        ("hot", obs.device_hot_handler, {{}}),
+        ("profile", obs.profile_handler, {{"seconds": 0.2}}),
+    ):
+        resp = await h(req(**q))
+        out[name] = resp.status
+    store.uninstall()
+    return out
+os.environ["TMPDIR"] = tempfile.mkdtemp()
+tempfile.tempdir = None
+out = asyncio.run(go())
+assert set(out.values()) == {{200}}, out
+bad = [m for m in sys.modules if bad_name(m)]
+assert not bad, bad
+print("clean")
+"""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run(
+        [sys.executable, "-c", code], cwd=REPO, env=env,
+        capture_output=True, text=True, timeout=120,
+    )
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "clean"
 
 
 def test_no_jax_import_statements():

@@ -517,3 +517,198 @@ def test_malformed_range_matches_reference(tmp_path, rng):
             await ref.stop()
 
     asyncio.run(go())
+
+
+async def _both_traced(tmp_path):
+    """The port's server on -ec.backend torch and the reference's on
+    numpy, each over its own directory with volume 4 (one copy)."""
+    from seaweedfs_tpu.server.volume import VolumeServer as RefVolumeServer
+
+    port_dir, ref_dir = tmp_path / "port", tmp_path / "ref"
+    port_dir.mkdir()
+    ref_dir.mkdir()
+    port = server_volume.VolumeServer([], [str(port_dir)], port=0,
+                                      ec_backend="torch")
+    ref = RefVolumeServer(masters=[], directories=[str(ref_dir)], port=0,
+                          grpc_port=0, ec_backend="numpy")
+    for vs in (port, ref):
+        vs.store.add_volume(4)
+    await port.start()
+    await ref.start(heartbeat=False)
+    return port, ref
+
+
+def _keys(doc, depth=2):
+    """The nested key set of a JSON document, `depth` dict levels deep (a
+    list stands for its first element)."""
+    if depth == 0:
+        return None
+    if isinstance(doc, list):
+        return [_keys(doc[0], depth)] if doc else []
+    if not isinstance(doc, dict):
+        return None
+    return {k: _keys(v, depth - 1) for k, v in doc.items()}
+
+
+def test_traced_get_and_debug_documents_match_reference(tmp_path):
+    """A GET through either server carries the trace header in the
+    reference's format, and the debug documents have the reference's
+    keys; a malformed Range still answers 500 from both."""
+    import re
+
+    from seaweedfs_tpu.obs import incident as ref_incident
+    from seaweedfs_tpu_torch.obs import incident as port_incident
+
+    path = "/4,01637037d6"
+
+    async def go():
+        port, ref = await _both_traced(tmp_path)
+        try:
+            docs = []
+            for vs in (port, ref):
+                await _ask(vs, "POST", path, body=b"0123456789")
+                status, h, body = await _ask(vs, "GET", path)
+                assert (status, body) == (200, b"0123456789")
+                hdr = h["X-Seaweed-Trace-Id"]
+                assert re.fullmatch(r"[0-9a-f]{16}-[0-9a-f]{8}", hdr), hdr
+                tid = hdr.split("-")[0]
+                # an inbound header is adopted, not replaced
+                status, h, _ = await _ask(
+                    vs, "GET", path, {"X-Seaweed-Trace-Id": "abcd-ef01"})
+                assert h["X-Seaweed-Trace-Id"].startswith("abcd-")
+                assert (await _ask(vs, "GET", path,
+                                   {"Range": "bytes=3-2"}))[0] == 500
+                # telemetry paths are not traced
+                _, h, _ = await _ask(vs, "GET", "/status")
+                assert "X-Seaweed-Trace-Id" not in h
+                vs.timeline.sample()
+                # one decision event in each recorder, so both rings hold
+                # an event to compare
+                rec = (port_incident if vs is port else ref_incident).record
+                rec("stall_abort", bytes=10, budget_s=1.0)
+                doc = {}
+                for name, url in (
+                    ("traces", f"/debug/traces?id={tid}"),
+                    ("tail", "/debug/tail"),
+                    ("incident", "/debug/incident"),
+                    ("timeline", "/debug/timeline"),
+                    ("hot", "/debug/device/hot"),
+                ):
+                    status, _, body = await _ask(vs, "GET", url)
+                    assert status == 200, (name, status)
+                    doc[name] = json.loads(body)
+                assert doc["traces"]["traces"][0]["name"] == f"GET {path}"
+                assert doc["traces"]["traces"][0]["status"] == "200"
+                status, _, body = await _ask(vs, "GET",
+                                             f"/debug/critpath?id={tid}")
+                assert status == 200
+                crit = json.loads(body)
+                assert sum(crit["segments_us"].values()) == pytest.approx(
+                    crit["total_us"], abs=6)
+                doc["critpath"] = crit
+                docs.append(doc)
+            port_doc, ref_doc = docs
+            for doc in docs:  # per-workload maps: keys are data, not schema
+                for smp in doc["timeline"]["samples"]:
+                    smp["busy_ms"] = smp["disp"] = {}
+            for name in ("traces", "incident", "timeline", "critpath"):
+                assert _keys(port_doc[name], 3) == _keys(ref_doc[name], 3), \
+                    name
+            assert _keys(port_doc["tail"], 1) == _keys(ref_doc["tail"], 1)
+            assert _keys(port_doc["tail"]["routes"]["GET /<fid>"]) == \
+                _keys(ref_doc["tail"]["routes"]["GET /<fid>"])
+            assert _keys(port_doc["hot"], 1) == _keys(ref_doc["hot"], 1)
+            # /debug/profile is SWFS_DEBUG-gated in both: without it the
+            # path is no route (the port: 404; the reference parses it as a
+            # fid: 400)
+            assert (await _ask(port, "GET", "/debug/profile"))[0] == 404
+            assert (await _ask(ref, "GET", "/debug/profile"))[0] == 400
+        finally:
+            await port.stop()
+            await ref.stop()
+
+    asyncio.run(go())
+
+
+OBS_ARGV = [
+    "-obs.slowMs", "12.5", "-obs.traceRing", "32", "-obs.incident.events",
+    "99", "-obs.timeline.intervalSeconds", "0.25", "-obs.timeline.window",
+    "7", "-obs.tail.ring", "5", "-obs.tail.alpha", "0.5",
+    "-obs.tail.floorMs", "3",
+]
+
+
+@pytest.mark.parametrize("switches", [
+    [], ["-obs.disable"], ["-obs.incident.disable", "-obs.ledger.disable"],
+    ["-obs.timeline.disable", "-obs.tail.disable"],
+])
+def test_obs_flags_configure_like_the_reference(tmp_path, switches):
+    """The -obs.* flags parse to the same ObsConfig and IncidentConfig in
+    both packages (spellings, defaults, and the mapping apply_obs_args
+    makes), and configure the port's process-global planes."""
+    import argparse
+    import dataclasses
+
+    from seaweedfs_tpu.command import common_args as ref_args
+    from seaweedfs_tpu.obs import incident as ref_incident
+    from seaweedfs_tpu.obs import trace as ref_trace
+    from seaweedfs_tpu_torch.obs import devledger
+    from seaweedfs_tpu_torch.obs import incident as port_incident
+    from seaweedfs_tpu_torch.obs import trace as port_trace
+
+    ref_parser = argparse.ArgumentParser()
+    ref_args.add_obs_args(ref_parser)
+    for argv in ([], OBS_ARGV + switches):
+        port = command.parser().parse_args(
+            ["volume", "-dir", str(tmp_path)] + argv)
+        ref = ref_parser.parse_args(argv)
+        saved = (ref_trace.CONFIG, ref_incident.CONFIG)
+        try:
+            command.volume.apply_obs_args(port)
+            ref_args.apply_obs_args(ref)
+            assert dataclasses.asdict(port_trace.CONFIG) == \
+                dataclasses.asdict(ref_trace.CONFIG)
+            assert dataclasses.asdict(port_incident.CONFIG) == \
+                dataclasses.asdict(ref_incident.CONFIG)
+            assert port_trace.RING._dq.maxlen == port_trace.CONFIG.trace_ring
+            assert devledger.LEDGER.enabled == (
+                "-obs.ledger.disable" not in argv)
+        finally:
+            ref_trace.configure(saved[0])
+            ref_incident.configure(saved[1])
+            from seaweedfs_tpu_torch.obs import ObsConfig
+
+            port_trace.configure(ObsConfig())
+            port_incident.configure(port_incident.IncidentConfig())
+            devledger.configure(enabled=True)
+
+
+def test_timeline_loop_and_tail_follow_the_flags(tmp_path):
+    """With a short -obs.timeline.intervalSeconds the server's loop fills
+    /debug/timeline; with -obs.timeline.disable and -obs.tail.disable
+    the timeline stays empty and /debug/tail answers 404."""
+    from seaweedfs_tpu_torch.obs import ObsConfig
+    from seaweedfs_tpu_torch.obs import trace as port_trace
+
+    async def serve(cfg):
+        port_trace.configure(cfg)
+        vs = server_volume.VolumeServer([], [str(tmp_path)], port=0,
+                                        ec_backend="torch")
+        await vs.start()
+        try:
+            await asyncio.sleep(0.5)
+            _, _, body = await _ask(vs, "GET", "/debug/timeline")
+            status, _, _ = await _ask(vs, "GET", "/debug/tail")
+            return json.loads(body)["samples"], status
+        finally:
+            await vs.stop()
+            port_trace.configure(ObsConfig())
+
+    samples, tail = asyncio.run(serve(ObsConfig(
+        timeline_interval_seconds=0.05)))
+    assert len(samples) >= 3 and tail == 200
+    assert samples[-1]["t"] >= samples[0]["t"]
+    samples, tail = asyncio.run(serve(ObsConfig(
+        timeline_interval_seconds=0.05, timeline_enabled=False,
+        tail_enabled=False)))
+    assert samples == [] and tail == 404
