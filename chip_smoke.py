@@ -60,14 +60,14 @@ volume:
                  with -obs.tail.disable (the tail store's share of it)
   6. rebuild     shards 0, 5, 10, 13 removed: rebuild_ec_files +
                  rebuild_ecx_file, sha256 of every rebuilt shard
-  6a. scrub      all 14 shards pinned through a port Store (15.75 GiB
+  6a. scrub      all 14 shards pinned through a port Store (8.75 GiB
                  padded): Store.scrub_ec in both layouts, clean ([0, 0, 0,
                  0], as verify_ec_files on the same files), corrupted on the
                  card ([1, 1, 5, 1], partials equal to the plain version's)
                  and restored; the scrub kernel's time against its bound,
                  in turns with its earlier CUDA-core form (tensor cores,
-                 CUDA cores, CUDA cores, tensor cores), 80 D2H bytes a
-                 call, the file scrub and the CPU codec on the same host;
+                 CUDA cores, CUDA cores, tensor cores), 16 D2H bytes a
+                 256 MiB segment a call, the file scrub and the CPU codec on the same host;
                  a pass over the cache with in-memory volumes of two spans
                  beside it
   6b. scrub_serve
@@ -78,6 +78,26 @@ volume:
                  64 clients reading vid 2 meanwhile, and the device ledger's
                  split from /debug/device/attribution
   7. decode      original .dat deleted: write_dat_file, sha256 of the .dat
+  8. ingest      an in-process volume server (-ec.backend cuda
+                 -ec.ingest.fsync, built from the volume command's flags)
+                 takes 32 writers in 4 processes POSTing seeded 4 KB-1 MB
+                 needles until its .dat holds 4 GiB, each completed 10 MiB
+                 stripe row encoded on the card (K1) from a pinned arena
+                 slot as it fills; then ec_generate seals from the stream:
+                 every row on the card, one streamed seal, the 14 shards'
+                 sha256 equal to write_ec_files on the card and to the
+                 native CPU codec on the same .dat; write rate, ack p50/p99,
+                 fsyncs, arena waits, the ledger's ingest busy s; K1 at the
+                 row's shape against its bound; a second turn with
+                 -ec.ingest.disable (the same needles): the write rate
+                 without the plane
+  8b. tiering    the residency ladder: an in-process server whose cache
+                 holds one volume's survivors and not two, vids 2 and 3
+                 (links of vid 1's survivors) mounted in turn; 64 clients
+                 read vid 2 until the ladder swaps it into HBM, then vid 3
+                 until it swaps back; rounds of reads/s, p50/p99, routes,
+                 K2-K5 launches and the tier series; the moves' latency and
+                 the pins' GB/s; 0 native routes on a promoted volume
 
 Every phase is fatal.  Prints one line per phase, a {"kernels": [...]}
 line, the nvidia-smi name/power-limit line, and as the last line
@@ -121,7 +141,7 @@ RESIDENT_SHAPES = [(1, 6144, 1), (64, 6144, 2), (256, 2048, 2),
 RESIDENT_REPORT = [64, 6144, 2]
 # each of phase 2b's 10 synthetic survivors, 2.5 GiB in all (L2: 50 MB)
 SURVIVOR_BYTES = 256 << 20
-# phase 5b: the 12 survivors of the 11 GiB volume pad to 13.5 GiB
+# phase 5b: the 12 survivors of the 6 GiB volume pad to 7.5 GiB
 RESIDENT_BUDGET = 16 << 30
 BURST = 64
 # further sampled bursts of other widths: (width, bursts)
@@ -944,9 +964,10 @@ def phase_volume(workdir: str, seed: int, volume_bytes: int) -> dict:
         write_s=write_s, hash_s=time.perf_counter() - t1,
         needle_bytes=[MIN_NEEDLE, MAX_NEEDLE],
         reduced={"volume_gib": [FULL_VOLUME_GIB, volume_bytes / (1 << 30)],
-                 "why": "one H100 machine's disk and the run's time limit; "
-                        "11 GiB is the smallest volume with a 1 GiB "
-                        "large-block row and 1 MiB small-block rows"},
+                 "why": "a run may write 45 GiB to the H100 machine's "
+                        "disk: the main path writes 3.8x the volume and "
+                        "phase 8 19 GiB; under 10 GiB the volume has 1 MiB "
+                        "small-block rows only"},
     )
     return {"needles": needles, "dat_size": dat_size, "dat_sha": dat_sha}
 
@@ -1831,6 +1852,12 @@ def _serve_layout(workdir: str, serve_dir: str, layout: str, seq: list,
                        for k in trace["profile"]["kernels"]):
                 raise AssertionError("no fused_reconstruct kernel event in "
                                      f"the capture: {trace['profile']}")
+        # the residency ladder runs (tiering is on with a cache) and must
+        # move nothing: the one volume is resident and under budget
+        tiers = _tier_series(_scrape(port))
+        if any(tiers["promotions"].values()) or any(tiers["demotions"].values()):
+            raise AssertionError(f"{layout} turn {turn}: the ladder moved "
+                                 f"volumes: {tiers}")
     out = {"pin_s": pin_s}
     for name, lat, d in passes:
         if d["routes"]["native"] or d["fallback"]:
@@ -1866,7 +1893,8 @@ def _serve_layout(workdir: str, serve_dir: str, layout: str, seq: list,
                           if name != "pin_s")
     out["trace"] = trace
     log("serve", layout=layout, turn=turn, kernel=kern, pin_s=pin_s,
-        needles=len(seq), **{name: out[name] for name, _, _ in passes})
+        needles=len(seq), tier_moves=0,
+        **{name: out[name] for name, _, _ in passes})
     if trace:
         log("serve_trace", layout=layout, turn=turn, **trace)
     return out
@@ -1979,7 +2007,7 @@ def phase_rebuild(workdir: str, shard_size: int, k1: tuple) -> dict:
 
 # -------------------------------------------------------------- phase 6a
 
-# the scrub's cache: volume 1's 14 shards (15.75 GiB padded) and the
+# the scrub's cache: volume 1's 14 shards (8.75 GiB padded at 6 GiB) and the
 # in-memory volumes beside them
 SCRUB_BUDGET = 24 << 30
 SCRUB_TIMED = 10
@@ -2074,8 +2102,11 @@ def phase_scrub(torch, workdir: str, seed: int) -> dict:
             if (r["backend"], r["parity_mismatch_bytes"]) != (
                     "device_resident", [0, 0, 0, 0]):
                 raise AssertionError(f"clean {layout} scrub: {r}")
-        if n != 2 or d2h_per_call != 80:
-            raise AssertionError(f"{n} launches, {d2h_per_call} D2H bytes a call")
+        # the int32 partials: 4 parity rows x the 256 MiB segments
+        want_d2h = 4 * 4 * -(-true_size // rr._SCRUB_SEG)
+        if n != 2 or d2h_per_call != want_d2h:
+            raise AssertionError(f"{n} launches, {d2h_per_call} D2H bytes a "
+                                 f"call (want {want_d2h})")
         # the same files through the file-backed scrub, and the CPU codec
         t1 = time.perf_counter()
         file_mism, file_span = ec.verify_ec_files(base, backend="cuda")
@@ -2358,6 +2389,9 @@ def _scrub_serve_run(proc, port: int, vol: dict, seq: list, serve: dict,
     if m1[pv] != m0[pv] or m1[gauge] != 1:
         raise AssertionError(f"per_volume {m0[pv]} -> {m1[pv]} during "
                              f"the pass, gauge {m1[gauge]}")
+    tiers = _tier_series(m1)
+    if any(tiers["promotions"].values()) or any(tiers["demotions"].values()):
+        raise AssertionError(f"the ladder moved volumes during 6b: {tiers}")
     cycles_mk = m1[mk] - m0[mk]
     if cycles_mk < 2:
         raise AssertionError(f"{cycles_mk} megakernel dispatches during "
@@ -2394,7 +2428,7 @@ def _scrub_serve_run(proc, port: int, vol: dict, seq: list, serve: dict,
         serve_flat_turn0_p50_ms=flat["p50_ms"],
         batches=d["batches"], routes=d["routes"],
         ledger=split, ledger_total_busy_s=ledger1["total_busy_seconds"],
-        untagged_busy_s=0.0)
+        untagged_busy_s=0.0, tier_volumes=tiers["volumes"], tier_moves=0)
     return out
 
 
@@ -2415,13 +2449,604 @@ def phase_decode(workdir: str, vol: dict) -> None:
         sha256_equal=True)
 
 
+# --------------------------------------------------------------- phase 8
+
+# the .dat each ingest turn streams.  8 GiB would be 819 stripe rows; a
+# run may write 45 GiB to the H100 machine's disk, the main path writes
+# about 3.8x its volume (23 GiB at 6 GiB) and this phase 4.8x its .dat
+# (two turns' .dat, the streamed seal's parity scratch and data shards,
+# the offline encode's shards)
+INGEST_DAT_BYTES = 4 << 30
+INGEST_VID = 7
+INGEST_WRITERS = 32
+INGEST_WRITER_PROCS = 4
+INGEST_POOL_BYTES = 64 << 20
+# the streamed row: [10, 1 MiB] -> 4 parity rows, K1's ingest shape
+INGEST_ROW = 1 << 20
+
+
+class _InProcessServer:
+    """A port VolumeServer built from volume-command flags (the user's
+    entry point) and served by an event loop on its own thread of this
+    process, so the phase can call its Store (ec_generate, mounts) and
+    read its counters in place; clients reach it over HTTP."""
+
+    def __init__(self, argv: list):
+        from seaweedfs_tpu_torch import command
+
+        args = command.parser().parse_args(["volume", *argv])
+        self.vs = command.volume.build_server(args)
+        self.loop = asyncio.new_event_loop()
+        self.thread = threading.Thread(target=self.loop.run_forever,
+                                       name="volume-server", daemon=True)
+
+    def __enter__(self):
+        self.thread.start()
+        asyncio.run_coroutine_threadsafe(self.vs.start(), self.loop).result(60)
+        return self
+
+    def __exit__(self, *exc):
+        try:
+            asyncio.run_coroutine_threadsafe(self.vs.stop(), self.loop).result(300)
+        finally:
+            self.loop.call_soon_threadsafe(self.loop.stop)
+            self.thread.join(60)
+            self.loop.close()
+
+    @property
+    def port(self) -> int:
+        return self.vs.port
+
+
+def _ingest_needles(seed: int, total: int) -> list:
+    """(nid, cookie, pool offset, size) of the needles an ingest turn
+    POSTs, sizes log-uniform over MIN_NEEDLE..MAX_NEEDLE as phase 3's,
+    until `total` body bytes; bodies are slices of a seeded pool."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    lo, hi = np.log(MIN_NEEDLE), np.log(MAX_NEEDLE)
+    out, acc = [], 0
+    while acc < total:
+        size = int(np.exp(rng.uniform(lo, hi)))
+        out.append((len(out) + 1, int(rng.integers(0, 1 << 32)),
+                    int(rng.integers(0, INGEST_POOL_BYTES - size)), size))
+        acc += size
+    return out
+
+
+def _ingest_pool(seed: int) -> bytes:
+    import numpy as np
+
+    return np.random.default_rng(seed + 1).bytes(INGEST_POOL_BYTES)
+
+
+async def _ingest_clients(port: int, vid: int, needles: list, n_clients: int,
+                          pool: bytes):
+    """`n_clients` keep-alive writers POST their share of `needles` in
+    order: -> (ack seconds per write, body bytes)."""
+    from seaweedfs_tpu_torch.server.http import Client
+    from seaweedfs_tpu_torch.storage import types as t
+
+    lat: list = []
+    nbytes = [0]
+    view = memoryview(pool)
+
+    async def client(i: int) -> None:
+        c = Client("127.0.0.1", port)
+        try:
+            for nid, cookie, off, size in needles[i::n_clients]:
+                t0 = time.perf_counter()
+                status, _, body = await c.request(
+                    "POST", "/" + t.format_fid(vid, nid, cookie),
+                    {"Content-Type": "application/octet-stream"},
+                    bytes(view[off:off + size]))
+                lat.append(time.perf_counter() - t0)
+                if status != 200:
+                    raise AssertionError(f"needle {nid}: HTTP {status} {body[:200]}")
+                nbytes[0] += size
+        finally:
+            await c.close()
+
+    await asyncio.gather(*(client(i) for i in range(n_clients)))
+    return lat, nbytes[0]
+
+
+def _ingest_writer_proc(port: int, vid: int, seed: int, needles: list,
+                        n_clients: int) -> dict:
+    """One writer process of an ingest turn (run under spawn)."""
+    sys.path.insert(0, HERE)
+    pool = _ingest_pool(seed)
+    t0 = time.monotonic()
+    lat, nbytes = asyncio.run(_ingest_clients(port, vid, needles, n_clients, pool))
+    return {"lat": lat, "bytes": nbytes, "start": t0, "end": time.monotonic()}
+
+
+def _ingest_write(port: int, seed: int, needles: list) -> dict:
+    """INGEST_WRITERS writers in INGEST_WRITER_PROCS processes POST every
+    needle of `needles` once: -> ack latencies, bytes, wall."""
+    import concurrent.futures
+    import multiprocessing
+
+    per = INGEST_WRITERS // INGEST_WRITER_PROCS
+    with concurrent.futures.ProcessPoolExecutor(
+            INGEST_WRITER_PROCS,
+            mp_context=multiprocessing.get_context("spawn")) as pool:
+        futs = [pool.submit(_ingest_writer_proc, port, INGEST_VID, seed,
+                            needles[i::INGEST_WRITER_PROCS], per)
+                for i in range(INGEST_WRITER_PROCS)]
+        parts = [f.result() for f in futs]
+    return {"lat": [x for p in parts for x in p["lat"]],
+            "bytes": sum(p["bytes"] for p in parts),
+            "wall": max(p["end"] for p in parts) - min(p["start"] for p in parts)}
+
+
+def _ingest_series(m: dict) -> dict:
+    """The ingest plane's series from one _scrape."""
+    name = "SeaweedFS_volumeServer_ingest_%s"
+    return {
+        "bytes": m[name % "bytes_total"],
+        "rows_device": m[name % 'rows_total{path="device"}'],
+        "rows_host": m[name % 'rows_total{path="host"}'],
+        "arena_waits": m[name % "backpressure_total"],
+        "shed": {r: m[name % f'shed_total{{reason="{r}"}}']
+                 for r in ("qos", "deadline", "arena")},
+        "fsyncs": m[name % "fsyncs_total"],
+        "fsync_writes": m[name % "fsync_writes_total"],
+        "seals": {p: m[name % f'seals_total{{path="{p}"}}']
+                  for p in ("streamed", "offline")},
+    }
+
+
+def _shard_hashes(base: str) -> list:
+    from seaweedfs_tpu_torch.storage import ec
+
+    return [sha256_file(base + ec.to_ext(i)) for i in range(14)]
+
+
+def _native_shard_hashes(dat: str) -> tuple[list, float]:
+    """The 14 shards' sha256 as the native CPU codec encodes `dat`, stripe
+    row by stripe row, hashed in memory (no shard is written): -> (hashes,
+    wall s)."""
+    from seaweedfs_tpu_torch.ops import gf256, rs_cpu
+    from seaweedfs_tpu_torch.storage.ec import bulk
+    from seaweedfs_tpu_torch.storage.ec.encoder import _iter_rows
+    from seaweedfs_tpu_torch.storage.ec.layout import (
+        LARGE_BLOCK_SIZE, SMALL_BLOCK_SIZE)
+
+    parity = gf256.parity_matrix(10, 14)
+    hashes = [hashlib.sha256() for _ in range(14)]
+    size = os.path.getsize(dat)
+    t0 = time.perf_counter()
+    with open(dat, "rb") as f:
+        for row_start, block in _iter_rows(size, LARGE_BLOCK_SIZE, SMALL_BLOCK_SIZE):
+            stripe = bulk.read_stripe(f, size, row_start, block, 0, block)
+            out = rs_cpu.apply_matrix_native(parity, stripe)
+            for i in range(10):
+                hashes[i].update(stripe[i])
+            for i in range(4):
+                hashes[10 + i].update(out[i])
+    return [h.hexdigest() for h in hashes], time.perf_counter() - t0
+
+
+def _ingest_kernel_row(torch, seed: int) -> dict:
+    """K1 at the streamed row's shape, x[10, 1 MiB] -> 4 rows: held equal
+    to its plain version and the numpy oracle's sample, then the CUDA-event
+    medians of the kernel alone (inputs cold in L2), of the row's device
+    window (H2D from a pinned slot, the kernel, D2H into pinned parity),
+    of the plain version and of torch._int_mm on the same operands, and
+    the encoder's own call (StreamEncoder.encode, host wall) against the
+    plain version's bytes.  Launches here are outside the main path's
+    count."""
+    import numpy as np
+
+    from seaweedfs_tpu_torch.ops import gf256, rs_cpu, rs_cuda, rs_ingest
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed + 8)
+    parity = gf256.parity_matrix(10, 14)
+    a = rs_cuda.prepare_matrix(parity, dev)
+    x = torch.randint(0, 256, (10, INGEST_ROW), dtype=torch.uint8, device=dev,
+                      generator=gen)
+    got = rs_cuda.gf2_matmul(a, x, 4)
+    ref = rs_cuda._apply_torch(a, x, 4)
+    torch.cuda.synchronize()
+    diff = got.to(torch.int16) - ref.to(torch.int16)
+    row = {"shape": [10, INGEST_ROW, 4],
+           "mismatched_bytes": int((diff != 0).sum().item()),
+           "max_abs_err": int(diff.abs().max().item())}
+    host_x = x.cpu().numpy()
+    oracle = rs_cpu.apply_matrix_numpy(parity, host_x[:, :65536])
+    row["oracle_sample_mismatched"] = int(
+        (got[:, :65536].cpu().numpy() != oracle).sum())
+    enc = rs_ingest.StreamEncoder("cuda")
+    slot = rs_ingest.IngestArena(10, INGEST_ROW, slots=1, pin=True)
+    buf = slot.stage(1)
+    buf[:] = host_x
+    enc_out = enc.encode(slot.seal(buf))
+    row["encoder_mismatched_bytes"] = int((enc_out != ref.cpu().numpy()).sum())
+    if row["mismatched_bytes"] or row["oracle_sample_mismatched"] \
+            or row["encoder_mismatched_bytes"]:
+        log("ingest_kernel", **row)
+        raise AssertionError("K1 at the ingest shape disagrees with its plain version")
+    xs = itertools.cycle([x] + [
+        torch.randint(0, 256, (10, INGEST_ROW), dtype=torch.uint8, device=dev,
+                      generator=gen) for _ in range(12)])
+    row["ms"] = _median_ms(torch, lambda: rs_cuda.gf2_matmul(a, next(xs), 4), 30)
+    src = torch.from_numpy(buf)  # the pinned slot
+    x_dev = torch.empty_like(x)
+    par = torch.empty((4, INGEST_ROW), dtype=torch.uint8, pin_memory=True)
+
+    def window():
+        x_dev.copy_(src, non_blocking=True)
+        par.copy_(rs_cuda.gf2_matmul(a, x_dev, 4), non_blocking=True)
+
+    row["window_ms"] = _median_ms(torch, window, 30)
+    row["plain_ms"] = _median_ms(
+        torch, lambda: rs_cuda._apply_torch(a, next(xs), 4), 5, warmup=1)
+    row["library_ms"] = _int_mm_ms(torch, a, x)
+    walls = []
+    for _ in range(20):
+        t0 = time.perf_counter()
+        enc.encode(buf)
+        walls.append(time.perf_counter() - t0)
+    row["encode_call_ms"] = statistics.median(walls) * 1e3
+    row["bound_ms"], row["bound_by"] = _bound(10, INGEST_ROW, 4)
+    row["share_of_bound"] = row["bound_ms"] / row["ms"]
+    row["window_share_of_bound"] = row["bound_ms"] / row["window_ms"]
+    slot.reclaim(buf)
+    log("ingest_kernel", **row)
+    del x, xs, got, ref, diff
+    return row
+
+
+def _ingest_turn(workdir: str, needles: list, seed: int, ingest: bool) -> dict:
+    """One turn: an in-process server over an empty volume, the writers,
+    and with the plane on the streamed seal (ec_generate).  -> the turn's
+    figures and, with the plane on, the main path's launches and the
+    streamed shards' hashes.  The turn without the plane is not sealed:
+    its offline seal is write_ec_files on the same needles, which
+    phase_ingest times on the streamed turn's .dat (one more 5.6 GiB of
+    shards would not fit the call's write budget)."""
+    from seaweedfs_tpu_torch.obs import devledger
+    from seaweedfs_tpu_torch.ops import rs_cuda, rs_resident
+    from seaweedfs_tpu_torch.storage.volume import Volume
+
+    d = os.path.join(workdir, "ingest")
+    os.makedirs(d)
+    argv = ["-dir", d, "-port", "0", "-mserver", "", "-ec.backend", "cuda",
+            "-ec.ingest.fsync"] + ([] if ingest else ["-ec.ingest.disable"])
+    with _InProcessServer(argv) as srv:
+        vs = srv.vs
+        vs.store.add_volume(INGEST_VID)
+        if (vs.ingest is not None) != ingest:
+            raise AssertionError("the ingest plane is not as the flags say")
+        kernels = (rs_cuda.gf2_matmul, rs_cuda.gf2_matmul_small,
+                   rs_resident.fused_reconstruct,
+                   rs_resident.fused_reconstruct_blockdiag, rs_resident.scrub)
+        _reset(*kernels)
+        busy0 = devledger.LEDGER.busy_by_workload().get("ingest", 0.0)
+        m0 = _ingest_series(_scrape(srv.port))
+        w = _ingest_write(srv.port, seed, needles)
+        m1 = _ingest_series(_scrape(srv.port))
+        ingest_busy_s = devledger.LEDGER.busy_by_workload().get("ingest", 0.0) - busy0
+        v = vs.store.find_volume(INGEST_VID)
+        dat_size = v.content_size
+        pipe = vs.ingest.pipelines.get(INGEST_VID) if ingest else None
+        seal_s = None
+        if ingest:
+            t0 = time.perf_counter()
+            vs.store.ec_generate(INGEST_VID)
+            seal_s = time.perf_counter() - t0
+        m2 = _ingest_series(_scrape(srv.port))
+        launches = _k1_counts(rs_cuda.gf2_matmul, rs_cuda.gf2_matmul_small)
+        others = {k.__name__: k.launches for k in kernels[2:]}
+        enc = vs.ingest.encoder if ingest else None
+    base = Volume.base_name(d, INGEST_VID)
+    lat = w["lat"]
+    out = {
+        "needles": len(lat), "dat_bytes": dat_size, "wall_s": w["wall"],
+        "writes_per_s": len(lat) / w["wall"], "MBps": w["bytes"] / w["wall"] / 1e6,
+        "ack_p50_ms": _pct(lat, 50), "ack_p99_ms": _pct(lat, 99),
+        "writers": INGEST_WRITERS, "writer_procs": INGEST_WRITER_PROCS,
+        "fsyncs": m1["fsyncs"] - m0["fsyncs"],
+        "fsync_writes": m1["fsync_writes"] - m0["fsync_writes"],
+        "arena_waits": m1["arena_waits"] - m0["arena_waits"],
+        "sheds": {r: m1["shed"][r] - m0["shed"][r] for r in m1["shed"]},
+        "seal_s": seal_s,
+        "seals": {p: m2["seals"][p] - m0["seals"][p] for p in m2["seals"]},
+        "launches": launches, "other_kernel_launches": others,
+    }
+    out["writes_per_fsync"] = out["fsync_writes"] / max(1.0, out["fsyncs"])
+    if ingest:
+        rows = dat_size // (10 * INGEST_ROW)
+        tail = int(dat_size % (10 * INGEST_ROW) > 0)
+        out.update(
+            rows_completed=rows, rows_encoded=pipe.encoded_rows,
+            rows_device=pipe.rows_device, rows_host=pipe.rows_host,
+            encoder_rows={"device": enc.device_rows, "host": enc.host_rows,
+                          "failed": enc.failed_rows},
+            rows_series={"device": m2["rows_device"] - m0["rows_device"],
+                         "host": m2["rows_host"] - m0["rows_host"]},
+            valid=pipe.valid, reason=pipe.invalid_reason or "",
+            ingest_busy_s=ingest_busy_s,
+            ingest_busy_share_of_write_wall=ingest_busy_s / w["wall"])
+        if not (pipe.valid and pipe.encoded_rows == rows == pipe.rows_device
+                and pipe.rows_host == 0 and enc.host_rows == 0):
+            raise AssertionError(f"streamed rows: {out}")
+        if out["seals"] != {"streamed": 1, "offline": 0}:
+            raise AssertionError(f"seals {out['seals']}: not one streamed seal")
+        # one launch a streamed row, the tail row's at the seal, all on the
+        # aligned path; nothing else launched
+        if launches["gf2_matmul"] != rows + tail or launches["aligned"] != rows + tail \
+                or launches["gf2_matmul_small"] or any(others.values()):
+            raise AssertionError(f"launches {launches} {others} for {rows} rows")
+        out["hashes"] = _shard_hashes(base)
+    elif any(launches.values()):
+        # without the plane a write launches nothing
+        raise AssertionError(f"the turn without the plane launched {launches}")
+    return out
+
+
+def phase_ingest(torch, workdir: str, seed: int) -> dict:
+    """The write path with the streaming ingest plane: 32 writers in 4
+    processes POST seeded 4 KB-1 MB needles to an in-process server
+    (-ec.backend cuda -ec.ingest.fsync) until the .dat holds
+    INGEST_DAT_BYTES, every completed stripe row encoded on the card (K1)
+    as it fills; then the streamed seal, held byte-equal to the offline
+    write_ec_files on the card and to the native CPU codec on the same
+    .dat.  A second turn with -ec.ingest.disable POSTs the same needles:
+    the write rate without the plane (their offline seal is the
+    write_ec_files timed on the first turn's .dat)."""
+    from seaweedfs_tpu_torch.storage import ec
+
+    torch.cuda.empty_cache()
+    k1 = _ingest_kernel_row(torch, seed)
+    needles = _ingest_needles(seed + 80, INGEST_DAT_BYTES)
+    turns = {}
+    try:
+        streamed = _ingest_turn(workdir, needles, seed + 80, ingest=True)
+        base = os.path.join(workdir, "ingest", str(INGEST_VID))
+        off_dir = os.path.join(workdir, "ingest_offline")
+        os.makedirs(off_dir)
+        off_base = os.path.join(off_dir, str(INGEST_VID))
+        os.link(base + ".dat", off_base + ".dat")  # a link: no byte written
+        t0 = time.perf_counter()
+        ec.write_ec_files(off_base, backend="cuda")
+        offline_s = time.perf_counter() - t0
+        offline = _shard_hashes(off_base)
+        native, native_s = _native_shard_hashes(base + ".dat")
+        if not streamed["hashes"] == offline == native:
+            raise AssertionError("the streamed seal's shards differ from the "
+                                 "offline encodes of the same .dat")
+        shutil.rmtree(off_dir)
+        shutil.rmtree(os.path.join(workdir, "ingest"))
+        streamed.update(offline_encode_s=offline_s, native_encode_s=native_s,
+                        shards_equal={"offline_cuda": True, "native": True})
+        del streamed["hashes"]
+        turns["ingest"] = streamed
+        log("ingest", turn="streamed", **streamed)
+        plain = _ingest_turn(workdir, needles, seed + 80, ingest=False)
+        shutil.rmtree(os.path.join(workdir, "ingest"))
+        turns["no_ingest"] = plain
+        log("ingest", turn="-ec.ingest.disable", **plain)
+    finally:
+        for name in ("ingest", "ingest_offline"):
+            shutil.rmtree(os.path.join(workdir, name), ignore_errors=True)
+    log("ingest_summary", dat_bytes=streamed["dat_bytes"],
+        reduced={"dat_gib": [8, INGEST_DAT_BYTES / (1 << 30)],
+                 "why": "a run may write 45 GiB to the H100 machine's disk"},
+        streamed_seal_s=streamed["seal_s"], offline_encode_s=streamed["offline_encode_s"],
+        writes_per_s={"ingest": streamed["writes_per_s"], "no_ingest": plain["writes_per_s"]},
+        MBps={"ingest": streamed["MBps"], "no_ingest": plain["MBps"]},
+        ack_p50_ms={"ingest": streamed["ack_p50_ms"], "no_ingest": plain["ack_p50_ms"]},
+        ack_p99_ms={"ingest": streamed["ack_p99_ms"], "no_ingest": plain["ack_p99_ms"]},
+        k1_row_ms=k1["ms"], k1_window_ms=k1["window_ms"],
+        k1_bound_ms=k1["bound_ms"])
+    return {"k1": k1, "turns": turns,
+            "launches": streamed["launches"]["gf2_matmul"]}
+
+
+# -------------------------------------------------------------- phase 8b
+
+TIER_INTERVAL_S = 2
+TIER_MIN_RESIDENCY_S = 5
+# a short half-life, so the second swap's heat crosses the first's within
+# seconds (the default is 60 s)
+TIER_HALF_LIFE_S = 10
+TIER_ROUND_S = 2.0
+TIER_MOVE_TIMEOUT_S = 90.0
+
+
+def _tier_series(m: dict) -> dict:
+    name = "SeaweedFS_volumeServer_ec_tier_%s"
+    return {
+        "volumes": {t: m[name % f'volumes{{tier="{t}"}}'] for t in ("hbm", "host", "disk")},
+        "promotions": {t: m[name % f'promotions_total{{tier="{t}"}}'] for t in ("hbm", "host")},
+        "demotions": {t: m[name % f'demotions_total{{tier="{t}"}}'] for t in ("hbm", "host")},
+        "host_bytes": m[name % "host_bytes"],
+        "host_reads": m[name % "host_reads_total"],
+    }
+
+
+class _TierWatch(threading.Thread):
+    """Polls the server's cache every 20 ms: when each volume's resident
+    shard count changes (the demotion's evict, the promotion's pin)."""
+
+    def __init__(self, cache, vids):
+        super().__init__(daemon=True)
+        self.cache, self.vids = cache, vids
+        self.events: list = []  # (monotonic s, vid, resident shards)
+        self.stop = threading.Event()
+
+    def run(self):
+        last = {}
+        while not self.stop.is_set():
+            for vid in self.vids:
+                n = self.cache.resident_count(vid)
+                if last.get(vid) != n:
+                    self.events.append((time.monotonic(), vid, n))
+                    last[vid] = n
+            time.sleep(0.02)
+
+    def first(self, vid, pred, after: float):
+        return next((t for t, v, n in self.events if v == vid and t >= after and pred(n)),
+                    None)
+
+
+def _tier_round(pool, srv, seq, vid: int, seed: int, label: str, rnd: int) -> dict:
+    """One TIER_ROUND_S pass of 64 clients reading `vid`: its reads, tail,
+    routes, resident launches and tier series."""
+    from seaweedfs_tpu_torch.ops import rs_resident
+
+    per = SERVE_CLIENTS // SERVE_CLIENT_PROCS
+    m0 = _scrape(srv.port)
+    k0 = rs_resident.fused_reconstruct.launches
+    futs = [pool.submit(_client_proc, srv.port, seq, per, 10 ** 9, TIER_ROUND_S,
+                        seed * 100 + rnd * 10 + i, vid)
+            for i in range(SERVE_CLIENT_PROCS)]
+    parts = [f.result() for f in futs]
+    m1 = _scrape(srv.port)
+    lat = [x for p in parts for x in p["lat"]]
+    wall = max(p["end"] for p in parts) - min(p["start"] for p in parts)
+    d = _serve_delta(_serve_counts(m0), _serve_counts(m1))
+    row = {"label": label, "round": rnd, "vid": vid, "reads": len(lat),
+           "reads_per_s": len(lat) / wall, "p50_ms": _pct(lat, 50),
+           "p99_ms": _pct(lat, 99), "routes": d["routes"],
+           "k2_k5_launches": rs_resident.fused_reconstruct.launches - k0,
+           "tier_of": {v: srv.vs.store.ec_volume_tier(v) for v in (2, 3)},
+           "tier_series": _tier_series(m1)}
+    log("tiering_round", **row)
+    return row
+
+
+def phase_tiering(torch, workdir: str, vol: dict, deg: dict, seed: int) -> dict:
+    """The residency ladder on the card: an in-process server
+    (-ec.tier.intervalSeconds 2 -ec.tier.minResidencySeconds 5
+    -ec.tier.hostCacheMB 0) whose cache holds one volume's 12 survivors
+    and not two, over hard links of vid 1's sidecars and survivors as vids
+    2 and 3, mounted in turn (vid 3's pin evicts most of vid 2).  64
+    clients read vid 2 until the ladder swaps it in (vid 3 demoted), then
+    vid 3 until it swaps back; every body is byte-checked, and reads of a
+    promoted volume take the resident launch with 0 native routes."""
+    import concurrent.futures
+    import multiprocessing
+
+    import numpy as np
+
+    from seaweedfs_tpu_torch.ops import rs_resident
+    from seaweedfs_tpu_torch.storage import ec
+
+    torch.cuda.empty_cache()
+    tier_dir = os.path.join(workdir, "tiering")
+    os.makedirs(tier_dir)
+    base = os.path.join(workdir, "1")
+    survivors = [s for s in range(14) if s not in (0, 11)]
+    shard = os.path.getsize(base + ec.to_ext(1))
+    padded = -(-(shard + MAX_TILE) // rs_resident.SHARD_QUANTUM) * rs_resident.SHARD_QUANTUM
+    one = len(survivors) * padded
+    cache_mb = (one + one // 5) >> 20  # one volume fits, two do not
+    deleted = set(deg["deleted"])
+    picks = [n for n in deg["picks"] if n not in deleted]
+    rng = np.random.default_rng(seed + 21)
+    seq = [(nid, vol["needles"][nid][3], vol["needles"][nid][2])
+           for nid in rng.choice(picks, size=min(len(picks), 4000), replace=False).tolist()]
+    argv = ["-dir", tier_dir, "-port", "0",
+            "-mserver", "", "-ec.backend", "cuda", "-ec.deviceCacheMB", str(cache_mb),
+            "-ec.tier.intervalSeconds", str(TIER_INTERVAL_S),
+            "-ec.tier.minResidencySeconds", str(TIER_MIN_RESIDENCY_S),
+            "-ec.tier.halfLifeSeconds", str(TIER_HALF_LIFE_S),
+            "-ec.tier.hostCacheMB", "0"]
+    rounds, moves = [], []
+    try:
+        with _InProcessServer(argv) as srv:
+            store = srv.vs.store
+            cache = store.ec_device_cache
+            t0 = time.perf_counter()
+            # the served directory starts empty; each volume's files arrive
+            # (links: no byte is written) and are mounted through the
+            # Store's mount entry (VolumeEcShardsMount's), which pins its
+            # survivors off the caller's thread.  vid 3's pin evicts vid 2's
+            # oldest shards: vid 3 resident, vid 2 partial
+            for vid in (2, 3):
+                for ext in [ec.to_ext(s) for s in survivors] + [".ecx", ".ecj", ".vif"]:
+                    if os.path.exists(base + ext):
+                        os.link(base + ext, os.path.join(tier_dir, f"{vid}{ext}"))
+                store.mount_ec_shards(vid, survivors)
+                while cache.resident_count(vid) < len(survivors):
+                    if time.perf_counter() - t0 > SERVE_PIN_TIMEOUT:
+                        raise AssertionError(f"vid {vid} not pinned in time")
+                    time.sleep(0.05)
+            mount_s = time.perf_counter() - t0
+            start = {v: cache.resident_count(v) for v in (2, 3)}
+            if store.ec_volume_tier(2) != "disk" or store.ec_volume_tier(3) != "hbm":
+                raise AssertionError(f"after the mounts: {start}")
+            _reset(rs_resident.fused_reconstruct, rs_resident.fused_reconstruct_blockdiag)
+            watch = _TierWatch(cache, (2, 3))
+            watch.start()
+            with concurrent.futures.ProcessPoolExecutor(
+                    SERVE_CLIENT_PROCS,
+                    mp_context=multiprocessing.get_context("spawn")) as pool:
+                for hot, cold in ((2, 3), (3, 2)):
+                    shift = time.monotonic()
+                    rnd = 0
+                    while store.ec_volume_tier(hot) != "hbm":
+                        if time.monotonic() - shift > TIER_MOVE_TIMEOUT_S:
+                            raise AssertionError(f"vid {hot} not promoted in time")
+                        rounds.append(_tier_round(pool, srv, seq, hot, seed, "before", rnd))
+                        rnd += 1
+                    # the swap: the victim's evict, then the pin of the
+                    # promoted volume's missing survivors (it serves from
+                    # 10; the watch sees the last of the 12 land)
+                    t_pin = time.monotonic()
+                    while cache.resident_count(hot) < len(survivors):
+                        if time.monotonic() - t_pin > SERVE_PIN_TIMEOUT:
+                            raise AssertionError(f"vid {hot} pin incomplete")
+                        time.sleep(0.02)
+                    time.sleep(0.1)  # a watch poll after the last put
+                    demoted = watch.first(cold, lambda n: n == 0, shift)
+                    pinned = watch.first(hot, lambda n: n == len(survivors), shift)
+                    pin_from = demoted
+                    after = _tier_round(pool, srv, seq, hot, seed, "after", rnd)
+                    rounds.append(after)
+                    if after["routes"]["native"] or not after["k2_k5_launches"]:
+                        raise AssertionError(f"vid {hot} after its promotion: {after}")
+                    if store.ec_volume_tier(cold) == "hbm":
+                        raise AssertionError(f"vid {cold} still in HBM")
+                    put = len(survivors) - (start[hot] if hot == 2 else 0)
+                    moves.append({
+                        "promoted": hot, "demoted": cold,
+                        "s_heat_shift_to_demote": demoted - shift if demoted else None,
+                        "s_heat_shift_to_promoted": pinned - shift if pinned else None,
+                        "pin_s": pinned - pin_from if pinned and pin_from else None,
+                        "pin_GBps": (put * shard / (pinned - pin_from) / 1e9
+                                     if pinned and pin_from and pinned > pin_from else None),
+                        "shards_put": put})
+            watch.stop.set()
+            ladder = srv.vs.tiering.status()
+            final = _tier_series(_scrape(srv.port))
+    finally:
+        shutil.rmtree(tier_dir, ignore_errors=True)
+    if final["promotions"]["hbm"] < 2 or final["demotions"]["hbm"] < 2:
+        raise AssertionError(f"ladder moves: {final}")
+    launches = sum(r["k2_k5_launches"] for r in rounds)
+    log("tiering", cache_mb=cache_mb, volume_padded_bytes=one, shard_bytes=shard,
+        mount_s=mount_s, resident_after_mounts=start, moves=moves,
+        ladder=ladder, tier_series=final, k2_k5_launches=launches,
+        flags={"intervalSeconds": TIER_INTERVAL_S,
+               "minResidencySeconds": TIER_MIN_RESIDENCY_S,
+               "halfLifeSeconds": TIER_HALF_LIFE_S, "hostCacheMB": 0})
+    return {"launches": launches, "moves": moves}
+
+
 # ------------------------------------------------------------------ main
 
 
 def main() -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--seed", type=int, default=0)
-    p.add_argument("--volume-gib", type=float, default=11.0,
+    p.add_argument("--volume-gib", type=float, default=6.0,
                    help="volume size; users run 30 (the -volumeSizeLimitMB default)")
     args = p.parse_args()
 
@@ -2473,6 +3098,10 @@ def main() -> int:
         scs = phase_scrub_serve(torch, workdir, vol, deg, serve, args.seed)
         phase = "decode"
         phase_decode(workdir, vol)
+        phase = "ingest"
+        ing = phase_ingest(torch, workdir, args.seed)
+        phase = "tiering"
+        tier = phase_tiering(torch, workdir, vol, deg, args.seed)
     except Exception:  # noqa: BLE001 — every phase is fatal
         traceback.print_exc()
         print(f"chip_smoke: FAILED in phase {phase}", file=sys.stderr)
@@ -2481,12 +3110,17 @@ def main() -> int:
         shutil.rmtree(workdir, ignore_errors=True)
 
     main_paths = {**enc["load_paths"], "degraded_read": deg["load_paths"],
-                  "rebuild": reb["load_paths"]}
+                  "rebuild": reb["load_paths"],
+                  "ingest": ing["turns"]["ingest"]["launches"]}
     launches = {name: sum(p[name] for p in main_paths.values())
                 for name in ("gf2_matmul", "gf2_matmul_small")}
     if not all(launches.values()):
         print(f"chip_smoke: a K1 kernel was not launched on the main path: "
               f"{launches}", file=sys.stderr)
+        return 1
+    if not ing["launches"] or not tier["launches"]:
+        print(f"chip_smoke: the ingest or tiering phase launched no kernel: "
+              f"{ing['launches']}, {tier['launches']}", file=sys.stderr)
         return 1
     if not scr["launches"] or not scs["launches"]:
         print(f"chip_smoke: the scrub kernel was not launched on the main "
@@ -2536,9 +3170,12 @@ def main() -> int:
             "route": "cuda",
             "source": "seaweedfs_tpu_torch/csrc/fused_reconstruct.cu",
             "replaces": f"seaweedfs_tpu/ops/rs_resident.py:{line}",
-            "launches": res[name] + serve[layout]["launches"],
+            "launches": res[name] + serve[layout]["launches"]
+                        + (tier["launches"] if layout == "flat" else 0),
             "launches_by_phase": {"resident_read": res[name],
-                                  "serve": serve[layout]["launches"]},
+                                  "serve": serve[layout]["launches"],
+                                  "tiering": (tier["launches"]
+                                              if layout == "flat" else 0)},
             "max_abs_err": max([r["max_abs_err"] for r in rows]
                                + [burst["max_abs_err"]]),
             "mismatched_bytes": sum(r["mismatched_bytes"] for r in rows)
@@ -2584,6 +3221,12 @@ def main() -> int:
                                            "share_of_bound", "plain_ms",
                                            "library_ms") if key in r}
             for name, r in shapes.items() if "ms" in r},
+        # phase 8: the streamed stripe row, x[10, 1 MiB] -> 4 parity rows
+        "ingest_row": {key: ing["k1"][key] for key in (
+            "shape", "ms", "window_ms", "plain_ms", "library_ms", "bound_ms",
+            "bound_by", "share_of_bound", "window_share_of_bound",
+            "encode_call_ms", "max_abs_err")},
+        "ingest_launches": ing["launches"],
     }, {
         "name": "gf2_matmul_small",
         "route": "cuda",

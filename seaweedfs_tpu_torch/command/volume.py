@@ -9,7 +9,11 @@ spellings, for the flags this slice serves:
 
 `-ec.backend` is `cuda` (the default: the card, failing at start without
 one), `torch` (the plain PyTorch versions on the CPU) or `numpy` (the
-table oracle); there is no `auto`.  `-mserver` must be empty: the master
+table oracle); there is no `auto`.  The -ec.tier.* flags drive the
+residency ladder (serving/tiering.py) and the -ec.ingest.* flags the
+streaming ingest plane (ingest/), with the reference's names and defaults;
+`-ec.ingest.backend` takes the port's backend names (cuda, torch, numpy,
+native) and defaults to `-ec.backend`.  `-mserver` must be empty: the master
 heartbeat is ROADMAP A4b.  The -obs.* flags are the reference's
 (seaweedfs_tpu/command/common_args.py), less the incident bundler's, which
 wait for the master (ROADMAP A7c).
@@ -20,6 +24,7 @@ import argparse
 import asyncio
 import logging
 
+from ..ingest import IngestConfig
 from ..serving.config import ServingConfig
 
 NAME = "volume"
@@ -161,6 +166,50 @@ def add_args(p) -> None:
         help="minimum drain rate a client must sustain for large read "
         "responses",
     )
+    # heat-tiered residency ladder (serving/tiering.py): HBM -> host RAM
+    # -> disk, driven by decayed per-volume read and write heat
+    p.add_argument(
+        "-ec.tier.disable", dest="ec_tier_disable", action="store_true",
+        help="disable the automatic residency ladder (residency falls "
+        "back to manual pin/unpin + blind LRU budget eviction)",
+    )
+    p.add_argument(
+        "-ec.tier.intervalSeconds", dest="ec_tier_interval_seconds",
+        type=float, default=serving_defaults.tier_interval_seconds,
+        help="tier-loop rebalance cadence; 0 disables the loop",
+    )
+    p.add_argument(
+        "-ec.tier.hostCacheMB", dest="ec_tier_host_cache_mb", type=int,
+        default=serving_defaults.tier_host_cache_mb,
+        help="pinned host-RAM warm-tier budget: demoted volumes' shard "
+        "bytes stage here and serve reconstructs without disk reads "
+        "(0 disables the host tier)",
+    )
+    p.add_argument(
+        "-ec.tier.halfLifeSeconds", dest="ec_tier_half_life_seconds",
+        type=float, default=serving_defaults.tier_half_life_seconds,
+        help="decay half-life of the per-volume read-heat counters",
+    )
+    p.add_argument(
+        "-ec.tier.promoteRatio", dest="ec_tier_promote_ratio", type=float,
+        default=serving_defaults.tier_promote_ratio,
+        help="hysteresis margin: a promotion swap needs the candidate "
+        "to out-heat the coldest eligible resident by this factor",
+    )
+    p.add_argument(
+        "-ec.tier.minResidencySeconds",
+        dest="ec_tier_min_residency_seconds", type=float,
+        default=serving_defaults.tier_min_residency_seconds,
+        help="a promoted volume is not swap-eligible before this age "
+        "(over-budget pressure demotions ignore it)",
+    )
+    p.add_argument(
+        "-ec.tier.bulkWeight", dest="ec_tier_bulk_weight", type=float,
+        default=serving_defaults.tier_bulk_weight,
+        help="QoS weight of bulk-tier reads in the heat signal, so "
+        "background scans cannot evict the interactive hot set",
+    )
+    add_ingest_args(p)
     p.add_argument(
         "-ec.rpc.deadlineMs", dest="ec_rpc_deadline_ms", type=int,
         default=30000,
@@ -179,6 +228,97 @@ def add_args(p) -> None:
         "-concurrentDownloadLimitMB", dest="concurrent_download_limit_mb",
         type=int, default=0, help="total in-flight download bytes (0 = off)",
     )
+
+
+def add_ingest_args(p) -> None:
+    """The -ec.ingest.* flags of the streaming ingest plane (IngestConfig
+    is the single source of the defaults)."""
+    d = IngestConfig()
+    p.add_argument(
+        "-ec.ingest.disable", dest="ec_ingest_disable",
+        action="store_true",
+        help="disable the streaming write-path EC encode: every volume "
+        "reverts to the after-the-fact bulk encode at ec.encode time",
+    )
+    p.add_argument(
+        "-ec.ingest.backend", dest="ec_ingest_backend", default=d.backend,
+        choices=["cuda", "torch", "numpy", "native"],
+        help="codec backend for the streaming row encode: cuda (K1 on the "
+        "card), torch (its plain version on the CPU), numpy or native "
+        "(host codecs); default: -ec.backend",
+    )
+    p.add_argument(
+        "-ec.ingest.arenaSlots", dest="ec_ingest_arena_slots", type=int,
+        default=d.arena_slots,
+        help="staged 10MB row buffers per actively-written volume; the "
+        "pool is the ingest backpressure — a writer that cannot stage "
+        "blocks until the encode leg drains",
+    )
+    p.add_argument(
+        "-ec.ingest.backpressureMs", dest="ec_ingest_backpressure_ms",
+        type=int, default=d.backpressure_ms,
+        help="how long a writer may block on a free staging row before "
+        "the volume falls back to the offline encode at seal",
+    )
+    p.add_argument(
+        "-ec.ingest.fsync", dest="ec_ingest_fsync", action="store_true",
+        help="group-commit durability: writers ack from a batched fsync "
+        "instead of the page cache",
+    )
+    p.add_argument(
+        "-ec.ingest.fsyncMaxBatch", dest="ec_ingest_fsync_max_batch",
+        type=int, default=d.fsync_max_batch,
+        help="writers per group-commit fsync batch before it fires",
+    )
+    p.add_argument(
+        "-ec.ingest.fsyncMaxDelayMs", dest="ec_ingest_fsync_max_delay_ms",
+        type=float, default=d.fsync_max_delay_ms,
+        help="longest a group-commit writer lingers for batch-mates "
+        "before the fsync fires anyway",
+    )
+    p.add_argument(
+        "-ec.ingest.minRateKBps", dest="ec_ingest_min_rate_kbps",
+        type=int, default=d.min_rate_kbps,
+        help="deadline doom check: refuse an upload at the door when its "
+        "size over this floor rate exceeds the request's remaining "
+        "X-Seaweed-Deadline-Ms budget (0 disables)",
+    )
+    p.add_argument(
+        "-ec.ingest.interactiveQueue", dest="ec_ingest_interactive_queue",
+        type=int, default=d.interactive_queue,
+        help="max interactive-tier writes queued at admission "
+        "(X-Seaweed-QoS header absent or 'interactive')",
+    )
+    p.add_argument(
+        "-ec.ingest.bulkQueue", dest="ec_ingest_bulk_queue", type=int,
+        default=d.bulk_queue,
+        help="max bulk-tier writes queued at admission (multipart parts, "
+        "batch loaders) — a narrow slice so loader floods can't crowd "
+        "out interactive PUTs",
+    )
+    p.add_argument(
+        "-ec.ingest.deadlineMs", dest="ec_ingest_deadline_ms", type=int,
+        default=d.deadline_ms,
+        help="per-tier write admission deadline when the client sent no "
+        "deadline header of its own (0 disables)",
+    )
+
+
+def ingest_config(args: argparse.Namespace) -> IngestConfig:
+    """The -ec.ingest.* flags as a validated config."""
+    return IngestConfig(
+        enabled=not args.ec_ingest_disable,
+        backend=args.ec_ingest_backend,
+        arena_slots=args.ec_ingest_arena_slots,
+        backpressure_ms=args.ec_ingest_backpressure_ms,
+        fsync=args.ec_ingest_fsync,
+        fsync_max_batch=args.ec_ingest_fsync_max_batch,
+        fsync_max_delay_ms=args.ec_ingest_fsync_max_delay_ms,
+        min_rate_kbps=args.ec_ingest_min_rate_kbps,
+        interactive_queue=args.ec_ingest_interactive_queue,
+        bulk_queue=args.ec_ingest_bulk_queue,
+        deadline_ms=args.ec_ingest_deadline_ms,
+    ).validated()
 
 
 def add_obs_args(p) -> None:
@@ -297,7 +437,8 @@ def apply_obs_args(args: argparse.Namespace) -> None:
 
 
 def serving_config(args: argparse.Namespace) -> ServingConfig:
-    """The -ec.serving.* and -ec.qos.* flags as a validated config."""
+    """The -ec.serving.*, -ec.qos.* and -ec.tier.* flags as a validated
+    config."""
     return ServingConfig(
         enabled=not args.ec_serving_disable,
         max_batch=args.ec_serving_max_batch,
@@ -316,6 +457,13 @@ def serving_config(args: argparse.Namespace) -> ServingConfig:
         qos_recover_seconds=args.ec_qos_recover_seconds,
         stall_budget_seconds=args.ec_qos_stall_budget_seconds,
         stall_min_rate_kbps=args.ec_qos_stall_min_rate_kbps,
+        tier=not args.ec_tier_disable,
+        tier_interval_seconds=args.ec_tier_interval_seconds,
+        tier_host_cache_mb=args.ec_tier_host_cache_mb,
+        tier_half_life_seconds=args.ec_tier_half_life_seconds,
+        tier_promote_ratio=args.ec_tier_promote_ratio,
+        tier_min_residency_seconds=args.ec_tier_min_residency_seconds,
+        tier_bulk_weight=args.ec_tier_bulk_weight,
     ).validated()
 
 
@@ -347,6 +495,7 @@ def build_server(args: argparse.Namespace):
         ec_serving=serving_config(args),
         ec_scrub_interval_seconds=args.ec_scrub_interval_seconds,
         ec_scrub_megakernel=not args.ec_scrub_megakernel_disable,
+        ec_ingest=ingest_config(args),
     )
 
 

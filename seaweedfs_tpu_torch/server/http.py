@@ -111,6 +111,12 @@ class Request:
         self._chunked = "chunked" in headers.get("Transfer-Encoding", "").lower()
 
     @property
+    def body_pending(self) -> bool:
+        """A body was announced and nothing of it has been read yet."""
+        return self._body is None and (
+            bool(self.content_length) or self._chunked)
+
+    @property
     def keep_alive(self) -> bool:
         conn = self.headers.get("Connection", "").lower()
         if self.version == "HTTP/1.0":
@@ -255,6 +261,25 @@ class HTTPServer:
                                       close=True)
                     break
                 resp = await self._handle(req)
+                if not req.refused and req.body_pending:
+                    # answered before the body was read (a shed at the
+                    # write door, a 404): the answer goes out first, as
+                    # aiohttp sends it, so the client learns the verdict
+                    # without sending its upload; then the body is drained
+                    # for keep-alive.  A client that waits for 100 Continue
+                    # sends no body after a final answer: close instead.
+                    close = (not req.keep_alive or req.headers.get(
+                        "Expect", "").lower() == "100-continue")
+                    if not await self._write(writer, req.method, resp, close):
+                        break
+                    if not close:
+                        try:
+                            await req.read()
+                            continue
+                        except HTTPError:
+                            pass  # refused: linger below
+                    await _linger(reader, writer)
+                    break
                 if not req.refused:
                     try:
                         await req.read()  # drain an unread body for keep-alive

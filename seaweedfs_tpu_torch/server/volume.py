@@ -25,7 +25,18 @@ asyncio process per storage node, serving one node's volumes:
   - with -ec.scrub.intervalSeconds, an idle loop that parity-scrubs every
     locally complete EC volume each interval: the resident ones in one
     pass of csrc/scrub.cu over the cache, the rest from their files, and
-    reports the corrupt ones on a gauge.
+    reports the corrupt ones on a gauge;
+  - the streaming ingest plane (ingest/, -ec.ingest.*): every upload is
+    admitted at the door (QoS write tiers, and a doomed upload refused
+    against its X-Seaweed-Deadline-Ms budget) before its body is read;
+    after the append, each stripe row the write completed is staged in a
+    pinned arena slot and encoded on the card (K1) while the volume still
+    grows, and the writer parks on a group-commit fsync when
+    -ec.ingest.fsync is on; Store.ec_generate then seals from the stream;
+  - with a device cache, the residency ladder (serving/tiering.py,
+    -ec.tier.*): a loop that moves EC volumes between HBM, host RAM and
+    disk by the decayed read and write heat the dispatcher and the ingest
+    plane feed it.
 
 Blocking storage and device work runs via asyncio.to_thread.  A volume
 that is not local answers 404, which is what the reference answers when
@@ -38,6 +49,7 @@ master (A7c).
 from __future__ import annotations
 
 import asyncio
+import dataclasses
 import functools
 import gzip
 import logging
@@ -50,14 +62,16 @@ from ..obs import devledger
 from ..obs import tailstore as tailstore_mod
 from ..obs import timeline as timeline_mod
 from ..obs import trace as obs_trace
+from ..ingest import IngestConfig, IngestPlane
 from ..ops import rs, rs_cuda, rs_resident
-from ..serving import EcReadDispatcher, ServingConfig
+from ..serving import EcReadDispatcher, ServingConfig, TieringController
 from ..storage import types as t
 from ..storage.disk_location import DiskLocation
 from ..storage.ec.layout import TOTAL_SHARDS
 from ..storage.needle import FLAG_IS_COMPRESSED, CrcError, Needle
 from ..storage.store import Store
 from ..storage.volume import CookieMismatch, NotFoundError, VolumeReadOnly
+from ..utils import faultpolicy
 from ..utils.tasks import spawn_logged
 from .conditional import content_disposition, format_http_date, not_modified
 from .http import HTTPError, HTTPServer, Request, Response, json_response
@@ -153,6 +167,7 @@ class VolumeServer:
         ec_scrub_interval_seconds: int = 0,  # >0: periodic parity scrub
         ec_scrub_megakernel: bool = True,  # one pass over the resident
         # volumes per cycle (-ec.scrub.megakernel.disable)
+        ec_ingest=None,  # ingest.IngestConfig | None (-ec.ingest.* flags)
     ):
         if masters:
             raise ValueError(
@@ -205,6 +220,31 @@ class VolumeServer:
         self.ec_dispatcher = EcReadDispatcher(
             self.store, lambda vid: None, ec_serving
         )
+        # heat-tiered residency ladder (serving/tiering.py, -ec.tier.*):
+        # only meaningful with a device cache; the dispatcher feeds the
+        # heat signal, the QoS controller gates swap churn under overload,
+        # and the tier loop started in start() runs the rebalance cycles
+        self.tiering = None
+        if device_cache is not None and ec_serving.tier:
+            self.tiering = TieringController(self.store, ec_serving)
+            self.tiering.attach_qos(self.ec_dispatcher.qos)
+            self.ec_dispatcher.tiering = self.tiering
+        # streaming ingest plane (ingest/, -ec.ingest.*): write admission
+        # at the door, per-volume pipelines encoding stripe rows on the
+        # card as appends land, group-commit fsync.  Write heat feeds the
+        # ladder's HeatTracker, so a freshly written volume enters it warm.
+        # Its backend defaults to -ec.backend ("cuda" without a card has
+        # already failed above).
+        ec_ingest = (ec_ingest or IngestConfig()).validated()
+        if ec_ingest.backend is None:
+            ec_ingest = dataclasses.replace(ec_ingest, backend=ec_backend)
+        self.ingest = None
+        if ec_ingest.enabled:
+            self.ingest = IngestPlane(
+                ec_ingest,
+                heat=self.tiering.heat if self.tiering is not None else None,
+            )
+        self.store.ingest = self.ingest
         self._http: HTTPServer | None = None
         # the flight timeline (obs/timeline.py) and the tail store
         # (obs/tailstore.py), built in start() as the -obs.* flags say
@@ -251,6 +291,13 @@ class VolumeServer:
             self._tasks.append(
                 spawn_logged(self._ec_scrub_forever(), log, "ec scrub loop")
             )
+        if (
+            self.tiering is not None
+            and self.ec_dispatcher.cfg.tier_interval_seconds > 0
+        ):
+            self._tasks.append(
+                spawn_logged(self._tier_loop_forever(), log, "ec tier loop")
+            )
         if obs_trace.CONFIG.timeline_enabled:
             self.timeline = timeline_mod.TimelineSampler(
                 node=self.url
@@ -280,6 +327,9 @@ class VolumeServer:
             self.timeline.uninstall()
         if self.tailstore is not None:
             self.tailstore.uninstall()
+        if self.ingest is not None:
+            # joins encode workers + the group-commit flusher
+            await asyncio.to_thread(self.ingest.close)
         # off the loop: close() joins pin threads mid-upload
         await asyncio.to_thread(self.store.close)
 
@@ -471,6 +521,27 @@ class VolumeServer:
                 sum(verdicts.values())
             )
 
+    async def _tier_loop_forever(self) -> None:
+        """The residency ladder's rebalance loop
+        (-ec.tier.intervalSeconds): each cycle re-ranks volumes by decayed
+        heat and makes at most a couple of ladder moves — promotion pins
+        (host-RAM bytes first), demotion through the claim/evict release
+        path, host-tier staging.  The blocking pin/stage IO runs on a
+        worker thread so the event loop keeps serving."""
+        interval = self.ec_dispatcher.cfg.tier_interval_seconds
+        while True:  # until stop() cancels it
+            await asyncio.sleep(interval)
+            try:
+                moves = await asyncio.to_thread(self.tiering.rebalance)
+                if moves:
+                    log.info(
+                        "tier rebalance: %s",
+                        " ".join(f"{kind}:{vid}" for kind, vid in moves),
+                    )
+            except Exception:  # noqa: BLE001 — one failed cycle must
+                # not end the ladder; the next cycle retries
+                log.exception("tier rebalance failed")
+
     def _collect_metrics(self) -> None:
         """Refresh volume/EC gauges from store state at scrape time, and
         mirror the pipeline's transfer bytes and the kernels' launch
@@ -644,13 +715,17 @@ class VolumeServer:
         )
 
     async def h_write(self, request: Request) -> Response:
-        """(PostHandler volume_server_handlers_write.go): parse the upload
-        and append it locally, then fan out to the replicas.  Replication
-        fan-out is ROADMAP A4b: without a master no replica location is
-        known, so a volume whose placement asks for copies answers 500
-        "replication failed" after the append, as the reference does, and
-        tombstones the needle again only when the write created it (a
-        rolled-back overwrite would destroy the prior version)."""
+        """(PostHandler volume_server_handlers_write.go): the ingest
+        plane's front door, then parse the upload and append it locally.
+
+        Admission happens BEFORE any body byte is buffered: a QoS
+        write-tier shed answers 429 with Retry-After, and an upload that
+        cannot finish within its deadline budget (its Content-Length at
+        -ec.ingest.minRateKBps overruns the remaining
+        X-Seaweed-Deadline-Ms) answers 504 at the door instead of at the
+        fsync.  The doom check binds only against a deadline the client
+        sent: the server's default stamp is a backstop for in-flight
+        work, not a contract the uploader agreed to."""
         try:
             vid, nid, cookie = self._parse_fid(request)
         except ValueError as e:
@@ -658,6 +733,41 @@ class VolumeServer:
         v = self.store.find_volume(vid)
         if v is None:
             raise HTTPError(404, f"volume {vid} not local")
+        tier = request.headers.get("X-Seaweed-QoS", "")
+        if self.ingest is None:
+            return await self._h_write_admitted(request, v, vid, nid, cookie,
+                                                tier)
+        client_ms = faultpolicy.parse_deadline_ms(
+            request.headers.get(faultpolicy.DEADLINE_HEADER, "")
+        )
+        shed = self.ingest.admit(
+            tier,
+            request.content_length or 0,
+            faultpolicy.remaining_s() if client_ms is not None else None,
+        )
+        if shed == "deadline":
+            raise HTTPError(
+                504, "upload cannot finish within its deadline budget"
+            )
+        if shed is not None:
+            raise HTTPError(429, f"write admission shed ({shed})",
+                            headers={"Retry-After": "1"})
+        t0 = time.monotonic()
+        try:
+            return await self._h_write_admitted(request, v, vid, nid, cookie,
+                                                tier)
+        finally:
+            self.ingest.complete(tier, time.monotonic() - t0)
+
+    async def _h_write_admitted(self, request: Request, v, vid: int, nid: int,
+                                cookie: int, tier: str) -> Response:
+        """Append locally, run the ingest plane's post-append hook, then
+        the replication check.  Replication fan-out is ROADMAP A4b:
+        without a master no replica location is known, so a volume whose
+        placement asks for copies answers 500 "replication failed" after
+        the append, as the reference does, and tombstones the needle
+        again only when the write created it (a rolled-back overwrite
+        would destroy the prior version)."""
         # lease BEFORE buffering the body, or the throttle bounds nothing
         async with self.upload_limiter(request.content_length or 0):
             body = await request.read()
@@ -678,6 +788,12 @@ class VolumeServer:
                 size = await asyncio.to_thread(self.store.write_needle, vid, n)
             except VolumeReadOnly:
                 raise HTTPError(409, f"volume {vid} is read-only")
+            if self.ingest is not None:
+                # post-append hook on a worker thread: write heat, stage
+                # the stripe rows this write completed (the arena wait is
+                # the plane's backpressure, landing on THIS writer), and
+                # park on the group commit when durability is on
+                await asyncio.to_thread(self.ingest.on_write, v, size, tier)
             if (
                 request.query.get("type") != "replicate"
                 and v.super_block.replica_placement.copy_count > 1

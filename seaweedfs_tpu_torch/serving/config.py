@@ -3,7 +3,7 @@
 Port of seaweedfs_tpu/serving/config.py for one card.  Fields that wait
 for later items of ROADMAP A are not here: `aot` (the CUDA kernels take
 runtime shapes, so no read is ever shed as a cold shape and the flag
-would do nothing), `mesh*` and `multiprocess` (A8), `tier*` (A7).
+would do nothing), `mesh*` and `multiprocess` (A8).
 """
 from __future__ import annotations
 
@@ -69,6 +69,35 @@ class ServingConfig:
     # (-ec.qos.stallBudgetSeconds / -ec.qos.stallMinRateKBps)
     stall_budget_seconds: float = 30.0
     stall_min_rate_kbps: int = 64
+    # heat-tiered residency ladder (serving/tiering.py): HBM -> host-RAM
+    # reconstruct cache -> disk, driven by decayed per-volume read and
+    # write heat.  -ec.tier.disable turns the ladder off (residency falls
+    # back to the mount-time pin + blind LRU budget eviction).
+    tier: bool = True
+    # rebalance cadence of the volume server's tier loop
+    # (-ec.tier.intervalSeconds); 0 disables the loop — rebalance() can
+    # still be driven by hand
+    tier_interval_seconds: float = 5.0
+    # host-RAM warm tier budget (-ec.tier.hostCacheMB); 0 disables the
+    # host tier, so demotions fall straight to disk
+    tier_host_cache_mb: int = 0
+    # heat decay half-life (-ec.tier.halfLifeSeconds): popularity is an
+    # exponentially-decayed read counter, so idle volumes cool to zero
+    tier_half_life_seconds: float = 60.0
+    # hysteresis, promotion side (-ec.tier.promoteRatio): a swap needs
+    # the candidate to out-heat the coldest eligible resident by this
+    # factor — the demotion threshold sits promoteRatio BELOW the
+    # promotion threshold, so equally hot volumes never flap
+    tier_promote_ratio: float = 1.5
+    # hysteresis, time side (-ec.tier.minResidencySeconds): a promoted
+    # volume is not swap-eligible before this age; over-budget pressure
+    # demotions ignore it (staying over budget would re-trigger the
+    # blind LRU eviction the ladder replaces)
+    tier_min_residency_seconds: float = 10.0
+    # QoS weight of bulk-tier reads in the heat signal
+    # (-ec.tier.bulkWeight): a background scan must not out-heat the
+    # interactive front door's hot set
+    tier_bulk_weight: float = 0.25
 
     @property
     def max_wait_s(self) -> float:
@@ -111,4 +140,18 @@ class ServingConfig:
             raise ValueError("qos_recover_seconds must be > 0")
         if self.stall_min_rate_kbps < 1:
             raise ValueError("stall_min_rate_kbps must be >= 1")
+        if self.tier_interval_seconds < 0:
+            raise ValueError("tier_interval_seconds must be >= 0")
+        if self.tier_host_cache_mb < 0:
+            raise ValueError("tier_host_cache_mb must be >= 0")
+        if self.tier_half_life_seconds <= 0:
+            raise ValueError("tier_half_life_seconds must be > 0")
+        if self.tier_promote_ratio < 1.0:
+            raise ValueError(
+                "tier_promote_ratio must be >= 1 (hysteresis margin)"
+            )
+        if self.tier_min_residency_seconds < 0:
+            raise ValueError("tier_min_residency_seconds must be >= 0")
+        if not 0.0 <= self.tier_bulk_weight <= 1.0:
+            raise ValueError("tier_bulk_weight must be in [0, 1]")
         return self

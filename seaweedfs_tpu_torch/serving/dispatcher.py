@@ -35,9 +35,10 @@ serving_interactive or serving_bulk in the device ledger
 waiter's resume) and its batch's stages: the batch runs under a stage sink
 and a `batch_dispatch` span, and what the sink collected is replayed onto
 every member trace.  Saturation is recorded in the flight recorder
-(obs/incident.py).  The tiering heat signal is ROADMAP A7b; peer shard
-reads (`remote_reader_factory` returns None here: one node holds the
-survivors) are A4b.
+(obs/incident.py).  With a residency ladder attached (`tiering`, a
+serving/tiering.TieringController), every routed EC read feeds its heat
+signal before routing.  Peer shard reads (`remote_reader_factory` returns
+None here: one node holds the survivors) are ROADMAP A4b.
 """
 from __future__ import annotations
 
@@ -76,6 +77,10 @@ class EcReadDispatcher:
         self.coalescer = Coalescer(self.cfg.max_batch, self.cfg.max_queue)
         self.qos = QosController.from_config(self.cfg)
         self._inflight = 0
+        # heat-tiered residency (serving/tiering.py): when a controller
+        # is attached, every EC read's (vid, tier) feeds its decayed
+        # popularity counters BEFORE routing
+        self.tiering = None
         # strong refs to the live drain-lane tasks (the event loop only
         # holds weak ones)
         self._lanes: set = set()
@@ -128,6 +133,8 @@ class EcReadDispatcher:
         # refuse doomed work early: a spent deadline budget raises here
         # (504 at the front door) instead of burning a queue slot
         remaining_s = faultpolicy.check_remaining("ec read admission")
+        if self.tiering is not None:
+            self.tiering.note_read(vid, tier)
         if not cfg.enabled:
             # dispatcher disabled = the per-read behavior, device
             # reconstruct included: an idle card on a resident volume

@@ -12,7 +12,9 @@ latency, the volume and residency gauges, the dispatcher's batch, queue,
 in-flight, fallback and route series, QoS admission, the response copy
 and stall series, deadline refusals, the pipeline's H2D/D2H bytes, the
 port's kernel launches, the parity scrub's corrupt-volume gauge and
-dispatch counter, the device-time ledger's four series
+dispatch counter, the residency ladder's tier series
+(serving/tiering.py), the streaming ingest plane's series (ingest/), the
+device-time ledger's four series
 (obs/devledger.py), the per-stage request-tracing histogram
 (obs/trace.py) and the critical-path counters (obs/critpath.py,
 obs/tailstore.py).
@@ -398,6 +400,127 @@ VOLUME_SERVER_EC_SCRUB_DISPATCH = Counter(
 )
 for _mode in ("per_volume", "megakernel"):
     VOLUME_SERVER_EC_SCRUB_DISPATCH.labels(mode=_mode)
+
+# heat-tiered residency (serving/tiering.py): the ladder's census, its
+# promotion/demotion counters (the thrash signal), the warm tier's bytes
+# and the reads it served from RAM
+VOLUME_SERVER_EC_TIER_VOLUMES = Gauge(
+    "SeaweedFS_volumeServer_ec_tier_volumes",
+    "EC volumes by residency tier after the last tier rebalance (hbm = "
+    "device-resident serving, host = shard bytes pinned in host RAM, "
+    "disk = served from shard files).",
+    ["tier"],
+    registry=REGISTRY,
+)
+VOLUME_SERVER_EC_TIER_PROMOTIONS = Counter(
+    "SeaweedFS_volumeServer_ec_tier_promotions",
+    "Tier-ladder promotions by destination tier (hbm = pinned into the "
+    "device cache, host = shard bytes staged into the host-RAM "
+    "reconstruct cache).",
+    ["tier"],
+    registry=REGISTRY,
+)
+VOLUME_SERVER_EC_TIER_DEMOTIONS = Counter(
+    "SeaweedFS_volumeServer_ec_tier_demotions",
+    "Tier-ladder demotions by source tier (hbm = heat-chosen device "
+    "eviction under budget pressure or a hotter candidate's swap, host "
+    "= host-RAM bytes dropped for a warmer volume).  A high rate means "
+    "the ladder is thrashing — widen -ec.tier.promoteRatio or "
+    "-ec.tier.minResidencySeconds.",
+    ["tier"],
+    registry=REGISTRY,
+)
+VOLUME_SERVER_EC_TIER_HOST_BYTES = Gauge(
+    "SeaweedFS_volumeServer_ec_tier_host_bytes",
+    "Host RAM held by the warm-tier shard cache (-ec.tier.hostCacheMB "
+    "budget).",
+    registry=REGISTRY,
+)
+VOLUME_SERVER_EC_TIER_HOST_READS = Counter(
+    "SeaweedFS_volumeServer_ec_tier_host_reads",
+    "Shard interval reads served from the host-RAM tier (zero-copy "
+    "memoryview slices of the staged shard bytes, no disk pread).",
+    registry=REGISTRY,
+)
+for _tier in ("hbm", "host", "disk"):
+    VOLUME_SERVER_EC_TIER_VOLUMES.labels(tier=_tier)
+for _tier in ("hbm", "host"):
+    VOLUME_SERVER_EC_TIER_PROMOTIONS.labels(tier=_tier)
+    VOLUME_SERVER_EC_TIER_DEMOTIONS.labels(tier=_tier)
+
+# streaming ingest plane (ingest/): bytes and rows through the per-volume
+# pipelines, the arena's backpressure, the door's sheds by reason, the
+# group commit's batching factor and the seals by provenance
+VOLUME_SERVER_INGEST_BYTES = Counter(
+    "SeaweedFS_volumeServer_ingest_bytes",
+    "Payload bytes accepted into per-volume streaming ingest pipelines "
+    "(staged toward stripe rows; every byte here is EC-encoded online "
+    "or swept into the offline fallback at seal).",
+    registry=REGISTRY,
+)
+VOLUME_SERVER_INGEST_ROWS = Counter(
+    "SeaweedFS_volumeServer_ingest_rows",
+    "Completed stripe rows encoded by the streaming ingest plane, by "
+    "where the parity was computed (device = K1's route: the gf2_matmul "
+    "kernel, or its plain version on a torch backend; host = the CPU "
+    "codec of a numpy or native backend).",
+    ["path"],
+    registry=REGISTRY,
+)
+VOLUME_SERVER_INGEST_BACKPRESSURE = Counter(
+    "SeaweedFS_volumeServer_ingest_backpressure",
+    "Ingest arena stage() calls that had to BLOCK for a free staging "
+    "row — each one is a writer stalled because the encode leg hasn't "
+    "drained; a steady rate means the arena (-ec.ingest.arenaSlots) or "
+    "the device is undersized for the write load.",
+    registry=REGISTRY,
+)
+VOLUME_SERVER_INGEST_SHED = Counter(
+    "SeaweedFS_volumeServer_ingest_shed",
+    "Writes refused at the door by the ingest plane, by reason "
+    "(qos = write-tier admission shed, deadline = the deadline budget "
+    "says the upload cannot finish in time, arena = no staging row "
+    "freed within the backpressure budget).",
+    ["reason"],
+    registry=REGISTRY,
+)
+for _reason in ("qos", "deadline", "arena"):
+    VOLUME_SERVER_INGEST_SHED.labels(reason=_reason)
+VOLUME_SERVER_INGEST_FSYNCS = Counter(
+    "SeaweedFS_volumeServer_ingest_fsyncs",
+    "Group-commit fsync batches issued by ingest pipelines — many "
+    "writes acknowledged per fsync is the point; compare against "
+    "SeaweedFS_volumeServer_ingest_fsync_writes for the batching "
+    "factor.",
+    registry=REGISTRY,
+)
+VOLUME_SERVER_INGEST_FSYNC_WRITES = Counter(
+    "SeaweedFS_volumeServer_ingest_fsync_writes",
+    "Writes whose durability was covered by a group-commit fsync batch "
+    "(fsync_writes / fsyncs = achieved group-commit factor).",
+    registry=REGISTRY,
+)
+VOLUME_SERVER_INGEST_PIPELINES = Gauge(
+    "SeaweedFS_volumeServer_ingest_pipelines",
+    "Per-volume streaming ingest pipelines currently live (streaming "
+    "state valid: rows encoded so far remain byte-identical to an "
+    "offline re-encode of the final .dat).",
+    registry=REGISTRY,
+)
+VOLUME_SERVER_INGEST_STREAMED_SEALS = Counter(
+    "SeaweedFS_volumeServer_ingest_seals",
+    "Volume EC seals by provenance (streamed = parity rows were "
+    "already encoded online and only the zero-padded tail row remained "
+    "at ec.encode time; offline = the pipeline had been invalidated — "
+    "large-row boundary, encode error, starved arena, restart — and the "
+    "bulk executor re-encoded from scratch).",
+    ["path"],
+    registry=REGISTRY,
+)
+for _path in ("streamed", "offline"):
+    VOLUME_SERVER_INGEST_STREAMED_SEALS.labels(path=_path)
+for _path in ("device", "host"):
+    VOLUME_SERVER_INGEST_ROWS.labels(path=_path)
 
 # device-time attribution ledger (obs/devledger.py): every device section
 # is tagged with a workload class and lands here per class per device;

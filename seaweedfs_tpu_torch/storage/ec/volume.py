@@ -13,13 +13,20 @@ store_ec.go:339-393), on the card by default.  With a DeviceShardCache
 a read, or of a whole burst (read_needles_batch), are reconstructed from the
 resident bytes in one device call instead.
 
+With the residency ladder's host-RAM tier attached (`host_cache`, a
+serving/tiering.HostShardCache), every host interval read — a local
+shard's, and each survivor of a degraded gather — is served from the
+staged bytes first (a zero-copy memoryview, no pread), and a promotion's
+pin reads the staged bytes instead of the shard files.
+
 Every read is traced as the reference's is (obs/trace.py): the `.ecx`
-locate and each local pread are `shard_read` spans, the host degraded read
-a `shard_read` gather then a `host_reconstruct`, and the resident call
-carries its own spans (ops/rs_resident.py).
+locate and each local pread are `shard_read` spans (`source="host_tier"`
+when the host tier served it), the host degraded read a `shard_read`
+gather then a `host_reconstruct`, and the resident call carries its own
+spans (ops/rs_resident.py).
 
 Remote shard reads, the hedged fan-out and the reconstruct memo are ROADMAP
-A4b; the host tier is A7.
+A4b.
 """
 from __future__ import annotations
 
@@ -140,6 +147,11 @@ class EcVolume:
         # >=10 survivors of this volume are resident, degraded reads
         # reconstruct on the card without shipping survivor bytes
         self.device_cache = None
+        # optional host-RAM warm tier (serving/tiering.HostShardCache):
+        # when set and this volume's shard bytes are staged, interval
+        # reads serve zero-copy memoryview slices of the staged arrays
+        # instead of disk preads — the middle rung of the residency ladder
+        self.host_cache = None
         # missing-shard intervals a CacheMiss sent to the host path
         self.device_misses = 0
         info = load_volume_info(self.base_name + ".vif")
@@ -197,11 +209,30 @@ class EcVolume:
             if should_stop is not None and should_stop():
                 break
             if self.device_cache.get(self.id, sid) is None:
+                # promotion from the host tier never re-reads disk: the
+                # staged bytes ARE the shard file's bytes
+                staged = (
+                    self.host_cache.shard_array(self.id, sid)
+                    if self.host_cache is not None
+                    else None
+                )
                 self.device_cache.put(
-                    self.id, sid, np.fromfile(shard.path, dtype=np.uint8)
+                    self.id, sid,
+                    staged if staged is not None
+                    else np.fromfile(shard.path, dtype=np.uint8),
                 )
                 n += 1
         return n
+
+    def stage_host_shards(self) -> dict[int, np.ndarray]:
+        """Read every locally mounted shard's bytes once (demotion-time
+        staging for the host-RAM warm tier).  Raises OSError when a shard
+        file is unreadable — the caller keeps the volume on its current
+        tier rather than staging a partial set silently."""
+        return {
+            sid: np.fromfile(shard.path, dtype=np.uint8)
+            for sid, shard in list(self.shards.items())
+        }
 
     def is_device_resident(self) -> bool:
         """True when enough of THIS location's shards are pinned to
@@ -246,10 +277,28 @@ class EcVolume:
 
     # -- interval reads (store_ec.go:176-393) --------------------------------
 
+    def _host_tier_read(self, shard_id: int, off: int, size: int):
+        """Zero-copy slice of the host-RAM tier's staged shard bytes, or
+        None when the shard is not staged or the slice is short (a shard's
+        tail: the caller reads the file, as after a short pread) — the one
+        host-tier probe every interval-read path shares."""
+        hc = self.host_cache
+        if hc is None:
+            return None
+        view = hc.read(self.id, shard_id, off, size)
+        return view if view is not None and len(view) == size else None
+
     def read_interval(
         self, interval: Interval, backend: str = "cuda", use_device: bool = True
     ) -> bytes:
         shard_id, off = interval.to_shard_and_offset()
+        staged = self._host_tier_read(shard_id, off, interval.size)
+        if staged is not None:
+            with obs_trace.span(
+                "shard_read", shard=shard_id, bytes=interval.size,
+                source="host_tier",
+            ):
+                return staged
         shard = self.shards.get(shard_id)
         if shard is not None:
             with obs_trace.span(
@@ -281,10 +330,14 @@ class EcVolume:
             for sid in range(TOTAL_SHARDS):
                 if sid == missing_shard:
                     continue
-                shard = self.shards.get(sid)
-                if shard is None:
-                    continue
-                buf = shard.read_at(off, size)
+                # host tier first: a warm volume's survivor gather must
+                # not touch disk (the whole point of the middle rung)
+                buf = self._host_tier_read(sid, off, size)
+                if buf is None:
+                    shard = self.shards.get(sid)
+                    if shard is None:
+                        continue
+                    buf = shard.read_at(off, size)
                 if len(buf) == size:
                     got[sid] = np.frombuffer(buf, dtype=np.uint8)
                 if len(got) >= DATA_SHARDS:
@@ -370,6 +423,14 @@ class EcVolume:
                 for p in parts:
                     if p[0] == "local":
                         _, sid, off, size = p
+                        staged = self._host_tier_read(sid, off, size)
+                        if staged is not None:
+                            with obs_trace.span(
+                                "shard_read", shard=sid, bytes=size,
+                                source="host_tier",
+                            ):
+                                pieces.append(staged)
+                            continue
                         with obs_trace.span(
                             "shard_read", shard=sid, bytes=size
                         ):

@@ -15,8 +15,15 @@ the card when every shard of a volume is resident (one launch of
 csrc/scrub.cu a volume, or one for up to 32 volumes of one span) and
 streams the shard files through verify_ec_files otherwise.
 
-Not here, each named in ROADMAP: tier moves, vacuum, the heartbeat
-messages and their delta queues (A4b); the host-RAM shard cache (A7b).
+The residency ladder (serving/tiering.py) attaches its host-RAM tier
+through set_ec_host_cache, so every mounted EcVolume reads staged bytes
+before its shard files; ec_volume_tier names a volume's rung.  The
+streaming ingest plane (ingest/, attached as `ingest` by the volume
+server) lets ec_generate seal a volume from its streamed parity.
+
+Not here, each named in ROADMAP: the `.dat` tier moves, vacuum (and with
+it the ingest pipeline's vacuum invalidation), the heartbeat messages and
+their delta queues (A4b).
 """
 from __future__ import annotations
 
@@ -60,6 +67,15 @@ class Store:
         self.locations = locations
         self.ec_backend = ec_backend
         self.ec_device_cache = ec_device_cache
+        # host-RAM warm tier (serving/tiering.HostShardCache | None):
+        # attached by the tiering controller; every mounted EcVolume
+        # carries the reference so interval reads probe it without the
+        # controller on the read path
+        self.ec_host_cache = None
+        # streaming write plane (ingest.IngestPlane | None), attached by
+        # the volume server: ec_generate consults it for a streamed seal,
+        # delete/unmount drop its per-volume pipelines
+        self.ingest = None
         self.volume_size_limit = 30 * 1024 * 1024 * 1024  # set by master pulse
         self._lock = threading.RLock()
         # device-cache pin threads: cancellable + joined on close
@@ -87,6 +103,26 @@ class Store:
             if ev is not None:
                 return ev
         return None
+
+    def set_ec_host_cache(self, host_cache) -> None:
+        """Attach (or detach, None) the host-RAM warm tier to every
+        mounted EC volume — and to future mounts via `ec_host_cache`."""
+        self.ec_host_cache = host_cache
+        with self._lock:
+            for loc in self.locations:
+                for ev in loc.ec_volumes.values():
+                    ev.host_cache = host_cache
+
+    def ec_volume_tier(self, vid: int) -> str:
+        """Residency tier of `vid` right now: "hbm" (device-resident,
+        the dispatcher's batched route), "host" (shard bytes held in host
+        RAM — the native path serves without disk preads), or "disk"."""
+        if self.ec_volume_is_resident(vid):
+            return "hbm"
+        hc = self.ec_host_cache
+        if hc is not None and hc.resident_count(vid) >= DATA_SHARDS:
+            return "host"
+        return "disk"
 
     def ec_volume_is_resident(self, vid: int) -> bool:
         """Routing predicate for the serving dispatcher: True when the
@@ -146,6 +182,8 @@ class Store:
             for loc in self.locations:
                 v = loc.volumes.pop(vid, None)
                 if v is not None:
+                    if self.ingest is not None:
+                        self.ingest.drop(vid)
                     v.destroy()
                     return
         raise NotFoundError(f"volume {vid} not found")
@@ -155,6 +193,8 @@ class Store:
             for loc in self.locations:
                 v = loc.volumes.pop(vid, None)
                 if v is not None:
+                    if self.ingest is not None:
+                        self.ingest.drop(vid)
                     v.close()
                     return
         raise NotFoundError(f"volume {vid} not found")
@@ -224,13 +264,26 @@ class Store:
     def ec_generate(self, vid: int) -> None:
         """Stripe a local volume into .ec00-.ec13 + .ecx + .vif
         (VolumeEcShardsGenerate volume_grpc_erasure_coding.go:38-81), the
-        GF(256) math on the configured backend (the card by default)."""
+        GF(256) math on the configured backend (the card by default).
+        Streamed seal first: when the ingest plane already encoded the
+        volume's interior stripe rows as the writes landed, the seal only
+        re-reads the .dat for the data shards and encodes the zero-padded
+        tail row; an invalidated or absent pipeline falls through to the
+        offline bulk encode (the same bytes either way).  Quiesce the
+        volume's writers first: the seal takes the pipeline's feed lock.
+        The reference also invalidates a pipeline when vacuum rewrites the
+        .dat (Store.vacuum_volume); the port has no vacuum yet (ROADMAP
+        A4b), so nothing here rewrites a streaming volume's offsets."""
         v = self.find_volume(vid)
         if v is None:
             raise NotFoundError(f"volume {vid} not found")
         v.sync()
         base = Volume.base_name(v.dir, vid, v.collection)
-        write_ec_files(base, backend=self.ec_backend)
+        streamed = False
+        if self.ingest is not None:
+            streamed = self.ingest.seal(vid, base, backend=self.ec_backend)
+        if not streamed:
+            write_ec_files(base, backend=self.ec_backend)
         write_sorted_file_from_idx(base)
 
     def ec_rebuild(
@@ -267,6 +320,7 @@ class Store:
                 if loc is None:
                     raise NotFoundError(f"ec volume {vid} has no local files")
                 ev = EcVolume(loc.directory, vid, collection)
+                ev.host_cache = self.ec_host_cache
                 loc.ec_volumes[vid] = ev
             for sid in shard_ids:
                 ev.add_shard(sid)
@@ -327,6 +381,10 @@ class Store:
                 cache = self.ec_device_cache
                 if cache is not None and cache.pin_source(vid) == ev.dir:
                     cache.evict(vid)
+                # the warm tier's claim must not outlive the volume either
+                # (outstanding zero-copy views keep their own arrays alive)
+                if self.ec_host_cache is not None:
+                    self.ec_host_cache.evict(vid)
 
     def delete_ec_shards(self, vid: int, shard_ids: list[int], collection: str = "") -> None:
         """Unmount + remove the shard files; drop sidecars when the last
@@ -354,6 +412,8 @@ class Store:
                 ev = loc.ec_volumes.pop(vid, None)
                 if ev is not None:
                     ev.destroy()
+                    if self.ec_host_cache is not None:
+                        self.ec_host_cache.evict(vid)
 
     # -- parity scrub (store.go's VolumeEcShardsVerify backend) ---------------
 

@@ -1073,3 +1073,111 @@ def test_device_avg_ms_is_kernel_time(cuda_device):
     end.synchronize()
     bracket_ms = start.elapsed_time(end) / 10
     assert 0 < dev_ms <= bracket_ms * 1.25
+
+
+# --- the streaming ingest encode (ops/rs_ingest.py) --------------------------
+
+
+def test_stream_encoder_rows_match_plain_on_two_threads(cuda_device):
+    """StreamEncoder("cuda") on seeded [10, 1 MiB] rows staged in pinned
+    arena slots, from two worker threads at once (each on its own lane):
+    every parity equals K1's plain version and the numpy oracle's sample,
+    gf2_matmul launches once a row, on the aligned path, and no row is
+    encoded on the host."""
+    import threading
+
+    from seaweedfs_tpu_torch.ops import rs_ingest
+
+    enc = rs_ingest.StreamEncoder("cuda")
+    plain = rs_ingest.StreamEncoder("torch")
+    rows = [_rand((10, 1 << 20), 100 + i) for i in range(8)]
+    got: dict[int, np.ndarray] = {}
+    errors = []
+
+    def worker(ids):
+        try:
+            arena = rs_ingest.IngestArena(10, 1 << 20, slots=1, pin=True)
+            for i in ids:
+                buf = arena.stage(timeout_s=1)
+                assert arena._tensors[0].is_pinned()
+                buf[:] = rows[i]
+                got[i] = enc.encode(arena.seal(buf))
+                arena.reclaim(buf)
+        except BaseException as e:  # noqa: BLE001 — collected
+            errors.append(e)
+
+    before = rs_cuda.gf2_matmul.launches
+    aligned = rs_cuda.gf2_matmul.launches_by_path["aligned"]
+    threads = [threading.Thread(target=worker, args=(range(j, 8, 2),))
+               for j in range(2)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(120)
+    assert not errors, errors[0]
+    assert not any(th.is_alive() for th in threads)
+    assert rs_cuda.gf2_matmul.launches == before + 8
+    assert rs_cuda.gf2_matmul.launches_by_path["aligned"] == aligned + 8
+    assert (enc.device_rows, enc.host_rows, enc.failed_rows) == (8, 0, 0)
+    mat = gf256.parity_matrix(10, 14)
+    for i in range(8):
+        assert np.array_equal(got[i], plain.encode(rows[i])), i
+        assert np.array_equal(got[i][:, :4096],
+                              rs_cpu.apply_matrix_numpy(mat, rows[i][:, :4096]))
+
+
+def test_stream_encoder_slot_rule_on_card(cuda_device):
+    """A slot scribbled on right after reclaim() leaves the parity that
+    encode() returned for it untouched: encode waited on the row's event,
+    so the H2D copy that read the slot had completed."""
+    from seaweedfs_tpu_torch.ops import rs_ingest
+
+    enc = rs_ingest.StreamEncoder("cuda")
+    arena = rs_ingest.IngestArena(10, 1 << 20, slots=1, pin=True)
+    row = _rand((10, 1 << 20), 7)
+    want = rs_ingest.StreamEncoder("torch").encode(row)
+    for _ in range(3):
+        buf = arena.stage(timeout_s=1)
+        buf[:] = row
+        parity = enc.encode(arena.seal(buf))
+        arena.reclaim(buf)
+        buf[:] = 0xFF  # the next writer scribbles on the freed slot
+        torch.cuda.synchronize()
+        assert np.array_equal(parity, want)
+
+
+def test_ingest_pipeline_on_card_seals_like_offline(cuda_device, tmp_path):
+    """A growing .dat streamed through a pipeline on the card (three
+    10 MiB rows and a ragged tail) seals to the shard files the offline
+    write_ec_files writes on the card, with one launch a streamed row
+    plus the tail row's at seal."""
+    from seaweedfs_tpu_torch.ingest import IngestConfig, IngestPipeline
+    from seaweedfs_tpu_torch.ops import rs_ingest
+
+    class Vol:
+        id = 1
+        dat_path = str(tmp_path / "1.dat")
+
+        @property
+        def content_size(self):
+            return os.path.getsize(self.dat_path)
+
+    open(Vol.dat_path, "wb").close()
+    p = IngestPipeline(Vol(), rs_ingest.StreamEncoder("cuda"),
+                       IngestConfig(backend="cuda"))
+    before = rs_cuda.gf2_matmul.launches
+    rng = np.random.default_rng(11)
+    for n in (7 << 20, 10 << 20, (13 << 20) + 5, 2 << 20):
+        with open(Vol.dat_path, "ab") as f:
+            f.write(rng.integers(0, 256, n, np.uint8).tobytes())
+        p.feed()
+    assert p.seal(backend="cuda") is True
+    assert (p.encoded_rows, p.rows_device, p.rows_host) == (3, 3, 0)
+    assert rs_cuda.gf2_matmul.launches == before + 4
+    base2 = str(tmp_path / "2")
+    shutil.copyfile(Vol.dat_path, base2 + ".dat")
+    ec.write_ec_files(base2, backend="cuda")
+    for i in range(14):
+        with open(str(tmp_path / "1") + ec.to_ext(i), "rb") as a, \
+                open(base2 + ec.to_ext(i), "rb") as b:
+            assert a.read() == b.read(), i

@@ -67,7 +67,12 @@ def test_every_port_module_is_walked():
                  "seaweedfs_tpu_torch.ops.rs_resident",
                  "seaweedfs_tpu_torch.storage.store",
                  "seaweedfs_tpu_torch.server.volume",
-                 "seaweedfs_tpu_torch.stats.metrics"):
+                 "seaweedfs_tpu_torch.stats.metrics",
+                 "seaweedfs_tpu_torch.ingest",
+                 "seaweedfs_tpu_torch.ingest.config",
+                 "seaweedfs_tpu_torch.ingest.pipeline",
+                 "seaweedfs_tpu_torch.ops.rs_ingest",
+                 "seaweedfs_tpu_torch.serving.tiering"):
         assert name in mods, name
 
 
@@ -221,6 +226,21 @@ def test_entry_points_default_to_cuda(no_cuda, tmp_path):
     with pytest.raises(RuntimeError, match="CUDA"):
         rs_resident.DeviceShardCache()
     assert rs_resident.DeviceShardCache(device="cpu").device.type == "cpu"
+    # the streaming ingest plane encodes rows on the card by default
+    from seaweedfs_tpu_torch.ingest import IngestConfig, IngestPlane
+    from seaweedfs_tpu_torch.ops import rs_ingest
+    from seaweedfs_tpu_torch.server.volume import VolumeServer
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        rs_ingest.StreamEncoder()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        IngestPlane(IngestConfig())
+    with pytest.raises(RuntimeError, match="CUDA"):
+        VolumeServer([], [str(tmp_path / "vs")], port=0)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        VolumeServer([], [str(tmp_path / "vs")], port=0, ec_backend="torch",
+                     ec_ingest=IngestConfig(backend="cuda"))
+    assert rs_ingest.StreamEncoder("torch").device
 
 
 def test_chip_smoke_refuses_without_cuda(tmp_path):

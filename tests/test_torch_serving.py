@@ -220,25 +220,29 @@ def test_spawn_logged_retains_and_logs(caplog):
 
 
 def test_metric_series_carry_the_reference_names():
-    from prometheus_client import generate_latest
+    """The port's declared metric families (name, type, label names) are
+    the reference's, less the ones the port does not serve, plus its one
+    own family, the kernels' launch counts.  Families, not samples: a
+    labelled family shows samples only once some caller has touched a
+    child, so a sample comparison would depend on what ran before it in
+    the process."""
+    def fam(name, kind, labels):
+        return name.removesuffix("_total"), kind, tuple(labels)
 
-    ref = {line.split("{")[0].split(" ")[0]
-           for line in generate_latest(jax_stats.REGISTRY).decode().splitlines()
-           if line and not line.startswith("#")}
-    stats.VOLUME_SERVER_REQUEST_COUNTER.labels(type="get").inc()
-    stats.VOLUME_SERVER_REQUEST_HISTOGRAM.labels(type="get").observe(0.01)
-    stats.VOLUME_SERVER_VOLUME_GAUGE.labels(collection="", type="volume").set(1)
-    jax_stats.VOLUME_SERVER_REQUEST_COUNTER.labels(type="get")
-    jax_stats.VOLUME_SERVER_REQUEST_HISTOGRAM.labels(type="get")
-    jax_stats.VOLUME_SERVER_VOLUME_GAUGE.labels(collection="", type="volume")
-    ref |= {line.split("{")[0].split(" ")[0]
-            for line in generate_latest(jax_stats.REGISTRY).decode().splitlines()
-            if line and not line.startswith("#")}
-    text = stats.generate_latest(stats.REGISTRY).decode()
-    ours = {line.split("{")[0].split(" ")[0]
-            for line in text.splitlines() if line and not line.startswith("#")}
-    # the one series of the port's own: the kernels' launch counts
-    assert ours - ref == {stats.VOLUME_SERVER_EC_KERNEL_LAUNCHES.name + "_total"}
+    ref = {fam(c._name, c._type, c._labelnames)
+           for c in jax_stats.REGISTRY._collector_to_names}
+    ours = {fam(m.name, m.kind, m.labelnames)
+            for m in stats.REGISTRY.collect()}
+    launches = stats.VOLUME_SERVER_EC_KERNEL_LAUNCHES
+    assert ours - ref == {fam(launches.name, launches.kind, launches.labelnames)}
+    # every reference family of the slices ported so far is declared,
+    # the ingest plane's and the residency ladder's included
+    ported = ("volumeServer_ingest_", "volumeServer_ec_tier_",
+              "volumeServer_device_", "request_stage_seconds", "critpath_")
+    want = {f for f in ref if f[0].removeprefix("SeaweedFS_").startswith(ported)}
+    assert len([f for f in want if "_ingest_" in f[0]]) == 8
+    assert len([f for f in want if "_ec_tier_" in f[0]]) == 5
+    assert want <= ours, want - ours
     # one bucket per batch width: the quantiles are exact
     h = stats.metrics.Histogram("t_hist", "t", buckets=(1, 2, 3))
     for v in (1, 2, 2, 3, 9):
