@@ -229,10 +229,9 @@ class IngestPipeline:
                     self._invalidate("arena starved past backpressure budget")
                     return
                 _read_row_into(self._fd(), dat_size, row * ROW_BYTES, buf)
-                sealed = self.arena.seal(buf)
                 self.staged_rows = row + 1
                 with self._qcv:
-                    self._queue.append((row, sealed))
+                    self._queue.append((row, buf))
                     if self._worker is None:
                         self._worker = threading.Thread(
                             target=self._encode_loop,

@@ -63,10 +63,10 @@ class IngestArena:
 
     stage() blocks (up to the backpressure budget) until a row buffer is
     free — that wait propagates through IngestPipeline.feed() to the
-    HTTP writer as honest backpressure.  seal() marks a filled row final
-    until reclaim(); reclaim() returns the buffer to the pool once its
-    row's parity is on disk.  `pin` allocates the slots in pinned host
-    memory (the cuda backend)."""
+    HTTP writer as honest backpressure.  A filled row's bytes stay final
+    until reclaim() returns the buffer to the pool, once its row's parity
+    is on disk.  `pin` allocates the slots in pinned host memory (the
+    cuda backend)."""
 
     def __init__(self, k: int, block: int, slots: int = 2, pin: bool = False):
         if slots < 1:
@@ -98,10 +98,6 @@ class IngestArena:
                 f"no ingest arena row freed in {timeout_s}s "
                 f"({self.slots} slots of [{self.k}, {self.block}])"
             ) from None
-
-    def seal(self, buf: np.ndarray) -> np.ndarray:
-        """The row is full: its bytes are final until reclaim()."""
-        return buf
 
     def reclaim(self, buf: np.ndarray) -> None:
         """Back to the pool: call only once the row's parity is on disk."""

@@ -320,39 +320,9 @@ class DeviceShardCache:
         with self._lock:
             return self._vid_place.get(vid)
 
-    # the residency ladder's per-device accounting (serving/tiering.py),
-    # in the JAX cache's shapes: device index -> bytes, one device here
-
-    def device_stats(self) -> list[dict]:
-        """Per-device [{"used_bytes", "budget_bytes"}]."""
-        budget = self.device_budget
-        with self._lock:
-            return [{"used_bytes": used, "budget_bytes": budget}
-                    for used in self._dev_bytes]
-
-    def pressure_devices(self) -> list[int]:
-        """Devices over their per-device budget, fullest first."""
-        budget = self.device_budget
-        with self._lock:
-            over = [(used - budget, d) for d, used in enumerate(self._dev_bytes)
-                    if used > budget]
-        return [d for _, d in sorted(over, reverse=True)]
-
-    def device_bytes_by_vid(self) -> dict[int, dict[int, int]]:
-        """vid -> {device -> padded bytes held}, in one locked pass."""
-        out: dict[int, dict[int, int]] = {}
-        with self._lock:
-            for (vid, _sid), buf in self._arrays.items():
-                dev = out.setdefault(vid, {})
-                dev[0] = dev.get(0, 0) + buf.numel()
-        return out
-
-    def plan_pin(
-        self, n_shards: int, shard_bytes: int, vid: int | None = None
-    ) -> dict[int, int]:
-        """device -> padded bytes a full pin of (n_shards x shard_bytes)
-        would add: the whole volume on the one device."""
-        return {0: n_shards * self._padded_len(shard_bytes)}
+    def pin_bytes(self, n_shards: int, shard_bytes: int) -> int:
+        """Padded device bytes that n_shards shards of shard_bytes hold."""
+        return n_shards * self._padded_len(shard_bytes)
 
     def put(self, vid: int, shard_id: int, data) -> None:
         host = np.frombuffer(bytes(data), dtype=np.uint8) if isinstance(

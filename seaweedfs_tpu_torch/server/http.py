@@ -261,37 +261,24 @@ class HTTPServer:
                                       close=True)
                     break
                 resp = await self._handle(req)
-                if not req.refused and req.body_pending:
-                    # answered before the body was read (a shed at the
-                    # write door, a 404): the answer goes out first, as
-                    # aiohttp sends it, so the client learns the verdict
-                    # without sending its upload; then the body is drained
-                    # for keep-alive.  A client that waits for 100 Continue
-                    # sends no body after a final answer: close instead.
-                    close = (not req.keep_alive or req.headers.get(
-                        "Expect", "").lower() == "100-continue")
-                    if not await self._write(writer, req.method, resp, close):
-                        break
-                    if not close:
-                        try:
-                            await req.read()
-                            continue
-                        except HTTPError:
-                            pass  # refused: linger below
-                    await _linger(reader, writer)
-                    break
-                if not req.refused:
-                    try:
-                        await req.read()  # drain an unread body for keep-alive
-                    except HTTPError:
-                        pass  # req.refused is now set
-                refused = req.refused
-                close = refused or not req.keep_alive
+                # a body the handler left unread (a shed at the write door,
+                # a 404) is drained after the answer, as aiohttp sends it,
+                # so the client learns the verdict before its upload.  A
+                # client that waits for 100 Continue sends no body after a
+                # final answer: that connection closes instead.
+                unread = req.body_pending
+                close = req.refused or not req.keep_alive or (
+                    unread and req.headers.get("Expect", "").lower() == "100-continue")
                 if not await self._write(writer, req.method, resp, close):
                     break
-                if refused:
-                    await _linger(reader, writer)
+                if unread and not close:
+                    try:
+                        await req.read()
+                    except HTTPError:
+                        close = True  # refused: the rest stays unread
                 if close:
+                    if unread:  # a refused body is unread too
+                        await _linger(reader, writer)
                     break
         except (ConnectionError, asyncio.IncompleteReadError):
             pass  # the client went away

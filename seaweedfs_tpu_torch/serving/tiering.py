@@ -33,7 +33,9 @@ CUDA kernels take runtime shapes), so a promoted volume's first reads
 never wait on a compile.  And the multi-process mesh rule (mesh-sharded
 volumes demote only through the cache's put-order partition) waits for
 the mesh layout (ROADMAP A8): the port's cache has one device, so every
-resident volume is demotable.
+resident volume is demotable, and fit and pressure are byte totals
+against that device's budget (the reference's per-device accounting
+comes back with A8).
 """
 from __future__ import annotations
 
@@ -374,30 +376,22 @@ class TieringController:
         return out, meta
 
     @staticmethod
-    def _pin_need(cache, vid: int, meta: tuple[int, int]) -> dict[int, int]:
-        """device -> padded bytes a full pin of `vid` would add
-        (DeviceShardCache.plan_pin; one device here, so {0: bytes}): the
-        budget-fit arithmetic promotions and pressure demotions share.
-        Empty dict = nothing to pin (unknown sizing)."""
+    def _pin_need(cache, meta: tuple[int, int]) -> int:
+        """Padded bytes a full pin of the volume would add: the budget-fit
+        arithmetic promotions and pressure demotions share.  0 = nothing
+        to pin (unknown sizing)."""
         n, shard_size = meta
         if not n or not shard_size:
-            return {}
-        return cache.plan_pin(n, shard_size, vid=vid)
+            return 0
+        return cache.pin_bytes(n, shard_size)
 
     @staticmethod
-    def _fits(cache, need: dict[int, int], freed: dict[int, int]) -> bool:
-        """Would `need` fit every device it lands on, after `freed`
-        bytes per device are released?  Judged against the PER-DEVICE
-        budget: an aggregate-fits answer would overflow the one device
-        a whole-pin lands on and hand eviction back to the blind
-        per-shard LRU."""
-        if not need:
-            return False
-        budget = cache.device_budget
-        stats = cache.device_stats()
-        return all(
-            stats[d]["used_bytes"] - freed.get(d, 0) + add <= budget
-            for d, add in need.items()
+    def _fits(cache, need: int, freed: int = 0) -> bool:
+        """Would `need` bytes fit the device budget once `freed` bytes are
+        released?  A swap that still overflowed would hand eviction back
+        to the blind per-shard LRU in DeviceShardCache.put."""
+        return bool(need) and (
+            cache.bytes_used - freed + need <= cache.device_budget
         )
 
     def tier_of(self, vid: int) -> str:
@@ -539,44 +533,22 @@ class TieringController:
                 >= cfg.tier_min_residency_seconds
             )
 
-        # 1. PRESSURE: any device over ITS budget -> demote coldest
-        # residents actually HOLDING bytes on the fullest over-budget
-        # device (per-device accounting: demoting a volume parked on
-        # another device frees nothing where the pressure is).
-        # Ignores the min-residency floor: staying over budget would
-        # hand control back to the blind per-shard LRU eviction in
+        # 1. PRESSURE: the device over its budget -> demote the coldest
+        # residents.  Ignores the min-residency floor: staying over budget
+        # would hand control back to the blind per-shard LRU eviction in
         # DeviceShardCache.put.
         def hbm_residents() -> list[int]:
             return [vid for vid in vols if resident(vid)]
 
-        while True:
-            pressure = cache.pressure_devices()
-            if not pressure:
-                break
-            dev = pressure[0]  # fullest first
-            # one locked footprint snapshot per demotion round (a
-            # per-volume vid_device_bytes probe would rescan the whole
-            # map under the serving-path lock once per resident)
-            foot = cache.device_bytes_by_vid()
-
-            def on_dev(v: int) -> bool:
-                return bool(foot.get(v, {}).get(dev))
-
-            pool = [
-                v for v in hbm_residents() if on_dev(v)
-            ]
+        while cache.bytes_used > cache.device_budget:
+            pool = hbm_residents()
             if not pool:
                 # partial shard sets (mount pins racing the LRU, or a
                 # budget shrink mid-pin) hold device bytes without ever
                 # serving a reconstruct: under pressure they are pure
                 # waste — evict them too, or the orphaned bytes block
                 # every future promotion forever
-                pool = [
-                    v
-                    for v in vols
-                    if cache.resident_count(v) > 0
-                    and on_dev(v)
-                ]
+                pool = [v for v in vols if cache.resident_count(v) > 0]
             if not pool:
                 break
             vid = min(pool, key=lambda v: (heat.get(v, 0.0), v))
@@ -605,10 +577,10 @@ class TieringController:
                 < PROMOTE_FAILURE_BACKOFF_S
             ):
                 continue  # recent pin failure: don't burn a victim on it
-            need = self._pin_need(cache, vid, meta[vid])
+            need = self._pin_need(cache, meta[vid])
             if not need:
                 continue
-            if self._fits(cache, need, {}):
+            if self._fits(cache, need):
                 if self._promote_hbm(vols[vid], now):
                     moves.append(("promote_hbm", vid))
                 continue
@@ -623,27 +595,9 @@ class TieringController:
             # threshold, so equally hot volumes never flap) to actually
             # FIT the candidate before demoting anything: a one-victim
             # swap that still overflowed would hand eviction back to
-            # the blind per-shard LRU in DeviceShardCache.put.  Only
-            # volumes holding bytes on a device the candidate still
-            # lacks headroom on count: demoting a resident parked
-            # on an idle chip frees nothing where the pin lands, loses
-            # its HBM residency for nothing, and can exhaust the victim
-            # cap before a useful victim is ever reached.
-            budget = cache.device_budget
-
-            def still_tight(freed: dict[int, int]) -> set[int]:
-                stats = cache.device_stats()
-                return {
-                    d
-                    for d, add in need.items()
-                    if stats[d]["used_bytes"] - freed.get(d, 0) + add
-                    > budget
-                }
-
+            # the blind per-shard LRU in DeviceShardCache.put.
             victims: list[int] = []
-            freed: dict[int, int] = {}
-            # one locked footprint snapshot for the whole victim scan
-            foot = cache.device_bytes_by_vid()
+            freed = 0
             for v in sorted(
                 (v for v in hbm_residents() if age_ok(v)),
                 key=lambda v: (heat.get(v, 0.0), v),
@@ -652,17 +606,10 @@ class TieringController:
                     heat.get(v, 0.0), 1e-9
                 ) or len(victims) >= MAX_SWAP_VICTIMS:
                     break  # remaining victims are hotter still / capped
-                # freed = bytes the victim ACTUALLY holds per device —
-                # a partially resident victim frees less than a full
-                # pin's estimate, and bytes freed on an idle chip do
-                # not make room where the candidate lands
-                held = foot.get(v, {})
-                tight = still_tight(freed)
-                if not tight & held.keys():
-                    continue  # holds nothing where room is still needed
                 victims.append(v)
-                for d, b in held.items():
-                    freed[d] = freed.get(d, 0) + b
+                # the bytes the victim actually holds: a partially
+                # resident victim frees less than a full pin's estimate
+                freed += cache.pin_bytes(cache.resident_count(v), meta[v][1])
                 if self._fits(cache, need, freed):
                     break
             if not victims or not self._fits(cache, need, freed):

@@ -1101,7 +1101,7 @@ def test_stream_encoder_rows_match_plain_on_two_threads(cuda_device):
                 buf = arena.stage(timeout_s=1)
                 assert arena._tensors[0].is_pinned()
                 buf[:] = rows[i]
-                got[i] = enc.encode(arena.seal(buf))
+                got[i] = enc.encode(buf)
                 arena.reclaim(buf)
         except BaseException as e:  # noqa: BLE001 — collected
             errors.append(e)
@@ -1127,9 +1127,9 @@ def test_stream_encoder_rows_match_plain_on_two_threads(cuda_device):
 
 
 def test_stream_encoder_slot_rule_on_card(cuda_device):
-    """A slot scribbled on right after reclaim() leaves the parity that
-    encode() returned for it untouched: encode waited on the row's event,
-    so the H2D copy that read the slot had completed."""
+    """When encode() returns, the row's event has completed and its
+    worker's stream is idle: the H2D copy that read the slot is done, so
+    the slot may go back to the pool for the next row."""
     from seaweedfs_tpu_torch.ops import rs_ingest
 
     enc = rs_ingest.StreamEncoder("cuda")
@@ -1139,10 +1139,11 @@ def test_stream_encoder_slot_rule_on_card(cuda_device):
     for _ in range(3):
         buf = arena.stage(timeout_s=1)
         buf[:] = row
-        parity = enc.encode(arena.seal(buf))
+        parity = enc.encode(buf)
+        lane = enc._local.lane
+        assert lane.done.query(), "encode returned before the row's event"
+        assert lane.stream.query(), "work still queued on the worker's stream"
         arena.reclaim(buf)
-        buf[:] = 0xFF  # the next writer scribbles on the freed slot
-        torch.cuda.synchronize()
         assert np.array_equal(parity, want)
 
 

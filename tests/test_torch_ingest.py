@@ -532,16 +532,17 @@ def test_slot_reclaimed_only_after_parity_written(tmp_path, small_geometry):
         events.append(("reclaim", slot_row.pop(id(buf))))
         reclaim(buf)
 
-    orig_seal = p.arena.seal
+    stage = p.arena.stage
 
-    def traced_seal(buf):
+    def traced_stage(timeout_s=None):
+        buf = stage(timeout_s)
         assert id(buf) not in slot_row, "a slot was staged twice"
         slot_row[id(buf)] = p.staged_rows
         out_slot[p.staged_rows] = id(buf)
-        return orig_seal(buf)
+        return buf
 
-    p._write_parity, p.arena.reclaim, p.arena.seal = (
-        traced_write, traced_reclaim, traced_seal)
+    p._write_parity, p.arena.reclaim, p.arena.stage = (
+        traced_write, traced_reclaim, traced_stage)
     rng = np.random.default_rng(9)
     for _ in range(5):
         _append(dat, ROW, rng)
