@@ -81,7 +81,7 @@ volume:
   8. ingest      an in-process volume server (-ec.backend cuda, built
                  from the volume command's flags) takes 32 writers in 4
                  processes POSTing seeded 4 KB-1 MB needles until its .dat
-                 holds 384 MiB, each completed 10 MiB stripe row encoded on
+                 holds 256 MiB, each completed 10 MiB stripe row encoded on
                  the card (K1) from a pinned arena slot as it fills; three
                  turns on the same needles: -ec.ingest.fsync, then
                  ec_generate seals from the stream (every row on the card,
@@ -98,6 +98,35 @@ volume:
                  until it swaps back; rounds of reads/s, p50/p99, routes,
                  K2-K5 launches and the tier series; the moves' latency and
                  the pins' GB/s; 0 native routes on a promoted volume
+  9. cluster     the cluster as users run it: `python3 -m
+                 seaweedfs_tpu_torch master`, volume servers started with
+                 `volume -mserver ... -ec.backend cuda`, and the shell as
+                 `python3 -m seaweedfs_tpu_torch shell -c ...`; every wait
+                 is on the state the master reports (VolumeList,
+                 LookupEcVolume) or a server's /status.
+                 9a, the main 11 GiB volume at full width by hard links (no
+                 byte written): server A (a cache for 14 shards) mounts all
+                 14 over the RPC plane and pins them; `ec.scrub` runs B5
+                 there (0 mismatches); shard 0 moves to server B (no
+                 cache); GETs on A of every needle with bytes on shard 0
+                 plus 400 (K2-K5 on the card, 0 remote fetches); GETs on B
+                 of as many needles wholly on shards 1-9 (deep in the
+                 large-block row, in the small-block rows, across block
+                 boundaries), over VolumeEcShardRead from A, in sequence
+                 and with 64 clients; shard 5 unmounted on A, GETs on B of
+                 every needle with bytes on shard 5 (shard 0 local and 9
+                 remote survivors through the hedged gather, K1's host
+                 degraded read); p50/p99, reads/s, remote fetches and
+                 bytes a read, hedge and retry counters.
+                 9b, the verbs that write, on a 256 MiB volume: three
+                 servers; /vol/grow of collection ec9; 32 writers assign
+                 and POST the 4 KB-1 MB mix; the .dat hard-linked as the
+                 oracle; `lock; ec.encode` (K1 on the holder, spread), every
+                 shard sha256-equal to the native codec's encode hashed in
+                 memory; GETs; the server with the fewest shards killed;
+                 GETs (remote survivors, K1); `ec.rebuild -force`,
+                 `ec.balance -force` (shards still equal), `ec.decode` (the
+                 .dat equal to the oracle); each verb's wall
 
 Every phase is fatal.  Prints one line per phase, a {"kernels": [...]}
 line, the nvidia-smi name/power-limit line, and as the last line
@@ -1733,12 +1762,14 @@ def _proc_cpu_s(pid: int) -> float:
 
 
 @contextlib.contextmanager
-def _volume_server(args: list, log_path: str, env: dict | None = None):
-    """`python3 -m seaweedfs_tpu_torch volume ARGS` as an operator starts
-    it (with `env` added to its environment), its output in `log_path`:
-    yields the process; on an error in the block the server is killed and
-    its log's tail printed; it is stopped on the way out either way."""
-    cmd = [sys.executable, "-m", "seaweedfs_tpu_torch", "volume", *args]
+def _volume_server(args: list, log_path: str, env: dict | None = None,
+                   command: str = "volume"):
+    """`python3 -m seaweedfs_tpu_torch volume ARGS` (or another `command`)
+    as an operator starts it (with `env` added to its environment), its
+    output in `log_path`: yields the process; on an error in the block the
+    server is killed and its log's tail printed; it is stopped on the way
+    out either way."""
+    cmd = [sys.executable, "-m", "seaweedfs_tpu_torch", command, *args]
     with open(log_path, "wb") as logf:
         proc = subprocess.Popen(cmd, cwd=HERE, stdout=logf,
                                 stderr=subprocess.STDOUT,
@@ -2457,14 +2488,14 @@ def phase_decode(workdir: str, vol: dict) -> None:
 
 # --------------------------------------------------------------- phase 8
 
-# the .dat each ingest turn streams.  8 GiB would be 819 stripe rows; a
-# call may write 45 GiB to the H100 machine's disk, deleted files
+# the .dat each ingest turn streams (25 stripe rows).  8 GiB would be 819
+# rows; a call may write 45 GiB to the H100 machine's disk, deleted files
 # counted, and the main path writes 3.8x its 11 GiB volume (about 42
-# GiB).  This phase writes 4.8x its .dat: the fsync turn's .dat, parity
-# scratch and data shards (2.4x), the default turn's .dat and scratch
-# (1.4x), the turn without the plane's .dat; the offline encodes it is
-# held against are hashed in memory
-INGEST_DAT_BYTES = 384 << 20
+# GiB), phase 9 about 1.5 GiB.  This phase writes 4.8x its .dat: the
+# fsync turn's .dat, parity scratch and data shards (2.4x), the default
+# turn's .dat and scratch (1.4x), the turn without the plane's .dat; the
+# offline encodes it is held against are hashed in memory
+INGEST_DAT_BYTES = 256 << 20
 INGEST_VID = 7
 INGEST_WRITERS = 32
 INGEST_WRITER_PROCS = 4
@@ -3098,6 +3129,573 @@ def phase_tiering(torch, workdir: str, vol: dict, deg: dict, seed: int) -> dict:
     return {"launches": launches, "moves": moves}
 
 
+# --------------------------------------------------------------- phase 9
+
+# 9a: server A's cache holds all 14 of vid 1's shards (15.75 GiB padded)
+CLUSTER_CACHE_MB = SCRUB_BUDGET >> 20
+# reads of step 5's concurrent pass (64 clients, SERVE_SECONDS at most)
+CLUSTER_CONCURRENT_READS = 4000
+# 9b: the volume the shell verbs encode, spread, rebuild, balance and
+# decode.  Its writes come on top of the main path's (a call may write 45
+# GiB, deleted files counted): about 6x this .dat (§4 of PERF.md)
+CLUSTER_DAT_BYTES = 256 << 20
+CLUSTER_COLLECTION = "ec9"
+CLUSTER_WRITERS = 32
+CLUSTER_READERS = 32
+CLUSTER_WAIT_S = 180.0
+
+
+class _Cluster:
+    """The processes of phase 9, as users start them, and the calls the
+    phase makes to them: the master's state over its RPC plane, a volume
+    server's rpcs, its /status and /metrics over HTTP, and the shell."""
+
+    def __init__(self, workdir: str, stack: contextlib.ExitStack):
+        from seaweedfs_tpu_torch.pb import (
+            Stub, master_pb2, sync_channel_cached, volume_server_pb2)
+
+        self.pb = master_pb2
+        self.vpb = volume_server_pb2
+        self._stub = Stub
+        self._chan = sync_channel_cached
+        self.dir = workdir
+        self.stack = stack
+        http, grpc = _free_port(), _free_port()
+        self.master_http = http
+        self.master = f"127.0.0.1:{http}.{grpc}"
+        self.procs: dict = {}
+        self.ports: dict = {}
+        self.killed: set = set()
+        self._start("master", "master", ["-port", str(http), "-port.grpc",
+                                          str(grpc), "-pulseSeconds", "1"])
+        self.mstub = Stub(sync_channel_cached(f"127.0.0.1:{grpc}"),
+                          master_pb2, "Seaweed")
+        self.wait("the master", lambda: self._try(self.nodes) is not None)
+
+    def _start(self, name: str, command: str, args: list) -> None:
+        log_path = os.path.join(self.dir, f"{name}.log")
+        self.procs[name] = self.stack.enter_context(
+            _volume_server(args, log_path, command=command))
+
+    def start_servers(self, specs: dict) -> None:
+        """{name: extra flags}: volume servers started together, then waited
+        on until the master lists each."""
+        for name, flags in specs.items():
+            http, grpc = _free_port(), _free_port()
+            self.ports[name] = (http, grpc)
+            d = os.path.join(self.dir, name)
+            os.makedirs(d)
+            self._start(name, "volume", [
+                "-dir", d, "-port", str(http), "-port.grpc", str(grpc),
+                "-mserver", self.master, "-ec.backend", "cuda",
+                "-pulseSeconds", "1", *flags])
+        want = {self.url(n) for n in specs}
+        self.wait(f"servers {sorted(specs)} registered",
+                  lambda: want <= set(self._try(self.nodes) or ()))
+
+    def url(self, name: str) -> str:
+        return f"127.0.0.1:{self.ports[name][0]}"
+
+    def vstub(self, name: str):
+        return self._stub(self._chan(f"127.0.0.1:{self.ports[name][1]}"),
+                          self.vpb, "VolumeServer")
+
+    @staticmethod
+    def _try(fn):
+        from seaweedfs_tpu_torch.pb import RpcError
+
+        try:
+            return fn()
+        except (RpcError, OSError):
+            return None
+
+    def wait(self, what: str, pred, timeout: float = CLUSTER_WAIT_S) -> float:
+        """Poll `pred` until true: -> seconds waited.  A process that exits
+        meanwhile is fatal."""
+        t0 = time.perf_counter()
+        while not pred():
+            for name, proc in self.procs.items():
+                if proc.poll() is not None and name not in self.killed:
+                    raise AssertionError(f"{name} exited ({proc.returncode})")
+            if time.perf_counter() - t0 > timeout:
+                raise AssertionError(f"timed out waiting for {what}")
+            time.sleep(0.1)
+        return time.perf_counter() - t0
+
+    def nodes(self) -> list:
+        """The volume servers the master lists (VolumeList)."""
+        info = json.loads(self.mstub.VolumeList(
+            self.pb.VolumeListRequest(), timeout=10).topology_info_json)
+        return [n["id"] for dc in info["data_centers"]
+                for r in dc["racks"] for n in r["nodes"]]
+
+    def shards(self, vid: int) -> dict:
+        """shard id -> server urls, as the master's LookupEcVolume says."""
+        from seaweedfs_tpu_torch.pb import RpcError, StatusCode
+
+        try:
+            resp = self.mstub.LookupEcVolume(
+                self.pb.LookupEcVolumeRequest(volume_id=vid), timeout=10)
+        except RpcError as e:
+            if e.code() == StatusCode.NOT_FOUND:
+                return {}
+            raise
+        return {e.shard_id: sorted(l.url for l in e.locations)
+                for e in resp.shard_id_locations}
+
+    def shell(self, script: str) -> tuple[str, float]:
+        """`python3 -m seaweedfs_tpu_torch shell -c SCRIPT`: -> (its output,
+        wall s).  A failing command is fatal."""
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "seaweedfs_tpu_torch", "shell", "-master",
+             self.master, "-c", script],
+            cwd=HERE, capture_output=True, text=True, timeout=600)
+        wall = time.perf_counter() - t0
+        if proc.returncode != 0:
+            raise AssertionError(f"shell {script!r} failed: {proc.stdout}"
+                                 f"{proc.stderr[-4000:]}")
+        return proc.stdout, wall
+
+    def kill(self, name: str) -> None:
+        self.killed.add(name)
+        proc = self.procs[name]
+        proc.kill()
+        proc.wait(30)
+
+
+def _k_counts(m: dict) -> dict:
+    """A server's kernel launches, from one _scrape."""
+    kern = 'SeaweedFS_volumeServer_ec_kernel_launches_total{kernel="%s"}'
+    return {k: m.get(kern % k, 0.0) for k in (
+        "gf2_matmul", "gf2_matmul_small", "fused_reconstruct",
+        "fused_reconstruct_blockdiag", "scrub")}
+
+
+def _peer_counts(m: dict) -> dict:
+    """The remote shard reader's and the fault policy's series."""
+    rr = 'SeaweedFS_volumeServer_ec_remote_shard_reads_total{result="%s"}'
+    route = 'SeaweedFS_volumeServer_ec_read_route_total{route="%s"}'
+    return {
+        "remote_ok": m.get(rr % "ok", 0.0),
+        "remote_miss": m.get(rr % "miss", 0.0),
+        "remote_bytes": m.get(
+            "SeaweedFS_volumeServer_ec_remote_shard_bytes_total", 0.0),
+        "hedge_sent": m.get("SeaweedFS_volumeServer_ec_hedge_sent_total", 0.0),
+        "hedge_wins": m.get("SeaweedFS_volumeServer_ec_hedge_wins_total", 0.0),
+        "hedge_cancelled": m.get(
+            "SeaweedFS_volumeServer_ec_hedge_cancelled_total", 0.0),
+        "retry_budget_exhausted": m.get(
+            "SeaweedFS_volumeServer_ec_retry_budget_exhausted_total", 0.0),
+        "deadline_exceeded": m.get(
+            "SeaweedFS_volumeServer_ec_deadline_exceeded_total", 0.0),
+        "batched": m.get(route % "batched", 0.0),
+        "native": m.get(route % "native", 0.0),
+        **_k_counts(m),
+    }
+
+
+def _delta(before: dict, after: dict) -> dict:
+    return {k: after[k] - before[k] for k in after}
+
+
+async def _get_each(port: int, items: list, n_clients: int) -> tuple[list, int]:
+    """GET every (path, sha256 digest) of `items` once, over `n_clients`
+    keep-alive clients: -> (seconds per read, body bytes).  Every body is
+    byte-verified."""
+    from seaweedfs_tpu_torch.server.http import Client
+
+    lat: list = []
+    nbytes = [0]
+    queue = list(reversed(items))
+
+    async def client() -> None:
+        c = Client("127.0.0.1", port)
+        try:
+            while queue:
+                path, digest = queue.pop()
+                t0 = time.perf_counter()
+                status, _, body = await c.request("GET", path)
+                lat.append(time.perf_counter() - t0)
+                if status != 200 or hashlib.sha256(body).digest() != digest:
+                    raise AssertionError(f"{path}: HTTP {status}, {len(body)} "
+                                         "bytes differ from the written needle")
+                nbytes[0] += len(body)
+        finally:
+            await c.close()
+
+    await asyncio.gather(*(client() for _ in range(n_clients)))
+    return lat, nbytes[0]
+
+
+def _read_row(lat: list, wall: float, d: dict, nbytes: int) -> dict:
+    n = len(lat)
+    return {"reads": n, "p50_ms": _pct(lat, 50), "p99_ms": _pct(lat, 99),
+            "reads_per_s": n / wall, "MBps": nbytes / wall / 1e6,
+            "remote_fetches_per_read": d["remote_ok"] / n,
+            "remote_bytes_per_read": d["remote_bytes"] / n,
+            "remote_misses": d["remote_miss"],
+            "hedges": {k: d[k] for k in ("hedge_sent", "hedge_wins",
+                                         "hedge_cancelled")},
+            "retry_budget_exhausted": d["retry_budget_exhausted"],
+            "deadline_exceeded": d["deadline_exceeded"],
+            "routes": {"batched": d["batched"], "native": d["native"]},
+            "launches": {k: d[k] for k in _k_counts({})}}
+
+
+def _timed_gets(port: int, items: list, n_clients: int, scrape_port: int):
+    """-> (row, counter delta) of one pass of GETs, counters read on the
+    server that answered (`scrape_port`)."""
+    before = _peer_counts(_scrape(scrape_port))
+    t0 = time.perf_counter()
+    lat, nbytes = asyncio.run(_get_each(port, items, n_clients))
+    wall = time.perf_counter() - t0
+    d = _delta(before, _peer_counts(_scrape(scrape_port)))
+    return _read_row(lat, wall, d, nbytes), d
+
+
+def _cluster_full_width(cl: _Cluster, workdir: str, vol: dict, deg: dict,
+                        seed: int) -> dict:
+    """9a: the main 11 GiB volume at full width, by hard links (no byte
+    written).  A pins all 14 shards and ec.scrub runs B5 there; shard 0
+    moves to B; A serves shard 0's needles from the card (K2-K5, no remote
+    hop); B serves needles of shards 1-9 from A over VolumeEcShardRead, in
+    sequence and with 64 clients; with shard 5 gone too, B gathers shard 0
+    and 9 remote survivors through the hedged gather and reconstructs on
+    the card (K1's host degraded read)."""
+    import numpy as np
+
+    from seaweedfs_tpu_torch.storage import ec, needle as needle_mod
+    from seaweedfs_tpu_torch.storage.ec import layout
+    from seaweedfs_tpu_torch.storage import types as t
+
+    cl.start_servers({"A": ["-ec.deviceCacheMB", str(CLUSTER_CACHE_MB)],
+                      "B": ["-ec.deviceCacheMB", "0"]})
+    a_port, b_port = cl.ports["A"][0], cl.ports["B"][0]
+    base = os.path.join(workdir, "1")
+    sidecars = [x for x in (".ecx", ".ecj", ".vif") if os.path.exists(base + x)]
+
+    def link(name: str, exts: list) -> None:
+        for ext in exts:
+            os.link(base + ext, os.path.join(cl.dir, name, "1" + ext))
+
+    link("A", [ec.to_ext(s) for s in range(14)] + sidecars)
+    t0 = time.perf_counter()
+    cl.vstub("A").VolumeEcShardsMount(cl.vpb.VolumeEcShardsMountRequest(
+        volume_id=1, shard_ids=list(range(14))), timeout=60)
+
+    def resident(n):
+        ecv = _get_json(a_port, "/status")["EcVolumes"]
+        return ecv and ecv[0]["serving"] and len(ecv[0]["resident"]) == n
+
+    cl.wait("A's 14 shards pinned", lambda: resident(14))
+    pin_s = time.perf_counter() - t0
+    cl.wait("the master lists A's 14 shards",
+            lambda: cl.shards(1) == {s: [cl.url("A")] for s in range(14)})
+    # 2. the shell's ec.scrub: one VolumeEcShardsVerify(all_resident) on A
+    k0 = _k_counts(_scrape(a_port))
+    scrub_out, scrub_wall = cl.shell("ec.scrub")
+    scrub_launches = _k_counts(_scrape(a_port))["scrub"] - k0["scrub"]
+    if "ec volume 1: OK" not in scrub_out or not scrub_launches:
+        raise AssertionError(f"ec.scrub: {scrub_out!r}, {scrub_launches} "
+                             "launches")
+    # 3. shard 0 moves to B: unmounted on A, linked and mounted on B
+    cl.vstub("A").VolumeEcShardsUnmount(cl.vpb.VolumeEcShardsUnmountRequest(
+        volume_id=1, shard_ids=[0]), timeout=60)
+    link("B", [ec.to_ext(0)] + sidecars)
+    cl.vstub("B").VolumeEcShardsMount(cl.vpb.VolumeEcShardsMountRequest(
+        volume_id=1, shard_ids=[0]), timeout=60)
+    want = {s: [cl.url("B") if s == 0 else cl.url("A")] for s in range(14)}
+    cl.wait("the master lists shard 0 on B, 1-13 on A",
+            lambda: cl.shards(1) == want)
+    cl.wait("A's 13 shards resident", lambda: resident(13))
+
+    deleted = set(deg["deleted"])
+    dat_size = layout.DATA_SHARDS * os.path.getsize(base + ec.to_ext(1))
+    by_shard: dict = {}
+    spans: dict = {}
+    for nid, (off, body, _, _) in vol["needles"].items():
+        if nid in deleted:
+            continue
+        ivs = layout.locate_data(
+            dat_size, off, needle_mod.actual_size(body, needle_mod.CURRENT_VERSION))
+        sids = {iv.to_shard_and_offset()[0] for iv in ivs}
+        spans[nid] = (ivs, sids)
+        for s in sids:
+            by_shard.setdefault(s, []).append(nid)
+    rng = np.random.default_rng(seed + 9)
+    shard0 = sorted(by_shard[0])
+    others = [n for n in vol["needles"] if n not in deleted and 0 not in spans[n][1]]
+    seq4 = shard0 + rng.choice(others, size=min(SERVE_EXTRA, len(others)),
+                               replace=False).tolist()
+
+    def item(nid):
+        _, _, digest, cookie = vol["needles"][nid]
+        return "/" + t.format_fid(1, nid, cookie), digest
+
+    # 4. A: shard 0 reconstructed from the 13 resident shards, no remote hop
+    row4, d4 = _timed_gets(a_port, [item(n) for n in seq4], 1, a_port)
+    if d4["remote_ok"] or d4["remote_miss"] or d4["native"] \
+            or not d4["fused_reconstruct"]:
+        raise AssertionError(f"A's shard-0 reads: {d4}")
+    # 5. B: needles wholly on shards 1-9, deep in the large-block row, in
+    # the small-block rows, and across block boundaries
+    remote = [n for n, (ivs, sids) in spans.items()
+              if sids and sids <= set(range(1, 10))]
+    multi = [n for n in remote if len(spans[n][0]) > 1]
+    deep = [n for n in remote if spans[n][0][0].is_large_block
+            and spans[n][0][0].inner_block_offset >= 512 << 20]
+    small = [n for n in remote if not spans[n][0][0].is_large_block]
+    want_n = len(seq4)
+    pick = multi[:want_n]
+    for pool_, share in ((deep, 2), (small, 1), (remote, 1)):
+        rest = sorted(set(pool_) - set(pick))
+        k = min(len(rest), (want_n - len(pick)) // share)
+        if k:
+            pick += rng.choice(rest, size=k, replace=False).tolist()
+    seq5 = pick
+    row5, d5 = _timed_gets(b_port, [item(n) for n in seq5], 1, b_port)
+    if d5["remote_ok"] < len(seq5) or d5["remote_miss"]:
+        raise AssertionError(f"B's remote reads: {d5}")
+    before = _peer_counts(_scrape(b_port))
+    con = _serve_concurrent(b_port, [
+        (n, vol["needles"][n][3], vol["needles"][n][2]) for n in seq5],
+        seed + 9, reads=CLUSTER_CONCURRENT_READS)
+    d5c = _delta(before, _peer_counts(_scrape(b_port)))
+    row5c = _read_row(con["lat"], con["wall"], d5c, con["bytes"])
+    row5c.update(clients=SERVE_CLIENTS, client_procs=SERVE_CLIENT_PROCS)
+    # 6. shard 5 gone too: B's survivor gather (shard 0 local + 9 remote)
+    cl.vstub("A").VolumeEcShardsUnmount(cl.vpb.VolumeEcShardsUnmountRequest(
+        volume_id=1, shard_ids=[5]), timeout=60)
+    cl.wait("the master drops shard 5", lambda: 5 not in cl.shards(1))
+    seq6 = sorted(by_shard[5])
+    row6, d6 = _timed_gets(b_port, [item(n) for n in seq6], SERVE_CLIENTS,
+                           b_port)
+    k1_6 = d6["gf2_matmul"] + d6["gf2_matmul_small"]
+    if not k1_6 or d6["remote_ok"] < 9 * len(seq6):
+        raise AssertionError(f"B's survivor gather: {d6}")
+    a_final, b_final = _k_counts(_scrape(a_port)), _k_counts(_scrape(b_port))
+    out = {"pin_s": pin_s, "scrub_wall_s": scrub_wall,
+           "scrub_launches": scrub_launches,
+           "step4_resident_on_A": row4, "step5_remote_on_B": row5,
+           "step5_remote_on_B_64_clients": row5c,
+           "step6_gather_on_B": row6,
+           "launches": {"A": a_final, "B": b_final}}
+    log("cluster_full_width", needles=len(vol["needles"]),
+        shards={"A": "1-13 (0 to B; 5 unmounted at step 6)", "B": "0"},
+        scrub_shell=scrub_out.strip().splitlines()[-1], **out)
+    return out
+
+
+async def _cluster_writes(master: str, pool: bytes, needles: list,
+                          n_writers: int) -> tuple[list, list]:
+    """`n_writers` writers: each assigns a fid from the master
+    (collection ec9) and POSTs its next needle on a keep-alive connection
+    to the assigned server, until all are written: -> ([(fid, url,
+    sha256 digest)], ack seconds per write)."""
+    from seaweedfs_tpu_torch.operation import assign, upload_data
+    from seaweedfs_tpu_torch.server.http import Client
+
+    queue = list(reversed(needles))
+    written, lat = [], []
+
+    async def writer(i: int) -> None:
+        clients: dict = {}
+        try:
+            while queue:
+                _, _, off, size = queue.pop()
+                data = pool[off:off + size]
+                t0 = time.perf_counter()
+                a = await assign(master, collection=CLUSTER_COLLECTION)
+                if a.url not in clients:
+                    host, port = a.url.rsplit(":", 1)
+                    clients[a.url] = Client(host, int(port))
+                await upload_data(f"http://{a.url}/{a.fid}", data,
+                                  f"w{i}-{len(written)}.bin",
+                                  client=clients[a.url])
+                lat.append(time.perf_counter() - t0)
+                written.append((a.fid, a.url, hashlib.sha256(data).digest()))
+        finally:
+            for c in clients.values():
+                await c.close()
+
+    await asyncio.gather(*(writer(i) for i in range(n_writers)))
+    from seaweedfs_tpu_torch.pb import close_all_channels
+
+    await close_all_channels()
+    return written, lat
+
+
+def _cluster_shell_verbs(cl: _Cluster, seed: int) -> dict:
+    """9b: the shell's verbs that write, on a fresh 256 MiB volume of
+    collection ec9 over three servers (C, D, E, no cache): writes through
+    the master's assign, `ec.encode` (K1 on the holder, then the spread),
+    GETs, the loss of the server with the fewest shards, GETs from the
+    survivors (remote survivors, K1), `ec.rebuild -force`, `ec.balance
+    -force`, `ec.decode`.  Every shard is held against the native codec's
+    encode of the same .dat (hashed in memory), the decoded .dat against
+    a hard link of the original."""
+    import urllib.request
+
+    from seaweedfs_tpu_torch.storage import ec
+
+    names = ("C", "D", "E")
+    cl.start_servers({n: [] for n in names})
+    with urllib.request.urlopen(
+            f"http://127.0.0.1:{cl.master_http}/vol/grow?count=1"
+            f"&collection={CLUSTER_COLLECTION}", timeout=60) as r:
+        vid = json.loads(r.read())["vids"][0]
+    needles = _ingest_needles(seed + 90, CLUSTER_DAT_BYTES)
+    pool = _ingest_pool(seed + 90)
+    t0 = time.perf_counter()
+    written, ack = asyncio.run(_cluster_writes(cl.master, pool, needles,
+                                               CLUSTER_WRITERS))
+    write_wall = time.perf_counter() - t0
+    urls = {url for _, url, _ in written}
+    holder = next(n for n in names if cl.url(n) in urls)
+    if len(urls) != 1 or any(not f.startswith(f"{vid},") for f, _, _ in written):
+        raise AssertionError(f"writes left volume {vid}: {sorted(urls)}")
+    stem = f"{CLUSTER_COLLECTION}_{vid}"
+    dat = os.path.join(cl.dir, holder, stem + ".dat")
+    dat_bytes = os.path.getsize(dat)
+    if dat_bytes < CLUSTER_DAT_BYTES:
+        raise AssertionError(f"the .dat holds {dat_bytes} bytes")
+    oracle = os.path.join(cl.dir, "oracle.dat")
+    os.link(dat, oracle)  # the .dat's bytes, kept past the encode's delete
+    native, native_s = _native_shard_hashes(oracle)
+    dat_sha = sha256_file(oracle)
+    writes = {"needles": len(written), "dat_bytes": dat_bytes,
+              "writers": CLUSTER_WRITERS, "wall_s": write_wall,
+              "writes_per_s": len(written) / write_wall,
+              "MBps": sum(n[3] for n in needles) / write_wall / 1e6,
+              "ack_p50_ms": _pct(ack, 50), "ack_p99_ms": _pct(ack, 99)}
+
+    def shard_files() -> dict:
+        """shard id -> [(server, sha256)] of every .ecNN on disk."""
+        out: dict = {}
+        for n in names:
+            if n in cl.killed:
+                continue
+            for sid in range(14):
+                path = os.path.join(cl.dir, n, stem + ec.to_ext(sid))
+                if os.path.exists(path):
+                    out.setdefault(sid, []).append((n, sha256_file(path)))
+        return out
+
+    def held_once() -> bool:
+        locs = cl.shards(vid)
+        return sorted(locs) == list(range(14)) and all(
+            len(v) == 1 for v in locs.values())
+
+    def placement() -> dict:
+        by_url = {cl.url(n): n for n in names}
+        return {sid: by_url[u[0]] for sid, u in sorted(cl.shards(vid).items())}
+
+    def check_shards(what: str) -> None:
+        files = shard_files()
+        for sid in range(14):
+            got = files.get(sid, [])
+            if len(got) != 1 or got[0][1] != native[sid]:
+                raise AssertionError(f"{what}: shard {sid} on disk {got}, "
+                                     "not the native codec's bytes")
+
+    def reads(reader: str) -> dict:
+        items = [("/" + fid, digest) for fid, _, digest in written]
+        row, _ = _timed_gets(cl.ports[reader][0], items, CLUSTER_READERS,
+                             cl.ports[reader][0])
+        row["server"] = reader
+        return row
+
+    verbs = {}
+    k_holder0 = _k_counts(_scrape(cl.ports[holder][0]))
+    _, verbs["ec.encode"] = cl.shell(
+        f"lock; ec.encode -volumeId {vid}; unlock")
+    cl.wait("the master lists 14 spread shards", held_once)
+    encode_k1 = {k: v - k_holder0[k] for k, v in
+                 _k_counts(_scrape(cl.ports[holder][0])).items()}
+    if not encode_k1["gf2_matmul"] + encode_k1["gf2_matmul_small"]:
+        raise AssertionError(f"ec.encode launched no K1 on {holder}")
+    check_shards("ec.encode")
+    spread = placement()
+    counts = {n: sum(1 for v in spread.values() if v == n) for n in names}
+    most = max(names, key=lambda n: counts[n])
+    read_spread = reads(most)
+    victim = min(names, key=lambda n: counts[n])
+    if not 0 < counts[victim] <= 4:
+        raise AssertionError(f"placement after ec.encode: {spread}")
+    finals = {victim: _k_counts(_scrape(cl.ports[victim][0]))}
+    cl.kill(victim)
+    cl.wait(f"the master drops {victim}",
+            lambda: cl.url(victim) not in (cl._try(cl.nodes) or [cl.url(victim)]))
+    survivors = [n for n in names if n != victim]
+    read_lost = reads(most)
+    if not (read_lost["launches"]["gf2_matmul"]
+            + read_lost["launches"]["gf2_matmul_small"]):
+        raise AssertionError("reads after the loss launched no K1")
+    k_before = {n: _k_counts(_scrape(cl.ports[n][0])) for n in survivors}
+    _, verbs["ec.rebuild"] = cl.shell("lock; ec.rebuild -force; unlock")
+    cl.wait("the master lists 14 shards again", held_once)
+    check_shards("ec.rebuild")
+    rebuild_k1 = sum(
+        _k_counts(_scrape(cl.ports[n][0]))[k] - k_before[n][k]
+        for n in survivors for k in ("gf2_matmul", "gf2_matmul_small"))
+    if not rebuild_k1:
+        raise AssertionError("ec.rebuild launched no K1")
+    rebuilt = placement()
+    _, verbs["ec.balance"] = cl.shell("lock; ec.balance -force; unlock")
+    cl.wait("the master lists 14 balanced shards", held_once)
+    check_shards("ec.balance")
+    balanced = placement()
+    _, verbs["ec.decode"] = cl.shell(f"lock; ec.decode -volumeId {vid}; unlock")
+    cl.wait("the master drops the EC shards", lambda: not cl.shards(vid))
+    decoded = [n for n in survivors
+               if os.path.exists(os.path.join(cl.dir, n, stem + ".dat"))]
+    if len(decoded) != 1 or sha256_file(os.path.join(
+            cl.dir, decoded[0], stem + ".dat")) != dat_sha:
+        raise AssertionError(f"decoded .dat on {decoded} differs from the "
+                             "original")
+    for n in survivors:
+        finals[n] = _k_counts(_scrape(cl.ports[n][0]))
+    out = {"vid": vid, "writes": writes, "native_encode_in_memory_s": native_s,
+           "verb_wall_s": verbs, "holder": holder, "victim": victim,
+           "placement": {"encode": spread, "rebuild": rebuilt,
+                         "balance": balanced},
+           "reads_spread": read_spread, "reads_after_loss": read_lost,
+           "k1": {"encode": encode_k1, "rebuild": rebuild_k1},
+           "shards_equal_native": True, "decoded_dat_equal": True,
+           "launches": finals}
+    log("cluster_shell_verbs", **out, reduced={
+        "dat_gib": [FULL_VOLUME_GIB, CLUSTER_DAT_BYTES / (1 << 30)],
+        "why": "the write budget: a call may write 45 GiB, deleted files "
+               "counted; the main path writes 3.8x its 11 GiB volume and "
+               "the verbs about 6x this .dat"})
+    return out
+
+
+def phase_cluster(torch, workdir: str, vol: dict, deg: dict, seed: int) -> dict:
+    """The cluster as users run it: `python3 -m seaweedfs_tpu_torch master`,
+    volume servers started with `volume -mserver ... -ec.backend cuda` and
+    the shell as `python3 -m seaweedfs_tpu_torch shell`, every wait on the
+    state the master reports (VolumeList, LookupEcVolume) or a server's
+    /status.  -> 9a's and 9b's rows and every server's kernel launches."""
+    torch.cuda.empty_cache()
+    cdir = os.path.join(workdir, "cluster")
+    os.makedirs(cdir)
+    try:
+        with contextlib.ExitStack() as stack:
+            cl = _Cluster(cdir, stack)
+            full = _cluster_full_width(cl, workdir, vol, deg, seed)
+            for name in ("A", "B"):  # their HBM and page cache go to 9b
+                cl.kill(name)
+            verbs = _cluster_shell_verbs(cl, seed)
+    finally:
+        shutil.rmtree(cdir, ignore_errors=True)
+    launches = {k: sum(c[k] for part in (full, verbs)
+                       for c in part["launches"].values())
+                for k in _k_counts({})}
+    return {"full": full, "verbs": verbs, "launches": launches}
+
+
 # ------------------------------------------------------------------ main
 
 
@@ -3160,6 +3758,8 @@ def main() -> int:
         ing = phase_ingest(torch, workdir, args.seed)
         phase = "tiering"
         tier = phase_tiering(torch, workdir, vol, deg, args.seed)
+        phase = "cluster"
+        clu = phase_cluster(torch, workdir, vol, deg, args.seed)
     except Exception:  # noqa: BLE001 — every phase is fatal
         traceback.print_exc()
         print(f"chip_smoke: FAILED in phase {phase}", file=sys.stderr)
@@ -3167,9 +3767,12 @@ def main() -> int:
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
 
+    cluster_k = clu["launches"]
     main_paths = {**enc["load_paths"], "degraded_read": deg["load_paths"],
                   "rebuild": reb["load_paths"],
-                  "ingest": ing["launches"]}
+                  "ingest": ing["launches"],
+                  "cluster": {k: cluster_k[k] for k in (
+                      "gf2_matmul", "gf2_matmul_small")}}
     launches = {name: sum(p[name] for p in main_paths.values())
                 for name in ("gf2_matmul", "gf2_matmul_small")}
     if not all(launches.values()):
@@ -3179,6 +3782,11 @@ def main() -> int:
     if not ing["launches"]["gf2_matmul"] or not tier["launches"]:
         print(f"chip_smoke: the ingest or tiering phase launched no kernel: "
               f"{ing['launches']}, {tier['launches']}", file=sys.stderr)
+        return 1
+    if not (cluster_k["gf2_matmul"] + cluster_k["gf2_matmul_small"]) \
+            or not cluster_k["fused_reconstruct"] or not cluster_k["scrub"]:
+        print(f"chip_smoke: the cluster phase left a kernel unlaunched: "
+              f"{cluster_k}", file=sys.stderr)
         return 1
     if not scr["launches"] or not scs["launches"]:
         print(f"chip_smoke: the scrub kernel was not launched on the main "
@@ -3192,9 +3800,10 @@ def main() -> int:
         "replaces": "seaweedfs_tpu/ops/rs_resident.py:2873",
         "also_replaces": ["seaweedfs_tpu/ops/rs_resident.py:2901",
                           "seaweedfs_tpu/ops/rs_resident.py:3074"],
-        "launches": scr["launches"] + scs["launches"],
+        "launches": scr["launches"] + scs["launches"] + cluster_k["scrub"],
         "launches_by_phase": {"scrub": scr["launches"],
-                              "scrub_serve": scs["launches"]},
+                              "scrub_serve": scs["launches"],
+                              "cluster": cluster_k["scrub"]},
         "max_abs_err": max(r["max_abs_err"] for r in srow.values()),
         "mismatched_bytes": sum(r["mismatched_bytes"] for r in srow.values()),
         "shape": f"volume 1: 14 x {srow['flat']['n_lanes']} resident bytes, flat",
@@ -3229,11 +3838,13 @@ def main() -> int:
             "source": "seaweedfs_tpu_torch/csrc/fused_reconstruct.cu",
             "replaces": f"seaweedfs_tpu/ops/rs_resident.py:{line}",
             "launches": res[name] + serve[layout]["launches"]
-                        + (tier["launches"] if layout == "flat" else 0),
+                        + (tier["launches"] if layout == "flat" else 0)
+                        + cluster_k[name],
             "launches_by_phase": {"resident_read": res[name],
                                   "serve": serve[layout]["launches"],
                                   "tiering": (tier["launches"]
-                                              if layout == "flat" else 0)},
+                                              if layout == "flat" else 0),
+                                  "cluster": cluster_k[name]},
             "max_abs_err": max([r["max_abs_err"] for r in rows]
                                + [burst["max_abs_err"]]),
             "mismatched_bytes": sum(r["mismatched_bytes"] for r in rows)
@@ -3291,6 +3902,8 @@ def main() -> int:
         "source": "seaweedfs_tpu_torch/csrc/gf2_matmul_small.cu",
         "replaces": "seaweedfs_tpu/ops/rs_tpu.py:201",
         "launches": launches["gf2_matmul_small"],
+        "launches_by_phase": {name: p["gf2_matmul_small"]
+                              for name, p in main_paths.items()},
         "max_abs_err": max(r["small_max_abs_err"] for r in shapes.values()),
         "mismatched_bytes": sum(r.get("small_mismatched_bytes", 0)
                                 for r in shapes.values()),

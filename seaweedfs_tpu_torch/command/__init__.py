@@ -2,7 +2,7 @@
 
 Each command module exposes NAME, HELP, add_args(parser), and async
 run(args).  `python -m seaweedfs_tpu_torch <command> ...` dispatches here.
-The port has two commands so far: `volume` and `version`.
+The port's commands: `master`, `volume`, `shell` and `version`.
 """
 from __future__ import annotations
 
@@ -10,9 +10,9 @@ import argparse
 import asyncio
 import sys
 
-from . import version, volume
+from . import master, shell, version, volume
 
-COMMANDS = {m.NAME: m for m in (version, volume)}
+COMMANDS = {m.NAME: m for m in (master, shell, version, volume)}
 
 
 def parser() -> argparse.ArgumentParser:

@@ -3,9 +3,9 @@
 Port of seaweedfs_tpu/command/volume.py with the reference's flag
 spellings, for the flags this slice serves:
 
-    python3 -m seaweedfs_tpu_torch volume -dir DIR -port 8080 -mserver "" \\
-        -ec.backend cuda -ec.deviceCacheMB 16384 -ec.serving.layout flat \\
-        -ec.scrub.intervalSeconds 60
+    python3 -m seaweedfs_tpu_torch volume -dir DIR -port 8080 \\
+        -mserver 127.0.0.1:9333 -ec.backend cuda -ec.deviceCacheMB 16384 \\
+        -ec.serving.layout flat -ec.scrub.intervalSeconds 60
 
 `-ec.backend` is `cuda` (the default: the card, failing at start without
 one), `torch` (the plain PyTorch versions on the CPU) or `numpy` (the
@@ -13,8 +13,11 @@ table oracle); there is no `auto`.  The -ec.tier.* flags drive the
 residency ladder (serving/tiering.py) and the -ec.ingest.* flags the
 streaming ingest plane (ingest/), with the reference's names and defaults;
 `-ec.ingest.backend` takes the port's backend names (cuda, torch, numpy,
-native) and defaults to `-ec.backend`.  `-mserver` must be empty: the master
-heartbeat is ROADMAP A4b.  The -obs.* flags are the reference's
+native) and defaults to `-ec.backend`.  `-mserver` names the masters the
+server heartbeats to (the reference's default, 127.0.0.1:9333; an empty
+value runs the server alone), `-port.grpc` its RPC listener (default:
+port + 10000), and the -ec.rpc.* flags the fault policy of its peer
+calls (utils/faultpolicy.py).  The -obs.* flags are the reference's
 (seaweedfs_tpu/command/common_args.py), less the incident bundler's, which
 wait for the master (ROADMAP A7c).
 """
@@ -35,6 +38,10 @@ def add_args(p) -> None:
     p.add_argument("-ip", default="127.0.0.1")
     p.add_argument("-port", type=int, default=8080)
     p.add_argument(
+        "-port.grpc", dest="grpc_port", type=int, default=0,
+        help="RPC port (default: port+10000)",
+    )
+    p.add_argument(
         "-dir", default=".", help="comma-separated data directories"
     )
     p.add_argument(
@@ -42,10 +49,13 @@ def add_args(p) -> None:
         help="max volumes per dir (comma-separated to match -dir)",
     )
     p.add_argument(
-        "-mserver", dest="masters", default="",
-        help="comma-separated master servers; must be empty until the "
-        "heartbeat is ported (ROADMAP A4b)",
+        "-mserver", dest="masters", default="127.0.0.1:9333",
+        help="comma-separated master servers (empty: no master)",
     )
+    p.add_argument("-publicUrl", dest="public_url", default="")
+    p.add_argument("-dataCenter", dest="data_center", default="")
+    p.add_argument("-rack", default="")
+    p.add_argument("-pulseSeconds", dest="pulse_seconds", type=int, default=5)
     p.add_argument(
         "-ec.backend", dest="ec_backend", default="cuda",
         choices=["cuda", "torch", "numpy"],
@@ -214,7 +224,28 @@ def add_args(p) -> None:
         "-ec.rpc.deadlineMs", dest="ec_rpc_deadline_ms", type=int,
         default=30000,
         help="default deadline budget stamped on requests arriving "
-        "without an X-Seaweed-Deadline-Ms header (0 = no default stamp)",
+        "without an X-Seaweed-Deadline-Ms header; every cross-node hop "
+        "subtracts from it (0 = no default stamp)",
+    )
+    p.add_argument(
+        "-ec.rpc.hedgeQuantile", dest="ec_rpc_hedge_quantile", type=float,
+        default=0.95,
+        help="per-peer latency EWMA quantile a survivor-shard fetch must "
+        "exceed before a hedge is armed to a spare parity holder",
+    )
+    p.add_argument(
+        "-ec.rpc.hedgeBudgetPct", dest="ec_rpc_hedge_budget_pct",
+        type=float, default=10.0,
+        help="hedge token budget as a percentage of primary fetches — "
+        "hedging can add at most this much cluster load (0 disables "
+        "hedging)",
+    )
+    p.add_argument(
+        "-ec.rpc.retryBudgetPct", dest="ec_rpc_retry_budget_pct",
+        type=float, default=10.0,
+        help="per-peer retry token budget as a percentage of first "
+        "attempts — a sick peer degrades into fast-fail instead of a "
+        "retry storm (0 disables retries)",
     )
     p.add_argument(
         "-fileSizeLimitMB", dest="client_max_size_mb", type=int, default=256,
@@ -468,14 +499,19 @@ def serving_config(args: argparse.Namespace) -> ServingConfig:
 
 
 def build_server(args: argparse.Namespace):
-    """A VolumeServer from the parsed flags (not started).  Raises on a
-    non-empty -mserver and, with -ec.backend cuda, without a card."""
+    """A VolumeServer from the parsed flags (not started).  Raises, with
+    -ec.backend cuda, without a card."""
     from ..server.volume import VolumeServer
     from ..utils import faultpolicy
 
     apply_obs_args(args)
     faultpolicy.configure(
-        faultpolicy.FaultPolicyConfig(deadline_ms=args.ec_rpc_deadline_ms)
+        faultpolicy.FaultPolicyConfig(
+            deadline_ms=args.ec_rpc_deadline_ms,
+            hedge_quantile=args.ec_rpc_hedge_quantile,
+            hedge_budget_pct=args.ec_rpc_hedge_budget_pct,
+            retry_budget_pct=args.ec_rpc_retry_budget_pct,
+        )
     )
     dirs = [d.strip() for d in args.dir.split(",") if d.strip()]
     counts = [int(c) for c in str(args.max_volume_counts).split(",")]
@@ -486,7 +522,12 @@ def build_server(args: argparse.Namespace):
         directories=dirs,
         ip=args.ip,
         port=args.port,
+        grpc_port=args.grpc_port,
+        public_url=args.public_url,
         max_volume_counts=counts,
+        data_center=args.data_center,
+        rack=args.rack,
+        pulse_seconds=args.pulse_seconds,
         ec_backend=args.ec_backend,
         client_max_size_mb=args.client_max_size_mb,
         concurrent_upload_limit_mb=args.concurrent_upload_limit_mb,

@@ -47,6 +47,8 @@ from .config import ObsConfig
 log = logging.getLogger("obs")
 
 TRACE_HEADER = "X-Seaweed-Trace-Id"
+# the same id on the RPC plane's call metadata (pb/rpc.py)
+GRPC_TRACE_KEY = "x-seaweed-trace-id"
 
 CONFIG = ObsConfig()
 
@@ -292,6 +294,15 @@ def outbound_headers() -> dict:
         return {}
     t, sid = cur
     return {TRACE_HEADER: f"{t.trace_id}-{sid}"}
+
+
+def grpc_metadata():
+    """Metadata pairs for an outbound RPC, or None when untraced."""
+    cur = _CURRENT.get()
+    if cur is None:
+        return None
+    t, sid = cur
+    return ((GRPC_TRACE_KEY, f"{t.trace_id}-{sid}"),)
 
 
 # ------------------------------------------------------------------ spans

@@ -38,13 +38,28 @@ asyncio process per storage node, serving one node's volumes:
     disk by the decayed read and write heat the dispatcher and the ingest
     plane feed it.
 
+With -mserver, the server heartbeats to the master over the RPC plane
+(pb/rpc.py): one bidirectional SendHeartbeat stream carrying a full
+heartbeat, then the store's deltas, with the device cache's, the ingest
+plane's and the residency ladder's telemetry on every pulse.  Its own RPC
+listener (-port.grpc) serves the `VolumeServer` rpcs the shell's EC verbs
+and peers call: volume lifecycle (AllocateVolume, VolumeMount/Unmount/
+Delete, VolumeMarkReadonly/Writable, VolumeStatus), CopyFile, and the EC
+service — VolumeEcShardsGenerate and VolumeEcShardsRebuild (K1 on the
+card), VolumeEcShardsCopy/Delete/Mount/Unmount, VolumeEcShardRead (raw
+shard bytes to a peer), VolumeEcBlobDelete, VolumeEcShardsVerify (the
+parity scrub; all_resident runs csrc/scrub.cu over the cache) and
+VolumeEcShardsToVolume.  An EC read whose shard lives on a peer fetches it
+through `_remote_shard_reader` (the holders from the master's
+LookupEcVolume, cached), and a degraded read gathers its remote survivors
+through the hedged gather.
+
 Blocking storage and device work runs via asyncio.to_thread.  A volume
-that is not local answers 404, which is what the reference answers when
-the master knows no other holder.  Not here (ROADMAP A4b): the gRPC admin
-and EC service, the master heartbeat, proxy/redirect reads, replication
-fan-out, write JWTs, TTL sweeps; image resizing waits for the images
-package; the timeline's heartbeat shipping and /debug/stacks wait for the
-master (A7c).
+that is not local answers 404.  Not here (ROADMAP A4c): proxy/redirect
+reads, replication fan-out, write JWTs, TTL sweeps, vacuum, tier moves and
+the other admin rpcs; image resizing waits for the images package; the
+timeline's heartbeat shipping, stage digests and /debug/stacks wait for
+A7c.
 """
 from __future__ import annotations
 
@@ -64,16 +79,36 @@ from ..obs import timeline as timeline_mod
 from ..obs import trace as obs_trace
 from ..ingest import IngestConfig, IngestPlane
 from ..ops import rs, rs_cuda, rs_resident
+from ..pb import (
+    RpcError,
+    RpcServer,
+    StatusCode,
+    Stub,
+    channel,
+    master_pb2,
+    server_address,
+    sync_channel_cached,
+    volume_server_pb2,
+)
 from ..serving import EcReadDispatcher, ServingConfig, TieringController
 from ..storage import types as t
 from ..storage.disk_location import DiskLocation
+from ..storage.ec import (
+    ec_base_name,
+    find_dat_file_size,
+    to_ext,
+    write_dat_file,
+)
+from ..storage.ec.decoder import write_idx_file_from_ec_index
 from ..storage.ec.layout import TOTAL_SHARDS
+from ..storage.ec.volume import NeedleNotFound, search_sorted_index
 from ..storage.needle import FLAG_IS_COMPRESSED, CrcError, Needle
 from ..storage.store import Store
-from ..storage.volume import CookieMismatch, NotFoundError, VolumeReadOnly
+from ..storage.volume import CookieMismatch, NotFoundError, Volume, VolumeReadOnly
 from ..utils import faultpolicy
 from ..utils.tasks import spawn_logged
 from .conditional import content_disposition, format_http_date, not_modified
+from .conversions import ec_msg_to_pb, volume_msg_to_pb
 from .http import HTTPError, HTTPServer, Request, Response, json_response
 
 log = logging.getLogger("volume")
@@ -90,6 +125,14 @@ _KERNELS = (
     rs_cuda.gf2_matmul_small,
     rs_resident.scrub,
 )
+
+# one remote shard fetch's ceiling when no request budget is tighter
+_SHARD_READ_TIMEOUT_S = 10.0
+# how long the master's EC shard map is trusted before a fresh lookup
+_EC_LOCATION_TTL = 2.0
+_EC_LOOKUP_TIMEOUT_S = 5.0
+# CopyFile and VolumeEcShardRead stream in chunks of this size
+_STREAM_CHUNK = 1024 * 1024
 
 
 class ByteLimiter:
@@ -157,7 +200,12 @@ class VolumeServer:
         directories: list[str],
         ip: str = "127.0.0.1",
         port: int = 8080,
+        grpc_port: int = 0,
+        public_url: str = "",
         max_volume_counts: int | list[int] = 8,
+        data_center: str = "",
+        rack: str = "",
+        pulse_seconds: int = 5,
         ec_backend: str = "cuda",
         client_max_size_mb: int = 256,
         concurrent_upload_limit_mb: int = 0,  # 0 = unlimited
@@ -169,11 +217,6 @@ class VolumeServer:
         # volumes per cycle (-ec.scrub.megakernel.disable)
         ec_ingest=None,  # ingest.IngestConfig | None (-ec.ingest.* flags)
     ):
-        if masters:
-            raise ValueError(
-                "a master (-mserver) is not supported yet: the heartbeat "
-                "and gRPC plane are ROADMAP A4b"
-            )
         # "cuda" without a card fails here, before anything is served
         ec_backend = rs.resolve_backend(ec_backend)
         # validate the serving config BEFORE the Store exists: the cache
@@ -205,9 +248,25 @@ class VolumeServer:
                 DiskLocation(d, max_volume_count=c)
                 for d, c in zip(directories, max_volume_counts)
             ],
+            ip=ip,
+            port=port,
+            public_url=public_url,
             ec_backend=ec_backend,
             ec_device_cache=device_cache,
         )
+        self.masters = masters
+        self.current_master = masters[0] if masters else ""
+        # -port.grpc, else the reference's convention, port + 10000
+        self._grpc_port_given = bool(grpc_port)
+        self.grpc_port = grpc_port or (port + 10000 if port else 0)
+        self.data_center = data_center
+        self.rack = rack
+        self.pulse_seconds = pulse_seconds
+        # vid -> (fetched at, shard id -> peer RPC addresses), from the
+        # master's LookupEcVolume
+        self._ec_locations: dict[int, tuple[float, dict[int, list[str]]]] = {}
+        self._stopping = False
+        self._rpc: RpcServer | None = None
         self.ec_scrub_interval_seconds = ec_scrub_interval_seconds
         self.ec_scrub_megakernel = ec_scrub_megakernel
         self._tasks: list[asyncio.Task] = []
@@ -216,9 +275,8 @@ class VolumeServer:
         self.client_max_size_mb = client_max_size_mb
         self.upload_limiter = ByteLimiter(concurrent_upload_limit_mb << 20)
         self.download_limiter = ByteLimiter(concurrent_download_limit_mb << 20)
-        # one node holds the survivors: no peer shard reader (A4b)
         self.ec_dispatcher = EcReadDispatcher(
-            self.store, lambda vid: None, ec_serving
+            self.store, self._remote_shard_reader, ec_serving
         )
         # heat-tiered residency ladder (serving/tiering.py, -ec.tier.*):
         # only meaningful with a device cache; the dispatcher feeds the
@@ -274,9 +332,27 @@ class VolumeServer:
     def url(self) -> str:
         return f"{self.ip}:{self.port}"
 
+    @property
+    def grpc_url(self) -> str:
+        return f"{self.ip}:{self.grpc_port}"
+
     # ------------------------------------------------------------------ lifecycle
 
     async def start(self) -> None:
+        self._stopping = False
+        self._rpc = RpcServer(self.ip, self.grpc_port)
+        self._rpc.add_servicer(volume_server_pb2, "VolumeServer", self)
+        try:
+            self.grpc_port = await self._rpc.start()
+        except (OSError, OverflowError) as e:
+            if self._grpc_port_given:
+                raise
+            # the derived port + 10000 is taken or past 65535: any free
+            # port serves, since the heartbeat tells the master which
+            log.warning("RPC port %d unusable (%s); taking a free one",
+                        self.grpc_port, e)
+            self._rpc.port = 0
+            self.grpc_port = await self._rpc.start()
         # obs.middleware: the trace and the deadline front door around
         # every request
         self._http = HTTPServer(
@@ -286,7 +362,14 @@ class VolumeServer:
         )
         await self._http.start()
         self.port = self._http.port
-        log.info("volume server up http=%s", self.url)
+        self.store.port = self.port
+        if self.store.public_url == f"{self.ip}:0":
+            self.store.public_url = self.url
+        log.info("volume server up http=%s grpc=%s", self.url, self.grpc_url)
+        if self.masters:
+            self._tasks.append(
+                spawn_logged(self._heartbeat_forever(), log, "heartbeat loop")
+            )
         if self.ec_scrub_interval_seconds > 0:
             self._tasks.append(
                 spawn_logged(self._ec_scrub_forever(), log, "ec scrub loop")
@@ -311,10 +394,14 @@ class VolumeServer:
             self.tailstore = tailstore_mod.TailStore(node=self.url).install()
 
     async def stop(self) -> None:
+        self._stopping = True
         for task in self._tasks:
             task.cancel()
         await asyncio.gather(*self._tasks, return_exceptions=True)
         self._tasks.clear()
+        if self._rpc is not None:
+            await self._rpc.stop(0.1)
+            self._rpc = None
         if self._http is not None:
             await self._http.stop()
             self._http = None
@@ -856,3 +943,542 @@ class VolumeServer:
         except CookieMismatch:
             raise HTTPError(403)
         return json_response({"size": size})
+
+    # ------------------------------------------------------------------ heartbeat
+
+    def _build_telemetry(self) -> master_pb2.VolumeServerTelemetry:
+        """One pulse's telemetry (the reference's _build_telemetry, for
+        what the port has): the device cache's occupancy, the
+        dispatcher's live state, the resident pipeline's transfer bytes,
+        the residency ladder's census and counters (TieringController.
+        status) and the streaming ingest plane's aggregates
+        (IngestPlane.snapshot)."""
+        tel = master_pb2.VolumeServerTelemetry()
+        tel.wall_clock_unix_ms = int(time.time() * 1e3)
+        cache = self.store.ec_device_cache
+        if cache is not None:
+            n_resident, n_bytes = cache.stats()
+            tel.device_budget_bytes = cache.budget
+            tel.device_used_bytes = n_bytes
+            tel.device_resident_shards = n_resident
+            tel.device_bytes_per_device.append(n_bytes)
+            for vid, sids in cache.resident_by_vid().items():
+                tel.resident_shards_by_volume[vid] = len(sids)
+            tel.ec_h2d_bytes = cache.pipeline.h2d_bytes
+            tel.ec_d2h_bytes = cache.pipeline.d2h_bytes
+        tel.dispatcher_queue_depth = self.ec_dispatcher.queue_depth
+        tel.dispatcher_inflight = self.ec_dispatcher.inflight
+        if self.tiering is not None:
+            st = self.tiering.status()
+            tel.tier_hbm_volumes = st["tiers"].get("hbm", 0)
+            tel.tier_host_volumes = st["tiers"].get("host", 0)
+            tel.tier_promotions = sum(st["promotions"].values())
+            tel.tier_demotions = sum(st["demotions"].values())
+            tel.tier_host_bytes = st["host_bytes"]
+        if self.ingest is not None:
+            ing = self.ingest.snapshot()
+            tel.ingest_rows_device = int(ing["rows_device"])
+            tel.ingest_rows_host = int(ing["rows_host"])
+            tel.ingest_shed_total = sum(ing["sheds"].values())
+            tel.ingest_active_pipelines = int(ing["pipelines"])
+        return tel
+
+    def _identity_heartbeat(self) -> master_pb2.Heartbeat:
+        """Who-am-i header and this pulse's telemetry, no volume state."""
+        hb = master_pb2.Heartbeat(
+            ip=self.ip, port=self.port,
+            public_url=self.store.public_url, grpc_port=self.grpc_port,
+            data_center=self.data_center, rack=self.rack,
+        )
+        hb.telemetry.CopyFrom(self._build_telemetry())
+        return hb
+
+    def _full_heartbeat(self) -> master_pb2.Heartbeat:
+        hs = self.store.collect_heartbeat()
+        hb = self._identity_heartbeat()
+        hb.has_no_volumes = hs.has_no_volumes
+        hb.has_no_ec_shards = hs.has_no_ec_shards
+        hb.offset_bytes = t.OFFSET_SIZE
+        for k, v in hs.max_volume_counts.items():
+            hb.max_volume_counts[k] = v
+        hb.volumes.extend(volume_msg_to_pb(v) for v in hs.volumes)
+        hb.ec_shards.extend(ec_msg_to_pb(e) for e in hs.ec_shards)
+        return hb
+
+    def _delta_heartbeat(self) -> master_pb2.Heartbeat | None:
+        new_v, del_v, new_ec, del_ec = self.store.drain_deltas()
+        if not (new_v or del_v or new_ec or del_ec):
+            return None
+        hb = self._identity_heartbeat()
+        hb.new_volumes.extend(volume_msg_to_pb(v) for v in new_v)
+        hb.deleted_volumes.extend(volume_msg_to_pb(v) for v in del_v)
+        hb.new_ec_shards.extend(ec_msg_to_pb(e) for e in new_ec)
+        hb.deleted_ec_shards.extend(ec_msg_to_pb(e) for e in del_ec)
+        return hb
+
+    async def _heartbeat_forever(self) -> None:
+        i = 0
+        while not self._stopping:
+            master = self.masters[i % len(self.masters)]
+            i += 1
+            try:
+                await self._heartbeat_stream(master)
+            except asyncio.CancelledError:
+                raise
+            except Exception as e:  # noqa: BLE001 — redial below
+                log.debug("heartbeat to %s failed: %s", master, e)
+            await asyncio.sleep(min(self.pulse_seconds, 1))
+
+    async def _heartbeat_stream(self, master: str) -> None:
+        """One connected session: a full heartbeat, then deltas (pushed
+        within 50 ms of a change) and a full re-sync every fourth pulse
+        (doHeartbeat volume_grpc_client_to_master.go:92+)."""
+        stub = Stub(channel(server_address.grpc_address(master)),
+                    master_pb2, "Seaweed")
+
+        async def pulses():
+            yield self._full_heartbeat()
+            n = 0
+            while not self._stopping:
+                await asyncio.sleep(
+                    0.05 if not self.store.new_volumes.empty()
+                    or not self.store.new_ec_shards.empty()
+                    or not self.store.deleted_volumes.empty()
+                    or not self.store.deleted_ec_shards.empty()
+                    else self.pulse_seconds
+                )
+                hb = self._delta_heartbeat()
+                n += 1
+                if hb is None:
+                    # no state change: a periodic full re-sync, else a
+                    # telemetry-only pulse
+                    hb = (
+                        self._full_heartbeat() if n % 4 == 0
+                        else self._identity_heartbeat()
+                    )
+                yield hb
+
+        # the heartbeat stream is the liveness signal: deliberately
+        # unbounded; a wedged master surfaces as a broken stream
+        async for resp in stub.SendHeartbeat(pulses()):
+            if resp.volume_size_limit:
+                self.store.volume_size_limit = resp.volume_size_limit
+            if resp.leader:
+                self.current_master = resp.leader
+
+    # ------------------------------------------------------------------ peer shards
+
+    def _remote_shard_reader(self, vid: int):
+        """Sync hook: shard_id, offset, size -> bytes | None, fetched from a
+        peer the master's LookupEcVolume names (store_ec.go:238-337).  The
+        lookup and the fetch both happen inside the hook, which runs on a
+        to_thread worker — a blocking RPC on the event loop would deadlock
+        against this process's own servers.  Every fetch carries a hard
+        per-call timeout (the remaining deadline budget, capped at
+        _SHARD_READ_TIMEOUT_S).  `read.peer_of` names the shard's primary
+        holder, so the hedged gather keys its latency EWMAs per peer."""
+        if not self.masters:
+            return None
+
+        def read(shard_id: int, offset: int, size: int):
+            try:
+                timeout = faultpolicy.rpc_timeout_s(
+                    _SHARD_READ_TIMEOUT_S, what="remote_shard_read"
+                )
+            except faultpolicy.DeadlineExceeded:
+                return None  # doomed: the gather's verdict tells the truth
+            for addr in self._cached_ec_locations(vid).get(shard_id, []):
+                stub = Stub(sync_channel_cached(addr), volume_server_pb2,
+                            "VolumeServer")
+                try:
+                    chunks = []
+                    for resp in stub.VolumeEcShardRead(
+                        volume_server_pb2.VolumeEcShardReadRequest(
+                            volume_id=vid, shard_id=shard_id,
+                            offset=offset, size=size,
+                        ),
+                        timeout=timeout,
+                    ):
+                        if resp.is_deleted:
+                            stats.VOLUME_SERVER_EC_REMOTE_SHARD_READS.labels(
+                                result="deleted").inc()
+                            return None
+                        chunks.append(resp.data)
+                except RpcError:
+                    continue
+                data = chunks[0] if len(chunks) == 1 else b"".join(chunks)
+                stats.VOLUME_SERVER_EC_REMOTE_SHARD_READS.labels(
+                    result="ok").inc()
+                stats.VOLUME_SERVER_EC_REMOTE_SHARD_BYTES.inc(len(data))
+                return data
+            stats.VOLUME_SERVER_EC_REMOTE_SHARD_READS.labels(
+                result="miss").inc()
+            return None
+
+        def peer_of(shard_id: int):
+            return next(
+                iter(self._cached_ec_locations(vid).get(shard_id, ())), None
+            )
+
+        read.peer_of = peer_of
+        return read
+
+    def _cached_ec_locations(self, vid: int) -> dict[int, list[str]]:
+        """shard id -> peer RPC addresses (this server left out), from the
+        master's LookupEcVolume, trusted for _EC_LOCATION_TTL seconds.  An
+        unreachable master keeps the stale map rather than an empty one
+        (re-stamped, so a down master costs one lookup per TTL)."""
+        now = time.time()
+        cached = self._ec_locations.get(vid)
+        if cached and now - cached[0] < _EC_LOCATION_TTL:
+            return cached[1]
+        locs: dict[int, list[str]] = {}
+        stub = Stub(
+            sync_channel_cached(
+                server_address.grpc_address(self.current_master)),
+            master_pb2, "Seaweed",
+        )
+        try:
+            # a fixed timeout, not the ambient budget: this refresh fills a
+            # cache serving many requests
+            resp = stub.LookupEcVolume(
+                master_pb2.LookupEcVolumeRequest(volume_id=vid),
+                timeout=_EC_LOOKUP_TIMEOUT_S, metadata=(),
+            )
+            for e in resp.shard_id_locations:
+                locs[e.shard_id] = [
+                    f"{l.url.rsplit(':', 1)[0]}:{l.grpc_port}"
+                    for l in e.locations if l.url != self.url
+                ]
+        except RpcError:
+            if cached:
+                self._ec_locations[vid] = (now, cached[1])
+                return cached[1]
+        self._ec_locations[vid] = (now, locs)
+        return locs
+
+    # ------------------------------------------------------------------ RPC: lifecycle
+
+    async def AllocateVolume(self, request, context):
+        try:
+            await asyncio.to_thread(
+                self.store.add_volume,
+                request.volume_id,
+                request.collection,
+                request.replication or "000",
+                request.ttl or "",
+                3,
+                request.disk_type or "",
+            )
+        except (ValueError, RuntimeError) as e:
+            await context.abort(StatusCode.FAILED_PRECONDITION, str(e))
+        return volume_server_pb2.AllocateVolumeResponse()
+
+    async def VolumeMount(self, request, context):
+        try:
+            await asyncio.to_thread(self.store.mount_volume, request.volume_id)
+        except NotFoundError as e:
+            await context.abort(StatusCode.NOT_FOUND, str(e))
+        return volume_server_pb2.VolumeMountResponse()
+
+    async def VolumeUnmount(self, request, context):
+        try:
+            await asyncio.to_thread(self.store.unmount_volume, request.volume_id)
+        except NotFoundError as e:
+            await context.abort(StatusCode.NOT_FOUND, str(e))
+        return volume_server_pb2.VolumeUnmountResponse()
+
+    async def VolumeDelete(self, request, context):
+        try:
+            await asyncio.to_thread(self.store.delete_volume, request.volume_id)
+        except NotFoundError as e:
+            await context.abort(StatusCode.NOT_FOUND, str(e))
+        return volume_server_pb2.VolumeDeleteResponse()
+
+    async def VolumeMarkReadonly(self, request, context):
+        try:
+            await asyncio.to_thread(
+                self.store.mark_volume_readonly, request.volume_id, True)
+        except NotFoundError as e:
+            await context.abort(StatusCode.NOT_FOUND, str(e))
+        return volume_server_pb2.VolumeMarkReadonlyResponse()
+
+    async def VolumeMarkWritable(self, request, context):
+        try:
+            await asyncio.to_thread(
+                self.store.mark_volume_readonly, request.volume_id, False)
+        except NotFoundError as e:
+            await context.abort(StatusCode.NOT_FOUND, str(e))
+        return volume_server_pb2.VolumeMarkWritableResponse()
+
+    async def VolumeStatus(self, request, context):
+        v = self.store.find_volume(request.volume_id)
+        if v is None:
+            await context.abort(StatusCode.NOT_FOUND, "volume not found")
+        info = v.info()
+        return volume_server_pb2.VolumeStatusResponse(
+            is_read_only=v.read_only or v.full,
+            volume_size=info.size,
+            file_count=info.file_count,
+            file_deleted_count=info.delete_count,
+            version=v.version,
+            ttl=str(v.super_block.ttl),
+            replication=str(v.super_block.replica_placement),
+        )
+
+    # ------------------------------------------------------------------ RPC: copy
+
+    async def CopyFile(self, request, context):
+        """Stream a volume or EC file to a puller (volume_grpc_copy.go
+        CopyFile)."""
+        v = self.store.find_volume(request.volume_id)
+        if v is not None:
+            base = Volume.base_name(v.dir, v.id, v.collection)
+        else:
+            base = await asyncio.to_thread(
+                self.store._ec_base, request.volume_id, request.collection
+            )
+            if base is None:
+                if request.ignore_source_file_not_found:
+                    return
+                await context.abort(StatusCode.NOT_FOUND, "volume not found")
+        path = base + request.ext
+        if not os.path.exists(path):
+            if request.ignore_source_file_not_found:
+                return
+            await context.abort(StatusCode.NOT_FOUND, f"{path} not found")
+        stop = request.stop_offset or os.path.getsize(path)
+        # the open and the reads run on worker threads: a multi-GB shard
+        # copy must not stall the loop (heartbeats, EC reads)
+        f = await asyncio.to_thread(open, path, "rb")
+        try:
+            sent = 0
+            while sent < stop:
+                buf = await asyncio.to_thread(
+                    f.read, min(_STREAM_CHUNK, stop - sent))
+                if not buf:
+                    break
+                sent += len(buf)
+                yield volume_server_pb2.CopyFileResponse(file_content=buf)
+        finally:
+            f.close()
+
+    async def _pull_file(self, source_grpc: str, vid: int, collection: str,
+                         ext: str, dest_path: str,
+                         ignore_missing: bool = False) -> bool:
+        stub = Stub(channel(source_grpc), volume_server_pb2, "VolumeServer")
+        tmp = dest_path + ".tmp"
+        got_any = False
+        f = await asyncio.to_thread(open, tmp, "wb")
+        try:
+            async for resp in stub.CopyFile(
+                volume_server_pb2.CopyFileRequest(
+                    volume_id=vid,
+                    collection=collection,
+                    ext=ext,
+                    ignore_source_file_not_found=ignore_missing,
+                ),
+                # whole-shard pulls ship GBs: heavy but finite, so a hung
+                # source frees the copier
+                timeout=600.0,
+            ):
+                got_any = True
+                await asyncio.to_thread(f.write, resp.file_content)
+        except RpcError:
+            f.close()
+            if os.path.exists(tmp):
+                os.remove(tmp)
+            if ignore_missing:
+                return False
+            raise
+        f.close()
+        if got_any or not ignore_missing:
+            os.replace(tmp, dest_path)
+            return True
+        os.remove(tmp)
+        return False
+
+    # ------------------------------------------------------------------ RPC: erasure coding
+
+    async def VolumeEcShardsGenerate(self, request, context):
+        """volume_grpc_erasure_coding.go:38-81: the encode on the card (K1,
+        or the streamed seal the ingest plane prepared)."""
+        try:
+            await asyncio.to_thread(self.store.ec_generate, request.volume_id)
+        except NotFoundError as e:
+            await context.abort(StatusCode.NOT_FOUND, str(e))
+        return volume_server_pb2.VolumeEcShardsGenerateResponse()
+
+    async def VolumeEcShardsRebuild(self, request, context):
+        try:
+            rebuilt = await asyncio.to_thread(
+                self.store.ec_rebuild, request.volume_id, request.collection,
+                request.fsync,
+            )
+        except (NotFoundError, ValueError) as e:
+            await context.abort(StatusCode.FAILED_PRECONDITION, str(e))
+        return volume_server_pb2.VolumeEcShardsRebuildResponse(
+            rebuilt_shard_ids=rebuilt
+        )
+
+    async def VolumeEcShardsCopy(self, request, context):
+        """Pull shard files (and sidecars) from source_data_node
+        (volume_grpc_erasure_coding.go:126-177)."""
+        loc = self.store._pick_location()
+        if loc is None:
+            await context.abort(StatusCode.RESOURCE_EXHAUSTED, "no free slots")
+        base = ec_base_name(loc.directory, request.volume_id, request.collection)
+        for sid in request.shard_ids:
+            await self._pull_file(
+                request.source_data_node, request.volume_id,
+                request.collection, to_ext(sid), base + to_ext(sid),
+            )
+        if request.copy_ecx_file:
+            await self._pull_file(
+                request.source_data_node, request.volume_id,
+                request.collection, ".ecx", base + ".ecx",
+            )
+        if request.copy_ecj_file:
+            await self._pull_file(
+                request.source_data_node, request.volume_id,
+                request.collection, ".ecj", base + ".ecj", ignore_missing=True,
+            )
+        if request.copy_vif_file:
+            await self._pull_file(
+                request.source_data_node, request.volume_id,
+                request.collection, ".vif", base + ".vif", ignore_missing=True,
+            )
+        return volume_server_pb2.VolumeEcShardsCopyResponse()
+
+    async def VolumeEcShardsDelete(self, request, context):
+        await asyncio.to_thread(
+            self.store.delete_ec_shards,
+            request.volume_id,
+            list(request.shard_ids),
+            request.collection,
+        )
+        return volume_server_pb2.VolumeEcShardsDeleteResponse()
+
+    async def VolumeEcShardsMount(self, request, context):
+        try:
+            await asyncio.to_thread(
+                self.store.mount_ec_shards,
+                request.volume_id,
+                list(request.shard_ids),
+                request.collection,
+            )
+        except NotFoundError as e:
+            await context.abort(StatusCode.NOT_FOUND, str(e))
+        return volume_server_pb2.VolumeEcShardsMountResponse()
+
+    async def VolumeEcShardsUnmount(self, request, context):
+        await asyncio.to_thread(
+            self.store.unmount_ec_shards, request.volume_id,
+            list(request.shard_ids),
+        )
+        return volume_server_pb2.VolumeEcShardsUnmountResponse()
+
+    async def VolumeEcShardRead(self, request, context):
+        """Stream raw shard bytes to a peer
+        (volume_grpc_erasure_coding.go:309-375)."""
+        ev = self.store.find_ec_volume(request.volume_id)
+        if ev is None or request.shard_id not in ev.shards:
+            await context.abort(
+                StatusCode.NOT_FOUND,
+                f"ec volume {request.volume_id} shard {request.shard_id} "
+                "not here",
+            )
+        if request.file_key:
+            try:
+                _, _, size = await asyncio.to_thread(
+                    search_sorted_index, ev._ecx.fileno(), ev.ecx_size,
+                    request.file_key,
+                )
+                if t.size_is_deleted(size):
+                    yield volume_server_pb2.VolumeEcShardReadResponse(
+                        is_deleted=True)
+                    return
+            except NeedleNotFound:
+                pass
+        remaining = request.size
+        offset = request.offset
+        while remaining > 0:
+            buf = await asyncio.to_thread(
+                self.store.read_ec_shard_interval,
+                request.volume_id, request.shard_id, offset,
+                min(_STREAM_CHUNK, remaining),
+            )
+            if not buf:
+                break
+            yield volume_server_pb2.VolumeEcShardReadResponse(data=buf)
+            offset += len(buf)
+            remaining -= len(buf)
+
+    async def VolumeEcBlobDelete(self, request, context):
+        try:
+            await asyncio.to_thread(
+                self.store.delete_ec_needle, request.volume_id,
+                request.file_key,
+            )
+        except NotFoundError:
+            pass
+        return volume_server_pb2.VolumeEcBlobDeleteResponse()
+
+    async def VolumeEcShardsVerify(self, request, context):
+        """Parity scrub of a mounted EC volume (csrc/scrub.cu over the
+        resident shards when the cache holds the whole volume, else the
+        shard files through the codec).  `all_resident=True` ignores
+        volume_id and scrubs every fully resident volume of this server in
+        one pass over the cache; the verdicts come back in `volumes`."""
+        if request.all_resident:
+            results = await asyncio.to_thread(self.store.scrub_all_resident)
+            # per-volume seconds are span-apportioned slices of the one
+            # shared pass, so their sum is the pass's wall
+            wall = sum(r["seconds"] for r in results.values())
+            return volume_server_pb2.VolumeEcShardsVerifyResponse(
+                backend="device_megakernel",
+                seconds=wall,
+                volumes=[
+                    volume_server_pb2.EcVolumeScrubResult(
+                        volume_id=vid,
+                        parity_mismatch_bytes=r["parity_mismatch_bytes"],
+                        backend=r["backend"],
+                        bytes_verified=r["bytes_verified"],
+                        seconds=r["seconds"],
+                    )
+                    for vid, r in sorted(results.items())
+                ],
+            )
+        try:
+            result = await asyncio.to_thread(
+                self.store.scrub_ec_volume, request.volume_id
+            )
+        except NotFoundError as e:
+            await context.abort(StatusCode.NOT_FOUND, str(e))
+        except FileNotFoundError as e:
+            # a degraded volume that is not fully resident: the scrub needs
+            # all 14 inputs
+            await context.abort(StatusCode.FAILED_PRECONDITION, str(e))
+        return volume_server_pb2.VolumeEcShardsVerifyResponse(
+            parity_mismatch_bytes=result["parity_mismatch_bytes"],
+            backend=result["backend"],
+            seconds=result["seconds"],
+            bytes_verified=result["bytes_verified"],
+        )
+
+    async def VolumeEcShardsToVolume(self, request, context):
+        """Decode EC shards back into a normal .dat/.idx volume
+        (volume_grpc_erasure_coding.go:407-446)."""
+        ev = self.store.find_ec_volume(request.volume_id)
+        if ev is None:
+            await context.abort(StatusCode.NOT_FOUND, "ec volume not found")
+        base = ev.base_name
+
+        def decode():
+            dat_size = find_dat_file_size(base)
+            write_dat_file(base, dat_size)
+            write_idx_file_from_ec_index(base)
+
+        await asyncio.to_thread(decode)
+        await asyncio.to_thread(self.store.mount_volume, request.volume_id)
+        return volume_server_pb2.VolumeEcShardsToVolumeResponse()

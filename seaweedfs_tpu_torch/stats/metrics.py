@@ -364,8 +364,62 @@ for _tier in ("interactive", "bulk"):
 
 VOLUME_SERVER_EC_DEADLINE_EXCEEDED = Counter(
     "SeaweedFS_volumeServer_ec_deadline_exceeded",
-    "Work refused because the request's propagated deadline budget "
-    "(X-Seaweed-Deadline-Ms) was already spent.",
+    "Work refused or abandoned because the request's propagated deadline "
+    "budget (X-Seaweed-Deadline-Ms) was already spent — admission sheds, "
+    "doomed RPCs, and survivor gathers that ran out of budget.",
+    registry=REGISTRY,
+)
+
+# the fault policy's peer decisions (utils/faultpolicy.py), with the
+# reference's names: hedges armed, won and abandoned by the degraded-read
+# survivor gather, and retries refused by a drained per-peer budget
+VOLUME_SERVER_EC_HEDGE_SENT = Counter(
+    "SeaweedFS_volumeServer_ec_hedge_sent",
+    "Hedge fetches armed by the degraded-read survivor gather: a pending "
+    "shard fetch exceeded its peer's latency-EWMA quantile "
+    "(-ec.rpc.hedgeQuantile) and a spare holder was asked for a different "
+    "shard (bounded by -ec.rpc.hedgeBudgetPct).",
+    registry=REGISTRY,
+)
+VOLUME_SERVER_EC_HEDGE_WINS = Counter(
+    "SeaweedFS_volumeServer_ec_hedge_wins",
+    "Hedge fetches whose bytes completed a reconstruct before the "
+    "tail-slow primary they covered.",
+    registry=REGISTRY,
+)
+VOLUME_SERVER_EC_HEDGE_CANCELLED = Counter(
+    "SeaweedFS_volumeServer_ec_hedge_cancelled",
+    "Hedge fetches abandoned because the gather was satisfied first.",
+    registry=REGISTRY,
+)
+VOLUME_SERVER_EC_RETRY_BUDGET_EXHAUSTED = Counter(
+    "SeaweedFS_volumeServer_ec_retry_budget_exhausted",
+    "RPC retries refused because the peer's token-bucket retry budget "
+    "(-ec.rpc.retryBudgetPct) was drained.",
+    registry=REGISTRY,
+)
+# the remote shard reader (server/volume.py _remote_shard_reader): each
+# VolumeEcShardRead stream this server opened to a peer, and its bytes
+VOLUME_SERVER_EC_REMOTE_SHARD_READS = Counter(
+    "SeaweedFS_volumeServer_ec_remote_shard_reads",
+    "Shard intervals fetched from a peer over VolumeEcShardRead, by "
+    "outcome (ok, deleted, miss: no holder answered).",
+    ["result"],
+    registry=REGISTRY,
+)
+for _r in ("ok", "deleted", "miss"):
+    VOLUME_SERVER_EC_REMOTE_SHARD_READS.labels(result=_r)
+VOLUME_SERVER_EC_REMOTE_SHARD_BYTES = Counter(
+    "SeaweedFS_volumeServer_ec_remote_shard_bytes",
+    "Shard bytes fetched from peers over VolumeEcShardRead.",
+    registry=REGISTRY,
+)
+
+# the master (server/master.py)
+MASTER_RECEIVED_HEARTBEATS = Counter(
+    "SeaweedFS_master_received_heartbeats",
+    "Counter of master received heartbeats.",
+    ["type"],
     registry=REGISTRY,
 )
 

@@ -4,10 +4,10 @@ Port of seaweedfs_tpu/storage/disk_location.py (reference:
 weed/storage/disk_location.go + disk_location_ec.go).  A location scans
 its directory at startup, loads every `.dat`/`.idx` pair into a Volume and
 every `.ecx` (plus any `.ecNN` shard files) into an EcVolume, and answers
-free-slot questions for placement decisions.  Tiered volumes (a `.vif`
-naming remote files), the persistent needle maps, the free-space floor and
-the directory's uuid file and disk type (read by the heartbeat) are ROADMAP
-A4b.
+free-slot questions for placement decisions, per disk type (which the
+heartbeat reports).  Tiered volumes (a `.vif` naming remote files), the
+persistent needle maps, the free-space floor and the directory's uuid
+file are ROADMAP A4c.
 """
 from __future__ import annotations
 
@@ -35,9 +35,12 @@ class DiskLocation:
         self,
         directory: str,
         max_volume_count: int = 8,
+        disk_type: str = "hdd",
     ):
         self.directory = os.path.abspath(directory)
         self.max_volume_count = max_volume_count
+        # the heartbeat reports slots and volumes per disk type
+        self.disk_type = disk_type
         os.makedirs(self.directory, exist_ok=True)
         self.volumes: dict[int, Volume] = {}
         self.ec_volumes: dict[int, EcVolume] = {}

@@ -11,6 +11,7 @@ from .layout import (
     SMALL_BLOCK_SIZE,
     TOTAL_SHARDS,
     Interval,
+    ShardBits,
     locate_data,
     to_ext,
 )
@@ -31,6 +32,7 @@ __all__ = [
     "LARGE_BLOCK_SIZE",
     "SMALL_BLOCK_SIZE",
     "Interval",
+    "ShardBits",
     "locate_data",
     "to_ext",
     "ec_base_name",

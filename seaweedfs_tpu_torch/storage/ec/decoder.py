@@ -1,8 +1,8 @@
-"""EC decode: shard files -> back to a plain `.dat` volume.
+"""EC decode: shard files -> back to a plain `.dat` + `.idx` volume.
 
 Port of seaweedfs_tpu/storage/ec/decoder.py.  Reference: the reference's
 weed/storage/erasure_coding/ec_decoder.go (WriteDatFile :154-201,
-FindDatFileSize :48-70).  Used by `ec.decode` to turn a cold EC volume
+WriteIdxFileFromEcIndex :18-43, FindDatFileSize :48-70).  Used by `ec.decode` to turn a cold EC volume
 back into a normal one.  Only data shards are read; missing data shards
 must be rebuilt first (rebuild_ec_files) — same contract as the
 reference.
@@ -87,3 +87,16 @@ def _copy_n(src, dst, n: int, chunk: int, keep: int | None = None) -> None:
             dst.write(buf[: max(0, keep - done)])
         done += len(buf)
 
+
+def write_idx_file_from_ec_index(base_name: str) -> None:
+    """<base>.ecx + <base>.ecj -> <base>.idx: copy the sorted entries, then
+    append a tombstone entry per journaled deletion
+    (WriteIdxFileFromEcIndex ec_decoder.go:18-43)."""
+    from .volume import iter_ecj
+
+    with open(base_name + ".ecx", "rb") as f:
+        ecx = f.read()
+    with open(base_name + ".idx", "wb") as out:
+        out.write(ecx)
+        for nid in iter_ecj(base_name + ".ecj"):
+            out.write(idx_mod.pack_entry(nid, 0, t.TOMBSTONE_FILE_SIZE))

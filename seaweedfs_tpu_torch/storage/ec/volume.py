@@ -1,12 +1,12 @@
 """EcVolume: serving needles out of mounted `.ecNN` shards.
 
-Port of the local-shard half of seaweedfs_tpu/storage/ec/volume.py
-(reference: weed/storage/erasure_coding/ec_volume.go, ec_shard.go,
-ec_volume_delete.go and the read path weed/storage/store_ec.go:136-393).
-A needle read resolves the sorted `.ecx` index (on-disk binary search),
-maps the (offset, size) run to shard intervals, then serves each interval
-from a local shard or — the degraded path — by reading the same interval
-from >=10 surviving local shards and reconstructing the missing bytes with
+Port of seaweedfs_tpu/storage/ec/volume.py (reference:
+weed/storage/erasure_coding/ec_volume.go, ec_shard.go, ec_volume_delete.go
+and the read path weed/storage/store_ec.go:136-393).  A needle read
+resolves the sorted `.ecx` index (on-disk binary search), maps the
+(offset, size) run to shard intervals, then serves each interval from a
+local shard, its remote holder, or — the degraded path — by reading the
+same interval from >=10 surviving shards and reconstructing the missing bytes with
 one GF(256) multiply (the reference's per-needle ReconstructData,
 store_ec.go:339-393), on the card by default.  With a DeviceShardCache
 (ops/rs_resident.py) holding >=10 survivors, the missing-shard intervals of
@@ -25,13 +25,19 @@ when the host tier served it), the host degraded read a `shard_read`
 gather then a `host_reconstruct`, and the resident call carries its own
 spans (ops/rs_resident.py).
 
-Remote shard reads, the hedged fan-out and the reconstruct memo are ROADMAP
-A4b.
+Shards that live on other servers are read through a caller-supplied
+`remote_read` hook (the volume server's VolumeEcShardRead client,
+server/volume.py): a missing interval goes to its holder first, and the
+degraded gather fetches its remote survivors concurrently through the
+hedged gather (utils/faultpolicy.py).  A burst of a resident volume
+(read_needles_batch with >=10 survivors pinned) reconstructs on the card
+without the remote hop.  The reconstruct memo is ROADMAP A4c.
 """
 from __future__ import annotations
 
 import os
 import threading
+from typing import Callable, Optional
 
 import numpy as np
 
@@ -47,6 +53,7 @@ from .layout import (
     DATA_SHARDS,
     TOTAL_SHARDS,
     Interval,
+    ShardBits,
     locate_data,
     to_ext,
 )
@@ -101,6 +108,30 @@ def iter_ecj(path: str):
         buf = f.read()
     for i in range(0, len(buf) - len(buf) % 8, 8):
         yield int.from_bytes(buf[i : i + 8], "big")
+
+
+# shard_id, shard file offset, size -> bytes (or None if unavailable);
+# the remote-read hook corresponding to VolumeEcShardRead
+# (store_ec.go:299-337)
+RemoteReadFn = Callable[[int, int, int], Optional[bytes]]
+
+
+# shared fetch pool for the degraded-read survivor gather: a per-read pool
+# would spawn ~10 threads per reconstruct, and thread churn is tail latency
+_GATHER_POOL = None
+_GATHER_POOL_LOCK = threading.Lock()
+
+
+def _gather_pool():
+    global _GATHER_POOL
+    with _GATHER_POOL_LOCK:
+        if _GATHER_POOL is None:
+            from concurrent.futures import ThreadPoolExecutor
+
+            _GATHER_POOL = ThreadPoolExecutor(
+                max_workers=32, thread_name_prefix="ec-gather"
+            )
+        return _GATHER_POOL
 
 
 class EcVolumeShard:
@@ -242,6 +273,12 @@ class EcVolume:
             and self.device_cache.resident_count(self.id) >= DATA_SHARDS
         )
 
+    def shard_bits(self) -> ShardBits:
+        b = ShardBits(0)
+        for sid in self.shards:
+            b = b.add(sid)
+        return b
+
     @property
     def shard_size(self) -> int:
         for s in self.shards.values():
@@ -289,34 +326,53 @@ class EcVolume:
         return view if view is not None and len(view) == size else None
 
     def read_interval(
-        self, interval: Interval, backend: str = "cuda", use_device: bool = True
+        self, interval: Interval, remote_read: RemoteReadFn | None = None,
+        backend: str = "cuda", use_device: bool = True,
     ) -> bytes:
         shard_id, off = interval.to_shard_and_offset()
-        staged = self._host_tier_read(shard_id, off, interval.size)
+        return self._read_shard_interval(
+            shard_id, off, interval.size, remote_read, backend, use_device
+        )
+
+    def _read_shard_interval(
+        self, shard_id: int, off: int, size: int,
+        remote_read: RemoteReadFn | None, backend: str,
+        use_device: bool = True,
+    ) -> bytes:
+        """One interval: the host tier, the local shard, the shard's holder
+        (`remote_read`), else a degraded reconstruction."""
+        staged = self._host_tier_read(shard_id, off, size)
         if staged is not None:
             with obs_trace.span(
-                "shard_read", shard=shard_id, bytes=interval.size,
-                source="host_tier",
+                "shard_read", shard=shard_id, bytes=size, source="host_tier",
             ):
                 return staged
         shard = self.shards.get(shard_id)
         if shard is not None:
+            with obs_trace.span("shard_read", shard=shard_id, bytes=size):
+                return shard.read_at(off, size)
+        if remote_read is not None:
             with obs_trace.span(
-                "shard_read", shard=shard_id, bytes=interval.size
+                "remote_shard_read", shard=shard_id, bytes=size
             ):
-                return shard.read_at(off, interval.size)
+                data = remote_read(shard_id, off, size)
+            if data is not None:
+                return data
         return self._reconstruct_interval(
-            shard_id, off, interval.size, backend, use_device
+            shard_id, off, size, remote_read, backend, use_device
         )
 
     def _reconstruct_interval(
-        self, missing_shard: int, off: int, size: int, backend: str,
+        self, missing_shard: int, off: int, size: int,
+        remote_read: RemoteReadFn | None, backend: str,
         use_device: bool = True,
     ) -> bytes:
-        """Degraded read: gather this interval from >=k other local shards
-        and recompute the missing rows (recoverOneRemoteEcShardInterval
-        store_ec.go:339-393) — one multiply on the selected backend.  With
-        the survivors resident in `device_cache` the gather happens on the
+        """Degraded read: gather this interval from >=k other shards and
+        recompute the missing rows (recoverOneRemoteEcShardInterval
+        store_ec.go:339-393) — one multiply on the selected backend.  Local
+        survivors are read first; the rest come from their holders through
+        `remote_read`, concurrently, by the hedged gather.  With the
+        survivors resident in `device_cache` the gather happens on the
         device instead; `use_device=False` forces the host path."""
         if use_device and self.device_cache is not None:
             try:
@@ -326,7 +382,9 @@ class EcVolume:
             except rs_resident.CacheMiss:
                 self.device_misses += 1
         got: dict[int, np.ndarray] = {}
+        n_remote = 0
         with obs_trace.span("shard_read", op="gather_survivors") as gather:
+            remote_candidates: list[int] = []
             for sid in range(TOTAL_SHARDS):
                 if sid == missing_shard:
                     continue
@@ -336,14 +394,39 @@ class EcVolume:
                 if buf is None:
                     shard = self.shards.get(sid)
                     if shard is None:
+                        if remote_read is not None:
+                            remote_candidates.append(sid)
                         continue
                     buf = shard.read_at(off, size)
                 if len(buf) == size:
                     got[sid] = np.frombuffer(buf, dtype=np.uint8)
                 if len(got) >= DATA_SHARDS:
                     break
-            # remote=0: no peer shard reader on one node (A4b)
-            gather.annotate(survivors=len(got), remote=0,
+            # the remote survivors fetch concurrently through the hedged
+            # gather: the `need` cheapest peers first, a hedge to a spare
+            # holder past a peer's latency quantile, failed fetches
+            # replaced from the spares; each fetch runs under a copy of
+            # this worker's contextvars (trace id and deadline ride along)
+            if len(got) < DATA_SHARDS and remote_candidates:
+                from ...utils import faultpolicy
+
+                res = faultpolicy.hedged_gather(
+                    DATA_SHARDS - len(got),
+                    remote_candidates,
+                    lambda sid: remote_read(sid, off, size),
+                    pool=_gather_pool(),
+                    validate=lambda b: b is not None and len(b) == size,
+                    peer_of=getattr(remote_read, "peer_of", None),
+                    pod_of=getattr(remote_read, "pod_of", None),
+                    what=f"ec {self.id} survivor gather",
+                )
+                n_remote = res.sent
+                for sid, buf in res.got.items():
+                    got[sid] = np.frombuffer(buf, dtype=np.uint8)
+                gather.annotate(
+                    hedges=res.hedges_sent, hedge_wins=res.hedge_wins,
+                )
+            gather.annotate(survivors=len(got), remote=n_remote,
                             bytes=size * len(got))
         if len(got) < DATA_SHARDS:
             raise InsufficientShards(
@@ -356,23 +439,28 @@ class EcVolume:
             return out[missing_shard].tobytes()
 
     def read_needle_bytes(
-        self, needle_id: int, backend: str = "cuda", use_device: bool = True
+        self, needle_id: int, remote_read: RemoteReadFn | None = None,
+        backend: str = "cuda", use_device: bool = True,
     ) -> bytes:
         # the .ecx binary search is a real disk read serving the request
         with obs_trace.span("shard_read", op="locate"):
             _, _, intervals = self.locate_needle(needle_id)
-        parts = [self.read_interval(iv, backend, use_device) for iv in intervals]
+        parts = [self.read_interval(iv, remote_read, backend, use_device)
+                 for iv in intervals]
         return parts[0] if len(parts) == 1 else b"".join(parts)
 
     def read_needles_batch(
-        self, needle_ids: list[int], backend: str = "cuda",
-        zero_copy: bool = False,
+        self, needle_ids: list[int], remote_read: RemoteReadFn | None = None,
+        backend: str = "cuda", zero_copy: bool = False,
     ) -> list[Needle | Exception]:
         """Serve a burst of needle reads with every missing-shard interval
         reconstructed in one reconstruct_intervals call (one ragged device
-        launch and D2H for the burst).  Local intervals are pread as usual.
-        Falls back to the per-interval host path when no device cache is set
-        or it lacks survivors (CacheMiss).
+        launch and D2H for the burst) — with >=10 survivors resident the
+        missing shard is recomputed on the card, never fetched from its
+        holder.  Local intervals are pread as usual.  Without a device
+        cache, or when it lacks survivors (CacheMiss), each missing
+        interval takes the per-interval path: its holder through
+        `remote_read`, else the host degraded read.
 
         Returns one entry per requested id, in order; a failed needle
         (deleted, not found, corrupt) yields its exception in that slot.
@@ -439,8 +527,9 @@ class EcVolume:
                         pieces.append(recon[p[1]])
                     else:
                         sid, off, size = requests[p[1]]
-                        pieces.append(self._reconstruct_interval(
-                            sid, off, size, backend, use_device=False
+                        pieces.append(self._read_shard_interval(
+                            sid, off, size, remote_read, backend,
+                            use_device=False,
                         ))
                 raw = pieces[0] if len(pieces) == 1 else b"".join(pieces)
                 n = Needle.from_bytes(raw, self.version, copy=not zero_copy)
@@ -454,12 +543,14 @@ class EcVolume:
         return results
 
     def read_needle(
-        self, needle_id: int, cookie: int | None = None, backend: str = "cuda",
+        self, needle_id: int, cookie: int | None = None,
+        remote_read: RemoteReadFn | None = None, backend: str = "cuda",
         use_device: bool = True, zero_copy: bool = False,
     ) -> Needle:
         """Full needle with CRC verification (ReadEcShardNeedle
         store_ec.go:136-174); `zero_copy` as in read_needles_batch."""
-        raw = self.read_needle_bytes(needle_id, backend, use_device)
+        raw = self.read_needle_bytes(needle_id, remote_read, backend,
+                                     use_device)
         n = Needle.from_bytes(raw, self.version, copy=not zero_copy)
         if n.id != needle_id:
             raise NeedleNotFound(

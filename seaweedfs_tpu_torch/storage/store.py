@@ -15,23 +15,31 @@ the card when every shard of a volume is resident (one launch of
 csrc/scrub.cu a volume, or one for up to 32 volumes of one span) and
 streams the shard files through verify_ec_files otherwise.
 
+The heartbeat reads the store as the reference's does: collect_heartbeat
+for a full pulse (VolumeMessage / EcShardMessage records), and drain_deltas
+for the mounts, unmounts, deletes and EC shard changes queued since the
+last pulse (NewVolumesChan / NewEcShardsChan, store.go:66-70).  EC reads
+take a `remote_read` hook (server/volume.py's peer shard reader) for
+shards that live on other servers.
+
 The residency ladder (serving/tiering.py) attaches its host-RAM tier
 through set_ec_host_cache, so every mounted EcVolume reads staged bytes
 before its shard files; ec_volume_tier names a volume's rung.  The
 streaming ingest plane (ingest/, attached as `ingest` by the volume
 server) lets ec_generate seal a volume from its streamed parity.
 
-Not here, each named in ROADMAP: the `.dat` tier moves, vacuum (and with
-it the ingest pipeline's vacuum invalidation), the heartbeat messages and
-their delta queues (A4b).
+Not here, each named in ROADMAP A4c: the `.dat` tier moves, and vacuum
+(with it the ingest pipeline's vacuum invalidation).
 """
 from __future__ import annotations
 
 import glob
 import logging
 import os
+import queue
 import threading
 import time
+from dataclasses import dataclass, field
 
 from . import needle as needle_mod
 from . import types as t
@@ -39,6 +47,7 @@ from .disk_location import DiskLocation
 from .ec import (
     DATA_SHARDS,
     EcVolume,
+    ShardBits,
     ec_base_name,
     rebuild_ec_files,
     rebuild_ecx_file,
@@ -50,20 +59,61 @@ from .needle import Needle
 from .volume import CookieMismatch, NotFoundError, Volume, VolumeInfo
 
 
-def _no_remote(remote_read) -> None:
-    if remote_read is not None:
-        raise NotImplementedError(
-            "peer shard reads are not ported yet (ROADMAP A4b)"
-        )
+@dataclass
+class VolumeMessage:
+    """Heartbeat record for one normal volume
+    (master_pb.VolumeInformationMessage, master.proto:77-95)."""
+
+    id: int
+    size: int
+    collection: str
+    file_count: int
+    delete_count: int
+    deleted_byte_count: int
+    read_only: bool
+    replica_placement: int
+    version: int
+    ttl: int
+    disk_type: str
+    modified_at_second: int = 0
+
+
+@dataclass
+class EcShardMessage:
+    """Heartbeat record for one EC volume's local shards
+    (master_pb.VolumeEcShardInformationMessage, master.proto:97-102)."""
+
+    id: int
+    collection: str
+    ec_index_bits: int
+    disk_type: str
+
+
+@dataclass
+class HeartbeatState:
+    """Everything the master needs from one pulse (master_pb.Heartbeat,
+    master.proto:45-75)."""
+
+    volumes: list[VolumeMessage] = field(default_factory=list)
+    ec_shards: list[EcShardMessage] = field(default_factory=list)
+    max_volume_counts: dict[str, int] = field(default_factory=dict)
+    has_no_volumes: bool = False
+    has_no_ec_shards: bool = False
 
 
 class Store:
     def __init__(
         self,
         locations: list[DiskLocation],
+        ip: str = "localhost",
+        port: int = 8080,
+        public_url: str = "",
         ec_backend: str = "cuda",
         ec_device_cache=None,  # ops.rs_resident.DeviceShardCache | None
     ):
+        self.ip = ip
+        self.port = port
+        self.public_url = public_url or f"{ip}:{port}"
         self.locations = locations
         self.ec_backend = ec_backend
         self.ec_device_cache = ec_device_cache
@@ -81,6 +131,11 @@ class Store:
         # device-cache pin threads: cancellable + joined on close
         self._closing = threading.Event()
         self._pin_threads: list[threading.Thread] = []
+        # delta queues drained by the heartbeat loop (store.go:66-70)
+        self.new_volumes: queue.SimpleQueue[VolumeMessage] = queue.SimpleQueue()
+        self.deleted_volumes: queue.SimpleQueue[VolumeMessage] = queue.SimpleQueue()
+        self.new_ec_shards: queue.SimpleQueue[EcShardMessage] = queue.SimpleQueue()
+        self.deleted_ec_shards: queue.SimpleQueue[EcShardMessage] = queue.SimpleQueue()
         for loc in self.locations:
             loc.load_existing_volumes()
         if self.ec_device_cache is not None:
@@ -137,6 +192,12 @@ class Store:
             and self.ec_device_cache.resident_count(vid) >= DATA_SHARDS
         )
 
+    def location_of_volume(self, vid: int) -> DiskLocation | None:
+        for loc in self.locations:
+            if vid in loc.volumes:
+                return loc
+        return None
+
     def volume_infos(self) -> list[VolumeInfo]:
         return [
             v.info() for loc in self.locations for v in loc.volumes.values()
@@ -151,11 +212,12 @@ class Store:
         replica_placement: str | t.ReplicaPlacement = "000",
         ttl: str | t.TTL = "",
         version: int = needle_mod.CURRENT_VERSION,
+        disk_type: str = "",
     ) -> Volume:
         with self._lock:
             if self.find_volume(vid) is not None:
                 raise ValueError(f"volume {vid} already exists")
-            loc = self._pick_location()
+            loc = self._pick_location(disk_type)
             if loc is None:
                 raise RuntimeError("no disk location has free slots")
             if isinstance(replica_placement, str):
@@ -166,11 +228,14 @@ class Store:
                 loc.directory, vid, collection, replica_placement, ttl, version
             )
             loc.volumes[vid] = v
+            self.new_volumes.put(self._volume_message(v, loc.disk_type))
             return v
 
-    def _pick_location(self) -> DiskLocation | None:
+    def _pick_location(self, disk_type: str = "") -> DiskLocation | None:
         best = None
         for loc in self.locations:
+            if disk_type and loc.disk_type != disk_type:
+                continue
             if loc.free_slots() <= 0:
                 continue
             if best is None or loc.free_slots() > best.free_slots():
@@ -182,9 +247,11 @@ class Store:
             for loc in self.locations:
                 v = loc.volumes.pop(vid, None)
                 if v is not None:
+                    msg = self._volume_message(v, loc.disk_type)
                     if self.ingest is not None:
                         self.ingest.drop(vid)
                     v.destroy()
+                    self.deleted_volumes.put(msg)
                     return
         raise NotFoundError(f"volume {vid} not found")
 
@@ -193,9 +260,11 @@ class Store:
             for loc in self.locations:
                 v = loc.volumes.pop(vid, None)
                 if v is not None:
+                    msg = self._volume_message(v, loc.disk_type)
                     if self.ingest is not None:
                         self.ingest.drop(vid)
                     v.close()
+                    self.deleted_volumes.put(msg)
                     return
         raise NotFoundError(f"volume {vid} not found")
 
@@ -209,7 +278,9 @@ class Store:
                     collection, _, vid_s = stem.rpartition("_")
                     if vid_s != str(vid):
                         continue
-                    loc.volumes[vid] = Volume(loc.directory, vid, collection)
+                    v = Volume(loc.directory, vid, collection)
+                    loc.volumes[vid] = v
+                    self.new_volumes.put(self._volume_message(v, loc.disk_type))
                     return
         raise NotFoundError(f"volume {vid} not found on disk")
 
@@ -220,6 +291,9 @@ class Store:
         v.read_only = read_only
         if not read_only:
             v.full = False  # admin override re-opens a size-locked volume
+        # push the flip at once (both directions) so the master's writable
+        # pool tracks it without waiting for a full re-sync
+        self._push_volume_delta(v)
 
     # -- needle ops ----------------------------------------------------------
 
@@ -232,7 +306,14 @@ class Store:
         v.append_needle(n)
         if not v.full and v.content_size > self.volume_size_limit:
             v.full = True
+            self._push_volume_delta(v)
         return n.size
+
+    def _push_volume_delta(self, v: Volume) -> None:
+        loc = self.location_of_volume(v.id)
+        self.new_volumes.put(
+            self._volume_message(v, loc.disk_type if loc else "")
+        )
 
     def read_needle(
         self,
@@ -324,6 +405,7 @@ class Store:
                 loc.ec_volumes[vid] = ev
             for sid in shard_ids:
                 ev.add_shard(sid)
+            self.new_ec_shards.put(self._ec_message(ev))
         if self.ec_device_cache is not None:
             self._pin_ec_shards_async(ev)
 
@@ -367,10 +449,16 @@ class Store:
             ev = self.find_ec_volume(vid)
             if ev is None:
                 return
+            bits = ShardBits(0)
             for sid in shard_ids:
                 s = ev.delete_shard(sid)
                 if s is not None:
                     s.close()
+                    bits = bits.add(sid)
+            self.deleted_ec_shards.put(
+                EcShardMessage(vid, ev.collection, int(bits),
+                               self._disk_type_of(ev))
+            )
             if not ev.shards:
                 for loc in self.locations:
                     if loc.ec_volumes.get(vid) is ev:
@@ -411,6 +499,7 @@ class Store:
             for loc in self.locations:
                 ev = loc.ec_volumes.pop(vid, None)
                 if ev is not None:
+                    self.deleted_ec_shards.put(self._ec_message(ev))
                     ev.destroy()
                     if self.ec_host_cache is not None:
                         self.ec_host_cache.evict(vid)
@@ -517,17 +606,16 @@ class Store:
         use_device: bool = True,
         zero_copy: bool = False,
     ) -> Needle:
-        """(ReadEcShardNeedle store_ec.go:136-174): local shards, then a
-        degraded reconstruction from the local survivors.
+        """(ReadEcShardNeedle store_ec.go:136-174): local shards, then the
+        shard's holder through `remote_read`, then a degraded
+        reconstruction from the survivors, local and remote.
         `use_device=False` forces the host reconstruct even when the
-        volume is resident (the dispatcher's shed path).  `remote_read`
-        must be None: peer shard reads are ROADMAP A4b."""
-        _no_remote(remote_read)
+        volume is resident (the dispatcher's shed path)."""
         ev = self.find_ec_volume(vid)
         if ev is None:
             raise NotFoundError(f"ec volume {vid} not found")
         return ev.read_needle(
-            needle_id, cookie, backend=self.ec_backend,
+            needle_id, cookie, remote_read, backend=self.ec_backend,
             use_device=use_device, zero_copy=zero_copy,
         )
 
@@ -543,13 +631,12 @@ class Store:
         resident launch (EcVolume.read_needles_batch).  One result slot per
         request; a bad needle yields its exception without failing the
         rest."""
-        _no_remote(remote_read)
         ev = self.find_ec_volume(vid)
         if ev is None:
             raise NotFoundError(f"ec volume {vid} not found")
         results = ev.read_needles_batch(
-            [nid for nid, _ in requests], backend=self.ec_backend,
-            zero_copy=zero_copy,
+            [nid for nid, _ in requests], remote_read,
+            backend=self.ec_backend, zero_copy=zero_copy,
         )
         out: list[Needle | Exception] = []
         for (nid, cookie), r in zip(requests, results):
@@ -564,8 +651,8 @@ class Store:
         return out
 
     def read_ec_shard_interval(self, vid: int, shard_id: int, offset: int, size: int) -> bytes:
-        """A raw shard range (VolumeEcShardRead
-        volume_grpc_erasure_coding.go:309-375, served to peers in A4b)."""
+        """Serve a raw shard range to a peer (VolumeEcShardRead
+        volume_grpc_erasure_coding.go:309-375)."""
         ev = self.find_ec_volume(vid)
         if ev is None:
             raise NotFoundError(f"ec volume {vid} not found")
@@ -575,11 +662,78 @@ class Store:
         return shard.read_at(offset, size)
 
     def delete_ec_needle(self, vid: int, needle_id: int) -> None:
-        """Local tombstone."""
+        """Local tombstone (VolumeEcBlobDelete)."""
         ev = self.find_ec_volume(vid)
         if ev is None:
             raise NotFoundError(f"ec volume {vid} not found")
         ev.delete_needle(needle_id)
+
+    # -- heartbeat assembly (CollectHeartbeat store.go:254-320,
+    #    CollectErasureCodingHeartbeat store_ec.go:25-52) --------------------
+
+    def _volume_message(self, v: Volume, disk_type: str) -> VolumeMessage:
+        info = v.info()
+        return VolumeMessage(
+            id=v.id,
+            size=info.size,
+            collection=v.collection,
+            file_count=info.file_count,
+            delete_count=info.delete_count,
+            deleted_byte_count=info.deleted_bytes,
+            read_only=v.read_only or v.full,
+            replica_placement=v.super_block.replica_placement.to_byte(),
+            version=v.version,
+            ttl=int.from_bytes(v.super_block.ttl.to_bytes(), "big"),
+            disk_type=disk_type,
+            modified_at_second=getattr(v, "last_modified_at", 0),
+        )
+
+    def _disk_type_of(self, ev: EcVolume) -> str:
+        for loc in self.locations:
+            if loc.ec_volumes.get(ev.id) is ev:
+                return loc.disk_type
+        return "hdd"
+
+    def _ec_message(self, ev: EcVolume) -> EcShardMessage:
+        return EcShardMessage(
+            id=ev.id,
+            collection=ev.collection,
+            ec_index_bits=int(ev.shard_bits()),
+            disk_type=self._disk_type_of(ev),
+        )
+
+    def collect_heartbeat(self) -> HeartbeatState:
+        hs = HeartbeatState()
+        for loc in self.locations:
+            hs.max_volume_counts[loc.disk_type] = (
+                hs.max_volume_counts.get(loc.disk_type, 0) + loc.max_volume_count
+            )
+            for v in loc.volumes.values():
+                hs.volumes.append(self._volume_message(v, loc.disk_type))
+            for ev in loc.ec_volumes.values():
+                hs.ec_shards.append(self._ec_message(ev))
+        hs.has_no_volumes = not hs.volumes
+        hs.has_no_ec_shards = not hs.ec_shards
+        return hs
+
+    def drain_deltas(self):
+        """-> (new_vols, deleted_vols, new_ec, deleted_ec) accumulated since
+        the last pulse."""
+
+        def drain(q):
+            out = []
+            while True:
+                try:
+                    out.append(q.get_nowait())
+                except queue.Empty:
+                    return out
+
+        return (
+            drain(self.new_volumes),
+            drain(self.deleted_volumes),
+            drain(self.new_ec_shards),
+            drain(self.deleted_ec_shards),
+        )
 
     def close(self) -> None:
         # stop + join the pin threads FIRST: a daemon thread torn down

@@ -1182,3 +1182,75 @@ def test_ingest_pipeline_on_card_seals_like_offline(cuda_device, tmp_path):
         with open(str(tmp_path / "1") + ec.to_ext(i), "rb") as a, \
                 open(base2 + ec.to_ext(i), "rb") as b:
             assert a.read() == b.read(), i
+
+
+def test_cluster_generate_and_scrub_over_the_rpc_plane(cuda_device, tmp_path):
+    """A two-server LocalCluster on the card: VolumeEcShardsGenerate over
+    the RPC plane runs K1 (gf2_matmul) and writes shards sha256-equal to
+    the plain version's; after the shards are mounted and pinned,
+    VolumeEcShardsVerify(all_resident=True) runs B5 (csrc/scrub.cu) and
+    reports 0 mismatching bytes for the volume."""
+    import asyncio
+    import hashlib
+    import pathlib
+
+    from seaweedfs_tpu_torch.pb import Stub, channel, volume_server_pb2 as vpb
+    from seaweedfs_tpu_torch.server.cluster import LocalCluster
+
+    rng = np.random.default_rng(29)
+    items = [(i, int(rng.integers(0, 1 << 32)),
+              rng.bytes(int(rng.integers(100, 400_000))))
+             for i in range(1, 61)]
+    # the plain version's shards, from the same .dat
+    plain = tmp_path / "plain"
+    plain.mkdir()
+    v = Volume(str(plain), 1)
+    for nid, cookie, data in items:
+        v.write(nid, cookie, data)
+    v.close()
+    ec.write_ec_files(str(plain / "1"), backend="torch")
+    want = {sid: hashlib.sha256((plain / f"1{ec.to_ext(sid)}").read_bytes())
+            .hexdigest() for sid in range(14)}
+
+    async def go():
+        c = LocalCluster(n_volume_servers=2, base_dir=str(tmp_path / "c"),
+                         ec_backend="cuda",
+                         volume_kwargs={"ec_device_cache_mb": 2048})
+        await c.start()
+        try:
+            vs = c.volume_servers[0]
+            shutil.copy(plain / "1.dat", vs.store.locations[0].directory)
+            shutil.copy(plain / "1.idx", vs.store.locations[0].directory)
+            stub = Stub(channel(vs.grpc_url), vpb, "VolumeServer")
+            await stub.VolumeMount(vpb.VolumeMountRequest(volume_id=1))
+            await stub.VolumeMarkReadonly(vpb.VolumeMarkReadonlyRequest(
+                volume_id=1))
+            k0 = rs_cuda.gf2_matmul.launches + rs_cuda.gf2_matmul_small.launches
+            await stub.VolumeEcShardsGenerate(
+                vpb.VolumeEcShardsGenerateRequest(volume_id=1))
+            assert rs_cuda.gf2_matmul.launches + \
+                rs_cuda.gf2_matmul_small.launches > k0
+            base = os.path.join(vs.store.locations[0].directory, "1")
+            got = await asyncio.to_thread(lambda: {
+                sid: hashlib.sha256(
+                    pathlib.Path(base + ec.to_ext(sid)).read_bytes()
+                ).hexdigest() for sid in range(14)})
+            assert got == want
+            await stub.VolumeEcShardsMount(vpb.VolumeEcShardsMountRequest(
+                volume_id=1, shard_ids=list(range(14))))
+            for _ in range(600):
+                if vs.store.find_ec_volume(1).is_device_resident() and \
+                        vs.store.ec_device_cache.resident_count(1) == 14:
+                    break
+                await asyncio.sleep(0.05)
+            s0 = rs_resident.scrub.launches
+            r = await stub.VolumeEcShardsVerify(vpb.VolumeEcShardsVerifyRequest(
+                all_resident=True))
+            assert rs_resident.scrub.launches > s0
+            assert [row.volume_id for row in r.volumes] == [1]
+            assert list(r.volumes[0].parity_mismatch_bytes) == [0, 0, 0, 0]
+            assert r.volumes[0].bytes_verified > 0
+        finally:
+            await c.stop()
+
+    asyncio.run(go())

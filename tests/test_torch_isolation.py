@@ -72,7 +72,31 @@ def test_every_port_module_is_walked():
                  "seaweedfs_tpu_torch.ingest.config",
                  "seaweedfs_tpu_torch.ingest.pipeline",
                  "seaweedfs_tpu_torch.ops.rs_ingest",
-                 "seaweedfs_tpu_torch.serving.tiering"):
+                 "seaweedfs_tpu_torch.serving.tiering",
+                 "seaweedfs_tpu_torch.pb", "seaweedfs_tpu_torch.pb.wire",
+                 "seaweedfs_tpu_torch.pb.rpc",
+                 "seaweedfs_tpu_torch.pb.server_address",
+                 "seaweedfs_tpu_torch.utils.faultpolicy",
+                 "seaweedfs_tpu_torch.topology",
+                 "seaweedfs_tpu_torch.topology.sequence",
+                 "seaweedfs_tpu_torch.topology.node",
+                 "seaweedfs_tpu_torch.topology.volume_layout",
+                 "seaweedfs_tpu_torch.topology.volume_growth",
+                 "seaweedfs_tpu_torch.topology.topology",
+                 "seaweedfs_tpu_torch.server.conversions",
+                 "seaweedfs_tpu_torch.server.master",
+                 "seaweedfs_tpu_torch.server.cluster",
+                 "seaweedfs_tpu_torch.command.master",
+                 "seaweedfs_tpu_torch.command.shell",
+                 "seaweedfs_tpu_torch.operation",
+                 "seaweedfs_tpu_torch.operation.assign",
+                 "seaweedfs_tpu_torch.operation.lookup",
+                 "seaweedfs_tpu_torch.operation.upload",
+                 "seaweedfs_tpu_torch.shell",
+                 "seaweedfs_tpu_torch.shell.command_env",
+                 "seaweedfs_tpu_torch.shell.commands",
+                 "seaweedfs_tpu_torch.shell.command_lock",
+                 "seaweedfs_tpu_torch.shell.command_ec"):
         assert name in mods, name
 
 
@@ -258,3 +282,52 @@ def test_chip_smoke_refuses_without_cuda(tmp_path):
         )
         assert proc.returncode != 0
         assert '"ok"' not in proc.stdout
+
+
+def test_cluster_path_runs_without_grpc_or_protobuf(tmp_path):
+    """A master, two volume servers and the shell talk over the port's RPC
+    plane in an interpreter where grpc, google.protobuf and aiohttp (and
+    JAX, and the JAX package) cannot be imported."""
+    code = f"""
+import asyncio, importlib.abc, io, sys
+def bad_name(name):
+    return name.split(".")[0] in {FORBIDDEN_ROOTS!r} or any(
+        name == p or name.startswith(p + ".") for p in {FORBIDDEN_PACKAGES!r})
+class Refuse(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path, target=None):
+        if bad_name(name):
+            raise ImportError("port imported " + name)
+sys.meta_path.insert(0, Refuse())
+from seaweedfs_tpu_torch.operation import assign, upload_data
+from seaweedfs_tpu_torch.server.cluster import LocalCluster
+from seaweedfs_tpu_torch.server.http import Client
+from seaweedfs_tpu_torch.shell import CommandEnv, run_command
+async def go():
+    c = LocalCluster(n_volume_servers=2, base_dir={str(tmp_path)!r},
+                     ec_backend="torch")
+    await c.start()
+    try:
+        a = await assign(c.master.advertise_url)
+        await upload_data("http://" + a.url + "/" + a.fid, b"x" * 5000, "x")
+        host, port = a.url.split(":")
+        st, _, body = await Client(host, int(port)).request("GET", "/" + a.fid)
+        assert st == 200 and body == b"x" * 5000
+        env = CommandEnv([c.master.advertise_url], out=io.StringIO())
+        for line in ("lock", "ec.scrub", "unlock"):
+            await run_command(env, line)
+        return env.out.getvalue()
+    finally:
+        await c.stop()
+out = asyncio.run(go())
+assert "locked" in out and "unlocked" in out, out
+bad = [m for m in sys.modules if bad_name(m)]
+assert not bad, bad
+print("clean")
+"""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run(
+        [sys.executable, "-c", code], cwd=REPO, env=env,
+        capture_output=True, text=True, timeout=120,
+    )
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "clean"

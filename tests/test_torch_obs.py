@@ -547,12 +547,19 @@ def test_hot_shapes_count_calls_by_class(one_bucket):
             tev.read_needle(nid, backend="torch")
         tev.read_needles_batch([nid for nid, _, _ in needles],
                                backend="torch")
-        hot = tr.hot_shapes(10)
+        # one clock for both calls: each computes last_dispatch_age_s
+        # from its own time.time(), and two reads a millisecond apart
+        # would round to different ages
+        now = time.time()
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setattr(tr.time, "time", lambda: now)
+            hot = tr.hot_shapes(10)
+            top = tr.hot_shapes(1)
         assert sum(h["dispatches"] for h in hot) >= 2
         assert {h["kernel"] for h in hot} == {"fused_reconstruct"}
         assert hot == sorted(hot, key=lambda h: -h["dispatches"])
         assert all(h["ewma_ms"] >= 0 for h in hot)
-        assert tr.hot_shapes(1) == hot[:1]
+        assert top == hot[:1]
         assert tr.aot_stats() == {}
     finally:
         tev.close()

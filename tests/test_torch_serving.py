@@ -221,8 +221,10 @@ def test_spawn_logged_retains_and_logs(caplog):
 
 def test_metric_series_carry_the_reference_names():
     """The port's declared metric families (name, type, label names) are
-    the reference's, less the ones the port does not serve, plus its one
-    own family, the kernels' launch counts.  Families, not samples: a
+    the reference's, less the ones the port does not serve, plus its own
+    families: the kernels' launch counts, and the remote shard reader's
+    fetches and bytes (which the cluster's chip phase reads per GET).
+    Families, not samples: a
     labelled family shows samples only once some caller has touched a
     child, so a sample comparison would depend on what ran before it in
     the process."""
@@ -233,8 +235,10 @@ def test_metric_series_carry_the_reference_names():
            for c in jax_stats.REGISTRY._collector_to_names}
     ours = {fam(m.name, m.kind, m.labelnames)
             for m in stats.REGISTRY.collect()}
-    launches = stats.VOLUME_SERVER_EC_KERNEL_LAUNCHES
-    assert ours - ref == {fam(launches.name, launches.kind, launches.labelnames)}
+    own = (stats.VOLUME_SERVER_EC_KERNEL_LAUNCHES,
+           stats.VOLUME_SERVER_EC_REMOTE_SHARD_READS,
+           stats.VOLUME_SERVER_EC_REMOTE_SHARD_BYTES)
+    assert ours - ref == {fam(m.name, m.kind, m.labelnames) for m in own}
     # every reference family of the slices ported so far is declared,
     # the ingest plane's and the residency ladder's included
     ported = ("volumeServer_ingest_", "volumeServer_ec_tier_",

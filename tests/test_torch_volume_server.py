@@ -357,9 +357,35 @@ def test_pipeline_slots_follow_the_config(data_dir):
 
 
 def test_server_refuses_a_master_and_a_cache_on_numpy(tmp_path):
-    with pytest.raises(ValueError, match="A4b"):
-        server_volume.VolumeServer(["127.0.0.1:9333"], [str(tmp_path)],
-                                   ec_backend="torch")
+    """The master half: a server given -mserver registers with that master
+    (its heartbeat carries its volumes and telemetry into the topology).
+    The cache half: a device cache on the numpy backend is refused."""
+    from seaweedfs_tpu_torch.server.master import MasterServer
+
+    async def go():
+        ms = MasterServer(port=0)
+        await ms.start()
+        vs = server_volume.VolumeServer(
+            [ms.advertise_url], [str(tmp_path / "v")], port=0,
+            ec_backend="torch", pulse_seconds=1)
+        vs.store.add_volume(7)
+        await vs.start()
+        try:
+            for _ in range(200):
+                if ms.topo.lookup_volume("", 7):
+                    break
+                await asyncio.sleep(0.02)
+            assert [n.url for n in ms.topo.lookup_volume("", 7)] == [vs.url]
+            assert ms.topo.data_nodes()[0].grpc_port == vs.grpc_port
+            assert ms.node_telemetry[vs.url].wall_clock_unix_ms > 0
+        finally:
+            await vs.stop()
+            await ms.stop()
+            from seaweedfs_tpu_torch.pb import close_all_channels
+
+            await close_all_channels()
+
+    asyncio.run(go())
     with pytest.raises(ValueError, match="deviceCacheMB"):
         server_volume.VolumeServer([], [str(tmp_path)], ec_backend="numpy",
                                    ec_device_cache_mb=16)
@@ -371,7 +397,10 @@ def test_server_refuses_a_master_and_a_cache_on_numpy(tmp_path):
 def test_cli_flags_parse_with_the_reference_spellings(tmp_path):
     p = command.parser()
     args = p.parse_args(["volume", "-dir", str(tmp_path), "-port", "0"])
-    assert args.ec_backend == "cuda" and args.masters == ""
+    assert args.ec_backend == "cuda" and args.masters == "127.0.0.1:9333"
+    assert args.grpc_port == 0 and args.pulse_seconds == 5
+    assert (args.ec_rpc_hedge_quantile, args.ec_rpc_hedge_budget_pct,
+            args.ec_rpc_retry_budget_pct) == (0.95, 10.0, 10.0)
     cfg = command.volume.serving_config(args)
     assert cfg == ServingConfig()
     args = p.parse_args([
@@ -386,8 +415,11 @@ def test_cli_flags_parse_with_the_reference_spellings(tmp_path):
         "-ec.qos.interactiveDeadlineMs", "100", "-ec.qos.bulkDeadlineMs", "0",
         "-ec.qos.tripAfter", "5", "-ec.qos.recoverSeconds", "0.5",
         "-ec.qos.stallBudgetSeconds", "3", "-ec.qos.stallMinRateKBps", "7",
-        "-ec.rpc.deadlineMs", "1500",
+        "-ec.rpc.deadlineMs", "1500", "-port.grpc", "19009",
+        "-ec.rpc.hedgeQuantile", "0.9", "-ec.rpc.hedgeBudgetPct", "5",
+        "-ec.rpc.retryBudgetPct", "0",
     ])
+    assert args.grpc_port == 19009
     cfg = command.volume.serving_config(args)
     assert cfg == ServingConfig(
         enabled=False, max_batch=32, max_wait_us=50, max_inflight=2,
@@ -397,21 +429,29 @@ def test_cli_flags_parse_with_the_reference_spellings(tmp_path):
         qos_trip_after=5, qos_recover_seconds=0.5, stall_budget_seconds=3.0,
         stall_min_rate_kbps=7)
     vs = command.volume.build_server(args)
+    from seaweedfs_tpu_torch.utils import faultpolicy
+
     try:
         assert vs.store.ec_backend == "torch"
         assert vs.store.ec_device_cache.pipeline.slots == 1
         assert vs.store.locations[0].max_volume_count == 3
+        assert vs.masters == [] and vs.grpc_port == 19009
+        assert (faultpolicy.CONFIG.hedge_quantile,
+                faultpolicy.CONFIG.hedge_budget_pct,
+                faultpolicy.CONFIG.retry_budget_pct) == (0.9, 5.0, 0.0)
     finally:
         vs.store.close()
-        from seaweedfs_tpu_torch.utils import faultpolicy
-
         faultpolicy.configure(faultpolicy.FaultPolicyConfig())
     with pytest.raises(SystemExit):
         p.parse_args(["volume", "-ec.backend", "auto"])
-    with pytest.raises(ValueError, match="A4b"):
-        command.volume.build_server(
-            p.parse_args(["volume", "-dir", str(tmp_path), "-mserver", "m:1",
-                          "-ec.backend", "torch"]))
+    vs = command.volume.build_server(
+        p.parse_args(["volume", "-dir", str(tmp_path), "-mserver", "m:1",
+                      "-ec.backend", "torch"]))
+    try:
+        assert vs.masters == ["m:1"]
+    finally:
+        vs.store.close()
+        faultpolicy.configure(faultpolicy.FaultPolicyConfig())
 
 
 def test_cli_cuda_without_a_card_fails_at_start(tmp_path):
@@ -712,3 +752,65 @@ def test_timeline_loop_and_tail_follow_the_flags(tmp_path):
         timeline_interval_seconds=0.05, timeline_enabled=False,
         tail_enabled=False)))
     assert samples == [] and tail == 404
+
+
+def test_rpc_port_falls_back_when_the_derived_one_is_taken(tmp_path):
+    """Without -port.grpc the RPC listener takes port + 10000, the
+    reference's convention; when that port is taken (or past 65535) it
+    takes a free one instead (the heartbeat tells the master which), while
+    an explicit -port.grpc that is taken fails the start."""
+    import socket
+
+    from seaweedfs_tpu_torch.pb import (
+        RpcError, StatusCode, Stub, channel, close_all_channels,
+        volume_server_pb2)
+
+    held = []
+    while True:  # a free port whose + 10000 we can hold
+        s = socket.socket()
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+        held.append(s)
+        if port + 10000 > 65535:
+            continue
+        blocker = socket.socket()
+        try:
+            blocker.bind(("127.0.0.1", port + 10000))
+        except OSError:
+            blocker.close()
+            continue
+        blocker.listen()
+        held.append(blocker)
+        s.close()  # the server binds `port` itself
+        break
+
+    async def go():
+        vs = server_volume.VolumeServer(
+            [], [str(tmp_path / "a")], port=port, ec_backend="torch")
+        await vs.start()
+        try:
+            assert vs.grpc_port not in (0, port + 10000)
+            stub = Stub(channel(vs.grpc_url), volume_server_pb2,
+                        "VolumeServer")
+            with pytest.raises(RpcError) as ei:
+                await stub.VolumeStatus(
+                    volume_server_pb2.VolumeStatusRequest(volume_id=9),
+                    timeout=10)
+            assert ei.value.code() == StatusCode.NOT_FOUND
+        finally:
+            await vs.stop()
+            await close_all_channels()
+        explicit = server_volume.VolumeServer(
+            [], [str(tmp_path / "b")], port=0, grpc_port=port + 10000,
+            ec_backend="torch")
+        try:
+            with pytest.raises(OSError):
+                await explicit.start()
+        finally:
+            await explicit.stop()
+
+    try:
+        asyncio.run(go())
+    finally:
+        for s in held:
+            s.close()
