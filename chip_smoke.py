@@ -108,13 +108,14 @@ volume:
                  byte written): server A (a cache for 14 shards) mounts all
                  14 over the RPC plane and pins them; `ec.scrub` runs B5
                  there (0 mismatches); shard 0 moves to server B (no
-                 cache); GETs on A of every needle with bytes on shard 0
-                 plus 400 (K2-K5 on the card, 0 remote fetches); GETs on B
-                 of as many needles wholly on shards 1-9 (deep in the
-                 large-block row, in the small-block rows, across block
-                 boundaries), over VolumeEcShardRead from A, in sequence
-                 and with 64 clients; shard 5 unmounted on A, GETs on B of
-                 every needle with bytes on shard 5 (shard 0 local and 9
+                 cache); GETs on A of 2,000 of the needles with bytes on
+                 shard 0 and 400 others (K2-K5 on the card, 0 remote
+                 fetches); GETs on B of as many needles wholly on shards
+                 1-9 (deep in the large-block row, in the small-block rows,
+                 across block boundaries), over VolumeEcShardRead from A,
+                 in sequence and with 64 clients; shard 5 unmounted on A,
+                 GETs on B of 1,500 needles with bytes on shard 5 (shard 0
+                 local and 9
                  remote survivors through the hedged gather, K1's host
                  degraded read); p50/p99, reads/s, remote fetches and
                  bytes a read, hedge and retry counters.
@@ -126,7 +127,28 @@ volume:
                  memory; GETs; the server with the fewest shards killed;
                  GETs (remote survivors, K1); `ec.rebuild -force`,
                  `ec.balance -force` (shards still equal), `ec.decode` (the
-                 .dat equal to the oracle); each verb's wall
+                 .dat equal to the oracle); each verb's wall.  Before the
+                 verbs, replicated writes: /vol/grow of a `001` volume
+                 (collection ec9r, two copies), 32 writers assign and POST
+                 64 MiB (each write fanned out to the other copy); every
+                 fid read with a sha256 check on both holders, on the third
+                 server (proxied) and on a fourth started with `-readMode
+                 redirect` (each 301 followed)
+  10. mesh       the mesh on one card (two lanes of cuda:0 built with
+                 make_mesh(devices=...); no multi-GPU figure): vid 1's 12
+                 survivors pinned lane-sharded beside the one-device cache;
+                 every needle with bytes on shard 0 plus 400, shuffled,
+                 in bursts of 64, both layouts, through each (bodies
+                 equal; one ragged launch a lane a burst); one lane's
+                 launch timed against its plain version and bound.
+                 distributed_apply_matrix and distributed_encode_blockdiag
+                 on [10, 100 MiB] of vid 1: two gloo ranks sharing the
+                 card, then NCCL at world size 1 (processes of this
+                 script), each rank's K1 and all_gather timed, equal to
+                 the one-card K1 and the native codec.
+                 distributed_degraded_read of 512 of those needles'
+                 shard-0 intervals, equal to the one-device resident read
+                 and the shard file
 
 Every phase is fatal.  Prints one line per phase, a {"kernels": [...]}
 line, the nvidia-smi name/power-limit line, and as the last line
@@ -1410,8 +1432,8 @@ SERVE_CLIENTS = 64
 # the clients run in this many processes, so that one client process's
 # event loop (HTTP parsing, sha256 of every body) does not bound the pass
 SERVE_CLIENT_PROCS = 4
-SERVE_READS = 20_000
-SERVE_SECONDS = 30.0
+SERVE_READS = 12_000
+SERVE_SECONDS = 20.0
 SERVE_PIN_TIMEOUT = 180.0
 # the layouts in turns, so neither always runs first on a warmer host
 SERVE_TURNS = ("flat", "blockdiag", "blockdiag", "flat")
@@ -2663,7 +2685,7 @@ def _card_shard_hashes(dat: str) -> tuple[list, float]:
         plan.extend((row_start, block, off, step) for off in range(0, block, step))
     hashes = [hashlib.sha256() for _ in range(14)]
     codec = bulk.Codec(gf256.parity_matrix(10, 14), "cuda",
-                       threaded=bulk.DEFAULT_OVERLAP, workload="bulk")
+                       threaded=bulk.DEFAULT.overlap, workload="bulk")
     t0 = time.perf_counter()
     try:
         with open(dat, "rb") as f:
@@ -2677,7 +2699,7 @@ def _card_shard_hashes(dat: str) -> tuple[list, float]:
                     hashes[10 + i].update(parity[i])
 
             bulk.run("encode", plan, read_batch, codec, hash_batch,
-                     overlap=bulk.DEFAULT_OVERLAP)
+                     overlap=bulk.DEFAULT.overlap)
     finally:
         codec.shutdown()
     return [h.hexdigest() for h in hashes], time.perf_counter() - t0
@@ -3135,11 +3157,20 @@ def phase_tiering(torch, workdir: str, vol: dict, deg: dict, seed: int) -> dict:
 CLUSTER_CACHE_MB = SCRUB_BUDGET >> 20
 # reads of step 5's concurrent pass (64 clients, SERVE_SECONDS at most)
 CLUSTER_CONCURRENT_READS = 4000
+# reads of 9a's one-client passes (steps 4 and 5) and of step 6's gather,
+# each a seeded sample (the run's time limit: step 6 reads about 50-90 a
+# second)
+CLUSTER_SEQ_READS = 2000
+CLUSTER_GATHER_READS = 1500
 # 9b: the volume the shell verbs encode, spread, rebuild, balance and
 # decode.  Its writes come on top of the main path's (a call may write 45
 # GiB, deleted files counted): about 6x this .dat (§4 of PERF.md)
 CLUSTER_DAT_BYTES = 256 << 20
 CLUSTER_COLLECTION = "ec9"
+# 9b's replicated writes: a `001` volume (two copies) of this collection,
+# written through assign before the verbs: 2x this .dat of writes
+REPL_DAT_BYTES = 64 << 20
+REPL_COLLECTION = "ec9r"
 CLUSTER_WRITERS = 32
 CLUSTER_READERS = 32
 CLUSTER_WAIT_S = 180.0
@@ -3428,6 +3459,8 @@ def _cluster_full_width(cl: _Cluster, workdir: str, vol: dict, deg: dict,
     others = [n for n in vol["needles"] if n not in deleted and 0 not in spans[n][1]]
     seq4 = shard0 + rng.choice(others, size=min(SERVE_EXTRA, len(others)),
                                replace=False).tolist()
+    seq4 = rng.choice(seq4, size=min(CLUSTER_SEQ_READS, len(seq4)),
+                      replace=False).tolist()
 
     def item(nid):
         _, _, digest, cookie = vol["needles"][nid]
@@ -3468,7 +3501,8 @@ def _cluster_full_width(cl: _Cluster, workdir: str, vol: dict, deg: dict,
     cl.vstub("A").VolumeEcShardsUnmount(cl.vpb.VolumeEcShardsUnmountRequest(
         volume_id=1, shard_ids=[5]), timeout=60)
     cl.wait("the master drops shard 5", lambda: 5 not in cl.shards(1))
-    seq6 = sorted(by_shard[5])
+    seq6 = sorted(rng.choice(by_shard[5], size=min(
+        CLUSTER_GATHER_READS, len(by_shard[5])), replace=False).tolist())
     row6, d6 = _timed_gets(b_port, [item(n) for n in seq6], SERVE_CLIENTS,
                            b_port)
     k1_6 = d6["gf2_matmul"] + d6["gf2_matmul_small"]
@@ -3488,11 +3522,12 @@ def _cluster_full_width(cl: _Cluster, workdir: str, vol: dict, deg: dict,
 
 
 async def _cluster_writes(master: str, pool: bytes, needles: list,
-                          n_writers: int) -> tuple[list, list]:
-    """`n_writers` writers: each assigns a fid from the master
-    (collection ec9) and POSTs its next needle on a keep-alive connection
-    to the assigned server, until all are written: -> ([(fid, url,
-    sha256 digest)], ack seconds per write)."""
+                          n_writers: int, collection: str = CLUSTER_COLLECTION,
+                          replication: str = "") -> tuple[list, list]:
+    """`n_writers` writers: each assigns a fid from the master (of
+    `collection`, placed for `replication`) and POSTs its next needle on a
+    keep-alive connection to the assigned server, until all are written:
+    -> ([(fid, url, sha256 digest)], ack seconds per write)."""
     from seaweedfs_tpu_torch.operation import assign, upload_data
     from seaweedfs_tpu_torch.server.http import Client
 
@@ -3506,7 +3541,8 @@ async def _cluster_writes(master: str, pool: bytes, needles: list,
                 _, _, off, size = queue.pop()
                 data = pool[off:off + size]
                 t0 = time.perf_counter()
-                a = await assign(master, collection=CLUSTER_COLLECTION)
+                a = await assign(master, collection=collection,
+                                 replication=replication)
                 if a.url not in clients:
                     host, port = a.url.rsplit(":", 1)
                     clients[a.url] = Client(host, int(port))
@@ -3524,6 +3560,106 @@ async def _cluster_writes(master: str, pool: bytes, needles: list,
 
     await close_all_channels()
     return written, lat
+
+
+async def _redirected_gets(port: int, items: list) -> tuple[list, set]:
+    """GET every (path, digest) on a server that answers 301: follow each
+    Location once and verify the body -> (seconds per read, the hosts the
+    redirects named)."""
+    from seaweedfs_tpu_torch.server.http import Client
+
+    lat, hosts = [], set()
+    c = Client("127.0.0.1", port)
+    peers: dict = {}
+    try:
+        for path, digest in items:
+            t0 = time.perf_counter()
+            status, h, _ = await c.request("GET", path)
+            loc = h.get("Location", "")
+            if status != 301 or not loc.startswith("http://"):
+                raise AssertionError(f"{path}: HTTP {status}, Location {loc!r}")
+            host, _, rest = loc[len("http://"):].partition("/")
+            hosts.add(host)
+            if host not in peers:
+                name, port_s = host.rsplit(":", 1)
+                peers[host] = Client(name, int(port_s))
+            status, _, body = await peers[host].request("GET", "/" + rest)
+            lat.append(time.perf_counter() - t0)
+            if status != 200 or hashlib.sha256(body).digest() != digest:
+                raise AssertionError(f"{loc}: HTTP {status}, the body differs")
+    finally:
+        await c.close()
+        for p in peers.values():
+            await p.close()
+    return lat, hosts
+
+
+def _cluster_replicated(cl: _Cluster, seed: int, unreplicated: dict) -> dict:
+    """9b's replicated writes: /vol/grow of a `001` volume (collection
+    ec9r: two copies on two of C, D, E), 32 writers assign and POST the
+    4 KB-1 MB mix until it holds 64 MiB, each write fanned out by the
+    holder that took it to the other copy.  Every fid is then read with a
+    sha256 check on both holders, on the third server (which proxies to a
+    holder), and on a fourth started with `-readMode redirect` (each 301
+    followed).  Writes/s and ack p50/p99 beside 9b's unreplicated ones."""
+    import urllib.request
+
+    from seaweedfs_tpu_torch.pb import master_pb2
+
+    with urllib.request.urlopen(
+            f"http://127.0.0.1:{cl.master_http}/vol/grow?count=1"
+            f"&collection={REPL_COLLECTION}&replication=001",
+            timeout=60) as r:
+        vid = json.loads(r.read())["vids"][0]
+    needles = _ingest_needles(seed + 91, REPL_DAT_BYTES)
+    pool = _ingest_pool(seed + 91)
+    t0 = time.perf_counter()
+    written, ack = asyncio.run(_cluster_writes(
+        cl.master, pool, needles, CLUSTER_WRITERS, REPL_COLLECTION, "001"))
+    wall = time.perf_counter() - t0
+    if any(not f.startswith(f"{vid},") for f, _, _ in written):
+        raise AssertionError(f"replicated writes left volume {vid}")
+    resp = cl.mstub.LookupVolume(
+        master_pb2.LookupVolumeRequest(volume_or_file_ids=[str(vid)]),
+        timeout=10)
+    holders = sorted(l.url for e in resp.volume_id_locations
+                     for l in e.locations)
+    by_url = {cl.url(n): n for n in ("C", "D", "E")}
+    if len(holders) != 2 or not set(holders) <= set(by_url):
+        raise AssertionError(f"the 001 volume {vid} is on {holders}")
+    other = next(n for n in ("C", "D", "E") if cl.url(n) not in holders)
+    items = [("/" + fid, digest) for fid, _, digest in written]
+    out = {"vid": vid, "holders": [by_url[u] for u in holders],
+           "writes": {"needles": len(written), "writers": CLUSTER_WRITERS,
+                      "dat_bytes": sum(n[3] for n in needles),
+                      "wall_s": wall, "writes_per_s": len(written) / wall,
+                      "MBps": sum(n[3] for n in needles) / wall / 1e6,
+                      "ack_p50_ms": _pct(ack, 50), "ack_p99_ms": _pct(ack, 99)},
+           "unreplicated": {k: unreplicated[k] for k in (
+               "writes_per_s", "MBps", "ack_p50_ms", "ack_p99_ms")}}
+    for url in holders:
+        n = by_url[url]
+        lat, _ = asyncio.run(_get_each(cl.ports[n][0], items, CLUSTER_READERS))
+        out[f"reads_holder_{n}"] = {"reads": len(lat), "p50_ms": _pct(lat, 50)}
+    t0 = time.perf_counter()
+    lat, _ = asyncio.run(_get_each(cl.ports[other][0], items, CLUSTER_READERS))
+    out["reads_proxy"] = {"server": other, "reads": len(lat),
+                          "reads_per_s": len(lat) / (time.perf_counter() - t0),
+                          "p50_ms": _pct(lat, 50), "p99_ms": _pct(lat, 99)}
+    cl.start_servers({"F": ["-readMode", "redirect"]})
+    t0 = time.perf_counter()
+    lat, hosts = asyncio.run(_redirected_gets(cl.ports["F"][0], items))
+    if not hosts <= set(holders):
+        raise AssertionError(f"redirects named {hosts}, not the holders")
+    out["reads_redirect"] = {"server": "F", "reads": len(lat),
+                             "reads_per_s": len(lat) / (time.perf_counter() - t0),
+                             "p50_ms": _pct(lat, 50), "p99_ms": _pct(lat, 99),
+                             "redirected_to": sorted(by_url[h] for h in hosts)}
+    cl.kill("F")
+    log("cluster_replicated", **out, bodies_equal=True, reduced={
+        "dat_mib": REPL_DAT_BYTES >> 20,
+        "why": "the write budget: two copies of this .dat"})
+    return out
 
 
 def _cluster_shell_verbs(cl: _Cluster, seed: int) -> dict:
@@ -3569,6 +3705,7 @@ def _cluster_shell_verbs(cl: _Cluster, seed: int) -> dict:
               "writes_per_s": len(written) / write_wall,
               "MBps": sum(n[3] for n in needles) / write_wall / 1e6,
               "ack_p50_ms": _pct(ack, 50), "ack_p99_ms": _pct(ack, 99)}
+    replicated = _cluster_replicated(cl, seed, writes)
 
     def shard_files() -> dict:
         """shard id -> [(server, sha256)] of every .ecNN on disk."""
@@ -3656,7 +3793,8 @@ def _cluster_shell_verbs(cl: _Cluster, seed: int) -> dict:
                              "original")
     for n in survivors:
         finals[n] = _k_counts(_scrape(cl.ports[n][0]))
-    out = {"vid": vid, "writes": writes, "native_encode_in_memory_s": native_s,
+    out = {"vid": vid, "writes": writes, "replicated": replicated,
+           "native_encode_in_memory_s": native_s,
            "verb_wall_s": verbs, "holder": holder, "victim": victim,
            "placement": {"encode": spread, "rebuild": rebuilt,
                          "balance": balanced},
@@ -3696,10 +3834,429 @@ def phase_cluster(torch, workdir: str, vol: dict, deg: dict, seed: int) -> dict:
     return {"full": full, "verbs": verbs, "launches": launches}
 
 
+# -------------------------------------------------------------- phase 10
+
+# 10a: a cache on two lanes of one card (the mesh layout's stripes, two
+# launches a burst) beside the one-device cache: 12 survivors each
+MESH_BUDGET = 16 << 30
+# 10a reads every needle with bytes on shard 0 plus this many others
+MESH_EXTRA_READS = 400
+# 10b: the row the distributed programs encode, [10, MESH_ROW] (about 1
+# GiB of input), and the column slice the plain version is timed on
+MESH_ROW = 100 << 20
+MESH_PLAIN_COLS = 4 << 20
+# 10c: shard-0 intervals of 10a's needles reconstructed by
+# distributed_degraded_read, and the requests a call
+MESH_DEGRADED = 512
+MESH_DEGRADED_CALL = 128
+MESH_RANK_TIMEOUT_S = 240
+
+
+def _mesh_row(workdir: str, np) -> "np.ndarray":
+    """[10, MESH_ROW] of vid 1: the head of each data shard's first row."""
+    from seaweedfs_tpu_torch.storage import ec
+
+    base = os.path.join(workdir, "1")
+    return np.stack([np.fromfile(base + ec.to_ext(s), dtype=np.uint8,
+                                 count=MESH_ROW) for s in range(10)])
+
+
+def _mesh_rank_main(argv) -> int:
+    """One rank of 10b (run as `chip_smoke.py --mesh-rank ...`): join the
+    group (two gloo ranks sharing cuda:0, or NCCL at world size 1 with
+    both lanes here), run distributed_apply_matrix and
+    distributed_encode_blockdiag over a (2, 1) mesh of cuda:0 on the
+    [10, MESH_ROW] row, time this rank's K1 launch and the all_gather of
+    its partials with CUDA events, and write the outputs' sha256 and the
+    counts as JSON."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    p = argparse.ArgumentParser()
+    for name in ("--mesh-rank", "--mesh-world", "--mesh-port"):
+        p.add_argument(name, type=int, required=True)
+    for name in ("--mesh-backend", "--mesh-workdir", "--mesh-out"):
+        p.add_argument(name, required=True)
+    args = p.parse_args(argv)
+    sys.path.insert(0, HERE)
+    from seaweedfs_tpu_torch.ops import gf256, rs_cuda
+    from seaweedfs_tpu_torch.parallel import distributed as dist_mod
+    from seaweedfs_tpu_torch.parallel import mesh as mesh_mod
+
+    torch.cuda.set_device(0)
+    dist.init_process_group(
+        backend=args.mesh_backend,
+        init_method=f"tcp://127.0.0.1:{args.mesh_port}",
+        world_size=args.mesh_world, rank=args.mesh_rank)
+    try:
+        devs = mesh_mod.global_devices("cuda")
+        mesh = mesh_mod.make_mesh(2, 1, devices=devs * (2 // len(devs)))
+        data = _mesh_row(args.mesh_workdir, np)
+        pm = gf256.parity_matrix(10, 14)
+        k0 = rs_cuda.gf2_matmul.launches
+        timing: dict = {}
+        out = dist_mod.distributed_apply_matrix(mesh, pm, data, timing=timing)
+        apply_sha = hashlib.sha256(out.cpu().numpy().tobytes()).hexdigest()
+        blk = dist_mod.distributed_encode_blockdiag(mesh, pm, data)
+        launches = rs_cuda.gf2_matmul.launches - k0
+        # this rank's lane: its K1 alone, and the collective alone
+        lane = mesh.local_lanes()[0]
+        a = dist_mod._lane_matrix(
+            dist_mod.split_matrix_bitmajor(pm, 2)[lane].tobytes(), 4, 5,
+            "cuda:0")
+        x = torch.from_numpy(data[5 * lane : 5 * lane + 5]).cuda()
+        k1_ms = _median_ms(torch, lambda: rs_cuda.gf2_matmul(a, x, 4), 5)
+        xs = x[:, :MESH_PLAIN_COLS].contiguous()
+        k1_slice_ms = _median_ms(torch, lambda: rs_cuda.gf2_matmul(a, xs, 4), 5)
+        plain_ms = _median_ms(torch, lambda: rs_cuda._apply_torch(a, xs, 4), 3)
+        plain_err = int((rs_cuda.gf2_matmul(a, xs, 4).int()
+                         - rs_cuda._apply_torch(a, xs, 4).int())
+                        .abs().max())
+        part = torch.stack([rs_cuda.gf2_matmul(a, x, 4)] * len(
+            mesh.local_lanes()))
+        bufs = [torch.empty_like(part) for _ in range(args.mesh_world)]
+        coll = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            dist.all_gather(bufs, part)
+            torch.cuda.synchronize()
+            coll.append(time.perf_counter() - t0)
+        with open(args.mesh_out, "w") as f:
+            json.dump({
+                "rank": args.mesh_rank, "world": args.mesh_world,
+                "backend": args.mesh_backend, "processes": mesh.processes,
+                "apply_sha256": apply_sha,
+                "blockdiag_sha256": hashlib.sha256(blk.tobytes()).hexdigest(),
+                "gf2_matmul_launches": launches, "timing_s": timing,
+                "k1_ms": k1_ms, "k1_slice_ms": k1_slice_ms,
+                "plain_slice_ms": plain_ms, "plain_max_abs_err": plain_err,
+                "collective_ms": statistics.median(coll) * 1e3,
+                "partial_bytes": int(part.numel()),
+            }, f)
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def _mesh_ranks(workdir: str, backend: str, world: int) -> list:
+    """10b's processes: `world` ranks of `backend` on cuda:0, started
+    together -> their JSON records."""
+    port = _free_port()
+    procs = []
+    for rank in range(world):
+        out = os.path.join(workdir, f"mesh_{backend}_{rank}.json")
+        procs.append((out, subprocess.Popen(
+            [sys.executable, os.path.join(HERE, "chip_smoke.py"),
+             "--mesh-rank", str(rank), "--mesh-world", str(world),
+             "--mesh-port", str(port), "--mesh-backend", backend,
+             "--mesh-workdir", workdir, "--mesh-out", out],
+            cwd=HERE, stdout=subprocess.PIPE, stderr=subprocess.STDOUT)))
+    records = []
+    try:
+        for out, proc in procs:
+            try:
+                text, _ = proc.communicate(timeout=MESH_RANK_TIMEOUT_S)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                text, _ = proc.communicate()
+            if proc.returncode != 0:
+                raise AssertionError(f"mesh rank {out} failed:\n"
+                                     + text.decode(errors="replace")[-6000:])
+            with open(out) as f:
+                records.append(json.load(f))
+    finally:
+        for _, proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait(30)
+    return records
+
+
+def phase_mesh(torch, workdir: str, vol: dict, deg: dict, seed: int) -> dict:
+    """The mesh on one card (lanes on one card; no multi-GPU figure).
+    10a: vid 1's 12 survivors pinned in a cache whose mesh has two lanes,
+    both on cuda:0 (`make_mesh(devices=...)`, test construction), beside
+    the one-device cache; every needle with bytes on shard 0 plus 400,
+    shuffled, read in bursts of 64 in both layouts through each cache:
+    every body equal between the two and to the written needle; a burst
+    is one ragged launch a lane with work.  10b: distributed_apply_matrix
+    and distributed_encode_blockdiag on [10, 100 MiB] of vid 1 on two gloo
+    ranks sharing the card and on NCCL at world size 1, equal to the
+    one-card K1 and the native codec.  10c: distributed_degraded_read of
+    10a's shard-0 intervals over a (2, 1) mesh of the card, equal to the
+    one-device resident read and the shard file."""
+    import numpy as np
+
+    from seaweedfs_tpu_torch.ops import gf256, rs_cpu, rs_cuda
+    from seaweedfs_tpu_torch.ops import rs_resident as rr
+    from seaweedfs_tpu_torch.parallel import distributed as dist_mod
+    from seaweedfs_tpu_torch.parallel import mesh as mesh_mod
+    from seaweedfs_tpu_torch.storage import ec
+
+    torch.cuda.empty_cache()
+    kernels = {"flat": rr.fused_reconstruct,
+               "blockdiag": rr.fused_reconstruct_blockdiag}
+    for kern in (*kernels.values(), rs_cuda.gf2_matmul,
+                 rs_cuda.gf2_matmul_small):
+        kern.launches = 0
+    cuda0 = torch.device("cuda", 0)
+    lanes_mesh = mesh_mod.make_mesh(2, 1, devices=[cuda0, cuda0])
+    one = rr.DeviceShardCache(device="cuda", budget_bytes=RESIDENT_BUDGET)
+    lanes = rr.DeviceShardCache(device="cuda", budget_bytes=MESH_BUDGET,
+                                mesh=lanes_mesh)
+    ev = ec.EcVolume(workdir, 1)
+    try:
+        for sid in range(14):
+            if sid not in (0, 11):
+                ev.add_shard(sid)
+        pins = {}
+        for name, cache in (("one", one), ("lanes", lanes)):
+            t0 = time.perf_counter()
+            if ev.load_shards_to_device(cache) != 12:
+                raise AssertionError(f"{name}: pinned {cache.shard_ids(1)}")
+            torch.cuda.synchronize()
+            pins[name] = time.perf_counter() - t0
+        if lanes.placement(1) != "mesh":
+            raise AssertionError(f"placement {lanes.placement(1)}")
+        deleted = set(deg["deleted"])
+        shard0 = [n for n in deg["on_shard0"] if n not in deleted]
+        others = [n for n in deg["picks"] if n not in deleted
+                  and n not in set(shard0)][:MESH_EXTRA_READS]
+        ids = shard0 + others
+        np.random.default_rng(seed + 10).shuffle(ids)
+        reads: dict = {}
+        for layout, kern in kernels.items():
+            digests = {}
+            for name, cache in (("one", one), ("lanes", lanes)):
+                ev.device_cache = cache
+                cache.layout = layout
+                k0 = kern.launches
+                lat, per_call, got = [], [], []
+                for i in range(0, len(ids), BURST):
+                    burst = ids[i : i + BURST]
+                    c0 = kern.launches
+                    t0 = time.perf_counter()
+                    res = ev.read_needles_batch(burst, backend="cuda")
+                    lat.append(time.perf_counter() - t0)
+                    per_call.append(kern.launches - c0)
+                    got += list(zip(burst, res))
+                for nid, n in got:
+                    _, _, digest, cookie = vol["needles"][nid]
+                    if isinstance(n, Exception) or n.cookie != cookie or \
+                            hashlib.sha256(n.data).digest() != digest:
+                        raise AssertionError(f"{name} {layout}: needle {nid} "
+                                             "differs from the written one")
+                    digests[(name, nid)] = hashlib.sha256(n.data).digest()
+                reads[(layout, name)] = {
+                    "bursts": len(lat), "burst_p50_ms": _pct(lat, 50),
+                    "burst_p99_ms": _pct(lat, 99),
+                    "launches": kern.launches - k0,
+                    "launches_per_call": (kern.launches - k0) / len(lat),
+                    "calls_with_2_launches": sum(1 for c in per_call if c == 2),
+                    "max_launches_a_call": max(per_call)}
+            if any(digests[("one", n)] != digests[("lanes", n)] for n in ids):
+                raise AssertionError(f"{layout}: mesh bodies differ")
+        if ev.device_misses:
+            raise AssertionError(f"{ev.device_misses} intervals fell back")
+        for layout in kernels:
+            r = reads[(layout, "lanes")]
+            if r["max_launches_a_call"] > 2 or not r["calls_with_2_launches"]:
+                raise AssertionError(f"{layout}: launches a call {r}")
+        # the sharded program's lane kernel: lane 0's ragged launch of one
+        # burst, timed alone, against its plain version and bound
+        burst_reqs = []
+        for nid in ids[:BURST]:
+            for iv in ev.locate_needle(nid)[2]:
+                sid, off = iv.to_shard_and_offset()
+                if sid == 0:
+                    burst_reqs.append((0, off, iv.size))
+        rmat, use, row_of, got = rr._survivors(lanes, 1, burst_reqs, 10, 14)
+        lane_rows = {}
+        for layout in kernels:
+            groups = lanes.groups if layout == "blockdiag" else 1
+            _, calls = rr._pack_calls_sharded(lanes, burst_reqs, row_of, groups)
+            lane = min(calls)
+            part, words, fetches, _ = calls[lane][0]
+            surv = tuple(buf[lane] for buf, _ in got)
+            a = rr._prepared_for(lanes, rmat, layout, cuda0)
+            kw = dict(k_true=len(use), w_true=rmat.shape[0], groups=groups,
+                      tile=groups * rr.FUSED_ALIGN)
+            run = lambda: rr._ragged(a, surv, words, fetches, **kw)  # noqa: E731
+            ms = _median_ms(torch, run, 20)
+            plain = lambda: rr._fused_reconstruct_ragged_torch(  # noqa: E731
+                a, surv, words, fetches, **kw)
+            plain_ms = _median_ms(torch, plain, 3)
+            err = int((run()[0].int() - plain().int()).abs().max())
+            bound_ms, bound_by = _fused_bound(len(use), fetches,
+                                              rmat.shape[0], groups)
+            lane_rows[layout] = {"requests": len(part), "ms": ms,
+                                 "plain_ms": plain_ms, "max_abs_err": err,
+                                 "bound_ms": bound_ms, "bound_by": bound_by,
+                                 "lane_calls": {d: len(c) for d, c in
+                                                calls.items()}}
+        # 10c: the bulk plane's degraded read of the same needles' shard-0
+        # intervals, against the one-device resident read and shard 0's file
+        reqs = []
+        for nid in ids:
+            for iv in ev.locate_needle(nid)[2]:
+                sid, off = iv.to_shard_and_offset()
+                if sid == 0 and len(reqs) < MESH_DEGRADED:
+                    reqs.append((off, iv.size))
+        maps = {s: np.memmap(os.path.join(workdir, "1" + ec.to_ext(s)),
+                             dtype=np.uint8, mode="r") for s in range(11)}
+        ids10 = list(range(1, 11))
+
+        class _Rows:
+            """survivors[order, lo:hi] over the shard files."""
+
+            def __getitem__(self, key):
+                order, cols = key
+                return np.stack([maps[ids10[i]][cols] for i in order])
+
+        mesh21 = mesh_mod.make_mesh(2, 1, devices=[cuda0, cuda0])
+        k0 = rs_cuda.gf2_matmul.launches
+        t0 = time.perf_counter()
+        pieces = []
+        for i in range(0, len(reqs), MESH_DEGRADED_CALL):
+            pieces += dist_mod.distributed_degraded_read(
+                mesh21, _Rows(), ids10, 0, reqs[i : i + MESH_DEGRADED_CALL])
+        degraded_s = time.perf_counter() - t0
+        degraded_k1 = rs_cuda.gf2_matmul.launches - k0
+        one.layout = "flat"
+        resident = rr.reconstruct_intervals(one, 1, [(0, o, n) for o, n in reqs])
+        for (off, n), piece, res in zip(reqs, pieces, resident):
+            if piece != res or piece != maps[0][off : off + n].tobytes():
+                raise AssertionError(f"10c: interval {off}+{n} differs")
+        stats = {"one": one.device_stats(), "lanes": lanes.device_stats()}
+    finally:
+        ev.close()
+        one.clear()
+        lanes.clear()
+        torch.cuda.empty_cache()
+    # 10b: two gloo ranks sharing the card, then NCCL at world size 1,
+    # against the one-card K1 and the native codec
+    records = _mesh_ranks(workdir, "gloo", 2) + _mesh_ranks(workdir, "nccl", 1)
+    data = _mesh_row(workdir, np)
+    pm = gf256.parity_matrix(10, 14)
+    t0 = time.perf_counter()
+    native = rs_cpu.apply_matrix_native(pm, data)
+    native_s = time.perf_counter() - t0
+    x = torch.from_numpy(data).cuda()
+    a_one = rs_cuda.prepare_matrix(pm, device="cuda")
+    one_ms = _median_ms(torch, lambda: rs_cuda.gf2_matmul(a_one, x, 4), 5)
+    card = rs_cuda.gf2_matmul(a_one, x, 4).cpu().numpy()
+    want = hashlib.sha256(native.tobytes()).hexdigest()
+    if hashlib.sha256(card.tobytes()).hexdigest() != want:
+        raise AssertionError("10b: the one-card K1 differs from the native codec")
+    for r in records:
+        if r["apply_sha256"] != want or r["blockdiag_sha256"] != want:
+            raise AssertionError(f"10b: rank {r['rank']} ({r['backend']}) "
+                                 "differs from the native codec")
+        if r["gf2_matmul_launches"] != 2 * (3 - r["world"]) or \
+                r["plain_max_abs_err"]:
+            raise AssertionError(f"10b: rank record {r}")
+    del x
+    torch.cuda.empty_cache()
+    launches = {"fused_reconstruct": sum(
+        reads[(l, n)]["launches"] for l in ("flat",) for n in ("one", "lanes")),
+        "fused_reconstruct_blockdiag": sum(
+        reads[("blockdiag", n)]["launches"] for n in ("one", "lanes")),
+        "gf2_matmul": degraded_k1 + sum(r["gf2_matmul_launches"]
+                                        for r in records),
+        "gf2_matmul_small": rs_cuda.gf2_matmul_small.launches}
+    out = {"pin_s": pins, "reads": {f"{l}/{n}": v for (l, n), v in
+                                    reads.items()},
+           "needles": len(ids), "device_stats": stats,
+           "stripe": lanes.stripe, "lane_kernel": lane_rows,
+           "ranks": records, "one_card_k1_ms": one_ms,
+           "native_apply_s": native_s, "row_bytes": int(data.size),
+           "degraded": {"intervals": len(reqs), "calls": -(-len(reqs)
+                        // MESH_DEGRADED_CALL), "wall_s": degraded_s,
+                        "k1_launches": degraded_k1},
+           "launches": launches}
+    log("mesh", **out, lanes_on_one_card=True,
+        note="two lanes on one card: a check of the mesh code's bytes and "
+             "launches, not a multi-GPU figure")
+    return out
+
+
+def _b6_entries(mesh: dict) -> list:
+    """The kernels line's rows for B6's two programs (phase 10): each
+    runs the port's kernels on every lane, so a row times one lane's
+    launch, and the bound is the lane's bytes over the card's memory rate
+    plus the collective's wire bytes over the same rate (a rough figure:
+    two lanes share one card)."""
+    lanes = mesh["lane_kernel"]
+    reads = mesh["reads"]
+    ranks = mesh["ranks"]
+    gloo = [r for r in ranks if r["backend"] == "gloo"]
+    b = mesh["row_bytes"] // 10
+    lane_bytes = (5 + 4) * b  # a lane's 5 shard rows in, 4 partial rows out
+    wire = 2 * 4 * b  # the gathered partials: n_shard x the output
+    return [{
+        "name": "sharded_gather_reconstruct",
+        "route": "cuda",
+        "source": "seaweedfs_tpu_torch/csrc/fused_reconstruct.cu",
+        "program": "seaweedfs_tpu_torch/ops/rs_resident.py "
+                   "_reconstruct_sharded",
+        "replaces": "seaweedfs_tpu/ops/rs_resident.py:1597",
+        "launches": sum(reads[f"{l}/lanes"]["launches"]
+                        for l in ("flat", "blockdiag")),
+        "launches_per_call": {l: reads[f"{l}/lanes"]["launches_per_call"]
+                              for l in ("flat", "blockdiag")},
+        "max_abs_err": max(r["max_abs_err"] for r in lanes.values()),
+        "shape": f"one lane's ragged launch of a burst of {BURST} reads, "
+                 f"{lanes['flat']['requests']} requests, flat",
+        "ms": lanes["flat"]["ms"],
+        "plain_ms": lanes["flat"]["plain_ms"],
+        "bound_ms": lanes["flat"]["bound_ms"],
+        "bound_by": lanes["flat"]["bound_by"],
+        "library_ms": None,
+        "library_note": NO_LIBRARY_CALL,
+        "collective_ms": None,
+        "collective_note": "one process: no collective, one D2H a lane",
+        "blockdiag": lanes["blockdiag"],
+        "burst_p50_ms": {k: v["burst_p50_ms"] for k, v in reads.items()},
+        "lanes_on_one_card": 2,
+    }, {
+        "name": "distributed_apply",
+        "route": "cuda",
+        "source": "seaweedfs_tpu_torch/csrc/gf2_matmul.cu",
+        "program": "seaweedfs_tpu_torch/parallel/distributed.py "
+                   "_distributed_apply",
+        "replaces": "seaweedfs_tpu/parallel/distributed.py:65",
+        "launches": mesh["launches"]["gf2_matmul"],
+        "launches_by_leg": {"ranks": {f"{r['backend']}{r['rank']}":
+                                      r["gf2_matmul_launches"] for r in ranks},
+                            "degraded_read": mesh["degraded"]["k1_launches"]},
+        "max_abs_err": max(r["plain_max_abs_err"] for r in ranks),
+        "shape": f"a lane's x[5, {b}] of [10, {b}], (2, 1) mesh",
+        "ms": statistics.median(r["k1_ms"] for r in gloo),
+        "plain_ms": statistics.median(r["plain_slice_ms"] for r in gloo),
+        "plain_shape": f"x[5, {MESH_PLAIN_COLS}] (the kernel there: "
+                       f"{statistics.median(r['k1_slice_ms'] for r in gloo)}"
+                       " ms)",
+        "bound_ms": (lane_bytes + wire) / PEAK_BYTES_PER_S * 1e3,
+        "bound_by": "bytes",
+        # the lane's K1 alone: its rows in, its partial out
+        "k1_bound_ms": lane_bytes / PEAK_BYTES_PER_S * 1e3,
+        "library_ms": None,
+        "library_note": "no single PyTorch call applies a GF(256) matrix",
+        "collective_ms": {f"{r['backend']}{r['rank']}": r["collective_ms"]
+                          for r in ranks},
+        "one_card_k1_ms": mesh["one_card_k1_ms"],
+        "lanes_on_one_card": 2,
+    }]
+
+
 # ------------------------------------------------------------------ main
 
 
 def main() -> int:
+    if sys.argv[1:2] == ["--mesh-rank"]:  # one of phase 10b's processes
+        return _mesh_rank_main(sys.argv[1:])
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--volume-gib", type=float, default=11.0,
@@ -3760,6 +4317,8 @@ def main() -> int:
         tier = phase_tiering(torch, workdir, vol, deg, args.seed)
         phase = "cluster"
         clu = phase_cluster(torch, workdir, vol, deg, args.seed)
+        phase = "mesh"
+        mesh = phase_mesh(torch, workdir, vol, deg, args.seed)
     except Exception:  # noqa: BLE001 — every phase is fatal
         traceback.print_exc()
         print(f"chip_smoke: FAILED in phase {phase}", file=sys.stderr)
@@ -3768,10 +4327,13 @@ def main() -> int:
         shutil.rmtree(workdir, ignore_errors=True)
 
     cluster_k = clu["launches"]
+    mesh_k = mesh["launches"]
     main_paths = {**enc["load_paths"], "degraded_read": deg["load_paths"],
                   "rebuild": reb["load_paths"],
                   "ingest": ing["launches"],
                   "cluster": {k: cluster_k[k] for k in (
+                      "gf2_matmul", "gf2_matmul_small")},
+                  "mesh": {k: mesh_k[k] for k in (
                       "gf2_matmul", "gf2_matmul_small")}}
     launches = {name: sum(p[name] for p in main_paths.values())
                 for name in ("gf2_matmul", "gf2_matmul_small")}
@@ -3839,12 +4401,13 @@ def main() -> int:
             "replaces": f"seaweedfs_tpu/ops/rs_resident.py:{line}",
             "launches": res[name] + serve[layout]["launches"]
                         + (tier["launches"] if layout == "flat" else 0)
-                        + cluster_k[name],
+                        + cluster_k[name] + mesh_k[name],
             "launches_by_phase": {"resident_read": res[name],
                                   "serve": serve[layout]["launches"],
                                   "tiering": (tier["launches"]
                                               if layout == "flat" else 0),
-                                  "cluster": cluster_k[name]},
+                                  "cluster": cluster_k[name],
+                                  "mesh": mesh_k[name]},
             "max_abs_err": max([r["max_abs_err"] for r in rows]
                                + [burst["max_abs_err"]]),
             "mismatched_bytes": sum(r["mismatched_bytes"] for r in rows)
@@ -3913,7 +4476,7 @@ def main() -> int:
         "bound_ms": small_row["bound_ms"],
         "bound_by": small_row["bound_by"],
         "library_ms": small_row["library_ms"],
-    }, *resident, scrub_entry]}), flush=True)
+    }, *resident, scrub_entry, *_b6_entries(mesh)]}), flush=True)
     print(SMI, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": info["kind"], "count": info["count"]}}),

@@ -122,6 +122,42 @@ def add_args(p) -> None:
         help="one device pipeline slot instead of two",
     )
     p.add_argument(
+        "-ec.serving.mesh.disable", dest="ec_serving_mesh_disable",
+        action="store_true",
+        help="pin resident EC volumes whole onto one card instead of "
+        "lane-sharding them across the local cards",
+    )
+    p.add_argument(
+        "-ec.serving.mesh.devices", dest="ec_serving_mesh_devices",
+        type=int, default=0,
+        help="cards the serving mesh may span (0 = every local card, "
+        "n = the first n)",
+    )
+    p.add_argument(
+        "-ec.serving.mesh.minShardMB", dest="ec_serving_mesh_min_shard_mb",
+        type=int, default=8,
+        help="volumes with shard files below this pin whole onto the "
+        "least-loaded card instead of lane-sharding",
+    )
+    p.add_argument(
+        "-ec.mesh.coordinator", dest="ec_mesh_coordinator", default="",
+        help="host:port of the torch.distributed rendezvous this server "
+        "joins as one process of a pod mesh (required when "
+        "-ec.mesh.processCount > 1; ignored at 1)",
+    )
+    p.add_argument(
+        "-ec.mesh.processId", dest="ec_mesh_process_id", type=int,
+        default=0,
+        help="this process's rank in the pod mesh (0 <= processId < "
+        "processCount; one process per host)",
+    )
+    p.add_argument(
+        "-ec.mesh.processCount", dest="ec_mesh_process_count", type=int,
+        default=1,
+        help="processes in the pod mesh; 1 (the default) shards over "
+        "this host's cards only and contacts no coordinator",
+    )
+    p.add_argument(
         "-ec.serving.zerocopy.disable", dest="ec_serving_zerocopy_disable",
         action="store_true",
         help="materialize needle payloads as bytes on the HTTP read path "
@@ -246,6 +282,30 @@ def add_args(p) -> None:
         help="per-peer retry token budget as a percentage of first "
         "attempts — a sick peer degrades into fast-fail instead of a "
         "retry storm (0 disables retries)",
+    )
+    # the staged bulk EC pipelines (storage/ec/bulk.py), which the
+    # VolumeEcShardsGenerate and VolumeEcShardsRebuild rpcs run
+    p.add_argument(
+        "-ec.bulk.overlap.disable", dest="ec_bulk_overlap_disable",
+        action="store_true",
+        help="run the bulk EC pipelines (encode/rebuild/verify) serially "
+        "on one thread instead of overlapping the read/device/write legs",
+    )
+    p.add_argument(
+        "-ec.bulk.prefetch", dest="ec_bulk_prefetch", type=int, default=3,
+        help="stripe batches the bulk pipelines' reader leg may run "
+        "ahead of the codec (bounded queue depth)",
+    )
+    p.add_argument(
+        "-ec.bulk.strideMB", dest="ec_bulk_stride_mb", type=int, default=0,
+        help="per-shard bytes per bulk codec call (0 = built-in 4MB "
+        "default)",
+    )
+    p.add_argument(
+        "-readMode", dest="read_mode", default="proxy",
+        choices=["local", "proxy", "redirect"],
+        help="a GET of a volume held elsewhere: proxy to a holder, or "
+        "redirect at it",
     )
     p.add_argument(
         "-fileSizeLimitMB", dest="client_max_size_mb", type=int, default=256,
@@ -478,6 +538,12 @@ def serving_config(args: argparse.Namespace) -> ServingConfig:
         max_queue=args.ec_serving_max_queue,
         layout=args.ec_serving_layout,
         overlap=not args.ec_serving_overlap_disable,
+        mesh=not args.ec_serving_mesh_disable,
+        mesh_devices=args.ec_serving_mesh_devices,
+        mesh_min_shard_mb=args.ec_serving_mesh_min_shard_mb,
+        mesh_coordinator=args.ec_mesh_coordinator,
+        mesh_process_id=args.ec_mesh_process_id,
+        mesh_process_count=args.ec_mesh_process_count,
         zero_copy=not args.ec_serving_zerocopy_disable,
         qos=not args.ec_qos_disable,
         qos_interactive_queue=args.ec_qos_interactive_queue,
@@ -501,10 +567,30 @@ def serving_config(args: argparse.Namespace) -> ServingConfig:
 def build_server(args: argparse.Namespace):
     """A VolumeServer from the parsed flags (not started).  Raises, with
     -ec.backend cuda, without a card."""
+    from ..parallel import mesh as mesh_mod
     from ..server.volume import VolumeServer
+    from ..storage.ec import bulk as ec_bulk
     from ..utils import faultpolicy
 
     apply_obs_args(args)
+    # the bulk pipelines are store-level maintenance verbs: their config
+    # is process-global, like the obs flags
+    ec_bulk.configure(
+        ec_bulk.BulkConfig(
+            overlap=not args.ec_bulk_overlap_disable,
+            prefetch=args.ec_bulk_prefetch,
+            stride=args.ec_bulk_stride_mb << 20,
+        )
+    )
+    ec_serving = serving_config(args)  # a bad -ec.mesh.* config dies here
+    if ec_serving.multiprocess:
+        # join the pod's process group before the cache builds its mesh
+        mesh_mod.initialize_distributed(
+            ec_serving.mesh_coordinator,
+            ec_serving.mesh_process_id,
+            ec_serving.mesh_process_count,
+            backend=mesh_mod.backend_for(args.ec_backend),
+        )
     faultpolicy.configure(
         faultpolicy.FaultPolicyConfig(
             deadline_ms=args.ec_rpc_deadline_ms,
@@ -533,10 +619,11 @@ def build_server(args: argparse.Namespace):
         concurrent_upload_limit_mb=args.concurrent_upload_limit_mb,
         concurrent_download_limit_mb=args.concurrent_download_limit_mb,
         ec_device_cache_mb=args.ec_device_cache_mb,
-        ec_serving=serving_config(args),
+        ec_serving=ec_serving,
         ec_scrub_interval_seconds=args.ec_scrub_interval_seconds,
         ec_scrub_megakernel=not args.ec_scrub_megakernel_disable,
         ec_ingest=ingest_config(args),
+        read_mode=args.read_mode,
     )
 
 

@@ -44,11 +44,21 @@ the launch's parameters), so there is no `h2d_copy` span.  `hot_shapes`
 keeps a dispatch count and a dispatch->ready latency EWMA per call class
 (kernel, system, output size) for /debug/device/hot.
 
-Not ported here (ROADMAP): the mesh and pod placement (A8), the
-XLA-fallback gather programs (B4), and the AOT warm grid and observed-shape
-persistence (nothing compiles per shape here).  The Store and the serving
-dispatcher that call reconstruct_intervals are storage/store.py and
-serving/.
+The mesh layout (parallel/mesh.py, -ec.serving.mesh.*): a lane-sharded
+volume's stripes are spread over the mesh's lanes (stripe c on lane
+c % n), and a burst is one ragged launch of the same kernel on every lane
+with work, over the lane's own stripes at lane-local offsets, then one
+D2H a lane (`_reconstruct_sharded`, the port of the reference's
+`_sharded_gather_reconstruct`); no survivor byte crosses lanes.  In a pod
+(torch.distributed, `global_mesh`) each process runs its own lanes and
+one all_gather shares the rows.  The scrub checks a lane-sharded volume
+lane by lane with the same scrub kernel.
+
+Not ported here (ROADMAP): the XLA-fallback gather programs (B4), and the
+AOT warm grid and observed-shape persistence (nothing compiles per shape
+here).  make_batched_call takes one-device and whole-pinned volumes only.
+The Store and the serving dispatcher that call reconstruct_intervals are
+storage/store.py and serving/.
 """
 from __future__ import annotations
 
@@ -65,6 +75,7 @@ import torch
 from ..obs import devledger
 from ..obs import trace as obs_trace
 from ..stats import metrics as stats_metrics
+from ..parallel import mesh as mesh_mod
 from . import _build, gf256, rs_cuda
 
 DATA_SHARDS = 10
@@ -144,16 +155,35 @@ class StagingArena:
 
 
 class PipelineSlot:
-    """What DevicePipeline.slot() yields: the slot-acquisition wait, the
-    slot's staging arena and its CUDA stream (both None on the CPU, where
-    a slot stages into fresh tensors and runs in order)."""
+    """What DevicePipeline.slot() yields: the slot-acquisition wait and,
+    for each lane, the slot's staging arena and CUDA stream on the lane's
+    device (`on(lane)`; both None on the CPU, where a slot stages into
+    fresh tensors and runs in order).  `arena` and `stream` are the first
+    local lane's."""
 
-    __slots__ = ("wait_s", "arena", "stream")
+    __slots__ = ("wait_s", "_lane", "_pipe")
 
-    def __init__(self, wait_s: float, arena, stream):
+    def __init__(self, wait_s: float, lane: dict, pipe: "DevicePipeline"):
         self.wait_s = wait_s
-        self.arena = arena
-        self.stream = stream
+        self._lane = lane
+        self._pipe = pipe
+
+    def on(self, lane: int | None = None) -> tuple:
+        """(arena, stream) of `lane` (default: the first local lane),
+        made on first use; one holder uses a slot at a time."""
+        lane = self._pipe.primary if lane is None else lane
+        got = self._lane.get(lane)
+        if got is None:
+            got = self._lane[lane] = self._pipe._resources(lane)
+        return got
+
+    @property
+    def arena(self):
+        return self.on()[0]
+
+    @property
+    def stream(self):
+        return self.on()[1]
 
 
 class DevicePipeline:
@@ -163,10 +193,17 @@ class DevicePipeline:
     is the serial baseline.  `last_overlap` is device-section busy seconds
     over wall seconds of the current batch window (>1 means two slots
     genuinely overlapped); `total_busy_s` never resets.  `h2d_bytes` and
-    `d2h_bytes` count what the calls moved across PCIe."""
+    `d2h_bytes` count what the calls moved across PCIe.  `devices` are
+    the mesh lanes' devices (None for another process's lane); the
+    default is the one `device`."""
 
-    def __init__(self, slots: int = 2, device="cpu"):
-        self.device = torch.device(device)
+    def __init__(self, slots: int = 2, device="cpu", devices=None):
+        self.devices = ([torch.device(device)] if devices is None else
+                        [None if d is None else torch.device(d)
+                         for d in devices])
+        self.primary = next(i for i, d in enumerate(self.devices)
+                            if d is not None)
+        self.device = self.devices[self.primary]
         self._cond = threading.Condition()
         self._slots = max(1, slots)
         self._active = 0
@@ -176,8 +213,9 @@ class DevicePipeline:
         self.last_overlap = 0.0
         self.h2d_bytes = 0
         self.d2h_bytes = 0
-        # one (arena, stream) per concurrently held slot, grown on demand
-        self._lanes: list[tuple] = []
+        # one {lane: (arena, stream)} per concurrently held slot, grown
+        # on demand
+        self._lanes: list[dict] = []
         self._free: list[int] = []
 
     @property
@@ -189,10 +227,13 @@ class DevicePipeline:
             self._slots = max(1, int(n))
             self._cond.notify_all()
 
-    def _new_lane(self) -> tuple:
-        if self.device.type != "cuda":
+    def _resources(self, lane: int) -> tuple:
+        dev = self.devices[lane]
+        if dev is None:
+            raise ValueError(f"lane {lane} belongs to another process")
+        if dev.type != "cuda":
             return (None, None)
-        return (StagingArena(), torch.cuda.Stream(device=self.device))
+        return (StagingArena(), torch.cuda.Stream(device=dev))
 
     @contextlib.contextmanager
     def slot(self):
@@ -206,14 +247,12 @@ class DevicePipeline:
                 self._busy_s = 0.0
             idx = self._free.pop() if self._free else None
         if idx is None:
-            lane = self._new_lane()
             with self._cond:
-                self._lanes.append(lane)
+                self._lanes.append({})
                 idx = len(self._lanes) - 1
-        arena, stream = self._lanes[idx]
         t0 = time.perf_counter()
         try:
-            yield PipelineSlot(t0 - t_req, arena, stream)
+            yield PipelineSlot(t0 - t_req, self._lanes[idx], self)
         finally:
             dur = time.perf_counter() - t0
             with self._cond:
@@ -247,7 +286,7 @@ def _resolve_device(device) -> torch.device:
 
 
 class DeviceShardCache:
-    """LRU cache of EC shard bytes pinned in device memory (one device).
+    """LRU cache of EC shard bytes pinned in device memory.
 
     Keyed by (vid, shard_id).  `budget_bytes` bounds padded device bytes;
     inserting past the budget evicts least-recently-used shards (whole
@@ -256,8 +295,27 @@ class DeviceShardCache:
     up to `shard_quantum`, so a request window never runs past the buffer.
     `device` defaults to "cuda" and raises without a card.
 
-    The mesh and pod layouts of the JAX cache (`mesh_devices`,
-    `global_mesh`) are ROADMAP A8 and raise NotImplementedError here."""
+    Mesh residency (-ec.serving.mesh.*): with `mesh_devices` set (0 =
+    every local device of the cache's type, n = the first n; a mesh of one
+    degrades to the one-device layout) or an explicit `mesh`
+    (parallel/mesh.py; lanes may share a device), the cache lays volumes
+    out across the lanes.  A volume whose shard files reach
+    `mesh_min_shard_bytes` is lane-sharded: its padded buffer splits into
+    `stripe`-byte stripes and stripe c lives on lane c % n (owner-major:
+    lane d holds stripes d, d+n, d+2n, ... back to back), so the volume's
+    resident capacity is every lane's budget and a batch's work splits
+    over the lanes.  Smaller volumes pin whole onto the least-loaded lane.
+    Budgets are kept per lane (`budget_bytes / n` each): eviction pressure
+    targets the lane that is actually full, and the residency ladder
+    judges each lane's fit (serving/tiering.py).
+
+    Pod mode (`global_mesh=True`, -ec.mesh.*): the mesh spans every
+    process of a torch.distributed group, and each process holds only its
+    own lanes' stripes.  The mesh/whole choice is a pure function of the
+    shard size, a whole pin lands on one of this process's lanes, and
+    eviction is partitioned (mesh puts evict only mesh-placed victims,
+    judged by mesh bytes alone; whole-pin puts never evict them), so the
+    set of mesh-placed volumes is the same on every process."""
 
     def __init__(
         self,
@@ -267,12 +325,10 @@ class DeviceShardCache:
         groups: int = rs_cuda.BLOCKDIAG_GROUPS,
         device="cuda",
         mesh_devices: int | None = None,
+        mesh_min_shard_bytes: int = 8 << 20,
         global_mesh: bool = False,
+        mesh=None,
     ):
-        if mesh_devices is not None or global_mesh:
-            raise NotImplementedError(
-                "mesh-sharded and pod residency are not ported yet (ROADMAP A8)"
-            )
         if layout not in LAYOUTS:
             raise ValueError(f"unknown resident layout {layout!r}")
         if groups < 1 or SIZE_BUCKETS[0] % (groups * LANE):
@@ -283,29 +339,78 @@ class DeviceShardCache:
         self.device = _resolve_device(device)
         self.budget = budget_bytes
         self.quantum = shard_quantum
-        self.n_devices = 1
+        # the serving mesh: None = the one-device layout.  mesh_devices
+        # None keeps it off; a resolved 1-wide mesh degrades to None
+        if mesh is None and mesh_devices is not None:
+            build = (mesh_mod.global_serving_mesh if global_mesh
+                     else mesh_mod.serving_mesh)
+            mesh = build(mesh_devices, self.device.type)
+        if mesh is not None and mesh.size < 2:
+            mesh = None
+        self.mesh = mesh
+        self.n_devices = mesh.size if mesh is not None else 1
+        # pod bookkeeping: the hosts the mesh spans and this process's
+        # lanes (every lane in one process)
+        self.n_hosts = max(1, len(mesh_mod.mesh_hosts(mesh)))
+        self.multiprocess = self.n_hosts > 1
+        if mesh is not None:
+            self._local_dev_indices = mesh.local_lanes()
+            if not self._local_dev_indices:
+                raise ValueError("the mesh holds no lane of this process")
+            self.lane_devices = [
+                _resolve_device(d) if i in self._local_dev_indices else None
+                for i, d in enumerate(mesh.devices)
+            ]
+            self.device = self.lane_devices[self._local_dev_indices[0]]
+        else:
+            self._local_dev_indices = [0]
+            self.lane_devices = [self.device]
+        self.mesh_min_shard_bytes = mesh_min_shard_bytes
+        # interleaved stripe width of the lane-sharded layout: stripe c
+        # lives on lane c % n.  Interleaving keeps ownership even at any
+        # volume size (a contiguous chunk a lane would park a small
+        # volume and every hot byte range on the first lanes).  Each
+        # stripe holds the largest window placeable in it and stays
+        # FUSED_ALIGN-aligned.
+        self.stripe = 0
+        if self.mesh is not None:
+            q = self.n_devices * max(FUSED_ALIGN, SIZE_BUCKETS[0])
+            self.quantum = -(-self.quantum // q) * q
+            self.stripe = self.quantum // self.n_devices
         # mutable at run time: the bytes are layout-agnostic (blockdiag
         # segments are contiguous slices of the same flat buffers)
         self.layout = layout
         self.groups = groups
-        self.pipeline = DevicePipeline(device=self.device)
+        self.pipeline = DevicePipeline(devices=self.lane_devices)
         self._lock = threading.Lock()
-        self._arrays: OrderedDict[tuple[int, int], torch.Tensor] = OrderedDict()
+        # key -> buffer (a whole pin), or one buffer a lane (lane-sharded;
+        # None for another process's lane)
+        self._arrays: OrderedDict[tuple[int, int], object] = OrderedDict()
         self._true_sizes: dict[tuple[int, int], int] = {}
-        # event recorded after each put's copies: a reader on another
-        # stream waits on it before it touches the bytes
-        self._ready: dict[tuple[int, int], torch.cuda.Event] = {}
+        # key -> the event(s) recorded after the put's copies: a reader on
+        # another stream waits on them before it touches the bytes
+        self._ready: dict[tuple[int, int], object] = {}
         # vid -> the disk-location directory whose shard files were pinned
         self._pin_source: dict[int, str] = {}
         self._vid_counts: dict[int, int] = {}
-        self._vid_place: dict[int, int] = {}
-        self._dev_bytes: list[int] = [0]
+        # padded bytes held a lane, and the mesh-placed share of them (the
+        # pressure signal of the pod's partitioned eviction)
+        self._dev_bytes: list[int] = [0] * self.n_devices
+        self._mesh_dev_bytes: list[int] = [0] * self.n_devices
+        # vid -> "mesh" | lane index, claimed at the first put
+        self._vid_place: dict[int, object] = {}
+        # key -> (place, padded size): what evicting the key frees
+        self._foot: dict[tuple[int, int], tuple[object, int]] = {}
         self.evictions = 0
         self.pin_claims = 0
+        # puts in flight, puts started: the serving QoS reads them
+        self._puts = [0, 0]
 
     def _padded_len(self, n: int) -> int:
         need = n + MAX_TILE
         return -(-need // self.quantum) * self.quantum
+
+    # ------------------------------------------------- per-lane accounting
 
     @property
     def bytes_used(self) -> int:
@@ -313,63 +418,220 @@ class DeviceShardCache:
 
     @property
     def device_budget(self) -> int:
+        """Per-lane budget: the total split evenly over the mesh."""
         return self.budget // self.n_devices
 
+    def _shares(self, place, size: int) -> list[tuple[int, int]]:
+        """(lane, padded bytes) pairs one buffer of `size` costs under
+        `place` ("mesh" = an even split)."""
+        if place == "mesh":
+            per = size // self.n_devices
+            return [(d, per) for d in range(self.n_devices)]
+        return [(int(place), size)]
+
+    def _publish_dev_gauges(self) -> None:
+        for d, used in enumerate(self._dev_bytes):
+            stats_metrics.VOLUME_SERVER_EC_DEVICE_CACHE_BYTES.labels(
+                device=str(d)
+            ).set(used)
+
+    def _place_for(self, shard_bytes: int):
+        """The placement rule (caller holds the lock): lane-sharded for
+        volumes worth spreading, a pure function of the size so every
+        process of a pod claims alike; else whole onto the least-loaded
+        lane of this process."""
+        if self.mesh is None:
+            return 0
+        if shard_bytes >= self.mesh_min_shard_bytes:
+            return "mesh"
+        return min(self._local_dev_indices, key=lambda d: self._dev_bytes[d])
+
+    def _claim_place_locked(self, vid: int, shard_bytes: int):
+        """The first put of a vid claims its placement; later puts follow
+        the claim (one volume never straddles placements)."""
+        place = self._vid_place.get(vid)
+        if place is None:
+            place = self._vid_place[vid] = self._place_for(shard_bytes)
+        return place
+
     def placement(self, vid: int):
-        """0 once anything of `vid` was placed, else None (one device)."""
+        """"mesh" | lane index | None (nothing of `vid` was placed)."""
         with self._lock:
             return self._vid_place.get(vid)
 
-    def pin_bytes(self, n_shards: int, shard_bytes: int) -> int:
-        """Padded device bytes that n_shards shards of shard_bytes hold."""
-        return n_shards * self._padded_len(shard_bytes)
+    def vid_sharded(self, vid: int) -> bool:
+        with self._lock:
+            return self._vid_place.get(vid) == "mesh"
+
+    def device_stats(self) -> list[dict]:
+        """Per-lane [{"used_bytes", "budget_bytes"}]."""
+        budget = self.device_budget
+        with self._lock:
+            return [{"used_bytes": used, "budget_bytes": budget}
+                    for used in self._dev_bytes]
+
+    def pressure_devices(self) -> list[int]:
+        """Lanes over their budget, fullest first."""
+        budget = self.device_budget
+        with self._lock:
+            over = [(used - budget, d) for d, used in enumerate(self._dev_bytes)
+                    if used > budget]
+        return [d for _, d in sorted(over, reverse=True)]
+
+    def device_bytes_by_vid(self) -> dict[int, dict[int, int]]:
+        """vid -> {lane -> padded bytes} in one locked pass."""
+        out: dict[int, dict[int, int]] = {}
+        with self._lock:
+            for (vid, _sid), (place, size) in self._foot.items():
+                dev = out.setdefault(vid, {})
+                for d, share in self._shares(place, size):
+                    dev[d] = dev.get(d, 0) + share
+        return out
+
+    def plan_pin(self, n_shards: int, shard_bytes: int,
+                 vid: int | None = None) -> dict[int, int]:
+        """lane -> padded bytes a full pin of (n_shards x shard_bytes)
+        would add.  An existing claim of `vid` wins over the least-loaded
+        preview: an evicted volume keeps its claim, and its re-pin lands
+        back there."""
+        padded = self._padded_len(shard_bytes)
+        with self._lock:
+            place = self._vid_place.get(vid) if vid is not None else None
+            if place is None:
+                place = self._place_for(shard_bytes)
+        return {d: n_shards * share
+                for d, share in self._shares(place, padded)}
+
+    def pin_activity(self) -> tuple[int, int]:
+        """(puts in flight, puts started so far)."""
+        with self._lock:
+            return self._puts[0], self._puts[1]
+
+    def _device_of(self, place):
+        """The device a whole pin stages to, or every lane's device (None
+        for another process's) for a lane-sharded one."""
+        if place == "mesh":
+            return self.lane_devices
+        return self.lane_devices[int(place)]
 
     def put(self, vid: int, shard_id: int, data) -> None:
+        with self._lock:
+            self._puts[0] += 1
+            self._puts[1] += 1
+        try:
+            self._put(vid, shard_id, data)
+        finally:
+            with self._lock:
+                self._puts[0] -= 1
+
+    def _stage(self, host: np.ndarray, padded: int, dev):
+        """A padded buffer of `host` on `dev` (true bytes at its head, the
+        tail zeroed there: no padded host copy), with its ready event."""
+        buf = torch.empty(padded, dtype=torch.uint8, device=dev)
+        if host.size:
+            buf[: host.size].copy_(torch.from_numpy(host))
+        buf[host.size:].zero_()
+        return buf, _record_ready(dev)
+
+    def _stage_lanes(self, host: np.ndarray, padded: int, devs):
+        """This process's lanes of a lane-sharded buffer: lane d gets
+        stripes d, d+n, ... of the padded bytes back to back, plus a
+        groups*FUSED_ALIGN zero tail (a block-diagonal fetch rounds its
+        window up past the last stripe's end)."""
+        n, stripe = self.n_devices, self.stripe
+        per = padded // n
+        bufs, events = [], []
+        for d, dev in enumerate(devs):
+            if dev is None:
+                bufs.append(None)
+                events.append(None)
+                continue
+            buf = torch.zeros(per + self.groups * FUSED_ALIGN,
+                              dtype=torch.uint8, device=dev)
+            for j, c in enumerate(range(d, padded // stripe, n)):
+                lo = c * stripe
+                if lo >= host.size:
+                    break
+                src = host[lo : min(lo + stripe, host.size)]
+                buf[j * stripe : j * stripe + src.size].copy_(
+                    torch.from_numpy(src))
+            bufs.append(buf)
+            events.append(_record_ready(dev))
+        return bufs, events
+
+    def _put(self, vid: int, shard_id: int, data) -> None:
         host = np.frombuffer(bytes(data), dtype=np.uint8) if isinstance(
             data, (bytes, bytearray, memoryview)
         ) else np.asarray(data, dtype=np.uint8).reshape(-1)
+        if not host.flags.writeable:  # torch.from_numpy wants it writable
+            host = host.copy()
         with self._lock:
-            self._vid_place.setdefault(vid, 0)
-        # allocate the padded buffer on the device, copy the true bytes
-        # into its head and zero only the tail there: no padded host copy
+            place = self._claim_place_locked(vid, host.size)
         padded = self._padded_len(host.size)
-        buf = torch.empty(padded, dtype=torch.uint8, device=self.device)
-        if host.size:
-            src = torch.from_numpy(
-                host if host.flags.writeable else host.copy()
-            )
-            buf[: host.size].copy_(src)
-        buf[host.size:].zero_()
-        ready = None
-        if self.device.type == "cuda":
-            ready = torch.cuda.Event()
-            ready.record(torch.cuda.current_stream(self.device))
+        if place == "mesh":
+            arr, ready = self._stage_lanes(host, padded, self._device_of(place))
+        else:
+            arr, ready = self._stage(host, padded, self._device_of(place))
         key = (vid, shard_id)
+        shares = self._shares(place, padded)
         budget = self.device_budget
         with self._lock:
-            if self._vid_place.get(vid) is None:
-                # evict()/clear() between the claim and here: drop the
-                # buffer rather than resurrect a released volume
+            if self._vid_place.get(vid) != place:
+                # the claim this buffer was staged for vanished (evict()
+                # or clear() between the claim and here): drop it rather
+                # than let one vid straddle placements
                 return
             if key in self._arrays:
                 self._drop_key_locked(key)
-            while self._arrays and self._dev_bytes[0] + padded > budget:
-                self._drop_key_locked(next(iter(self._arrays)))
+            # evict while any lane the incoming buffer lands on would pass
+            # its budget: LRU order, only keys holding bytes on an
+            # over-budget lane.  One forward pass: dropping victims only
+            # shrinks the over set.  The pod's partition: mesh puts judge
+            # mesh bytes and evict only mesh victims; whole-pin puts never
+            # evict a mesh victim.
+            mesh_only = self.multiprocess and place == "mesh"
+            skip_mesh = self.multiprocess and place != "mesh"
+            pressure = self._mesh_dev_bytes if mesh_only else self._dev_bytes
+            lru = iter(list(self._arrays))
+            while self._arrays:
+                over = {d for d, share in shares
+                        if pressure[d] + share > budget}
+                if not over:
+                    break
+                victim = next(
+                    (k for k in lru
+                     if not (mesh_only and self._foot[k][0] != "mesh")
+                     and not (skip_mesh and self._foot[k][0] == "mesh")
+                     and any(d in over
+                             for d, _ in self._shares(*self._foot[k]))),
+                    None,
+                )
+                if victim is None:
+                    break  # the pressure is on lanes nothing else holds
+                self._drop_key_locked(victim)
                 self.evictions += 1
-                # the evicted vid keeps its pin-source claim (see the JAX
-                # cache): only explicit evict()/clear() release it
-            self._arrays[key] = buf
+                # the evicted vid keeps its pin-source claim and its
+                # placement: only explicit evict()/clear() release them
+            self._arrays[key] = arr
             self._true_sizes[key] = host.size
-            if ready is not None:
-                self._ready[key] = ready
+            self._ready[key] = ready
+            self._foot[key] = (place, padded)
             self._vid_counts[vid] = self._vid_counts.get(vid, 0) + 1
-            self._dev_bytes[0] += padded
+            for d, share in shares:
+                self._dev_bytes[d] += share
+                if place == "mesh":
+                    self._mesh_dev_bytes[d] += share
+            self._publish_dev_gauges()
 
     def _drop_key_locked(self, key: tuple[int, int]) -> None:
-        buf = self._arrays.pop(key)
+        self._arrays.pop(key)
         self._true_sizes.pop(key, None)
         self._ready.pop(key, None)
-        self._dev_bytes[0] -= buf.numel()
+        place, size = self._foot.pop(key)
+        for d, share in self._shares(place, size):
+            self._dev_bytes[d] -= share
+            if place == "mesh":
+                self._mesh_dev_bytes[d] -= share
         self._vid_counts[key[0]] -= 1
         if not self._vid_counts[key[0]]:
             del self._vid_counts[key[0]]
@@ -406,6 +668,7 @@ class DeviceShardCache:
             return self._pin_source.get(vid)
 
     def get(self, vid: int, shard_id: int):
+        """The resident buffer (a lane list when lane-sharded) or None."""
         return self._get_ready(vid, shard_id)[0]
 
     def _get_ready(self, vid: int, shard_id: int):
@@ -450,6 +713,7 @@ class DeviceShardCache:
                 self._drop_key_locked(k)
             if shard_id is None or keys:
                 self._forget_if_gone(vid)
+            self._publish_dev_gauges()
 
     def clear(self) -> None:
         with self._lock:
@@ -459,7 +723,20 @@ class DeviceShardCache:
             self._pin_source.clear()
             self._vid_counts.clear()
             self._vid_place.clear()
-            self._dev_bytes = [0]
+            self._foot.clear()
+            self._dev_bytes = [0] * self.n_devices
+            self._mesh_dev_bytes = [0] * self.n_devices
+            self._publish_dev_gauges()
+
+
+def _record_ready(dev):
+    """An event after the work queued so far on `dev`'s current stream
+    (None on the CPU, where copies are done when they return)."""
+    if dev.type != "cuda":
+        return None
+    ev = torch.cuda.Event()
+    ev.record(torch.cuda.current_stream(dev))
+    return ev
 
 
 # --- planner helpers (copied from the JAX package, pinned equal by tests) --
@@ -471,7 +748,7 @@ def _plan(requests: list[tuple[int, int, int]], l_loc: int = 0):
     Each request (wanted_shard, offset, size) becomes >=1 sub-requests
     (req_index, aligned_off, delta, take, bucket) with delta+take <= bucket.
 
-    `l_loc` > 0 is the mesh layout's stripe width (ROADMAP A8): every
+    `l_loc` > 0 is the mesh layout's stripe width: every
     sub-request's whole bucket window must then sit inside one stripe, so
     requests additionally split at stripe boundaries and a window that
     would overhang its boundary is backward-aligned to end there.
@@ -1025,10 +1302,18 @@ def _prepared_blockdiag(matrix_bytes: bytes, m: int, k: int, groups: int,
     return a
 
 
-def _resolve_codec(cache, vid, requests, data_shards, total_shards, layout):
-    """Reconstruction matrix (flat or block-diagonal, per the layout) on the
-    cache's device + the resident survivors in its column order, each with
-    the event its put recorded."""
+def _prepared_for(cache, rmat: np.ndarray, layout: str, dev) -> torch.Tensor:
+    """The reconstruction system (flat or block-diagonal) on `dev`."""
+    if layout == "blockdiag":
+        return _prepared_blockdiag(rmat.tobytes(), *rmat.shape, cache.groups,
+                                   str(dev))
+    return rs_cuda._prepared(rmat.tobytes(), *rmat.shape, str(dev))
+
+
+def _survivors(cache, vid, requests, data_shards, total_shards):
+    """The reconstruction matrix of a batch and its resident survivors in
+    column order -> (rmat, use, row_of, [(buffer, put event)]); a buffer
+    is a lane list for a lane-sharded volume."""
     wanted = sorted({r[0] for r in requests})
     resident = cache.shard_ids(vid)
     present = [s for s in resident if s not in wanted]
@@ -1039,18 +1324,25 @@ def _resolve_codec(cache, vid, requests, data_shards, total_shards, layout):
     rmat, use = gf256.reconstruction_matrix(
         data_shards, total_shards, present, wanted
     )
-    dev = str(cache.device)
-    if layout == "blockdiag":
-        a_prep = _prepared_blockdiag(rmat.tobytes(), *rmat.shape,
-                                     cache.groups, dev)
-    else:
-        a_prep = rs_cuda._prepared(rmat.tobytes(), *rmat.shape, dev)
     got = [cache._get_ready(vid, s) for s in use]
     if any(buf is None for buf, _ in got):  # evicted between listing and get
         raise CacheMiss(f"vid {vid}: survivor shard evicted mid-request")
-    survivors = tuple(buf for buf, _ in got)
-    events = [ev for _, ev in got if ev is not None]
     row_of = {sid: i for i, sid in enumerate(wanted)}
+    return rmat, use, row_of, got
+
+
+def _resolve_codec(cache, vid, requests, data_shards, total_shards, layout):
+    """Reconstruction matrix (flat or block-diagonal, per the layout) on the
+    survivors' device + the resident survivors of a one-device (or
+    whole-pinned) volume in its column order, each with the event its put
+    recorded."""
+    rmat, use, row_of, got = _survivors(cache, vid, requests, data_shards,
+                                        total_shards)
+    survivors = tuple(buf for buf, _ in got)
+    if isinstance(survivors[0], list):
+        raise CacheMiss(f"vid {vid}: lane-sharded (placement changed)")
+    a_prep = _prepared_for(cache, rmat, layout, survivors[0].device)
+    events = [ev for _, ev in got if ev is not None]
     return a_prep, survivors, events, row_of, use, rmat.shape[0]
 
 
@@ -1145,6 +1437,11 @@ def reconstruct_intervals(
         layout = cache.layout
     if layout not in LAYOUTS:
         raise ValueError(f"unknown resident layout {layout!r}")
+    place = cache.placement(vid)
+    if place == "mesh":
+        return _reconstruct_sharded(cache, vid, requests, layout,
+                                    data_shards, total_shards)
+    lane = 0 if place is None else int(place)
     with obs_trace.span(
         "batch_pack", requests=len(requests), layout=layout
     ):
@@ -1163,8 +1460,9 @@ def reconstruct_intervals(
     )
     sub_out: list[bytes | None] = [None] * len(subs)
     pipe = cache.pipeline
-    with pipe.slot() as pslot, dev_span:
-        if pslot.stream is None:
+    with devledger.device(str(lane) if cache.mesh is not None else "default"
+                          ), pipe.slot() as pslot, dev_span:
+        if pslot.on(lane)[1] is None:
             h2d = d2h = 0
             for (part, words, fetches, deltas), key in zip(calls, keys):
                 t_dispatch = time.perf_counter()
@@ -1176,9 +1474,9 @@ def reconstruct_intervals(
                     _trim(out.numpy(), part, deltas, offsets, sub_out)
                 d2h += int(out.numel())
         else:
-            h2d, d2h = _run_on_stream(pipe, pslot, calls, keys, survivors,
-                                      events, a_prep, len(use), w_true,
-                                      groups, tile, sub_out)
+            h2d, d2h = _run_on_stream(pipe, pslot.on(lane), lane, calls, keys,
+                                      survivors, events, a_prep, len(use),
+                                      w_true, groups, tile, sub_out)
         # the reference's keys: no call compiles here (compile_misses 0),
         # and h2d_bytes are the launches' parameter bytes
         dev_span.annotate(
@@ -1188,22 +1486,25 @@ def reconstruct_intervals(
         # busy seconds and queue wait are the slot's (recorded on exit);
         # dispatches and boundary bytes are this batch's
         devledger.record(dispatches=len(calls),
-                         nbytes=h2d + d2h if pslot.stream is not None else 0)
+                         nbytes=h2d + d2h if pslot.on(lane)[1] is not None
+                         else 0)
     outputs: list[list[bytes]] = [[] for _ in requests]
     for (idx, *_), piece in zip(subs, sub_out):
         outputs[idx].append(piece)  # subs are in offset order per request
     return [b"".join(parts) for parts in outputs]
 
 
-def _run_on_stream(pipe, pslot, calls, keys, survivors, events, a_prep,
-                   n_use, w_true, groups, tile, sub_out) -> tuple[int, int]:
-    """Enqueue and drain a batch's calls on the slot's stream; -> the
-    bytes they moved across PCIe (parameters up, results down).  Each
+def _run_on_stream(pipe, resources, lane, calls, keys, survivors, events,
+                   a_prep, n_use, w_true, groups, tile,
+                   sub_out) -> tuple[int, int]:
+    """Enqueue and drain a batch's calls on the slot's stream of `lane`
+    (`resources`: its arena and stream); -> the bytes they moved across
+    PCIe (parameters up, results down).  Each
     call enqueues its launch, an event (`ready`), its D2H and a second
     event (`done`) before anything is waited on; the drain waits on
     `ready` inside the caller's device_execute span, then on `done`
     inside a d2h_copy span."""
-    stream, arena = pslot.stream, pslot.arena
+    arena, stream = resources
     h2d = d2h = 0
     pending: list[tuple] = []
 
@@ -1216,7 +1517,7 @@ def _run_on_stream(pipe, pslot, calls, keys, survivors, events, a_prep,
                 _trim(host.numpy(), part, deltas, offsets, sub_out)
         pending.clear()
 
-    with torch.cuda.device(pipe.device), torch.cuda.stream(stream):
+    with torch.cuda.device(pipe.devices[lane]), torch.cuda.stream(stream):
         # the survivors were written on the put's stream, and an eviction
         # during the batch must not hand their blocks to another allocation
         # while this stream still reads them
@@ -1256,6 +1557,141 @@ def _run_on_stream(pipe, pslot, calls, keys, survivors, events, a_prep,
             d2h += nbytes
         drain()
     return h2d, d2h
+
+
+def _pack_calls_sharded(cache, requests, row_of, groups: int):
+    """PACK for a lane-sharded volume: plan against the stripe width
+    (requests split at stripe boundaries, _plan's stripe path), route each
+    sub-request to the lane owning its stripe (stripe c lives on lane
+    c % n, at lane-local stripe c // n) with its lane-local offset, and
+    pack each lane's sub-requests into ragged calls.  -> (subs, {lane:
+    [(part, words, fetches, deltas)]}), part entries (sub index, the
+    lane-local sub-request)."""
+    n, stripe = cache.n_devices, cache.stripe
+    subs = _plan(requests, stripe)
+    by_lane: dict[int, list] = {}
+    for i, s in enumerate(subs):
+        c = s[1] // stripe
+        local = (c // n) * stripe + s[1] % stripe
+        by_lane.setdefault(c % n, []).append(
+            (i, (s[0], local, s[2], s[3], s[4])))
+    calls = {}
+    for lane, items in sorted(by_lane.items()):
+        idx = [i for i, _ in items]
+        calls[lane] = [
+            ([(idx[j], sub) for j, sub in part], words, fetches, deltas)
+            for part, words, fetches, deltas in _ragged_calls(
+                [sub for _, sub in items], requests, row_of, groups)
+        ]
+    return subs, calls
+
+
+def _reconstruct_sharded(cache, vid, requests, layout, data_shards,
+                         total_shards) -> list[bytes]:
+    """reconstruct_intervals for a lane-sharded volume (the port of the
+    reference's `_sharded_gather_reconstruct`): every lane with work runs
+    one ragged launch of the fused kernel over its own stripes, with
+    lane-local offsets, on its own device and stream; each lane's result
+    comes down in one D2H, and no survivor byte crosses lanes.  In a pod
+    each process runs its own lanes and one all_gather shares the
+    reconstructed rows."""
+    groups = cache.groups if layout == "blockdiag" else 1
+    tile = groups * FUSED_ALIGN
+    with obs_trace.span("batch_pack", requests=len(requests), layout=layout):
+        rmat, use, row_of, got = _survivors(cache, vid, requests,
+                                            data_shards, total_shards)
+        if not isinstance(got[0][0], list):
+            raise CacheMiss(f"vid {vid}: not lane-sharded (placement changed)")
+        subs, calls = _pack_calls_sharded(cache, requests, row_of, groups)
+    w_true = rmat.shape[0]
+    wrapper = fused_reconstruct_blockdiag if groups > 1 else fused_reconstruct
+    dev_span = obs_trace.span(
+        "device_execute", requests=len(requests), layout=layout,
+        kernel="sharded_" + ("blockdiag" if groups > 1 else "flat"),
+    )
+    sub_out: list[bytes | None] = [None] * len(subs)
+    pipe = cache.pipeline
+    n_calls = h2d = d2h = 0
+    with devledger.device("mesh"), pipe.slot() as pslot, dev_span:
+        pending = []
+        for lane in (d for d in calls if d in cache._local_dev_indices):
+            dev = cache.lane_devices[lane]
+            survivors = tuple(buf[lane] for buf, _ in got)
+            a_prep = _prepared_for(cache, rmat, layout, dev)
+            _, stream = pslot.on(lane)
+            ctx = (contextlib.nullcontext() if stream is None else
+                   torch.cuda.stream(stream))
+            with ctx:
+                if stream is not None:
+                    # the survivors were written on the put's stream, and
+                    # an eviction must not free them under this stream
+                    for _, evs in got:
+                        if evs[lane] is not None:
+                            stream.wait_event(evs[lane])
+                    for s in survivors:
+                        s.record_stream(stream)
+                for part, words, fetches, deltas in calls[lane]:
+                    key = _call_key(wrapper.__name__, groups, w_true,
+                                    sum(fetches), len(part))
+                    t0 = time.perf_counter()
+                    out, offsets, sent = _dispatch_call(
+                        a_prep, survivors, words, fetches, len(use), w_true,
+                        groups, tile)
+                    n_calls += 1
+                    if stream is None:
+                        _note_call_latency(key, time.perf_counter() - t0)
+                        with obs_trace.span("d2h_copy",
+                                            bytes=int(out.numel())):
+                            _trim(out.numpy(), part, deltas, offsets, sub_out)
+                        continue
+                    ready = torch.cuda.Event()
+                    ready.record(stream)
+                    host = torch.empty(out.numel(), dtype=torch.uint8,
+                                       pin_memory=True)
+                    host.copy_(out, non_blocking=True)
+                    done = torch.cuda.Event()
+                    done.record(stream)
+                    pending.append((part, deltas, offsets, host, ready, done,
+                                    key, t0))
+                    h2d += sent
+                    d2h += int(out.numel())
+        # every lane's launch and D2H are enqueued before the first wait
+        for part, deltas, offsets, host, ready, done, key, t0 in pending:
+            ready.synchronize()
+            _note_call_latency(key, time.perf_counter() - t0)
+            with obs_trace.span("d2h_copy", bytes=int(host.numel())):
+                done.synchronize()
+                _trim(host.numpy(), part, deltas, offsets, sub_out)
+        with _launch_lock:
+            pipe.h2d_bytes += h2d
+            pipe.d2h_bytes += d2h
+        dev_span.annotate(
+            device_calls=n_calls, compile_misses=0, h2d_bytes=h2d,
+            d2h_bytes=d2h, slot_wait_us=int(pslot.wait_s * 1e6),
+        )
+        devledger.record(dispatches=n_calls, nbytes=h2d + d2h)
+    if cache.multiprocess:
+        sub_out = _share_rows(sub_out)
+    outputs: list[list[bytes]] = [[] for _ in requests]
+    for (idx, *_), piece in zip(subs, sub_out):
+        outputs[idx].append(piece)  # subs are in offset order per request
+    return [b"".join(parts) for parts in outputs]
+
+
+def _share_rows(sub_out: list) -> list:
+    """The pod's one collective of a sharded read: every process
+    all-gathers the reconstructed rows its lanes produced, so each holds
+    the whole batch's answers."""
+    mine = {i: b for i, b in enumerate(sub_out) if b is not None}
+    everyone: list = [None] * torch.distributed.get_world_size()
+    torch.distributed.all_gather_object(everyone, mine)
+    out = list(sub_out)
+    for rows in everyone:
+        for i, b in rows.items():
+            out[i] = b
+    if any(b is None for b in out):
+        raise RuntimeError("a sharded read's rows are missing after the gather")
+    return out
 
 
 # --- the hot-call view ----------------------------------------------------------
@@ -1353,8 +1789,8 @@ def make_batched_call(
         tile = _fused_tile_for(fetch)
 
     def thunk():
-        if cache.device.type == "cuda":
-            stream = torch.cuda.current_stream(cache.device)
+        if survivors[0].device.type == "cuda":
+            stream = torch.cuda.current_stream(survivors[0].device)
             for ev in events:
                 stream.wait_event(ev)
         meta = torch.tensor(packed, dtype=torch.int32)
@@ -1703,20 +2139,22 @@ def _scrub_matrix(data_shards: int, total_shards: int, groups: int,
     return rs_cuda._prepared(parity_m.tobytes(), *parity_m.shape, device)
 
 
-def _scrub_run(cache, a, got, n_lanes: int, groups: int, k: int) -> np.ndarray:
-    """One scrub call in a pipeline slot of the cache, tagged "scrub" in the
-    device ledger.  `got` is each volume's [(buffer, put event)] from
-    _get_ready.  On the card it runs on the slot's stream after the puts'
-    events, with every buffer kept from reuse until the stream is done
-    with it (an eviction mid-scrub frees nothing the kernel reads).  ->
-    host int64 [V, p, n_seg] partials."""
+def _scrub_run(cache, a, got, n_lanes: int, groups: int, k: int,
+               lane: int = 0) -> np.ndarray:
+    """One scrub call in a pipeline slot of the cache on `lane`, tagged
+    "scrub" in the device ledger.  `got` is each volume's [(buffer, put
+    event)] on that lane.  On the card it runs on the slot's stream of the
+    lane after the puts' events, with every buffer kept from reuse until
+    the stream is done with it (an eviction mid-scrub frees nothing the
+    kernel reads).  -> host int64 [V, p, n_seg] partials."""
     vols = [tuple(buf for buf, _ in vol) for vol in got]
     with devledger.workload("scrub"), cache.pipeline.slot() as pslot:
-        if pslot.stream is None:
+        _, stream = pslot.on(lane)
+        if stream is None:
             host = scrub(a, vols, n_lanes=n_lanes, k=k, groups=groups).numpy()
         else:
-            stream = pslot.stream
-            with torch.cuda.device(cache.device), torch.cuda.stream(stream):
+            dev = cache.lane_devices[lane]
+            with torch.cuda.device(dev), torch.cuda.stream(stream):
                 for vol in got:
                     for buf, ev in vol:
                         if ev is not None:
@@ -1736,6 +2174,38 @@ def _scrub_span(size: int, quant: int) -> int:
     (LANE, or groups*LANE block-diagonal); the cache's zero padding covers
     the rest, and parity of zeros is zero."""
     return -(-size // quant) * quant
+
+
+def _scrub_placed(cache, place, got, n_lanes: int, groups: int,
+                  data_shards: int, total_shards: int) -> list[list[int]]:
+    """Scrub volumes of one placement -> each volume's per-parity-shard
+    mismatch counts.  A whole pin is one launch on its lane.  A
+    lane-sharded volume is scrubbed where it lies (`n_lanes` is then each
+    lane's span): every lane checks its own stripes of every shard with
+    one launch (parity is byte-wise, so the stripe order does not
+    matter), and the lanes' counts add up; in a pod the processes' counts
+    meet in one all_gather."""
+    if place != "mesh":
+        lane = int(place)
+        a = _scrub_matrix(data_shards, total_shards, groups,
+                          str(cache.lane_devices[lane]))
+        partials = _scrub_run(cache, a, got, n_lanes, groups, data_shards,
+                              lane)
+        return [[int(r.sum()) for r in vol] for vol in partials]
+    p = total_shards - data_shards
+    counts = np.zeros((len(got), p), dtype=np.int64)
+    for lane in cache._local_dev_indices:
+        a = _scrub_matrix(data_shards, total_shards, groups,
+                          str(cache.lane_devices[lane]))
+        lane_got = [[(buf[lane], None if ev is None else ev[lane])
+                     for buf, ev in vol] for vol in got]
+        counts += _scrub_run(cache, a, lane_got, n_lanes, groups,
+                             data_shards, lane).sum(axis=-1)
+    if cache.multiprocess:
+        everyone: list = [None] * torch.distributed.get_world_size()
+        torch.distributed.all_gather_object(everyone, counts)
+        counts = sum(everyone)
+    return [[int(c) for c in vol] for vol in counts]
 
 
 def scrub_volume(
@@ -1769,13 +2239,21 @@ def scrub_volume(
     if any(buf is None for buf, _ in got):
         raise CacheMiss(f"vid {vid}: shard evicted mid-scrub")
     groups = cache.groups if layout == "blockdiag" else 1
+    place = cache.placement(vid)
     n_lanes = _scrub_span(true_size, groups * LANE)
-    a = _scrub_matrix(data_shards, total_shards, groups, str(cache.device))
-    partials = _scrub_run(cache, a, [got], n_lanes, groups, data_shards)
+    if place == "mesh":
+        # the stripes are permuted: a true-size span would cover an
+        # arbitrary stripe subset, so the whole padded buffer is checked
+        # (the zero padding verifies trivially)
+        n_lanes = cache._padded_len(true_size)
+    counts = _scrub_placed(
+        cache, 0 if place is None else place, [got],
+        n_lanes // cache.n_devices if place == "mesh" else n_lanes,
+        groups, data_shards, total_shards)
     stats_metrics.VOLUME_SERVER_EC_SCRUB_DISPATCH.labels(
         mode="per_volume"
     ).inc()
-    return [int(row.sum()) for row in partials[0]], n_lanes
+    return counts[0], n_lanes
 
 
 def scrub_all_resident(
@@ -1812,22 +2290,26 @@ def scrub_all_resident(
         got = [cache._get_ready(vid, s) for s in range(total_shards)]
         if any(buf is None for buf, _ in got):
             continue
-        n_lanes = _scrub_span(sizes.pop(), groups * LANE)
+        size = sizes.pop()
         place = cache.placement(vid)
-        stacks.setdefault((n_lanes, 0 if place is None else place), []).append(
-            (vid, got))
-    a = _scrub_matrix(data_shards, total_shards, groups, str(cache.device))
+        place = 0 if place is None else place
+        # a lane-sharded volume is checked whole (see scrub_volume)
+        n_lanes = (cache._padded_len(size) if place == "mesh"
+                   else _scrub_span(size, groups * LANE))
+        stacks.setdefault((n_lanes, place), []).append((vid, got))
     results: dict[int, tuple[list[int], int]] = {}
     device_calls = 0
-    for (n_lanes, _place), members in sorted(stacks.items()):
+    for (n_lanes, place), members in sorted(
+            stacks.items(), key=lambda kv: (kv[0][0], str(kv[0][1]))):
+        span = n_lanes // cache.n_devices if place == "mesh" else n_lanes
         for start in range(0, len(members), _SCRUB_STACK_CAP):
             chunk = members[start : start + _SCRUB_STACK_CAP]
-            partials = _scrub_run(cache, a, [got for _, got in chunk],
-                                  n_lanes, groups, data_shards)
+            counts = _scrub_placed(cache, place, [got for _, got in chunk],
+                                   span, groups, data_shards, total_shards)
             device_calls += 1
             stats_metrics.VOLUME_SERVER_EC_SCRUB_DISPATCH.labels(
                 mode="megakernel"
             ).inc()
-            for (vid, _), vol_partials in zip(chunk, partials):
-                results[vid] = ([int(r.sum()) for r in vol_partials], n_lanes)
+            for (vid, _), vol_counts in zip(chunk, counts):
+                results[vid] = (vol_counts, n_lanes)
     return results, {"device_calls": device_calls, "volumes": len(results)}

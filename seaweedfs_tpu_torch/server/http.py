@@ -81,7 +81,7 @@ class Response:
 
 def json_response(obj, status: int = 200) -> Response:
     return Response(status, json.dumps(obj).encode(),
-                    content_type="application/json")
+                    content_type="application/json; charset=utf-8")
 
 
 class Request:

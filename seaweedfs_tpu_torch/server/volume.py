@@ -54,9 +54,13 @@ through `_remote_shard_reader` (the holders from the master's
 LookupEcVolume, cached), and a degraded read gathers its remote survivors
 through the hedged gather.
 
-Blocking storage and device work runs via asyncio.to_thread.  A volume
-that is not local answers 404.  Not here (ROADMAP A4c): proxy/redirect
-reads, replication fan-out, write JWTs, TTL sweeps, vacuum, tier moves and
+A write to a volume placed for copies fans out to the other holders the
+master lists (LookupVolume), and is rolled back when a peer refuses; a
+GET of a volume held elsewhere is proxied to a holder or, with
+`-readMode redirect`, redirected at it.
+
+Blocking storage and device work runs via asyncio.to_thread.  Not here
+(ROADMAP A4c): write JWTs, TTL sweeps, vacuum, tier moves and
 the other admin rpcs; image resizing waits for the images package; the
 timeline's heartbeat shipping, stage digests and /debug/stacks wait for
 A7c.
@@ -70,6 +74,7 @@ import gzip
 import logging
 import os
 import time
+import urllib.parse
 from collections import deque
 
 from .. import obs, stats
@@ -109,7 +114,14 @@ from ..utils import faultpolicy
 from ..utils.tasks import spawn_logged
 from .conditional import content_disposition, format_http_date, not_modified
 from .conversions import ec_msg_to_pb, volume_msg_to_pb
-from .http import HTTPError, HTTPServer, Request, Response, json_response
+from .http import (
+    Client,
+    HTTPError,
+    HTTPServer,
+    Request,
+    Response,
+    json_response,
+)
 
 log = logging.getLogger("volume")
 
@@ -133,6 +145,24 @@ _EC_LOCATION_TTL = 2.0
 _EC_LOOKUP_TIMEOUT_S = 5.0
 # CopyFile and VolumeEcShardRead stream in chunks of this size
 _STREAM_CHUNK = 1024 * 1024
+
+
+def _quoted_path(request: Request) -> str:
+    """The request's path quoted again for a peer (its sub-delims kept,
+    as the reference's URL library does)."""
+    return urllib.parse.quote(request.path, safe="/:@!$&'()*+,;=~")
+
+
+async def _peer_request(peer: str, method: str, path: str, headers=None,
+                        body: bytes = b""):
+    """One HTTP request to a peer server ("host:port") on a connection of
+    its own -> (status, headers, body)."""
+    host, port = peer.rsplit(":", 1)
+    cl = Client(host, int(port))
+    try:
+        return await cl.request(method, path, headers=headers, body=body)
+    finally:
+        await cl.close()
 
 
 class ByteLimiter:
@@ -216,6 +246,7 @@ class VolumeServer:
         ec_scrub_megakernel: bool = True,  # one pass over the resident
         # volumes per cycle (-ec.scrub.megakernel.disable)
         ec_ingest=None,  # ingest.IngestConfig | None (-ec.ingest.* flags)
+        read_mode: str = "proxy",  # local | proxy | redirect (-readMode)
     ):
         # "cuda" without a card fails here, before anything is served
         ec_backend = rs.resolve_backend(ec_backend)
@@ -235,6 +266,16 @@ class VolumeServer:
                 budget_bytes=ec_device_cache_mb << 20,
                 layout=ec_serving.layout,
                 device=_CACHE_DEVICE[ec_backend],
+                # mesh residency (-ec.serving.mesh.*): lane-shard
+                # resident volumes across the local cards; None keeps
+                # the one-device layout, as does a mesh of width 1
+                mesh_devices=(
+                    ec_serving.mesh_devices if ec_serving.mesh else None
+                ),
+                mesh_min_shard_bytes=ec_serving.mesh_min_shard_mb << 20,
+                # pod mesh (-ec.mesh.*): residency spans every process's
+                # cards; the command joined the process group first
+                global_mesh=ec_serving.multiprocess,
             )
             # one pipeline slot per overlapping lane, as the reference
             # sizes it: otherwise max_inflight lanes queue on the default
@@ -256,6 +297,9 @@ class VolumeServer:
         )
         self.masters = masters
         self.current_master = masters[0] if masters else ""
+        # a GET of a volume held elsewhere: redirect at a holder, else
+        # proxy to it ("local" proxies too, as in the reference)
+        self.read_mode = read_mode
         # -port.grpc, else the reference's convention, port + 10000
         self._grpc_port_given = bool(grpc_port)
         self.grpc_port = grpc_port or (port + 10000 if port else 0)
@@ -679,7 +723,7 @@ class VolumeServer:
         v = self.store.find_volume(vid)
         ev = self.store.find_ec_volume(vid) if v is None else None
         if v is None and ev is None:
-            raise HTTPError(404, f"volume {vid} not found anywhere")
+            return await self._read_remote(request, vid)
         # lease BEFORE the disk read so the throttle bounds memory; the
         # index knows the size up front for normal volumes (EC locates
         # during the read itself — those lease 0 and stay unthrottled)
@@ -736,6 +780,57 @@ class VolumeServer:
                 ):
                     raise HTTPError(404, "needle expired")
             return self._respond_needle(request, n)
+
+    async def _read_remote(self, request: Request, vid: int) -> Response:
+        """Volume not local: proxy to or redirect at a peer holding it
+        (volume_server_handlers_read.go:65-120)."""
+        locations = await self._lookup_volume_locations(vid)
+        locations = [u for u in locations if u != self.url]
+        if not locations:
+            raise HTTPError(404, f"volume {vid} not found anywhere")
+        target = locations[0]
+        path_qs = _quoted_path(request) + (
+            f"?{request.query_string}" if request.query_string else "")
+        if self.read_mode == "redirect":
+            raise HTTPError(301, headers={
+                "Location": f"http://{target}{path_qs}"})
+        # forward the read-semantics headers (conditionals, Range) and
+        # hand the peer's validators back, so proxied reads revalidate
+        # exactly like local ones; the peer records its own spans under
+        # the same trace id.  The body passes verbatim (no gunzip).
+        fwd = {
+            k: request.headers[k]
+            for k in ("Range", "If-None-Match", "If-Modified-Since",
+                      "Accept-Encoding")
+            if k in request.headers
+        }
+        fwd.update(obs.outbound_headers())
+        status, h, body = await _peer_request(target, "GET", path_qs, fwd)
+        back = {
+            k: h[k]
+            for k in ("Etag", "Last-Modified", "Accept-Ranges",
+                      "Content-Range", "Content-Encoding",
+                      "Content-Disposition")
+            if k in h
+        }
+        ctype = h.get("Content-Type", "").split(";")[0].strip()
+        return Response(status, body, back,
+                        content_type=ctype or "application/octet-stream")
+
+    async def _lookup_volume_locations(self, vid: int) -> list[str]:
+        """Every server URL the master lists for `vid` (LookupVolume)."""
+        if not self.masters:
+            return []
+        stub = Stub(channel(server_address.grpc_address(self.current_master)),
+                    master_pb2, "Seaweed")
+        try:
+            resp = await stub.LookupVolume(
+                master_pb2.LookupVolumeRequest(volume_or_file_ids=[str(vid)]),
+                timeout=10.0,
+            )
+        except RpcError:
+            return []
+        return [l.url for e in resp.volume_id_locations for l in e.locations]
 
     def _respond_needle(self, request: Request, n: Needle) -> Response:
         headers = {"Etag": f'"{n.etag}"', "Accept-Ranges": "bytes"}
@@ -849,12 +944,12 @@ class VolumeServer:
     async def _h_write_admitted(self, request: Request, v, vid: int, nid: int,
                                 cookie: int, tier: str) -> Response:
         """Append locally, run the ingest plane's post-append hook, then
-        the replication check.  Replication fan-out is ROADMAP A4b:
-        without a master no replica location is known, so a volume whose
-        placement asks for copies answers 500 "replication failed" after
-        the append, as the reference does, and tombstones the needle
-        again only when the write created it (a rolled-back overwrite
-        would destroy the prior version)."""
+        fan the write out to the replicas the master lists unless this
+        IS a replica write.  When the fan-out fails (no replica known, a
+        peer refused or is down) the answer is 500 "replication failed",
+        and a write that created its needle is tombstoned here and on
+        the peers that acked (a rolled-back overwrite would destroy the
+        prior version)."""
         # lease BEFORE buffering the body, or the throttle bounds nothing
         async with self.upload_limiter(request.content_length or 0):
             body = await request.read()
@@ -881,23 +976,74 @@ class VolumeServer:
                 # the plane's backpressure, landing on THIS writer), and
                 # park on the group commit when durability is on
                 await asyncio.to_thread(self.ingest.on_write, v, size, tier)
-            if (
-                request.query.get("type") != "replicate"
-                and v.super_block.replica_placement.copy_count > 1
-            ):
-                if not existed:
-                    try:
-                        await asyncio.to_thread(
-                            self.store.delete_needle, vid, nid, cookie
-                        )
-                    except Exception:  # noqa: BLE001 — best effort
-                        log.exception("rollback of %d,%x failed", vid, nid)
-                raise HTTPError(
-                    500, "replication failed: no replica locations known"
-                )
+            if request.query.get("type") != "replicate":
+                err, acked = await self._replicate(request, vid, body)
+                if err:
+                    if not existed:
+                        try:
+                            await asyncio.to_thread(
+                                self.store.delete_needle, vid, nid, cookie
+                            )
+                        except Exception:  # noqa: BLE001 — best effort
+                            log.exception("rollback of %d,%x failed", vid, nid)
+                        await self._rollback_acked(request, acked)
+                    raise HTTPError(500, f"replication failed: {err}")
         return json_response(
             {"name": name.decode() or "", "size": size, "eTag": n.etag}
         )
+
+    async def _replicate(
+        self, request: Request, vid: int, body: bytes
+    ) -> tuple[str | None, list[str]]:
+        """Send the request to every other holder the master lists, with
+        ?type=replicate (DistributedOperation store_replicate.go:60).
+        Returns (error summary or None, peers that acked)."""
+        v = self.store.find_volume(vid)
+        if v is None or v.super_block.replica_placement.copy_count <= 1:
+            return None, []
+        peers = [u for u in await self._lookup_volume_locations(vid)
+                 if u != self.url]
+        if not peers:
+            return "no replica locations known", []
+        sep = "&" if request.query_string else ""
+        path = (f"{_quoted_path(request)}?"
+                f"{request.query_string}{sep}type=replicate")
+        headers = {"Content-Type": request.headers.get("Content-Type", "")}
+        if request.headers.get("Authorization"):
+            # replicas validate the same master-issued write jwt
+            headers["Authorization"] = request.headers["Authorization"]
+        errors: list[str] = []
+        acked: list[str] = []
+
+        async def one(peer):
+            try:
+                status, _, _ = await _peer_request(
+                    peer, request.method, path, headers, body)
+            except Exception as e:  # noqa: BLE001 — reported in the 500
+                errors.append(f"{peer}: {e}")
+                return
+            if status >= 300:
+                errors.append(f"{peer}: HTTP {status}")
+            else:
+                acked.append(peer)
+
+        await asyncio.gather(*(one(p) for p in peers))
+        return ("; ".join(errors) if errors else None), acked
+
+    async def _rollback_acked(self, request: Request, acked: list[str]) -> None:
+        """Best-effort delete of the fresh needle on replicas that took
+        the failed fan-out's write."""
+        headers = {}
+        if request.headers.get("Authorization"):
+            headers["Authorization"] = request.headers["Authorization"]
+        for peer in acked:
+            try:
+                await _peer_request(
+                    peer, "DELETE",
+                    f"{_quoted_path(request)}?type=replicate",
+                    headers)
+            except Exception:  # noqa: BLE001 — best effort
+                log.warning("rollback delete on %s failed", peer)
 
     @staticmethod
     def _parse_upload(
@@ -942,6 +1088,8 @@ class VolumeServer:
             size = await asyncio.to_thread(self.store.delete_needle, vid, nid, cookie)
         except CookieMismatch:
             raise HTTPError(403)
+        if request.query.get("type") != "replicate":
+            await self._replicate(request, vid, b"")
         return json_response({"size": size})
 
     # ------------------------------------------------------------------ heartbeat
@@ -955,13 +1103,17 @@ class VolumeServer:
         (IngestPlane.snapshot)."""
         tel = master_pb2.VolumeServerTelemetry()
         tel.wall_clock_unix_ms = int(time.time() * 1e3)
+        # pod rank: which member of the multi-process mesh this node is
+        tel.mesh_process_id = self.ec_serving.mesh_process_id
+        tel.mesh_process_count = self.ec_serving.mesh_process_count
         cache = self.store.ec_device_cache
         if cache is not None:
             n_resident, n_bytes = cache.stats()
             tel.device_budget_bytes = cache.budget
             tel.device_used_bytes = n_bytes
             tel.device_resident_shards = n_resident
-            tel.device_bytes_per_device.append(n_bytes)
+            tel.device_bytes_per_device.extend(
+                d["used_bytes"] for d in cache.device_stats())
             for vid, sids in cache.resident_by_vid().items():
                 tel.resident_shards_by_volume[vid] = len(sids)
             tel.ec_h2d_bytes = cache.pipeline.h2d_bytes
@@ -989,6 +1141,12 @@ class VolumeServer:
             ip=self.ip, port=self.port,
             public_url=self.store.public_url, grpc_port=self.grpc_port,
             data_center=self.data_center, rack=self.rack,
+            # pod membership: the coordinator address is the pod id, a
+            # rack-like failure domain to the master's placement
+            mesh_pod=(
+                self.ec_serving.mesh_coordinator
+                if self.ec_serving.multiprocess else ""
+            ),
         )
         hb.telemetry.CopyFrom(self._build_telemetry())
         return hb

@@ -1,9 +1,8 @@
 """Knobs for the continuous-batching EC serving dispatcher.
 
-Port of seaweedfs_tpu/serving/config.py for one card.  Fields that wait
-for later items of ROADMAP A are not here: `aot` (the CUDA kernels take
-runtime shapes, so no read is ever shed as a cold shape and the flag
-would do nothing), `mesh*` and `multiprocess` (A8).
+Port of seaweedfs_tpu/serving/config.py.  `aot` is not here: the CUDA
+kernels take runtime shapes, so no read is ever shed as a cold shape and
+the flag would do nothing.
 """
 from __future__ import annotations
 
@@ -42,6 +41,26 @@ class ServingConfig:
     # launch on its own stream while batch N drains its D2H; False = one
     # slot, the serial baseline (-ec.serving.overlap.disable)
     overlap: bool = True
+    # mesh residency (-ec.serving.mesh.disable): lane-shard resident
+    # volumes across the local cards (parallel/mesh.py), so a volume's
+    # resident capacity is every card's memory and a batch's lane work
+    # runs 1/n per card.  Only takes effect when >1 card is visible.
+    mesh: bool = True
+    # cards the serving mesh may span (-ec.serving.mesh.devices): 0 =
+    # every local card, n = the first n
+    mesh_devices: int = 0
+    # volumes whose shard files are smaller than this pin whole onto the
+    # least-loaded card instead of lane-sharding
+    # (-ec.serving.mesh.minShardMB)
+    mesh_min_shard_mb: int = 8
+    # multi-process pod mesh (-ec.mesh.coordinator / -ec.mesh.processId /
+    # -ec.mesh.processCount): with processCount > 1 this server joins one
+    # torch.distributed group at the coordinator as rank processId and
+    # residency lane-shards across every process's cards.  1 (the
+    # default) never contacts a coordinator.
+    mesh_coordinator: str = ""
+    mesh_process_id: int = 0
+    mesh_process_count: int = 1
     # zero-copy response writes (-ec.serving.zerocopy.disable): needle
     # payloads stay memoryviews over the pread/reconstruct buffers all
     # the way into the socket write; False materializes bytes
@@ -113,6 +132,12 @@ class ServingConfig:
         )
 
     @property
+    def multiprocess(self) -> bool:
+        """True when this server is one member of a multi-process pod
+        mesh (residency spans hosts)."""
+        return self.mesh_process_count > 1
+
+    @property
     def pipeline_slots(self) -> int:
         return 2 if self.overlap else 1
 
@@ -127,6 +152,30 @@ class ServingConfig:
             raise ValueError("max_wait_us must be >= 0")
         if self.layout not in ("flat", "blockdiag"):
             raise ValueError("layout must be 'flat' or 'blockdiag'")
+        if self.mesh_devices < 0:
+            raise ValueError("mesh_devices must be >= 0 (0 = all local)")
+        if self.mesh_min_shard_mb < 0:
+            raise ValueError("mesh_min_shard_mb must be >= 0")
+        if self.mesh_process_count < 1:
+            raise ValueError("mesh_process_count must be >= 1")
+        if self.mesh_process_count > 1:
+            # the rendezvous happens at startup: a malformed config dies
+            # here, before the server takes traffic
+            host, sep, port = self.mesh_coordinator.rpartition(":")
+            if not (sep and host and port.isdigit() and 0 < int(port) < 65536):
+                raise ValueError(
+                    "mesh_coordinator must be host:port when "
+                    f"mesh_process_count > 1 (got {self.mesh_coordinator!r})"
+                )
+            if not 0 <= self.mesh_process_id < self.mesh_process_count:
+                raise ValueError(
+                    f"mesh_process_id {self.mesh_process_id} out of range "
+                    f"for mesh_process_count {self.mesh_process_count}"
+                )
+        elif self.mesh_process_id != 0:
+            raise ValueError(
+                "mesh_process_id must be 0 when mesh_process_count is 1"
+            )
         if self.qos_interactive_queue < 1 or self.qos_bulk_queue < 1:
             raise ValueError("qos tier queue budgets must be >= 1")
         if (

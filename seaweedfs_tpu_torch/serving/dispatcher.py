@@ -282,6 +282,10 @@ class EcReadDispatcher:
         # sink and are replayed onto every member trace afterwards —
         # observe=False so the stage histograms count each stage once
         t0 = time.perf_counter()
+        # a pin uploading during the batch makes its time no seed of
+        # the QoS estimate (qos.observe_service)
+        cache = getattr(self.store, "ec_device_cache", None)
+        pins0 = cache.pin_activity() if cache is not None else None
         # device-ledger class for the batch: a batch is bulk-tier only when
         # every member is (a mixed batch serves an interactive reader, so it
         # attributes interactive); "" = qos off = interactive.
@@ -309,7 +313,9 @@ class EcReadDispatcher:
         # feed the deadline estimator: per-needle service time of THIS
         # batch (wall across the store call / width)
         self.qos.observe_service(
-            (time.perf_counter() - t0) / max(1, len(items))
+            (time.perf_counter() - t0) / max(1, len(items)),
+            pinning=pins0 is not None and (
+                pins0[0] > 0 or cache.pin_activity() != pins0),
         )
         for r in items:
             if r.obs_ctx is None:

@@ -138,8 +138,11 @@ class QosController:
         # last gauge-published breaker state per tier: the gauge is only
         # touched on transitions, not on every hot-path admission
         self._published_state: dict[str, int] = {t: -1 for t in policies}
-        # per-needle service seconds EWMA; None until the first batch
+        # per-needle service seconds EWMA; None until a batch seeds it
         self._service_s: float | None = None
+        # the seed rule (a departure from the reference): the first
+        # batch after a start does not seed the estimate
+        self._first_seen = False
 
     @classmethod
     def from_config(cls, cfg: ServingConfig) -> "QosController":
@@ -274,12 +277,22 @@ class QosController:
             self._queued[tier]
         )
 
-    def observe_service(self, per_needle_s: float) -> None:
+    def observe_service(self, per_needle_s: float, pinning: bool = False) -> None:
         """Feed one batch's per-needle service time into the EWMA the
-        deadline estimate rides on."""
+        deadline estimate rides on.
+
+        Departure from the reference: neither the first batch after a
+        start nor a batch served while a pin uploaded (`pinning`) seeds
+        the estimate.  Both are outliers (warm-up, a card busy with the
+        upload): seeded by one, the estimate alone sheds a queue of
+        reads on the interactive deadline that the next batches serve in
+        a fraction of it.  Once seeded the EWMA is the reference's."""
         if per_needle_s <= 0:
             return
         if self._service_s is None:
+            first, self._first_seen = not self._first_seen, True
+            if first or pinning:
+                return
             self._service_s = per_needle_s
         else:
             self._service_s += self._ALPHA * (per_needle_s - self._service_s)

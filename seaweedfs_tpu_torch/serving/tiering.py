@@ -1,10 +1,10 @@
 """Heat-tiered residency: HBM -> host RAM -> disk, driven by observed
 popularity.
 
-Port of seaweedfs_tpu/serving/tiering.py for one card.  Residency was a
-mount-time pin and a blind LRU budget eviction; this module closes the
-loop the way SeaweedFS's own hot/warm storage backends tier `.dat` files,
-but for the device shard cache (ops/rs_resident.DeviceShardCache):
+Port of seaweedfs_tpu/serving/tiering.py.  Residency was a mount-time
+pin and a blind LRU budget eviction; this module closes the loop the way
+SeaweedFS's own hot/warm storage backends tier `.dat` files, but for the
+device shard cache (ops/rs_resident.DeviceShardCache):
 
   * `HeatTracker` — decayed per-volume counters, fed from the serving
     dispatcher's admission path (`EcReadDispatcher.read` calls
@@ -27,15 +27,16 @@ but for the device shard cache (ops/rs_resident.DeviceShardCache):
     `-ec.tier.promoteRatio` plus a `-ec.tier.minResidencySeconds` floor —
     keeps a flash crowd from thrashing the ladder.
 
+Fit and pressure are judged per device of the cache's serving mesh
+(`device_stats`, `pressure_devices`, `plan_pin`, `device_bytes_by_vid`):
+a swap demotes only volumes holding bytes where the candidate lands, and
+in a pod lane-sharded volumes leave only through the cache's eviction
+partition.
+
 What the reference does and this port does not: the promotion's AOT
 pre-warm (`rs_resident.warm(...)`): nothing here compiles per shape (the
 CUDA kernels take runtime shapes), so a promoted volume's first reads
-never wait on a compile.  And the multi-process mesh rule (mesh-sharded
-volumes demote only through the cache's put-order partition) waits for
-the mesh layout (ROADMAP A8): the port's cache has one device, so every
-resident volume is demotable, and fit and pressure are byte totals
-against that device's budget (the reference's per-device accounting
-comes back with A8).
+never wait on a compile.
 """
 from __future__ import annotations
 
@@ -376,22 +377,32 @@ class TieringController:
         return out, meta
 
     @staticmethod
-    def _pin_need(cache, meta: tuple[int, int]) -> int:
-        """Padded bytes a full pin of the volume would add: the budget-fit
-        arithmetic promotions and pressure demotions share.  0 = nothing
-        to pin (unknown sizing)."""
+    def _pin_need(cache, vid: int, meta: tuple[int, int]) -> dict[int, int]:
+        """device -> padded bytes a full pin of `vid` would add, by the
+        cache's placement rule (lane-sharded volumes split evenly, small
+        ones land whole on the least-loaded device, unless `vid` still
+        holds a claim, which the pin follows): the budget-fit arithmetic
+        promotions and swaps share.  Empty = nothing to pin (unknown
+        sizing)."""
         n, shard_size = meta
         if not n or not shard_size:
-            return 0
-        return cache.pin_bytes(n, shard_size)
+            return {}
+        return cache.plan_pin(n, shard_size, vid=vid)
 
     @staticmethod
-    def _fits(cache, need: int, freed: int = 0) -> bool:
-        """Would `need` bytes fit the device budget once `freed` bytes are
-        released?  A swap that still overflowed would hand eviction back
-        to the blind per-shard LRU in DeviceShardCache.put."""
-        return bool(need) and (
-            cache.bytes_used - freed + need <= cache.device_budget
+    def _fits(cache, need: dict[int, int], freed: dict[int, int]) -> bool:
+        """Would `need` fit every device it lands on once `freed` bytes a
+        device are released?  Judged against the per-device budget: an
+        aggregate answer would still overflow the one device a whole pin
+        lands on and hand eviction back to the blind per-shard LRU in
+        DeviceShardCache.put."""
+        if not need:
+            return False
+        budget = cache.device_budget
+        stats = cache.device_stats()
+        return all(
+            stats[d]["used_bytes"] - freed.get(d, 0) + add <= budget
+            for d, add in need.items()
         )
 
     def tier_of(self, vid: int) -> str:
@@ -533,22 +544,45 @@ class TieringController:
                 >= cfg.tier_min_residency_seconds
             )
 
-        # 1. PRESSURE: the device over its budget -> demote the coldest
-        # residents.  Ignores the min-residency floor: staying over budget
-        # would hand control back to the blind per-shard LRU eviction in
-        # DeviceShardCache.put.
+        # in a pod, lane-sharded volumes are coupled across processes
+        # (every member holds one lane of each): a local, heat-driven
+        # demotion would strand the other members' lanes.  They leave
+        # only through the cache's put-order eviction partition; the
+        # ladder keeps whole pins, and every volume in one process.
+        multiproc = bool(getattr(cache, "multiprocess", False))
+
+        def demotable(vid: int) -> bool:
+            return not (multiproc and cache.vid_sharded(vid))
+
+        # 1. PRESSURE: any device over ITS budget -> demote the coldest
+        # residents holding bytes on the fullest over-budget device
+        # (demoting a volume parked on an idle device frees nothing
+        # where the pressure is).  Ignores the min-residency floor:
+        # staying over budget would hand control back to the blind
+        # per-shard LRU eviction in DeviceShardCache.put.
         def hbm_residents() -> list[int]:
             return [vid for vid in vols if resident(vid)]
 
-        while cache.bytes_used > cache.device_budget:
-            pool = hbm_residents()
+        while True:
+            pressure = cache.pressure_devices()
+            if not pressure:
+                break
+            dev = pressure[0]  # fullest first
+            # one locked footprint snapshot a demotion round
+            foot = cache.device_bytes_by_vid()
+
+            def on_dev(v: int) -> bool:
+                return bool(foot.get(v, {}).get(dev))
+
+            pool = [v for v in hbm_residents() if on_dev(v) and demotable(v)]
             if not pool:
                 # partial shard sets (mount pins racing the LRU, or a
                 # budget shrink mid-pin) hold device bytes without ever
                 # serving a reconstruct: under pressure they are pure
                 # waste — evict them too, or the orphaned bytes block
                 # every future promotion forever
-                pool = [v for v in vols if cache.resident_count(v) > 0]
+                pool = [v for v in vols if cache.resident_count(v) > 0
+                        and on_dev(v) and demotable(v)]
             if not pool:
                 break
             vid = min(pool, key=lambda v: (heat.get(v, 0.0), v))
@@ -577,10 +611,10 @@ class TieringController:
                 < PROMOTE_FAILURE_BACKOFF_S
             ):
                 continue  # recent pin failure: don't burn a victim on it
-            need = self._pin_need(cache, meta[vid])
+            need = self._pin_need(cache, vid, meta[vid])
             if not need:
                 continue
-            if self._fits(cache, need):
+            if self._fits(cache, need, {}):
                 if self._promote_hbm(vols[vid], now):
                     moves.append(("promote_hbm", vid))
                 continue
@@ -595,21 +629,38 @@ class TieringController:
             # threshold, so equally hot volumes never flap) to actually
             # FIT the candidate before demoting anything: a one-victim
             # swap that still overflowed would hand eviction back to
-            # the blind per-shard LRU in DeviceShardCache.put.
+            # the blind per-shard LRU in DeviceShardCache.put.  Only
+            # volumes holding bytes on a device the candidate still lacks
+            # room on count: demoting one parked elsewhere frees nothing
+            # where the pin lands.
+            budget = cache.device_budget
+
+            def still_tight(freed: dict[int, int]) -> set[int]:
+                stats = cache.device_stats()
+                return {d for d, add in need.items()
+                        if stats[d]["used_bytes"] - freed.get(d, 0) + add
+                        > budget}
+
             victims: list[int] = []
-            freed = 0
+            freed: dict[int, int] = {}
+            # one locked footprint snapshot for the whole victim scan
+            foot = cache.device_bytes_by_vid()
             for v in sorted(
-                (v for v in hbm_residents() if age_ok(v)),
+                (v for v in hbm_residents() if age_ok(v) and demotable(v)),
                 key=lambda v: (heat.get(v, 0.0), v),
             ):
                 if h < cfg.tier_promote_ratio * max(
                     heat.get(v, 0.0), 1e-9
                 ) or len(victims) >= MAX_SWAP_VICTIMS:
                     break  # remaining victims are hotter still / capped
+                # freed = the bytes the victim actually holds a device (a
+                # partially resident victim frees less than a full pin)
+                held = foot.get(v, {})
+                if not still_tight(freed) & held.keys():
+                    continue  # holds nothing where room is still needed
                 victims.append(v)
-                # the bytes the victim actually holds: a partially
-                # resident victim frees less than a full pin's estimate
-                freed += cache.pin_bytes(cache.resident_count(v), meta[v][1])
+                for d, b in held.items():
+                    freed[d] = freed.get(d, 0) + b
                 if self._fits(cache, need, freed):
                     break
             if not victims or not self._fits(cache, need, freed):

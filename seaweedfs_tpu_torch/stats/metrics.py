@@ -268,6 +268,15 @@ VOLUME_SERVER_RESIDENT_BYTES_GAUGE = Gauge(
     "Device memory held by the EC shard cache (padded bytes).",
     registry=REGISTRY,
 )
+# one series a serving-mesh lane (device = the lane's index), so a
+# lopsided mesh shows beside the aggregate
+VOLUME_SERVER_EC_DEVICE_CACHE_BYTES = Gauge(
+    "SeaweedFS_volumeServer_ec_device_cache_bytes",
+    "Padded EC shard-cache bytes resident per serving-mesh device "
+    "(device = mesh index; the sum over devices is device_used_bytes).",
+    ["device"],
+    registry=REGISTRY,
+)
 
 # the continuous-batching EC serving dispatcher (serving/dispatcher.py)
 VOLUME_SERVER_EC_BATCH_SIZE = Histogram(

@@ -38,29 +38,69 @@ import threading
 import time
 from collections import deque
 from concurrent.futures import Future, ThreadPoolExecutor
+from dataclasses import dataclass
 
 import numpy as np
 import torch
 
 from ...obs import devledger
 from ...ops import rs, rs_cuda
-from .layout import DATA_SHARDS
+from .layout import DATA_SHARDS, LARGE_BLOCK_SIZE
 
 # Per-shard stride fed to the codec in one device call: 4MB x 10 shards =
 # 40MB input per batch.
 DEFAULT_STRIDE = 4 * 1024 * 1024
-# run the reader/writer legs on dedicated threads (False = the serial
-# baseline of the stats contract, every leg on the caller thread)
-DEFAULT_OVERLAP = True
-# bounded stripe-queue depth: how many read batches the reader leg may
-# run ahead of the codec (and results ahead of the writer)
-DEFAULT_PREFETCH = 3
 # In-flight codec batches: the caller may run this far ahead of the codec
 # worker before blocking on a resolve.  The overlapped pipeline's peak
 # host footprint is ~(2*prefetch + depth + 2) batches.
 PIPELINE_DEPTH = 3
 
 _preadv = getattr(os, "preadv", None)
+
+
+@dataclass
+class BulkConfig:
+    """Knobs for the staged bulk pipelines (the -ec.bulk.* flags).
+
+    Process-global: bulk encode/rebuild/verify are store-level
+    maintenance verbs, not per-request serving state."""
+
+    # run the reader/writer legs on dedicated threads; False = the serial
+    # baseline of the stats contract (-ec.bulk.overlap.disable)
+    overlap: bool = True
+    # bounded stripe-queue depth: how many read batches the reader leg
+    # may run ahead of the codec (-ec.bulk.prefetch)
+    prefetch: int = 3
+    # per-shard bytes per codec call; 0 = DEFAULT_STRIDE
+    # (-ec.bulk.strideMB)
+    stride: int = 0
+
+    def validated(self) -> "BulkConfig":
+        if self.prefetch < 1:
+            raise ValueError("prefetch must be >= 1")
+        if self.stride < 0:
+            raise ValueError("stride must be >= 0")
+        if (
+            self.stride
+            and self.stride < LARGE_BLOCK_SIZE
+            and LARGE_BLOCK_SIZE % self.stride
+        ):
+            # a non-dividing stride falls back to whole-block batches in
+            # the encode plan: a [10, 1 GiB] staging array per batch
+            raise ValueError(
+                "stride must divide the 1GB EC large block "
+                "(use a power-of-two -ec.bulk.strideMB)"
+            )
+        return self
+
+
+DEFAULT = BulkConfig()
+
+
+def configure(cfg: BulkConfig) -> None:
+    """Apply the -ec.bulk.* flags (process-global)."""
+    global DEFAULT
+    DEFAULT = cfg.validated()
 
 
 class Codec:
@@ -294,8 +334,8 @@ def run(
     `write_batch(desc, payload, result)` on the writer leg, in plan
     order.  With overlap disabled everything runs inline on the caller
     thread — the serial baseline of the stats contract."""
-    overlap = DEFAULT_OVERLAP if overlap is None else bool(overlap)
-    prefetch = DEFAULT_PREFETCH if prefetch is None else prefetch
+    overlap = DEFAULT.overlap if overlap is None else bool(overlap)
+    prefetch = DEFAULT.prefetch if prefetch is None else prefetch
     if prefetch < 1:
         raise ValueError("prefetch must be >= 1")
     pick = to_codec if to_codec is not None else lambda payload: payload

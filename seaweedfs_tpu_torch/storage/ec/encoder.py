@@ -76,7 +76,7 @@ def _save_vif_from_superblock(src_path: str, base_name: str) -> None:
 
 
 def _resolve_stride(stride: int | None) -> int:
-    return stride or bulk.DEFAULT_STRIDE
+    return stride or bulk.DEFAULT.stride or bulk.DEFAULT_STRIDE
 
 
 def _finish_outputs(outputs, fsync: bool, t: dict) -> None:
@@ -113,11 +113,12 @@ def write_ec_files(
     benchmark's honest-throughput mode).  `stats`, when passed, is filled
     with the pipeline's wall-clock decomposition (bulk.py stats contract):
     overlap happened iff read_s + write_s + device_busy_s > wall_s.
-    `overlap`/`prefetch`/`stride` default to bulk.DEFAULT_*."""
+    `overlap`/`prefetch`/`stride` default to the -ec.bulk.* config
+    (bulk.DEFAULT)."""
     dat_path = base_name + ".dat"
     dat_size = os.path.getsize(dat_path)
     stride = _resolve_stride(stride)
-    use_overlap = bulk.DEFAULT_OVERLAP if overlap is None else bool(overlap)
+    use_overlap = bulk.DEFAULT.overlap if overlap is None else bool(overlap)
     codec = bulk.Codec(
         gf256.parity_matrix(DATA_SHARDS, TOTAL_SHARDS), backend,
         threaded=use_overlap, workload="bulk",
@@ -196,7 +197,7 @@ def rebuild_ec_files(
         DATA_SHARDS, TOTAL_SHARDS, present, missing
     )
     stride = _resolve_stride(stride)
-    use_overlap = bulk.DEFAULT_OVERLAP if overlap is None else bool(overlap)
+    use_overlap = bulk.DEFAULT.overlap if overlap is None else bool(overlap)
     codec = bulk.Codec(rmat, backend, threaded=use_overlap, workload="repair")
 
     shard_size = os.path.getsize(base_name + to_ext(present[0]))
@@ -256,7 +257,7 @@ def verify_ec_files(
         raise FileNotFoundError(f"scrub needs all shards: missing {missing}")
     shard_size = os.path.getsize(paths[0])
     stride = _resolve_stride(stride)
-    use_overlap = bulk.DEFAULT_OVERLAP if overlap is None else bool(overlap)
+    use_overlap = bulk.DEFAULT.overlap if overlap is None else bool(overlap)
     codec = bulk.Codec(
         gf256.parity_matrix(DATA_SHARDS, TOTAL_SHARDS), backend,
         threaded=use_overlap, workload="scrub",

@@ -73,14 +73,15 @@ def _blobs():
 class _Side:
     """One cluster and the verbs the script needs, for either package."""
 
-    def __init__(self, kind: str, base: str):
+    def __init__(self, kind: str, base: str, n: int = 3):
         self.kind = kind
         self.base = base
+        self.n = n
         self.out = io.StringIO()
 
     async def start(self):
         if self.kind == "port":
-            self.c = PortCluster(n_volume_servers=3, base_dir=self.base,
+            self.c = PortCluster(n_volume_servers=self.n, base_dir=self.base,
                                  pulse_seconds=1, ec_backend="torch")
             await self.c.start()
             self.env = PortEnv([self.c.master.advertise_url], out=self.out)
@@ -90,7 +91,7 @@ class _Side:
         # without its autonomous repair loop (the port's master has none:
         # ROADMAP A4c), which would rebuild the lost shards on its own
         c = ref_cluster_mod.LocalCluster(
-            base_dir=self.base, n_volume_servers=3, pulse_seconds=1,
+            base_dir=self.base, n_volume_servers=self.n, pulse_seconds=1,
             master_kwargs={"ec_repair": RepairConfig(enabled=False)})
         await c.master.start()
         for spec in c._specs:
@@ -122,16 +123,19 @@ class _Side:
             await asyncio.sleep(0.05)
         await asyncio.sleep(0.4)
 
+    async def rpc(self, vs, method, **fields):
+        """One VolumeServer rpc on `vs`, in its package's stubs."""
+        stub_cls, chan, vpb = ((PortStub, port_channel, port_vpb)
+                               if self.kind == "port"
+                               else (RefStub, ref_channel, ref_vpb))
+        stub = stub_cls(chan(vs.grpc_url), vpb, "VolumeServer")
+        req = getattr(vpb, f"{method}Request")(**fields)
+        return await getattr(stub, method)(req)
+
     async def allocate_and_fill(self, blobs):
         vs0 = self.c.volume_servers[0]
-        if self.kind == "port":
-            stub = PortStub(port_channel(vs0.grpc_url), port_vpb, "VolumeServer")
-            await stub.AllocateVolume(port_vpb.AllocateVolumeRequest(
-                volume_id=VID, replication="000"))
-        else:
-            stub = RefStub(ref_channel(vs0.grpc_url), ref_vpb, "VolumeServer")
-            await stub.AllocateVolume(ref_vpb.AllocateVolumeRequest(
-                volume_id=VID, replication="000"))
+        await self.rpc(vs0, "AllocateVolume", volume_id=VID,
+                       replication="000")
         upload = port_upload if self.kind == "port" else ref_upload
         with mock.patch("time.time", return_value=FROZEN), \
                 mock.patch("time.time_ns", return_value=int(FROZEN * 1e9)):
@@ -141,8 +145,7 @@ class _Side:
 
     async def get_all(self, blobs):
         """GET every blob from the first server (by index) that holds the
-        volume or some of its shards: proxying a read to another server is
-        not ported (ROADMAP A4c)."""
+        volume or some of its shards."""
         vs0 = next(vs for vs in self.c.volume_servers
                    if vs.store.find_ec_volume(VID) is not None
                    or vs.store.find_volume(VID) is not None)
@@ -258,6 +261,127 @@ def test_ec_lifecycle_matches_the_reference(tmp_path):
     for key in ("dat", "encode", "get_spread", "lost", "after_loss",
                 "get_degraded", "rebuild", "get_rebuilt", "balance",
                 "get_balanced", "decode", "get_decoded", "shell"):
+        assert port[key] == ref[key], key
+
+
+# --------------------------------------------- replication and proxy reads
+
+REPL_VID, REFUSE_VID = 2, 3
+# the answer headers the two servers must agree on (aiohttp adds Date and
+# Server, the port's server neither)
+_HEADERS = ("Content-Type", "Content-Length", "Etag", "Last-Modified",
+            "Accept-Ranges", "Content-Range", "Content-Disposition",
+            "Location")
+
+
+def _repl_blobs(vid, n, seed):
+    rng = np.random.default_rng(seed)
+    return [(f"{vid},{i + 1:x}{int(rng.integers(0, 1 << 32)):08x}",
+             rng.bytes(int(rng.integers(100, 60_000)))) for i in range(n)]
+
+
+async def _repl_script(side: _Side, blobs, refused) -> dict:
+    """Four servers: vid 2 placed `001` on servers 0 and 1, vid 3 placed
+    `002` on servers 0-2 with server 2's copy read-only.  POST each blob to
+    server 0 (fanned out to server 1), GET it on both holders, then on
+    server 3, which holds neither, in each -readMode (with and without a
+    Range); a POST to vid 3 (server 1 acks, server 2 refuses: the rollback);
+    a DELETE on server 0 (fanned out).  Every answer's status, body and
+    headers, with addresses masked to server indices."""
+    await side.start()
+    seen: dict = {}
+    try:
+        vss = side.c.volume_servers
+        for i in (0, 1):
+            await side.rpc(vss[i], "AllocateVolume", volume_id=REPL_VID,
+                           replication="001")
+        for i in (0, 1, 2):
+            await side.rpc(vss[i], "AllocateVolume", volume_id=REFUSE_VID,
+                           replication="002")
+        await side.rpc(vss[2], "VolumeMarkReadonly", volume_id=REFUSE_VID)
+        await side.settle()
+        topo = side.c.master.topo
+        for _ in range(400):  # until the master knows every copy
+            if (len(topo.lookup_volume("", REPL_VID)) == 2
+                    and len(topo.lookup_volume("", REFUSE_VID)) == 3):
+                break
+            await asyncio.sleep(0.02)
+        else:
+            raise AssertionError("the master never saw the copies")
+        idx = side.index()
+
+        def mask(text):
+            for url, i in idx.items():
+                text = text.replace(url, f"vs{i}")
+            return text
+
+        async def call(i, method, path, body=b"", headers=None):
+            vs = vss[i]
+            cl = Client(vs.ip, vs.port)
+            try:
+                st, h, data = await cl.request(method, path, headers=headers,
+                                               body=body)
+            finally:
+                await cl.close()
+            hs = {k: mask(h[k]) for k in _HEADERS if k in h}
+            if "Last-Modified" in hs:
+                hs["Last-Modified"] = "<date>"
+            if data[:1] in (b"{", b"r", b"v", b"4", b"3", b"5"):
+                data = mask(data.decode(errors="replace"))
+            else:
+                data = hashlib.sha256(data).hexdigest()
+            return st, hs, data
+
+        ct = {"Content-Type": "application/x-test"}
+        # the clock is not frozen here (the reference's master lookup
+        # fails under a frozen clock), so Last-Modified is masked below
+        seen["post"] = [await call(0, "POST", f"/{fid}", data, ct)
+                        for fid, data in blobs]
+        seen["post_refused"] = [await call(0, "POST", f"/{fid}", data, ct)
+                                for fid, data in refused]
+        for i in (0, 1):
+            seen[f"get_{i}"] = [await call(i, "GET", f"/{fid}")
+                                for fid, _ in blobs]
+        seen["get_refused"] = [await call(i, "GET", f"/{fid}")
+                               for i in (0, 1, 2) for fid, _ in refused]
+        for mode in ("local", "proxy", "redirect"):
+            vss[3].read_mode = mode
+            seen[f"read_{mode}"] = [await call(3, "GET", f"/{fid}")
+                                    for fid, _ in blobs]
+            seen[f"range_{mode}"] = await call(
+                3, "GET", f"/{blobs[0][0]}", headers={"Range": "bytes=5-49"})
+            seen[f"missing_{mode}"] = await call(3, "GET", "/77,1deadbeef")
+        seen["delete"] = await call(0, "DELETE", f"/{blobs[0][0]}")
+        seen["after_delete"] = [await call(i, "GET", f"/{blobs[0][0]}")
+                                for i in (0, 1)]
+        vss[3].read_mode = "proxy"
+        seen["after_delete_proxy"] = await call(3, "GET", f"/{blobs[0][0]}")
+    finally:
+        await side.stop()
+    return seen
+
+
+def test_replicated_writes_and_proxy_reads_match_the_reference(tmp_path):
+    blobs = _repl_blobs(REPL_VID, 6, SEED + 1)
+    refused = _repl_blobs(REFUSE_VID, 2, SEED + 2)
+    ref = asyncio.run(_repl_script(_Side("ref", str(tmp_path / "ref"), 4),
+                                   blobs, refused))
+    port = asyncio.run(_repl_script(_Side("port", str(tmp_path / "port"), 4),
+                                    blobs, refused))
+    want = [hashlib.sha256(d).hexdigest() for _, d in blobs]
+    # the script did what it says, on the reference side
+    assert [st for st, _, _ in ref["post"]] == [200] * len(blobs)
+    for key in ("get_0", "get_1", "read_local", "read_proxy"):
+        assert [(st, b) for st, _, b in ref[key]] == [
+            (200, w) for w in want], key
+    assert {st for st, _, _ in ref["read_redirect"]} == {301}
+    assert ref["range_proxy"][0] == 206
+    assert [st for st, _, _ in ref["post_refused"]] == [500, 500]
+    assert "vs2: HTTP 409" in ref["post_refused"][0][2]
+    assert {st for st, _, _ in ref["get_refused"]} == {404}
+    assert [st for st, _, _ in ref["after_delete"]] == [404, 404]
+    assert set(port) == set(ref)
+    for key in sorted(ref):
         assert port[key] == ref[key], key
 
 

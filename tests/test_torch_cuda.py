@@ -1254,3 +1254,101 @@ def test_cluster_generate_and_scrub_over_the_rpc_plane(cuda_device, tmp_path):
             await c.stop()
 
     asyncio.run(go())
+
+
+# ------------------------------------------------- the mesh on the card
+
+
+def _two_lanes(cuda_device):
+    from seaweedfs_tpu_torch.parallel import mesh as mesh_mod
+
+    return mesh_mod.make_mesh(2, 1, devices=[cuda_device] * 2)
+
+
+@pytest.mark.parametrize("layout", ["flat", "blockdiag"])
+def test_sharded_reads_on_two_lanes_of_one_card(cuda_device, layout):
+    """A lane-sharded volume on two lanes of one card: every burst is one
+    ragged launch a lane with work, byte-equal to the one-device read, the
+    CPU lanes' plain version and the oracle."""
+    full = RSCodec(backend="numpy").encode_all(_rand((10, 3 << 20), 41))
+    kw = dict(shard_quantum=1 << 20, mesh_min_shard_bytes=0, layout=layout)
+    mesh = rs_resident.DeviceShardCache(device=cuda_device,
+                                        mesh=_two_lanes(cuda_device), **kw)
+    from seaweedfs_tpu_torch.parallel import mesh as mesh_mod
+
+    plain = rs_resident.DeviceShardCache(
+        device="cpu", mesh=mesh_mod.make_mesh(2, 1, devices=["cpu"] * 2), **kw)
+    one = rs_resident.DeviceShardCache(device=cuda_device, **kw)
+    for c in (mesh, plain, one):
+        for sid in range(14):
+            if sid not in (0, 11):
+                c.put(1, sid, full[sid])
+    assert mesh.placement(1) == "mesh" and len(mesh.device_stats()) == 2
+    rng = np.random.default_rng(5)
+    stripe = mesh.stripe
+    reqs = [(0, int(rng.integers(0, (3 << 20) - 70_000)), int(n))
+            for n in rng.choice([1, 4096, 33_000, 70_000], size=64)]
+    reqs += [(0, stripe - 9, 5000), (11, 0, 1), (0, 999, (2 << 20) + 3)]
+    kern = (rs_resident.fused_reconstruct_blockdiag if layout == "blockdiag"
+            else rs_resident.fused_reconstruct)
+    before = kern.launches
+    got = rs_resident.reconstruct_intervals(mesh, 1, reqs)
+    assert kern.launches - before == 2  # one a lane: both lanes have work
+    want = [full[s][o : o + n].tobytes() for s, o, n in reqs]
+    assert got == want
+    assert rs_resident.reconstruct_intervals(plain, 1, reqs) == want
+    assert rs_resident.reconstruct_intervals(one, 1, reqs) == want
+
+
+def test_mesh_scrub_and_whole_pins_on_the_card(cuda_device):
+    full = RSCodec(backend="numpy").encode_all(_rand((10, 1 << 20), 42))
+    bad = full.copy()
+    bad[13, 12_345] ^= 1
+    c = rs_resident.DeviceShardCache(
+        device=cuda_device, mesh=_two_lanes(cuda_device),
+        shard_quantum=1 << 20, mesh_min_shard_bytes=2 << 20)
+    small = RSCodec(backend="numpy").encode_all(_rand((10, 64 << 10), 43))
+    for sid in range(14):
+        c.put(1, sid, small[sid])   # whole, lane 0
+        c.put(2, sid, small[sid])   # whole, lane 1
+        c.put(3, sid, bad[sid])     # 1 MiB < 2 MiB: whole too
+    assert {c.placement(1), c.placement(2)} == {0, 1}
+    before = rs_resident.scrub.launches
+    res, st = rs_resident.scrub_all_resident(c)
+    assert rs_resident.scrub.launches - before == st["device_calls"]
+    assert res[3][0] == [0, 0, 0, 1] and res[1][0] == res[2][0] == [0] * 4
+    got = rs_resident.reconstruct_intervals(c, 2, [(0, 100, 5000)])
+    assert got == [small[0][100:5100].tobytes()]
+    sharded = rs_resident.DeviceShardCache(
+        device=cuda_device, mesh=_two_lanes(cuda_device),
+        shard_quantum=1 << 20, mesh_min_shard_bytes=0)
+    for sid in range(14):
+        sharded.put(4, sid, bad[sid])
+    before = rs_resident.scrub.launches
+    counts, span = rs_resident.scrub_volume(sharded, 4)
+    assert rs_resident.scrub.launches - before == 2  # one a lane
+    assert counts == [0, 0, 0, 1] and span == sharded._padded_len(1 << 20)
+
+
+def test_distributed_apply_on_two_lanes_of_one_card(cuda_device):
+    """distributed_apply_matrix and distributed_encode_blockdiag over a
+    (2, 1) and a (2, 2) mesh of one card: one K1 launch a lane, byte-equal
+    to the one-card K1 and the oracle."""
+    from seaweedfs_tpu_torch.parallel import distributed as dist_mod
+    from seaweedfs_tpu_torch.parallel import mesh as mesh_mod
+
+    data = _rand((10, 1 << 20), 44)
+    pm = gf256.parity_matrix(10, 14)
+    want = rs_cpu.apply_matrix_numpy(pm, data)
+    for shape in ((2, 1), (2, 2), (5, 1)):
+        mesh = mesh_mod.make_mesh(*shape,
+                                  devices=[cuda_device] * (shape[0] * shape[1]))
+        before = rs_cuda.gf2_matmul.launches
+        timing = {}
+        got = dist_mod.distributed_apply_matrix(mesh, pm, data, timing=timing)
+        assert rs_cuda.gf2_matmul.launches - before == mesh.size
+        assert got.is_cuda and np.array_equal(got.cpu().numpy(), want)
+        assert timing["k1_s"] > 0
+        assert np.array_equal(
+            dist_mod.distributed_encode_blockdiag(mesh, pm, data), want)
+    assert np.array_equal(rs_cuda.apply_matrix(pm, data), want)

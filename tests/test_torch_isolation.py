@@ -96,7 +96,10 @@ def test_every_port_module_is_walked():
                  "seaweedfs_tpu_torch.shell.command_env",
                  "seaweedfs_tpu_torch.shell.commands",
                  "seaweedfs_tpu_torch.shell.command_lock",
-                 "seaweedfs_tpu_torch.shell.command_ec"):
+                 "seaweedfs_tpu_torch.shell.command_ec",
+                 "seaweedfs_tpu_torch.parallel",
+                 "seaweedfs_tpu_torch.parallel.mesh",
+                 "seaweedfs_tpu_torch.parallel.distributed"):
         assert name in mods, name
 
 
@@ -201,6 +204,41 @@ def test_no_jax_import_statements():
             else:
                 continue
             assert not any(_forbidden(n) for n in names), (path, names)
+
+
+def test_parallel_modules_import_torch_distributed_and_nothing_of_jax():
+    """parallel/ (the mesh and the distributed programs) reaches its
+    collectives through torch.distributed only: its imports are the
+    standard library, numpy, torch and the port."""
+    allowed = {"argparse", "contextlib", "functools", "sys", "time",
+               "typing", "__future__", "numpy", "torch"}
+    for name in ("__init__", "mesh", "distributed"):
+        path = os.path.join(PKG_DIR, "parallel", name + ".py")
+        with open(path) as f:
+            tree = ast.parse(f.read(), path)
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Import):
+                roots = [a.name.split(".")[0] for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                roots = [(node.module or "").split(".")[0]]
+            else:
+                continue
+            assert set(roots) <= allowed, (path, roots)
+
+
+def test_mesh_entry_points_default_to_cuda(monkeypatch):
+    """The mesh's entry points build on the card: without one the default
+    cache raises, and the default meshes have no lane."""
+    from seaweedfs_tpu_torch.ops import rs_resident
+    from seaweedfs_tpu_torch.parallel import mesh as mesh_mod
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 0)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        rs_resident.DeviceShardCache(mesh_devices=0)
+    assert mesh_mod.local_devices() == []
+    with pytest.raises(ValueError):
+        mesh_mod.make_mesh(1)
 
 
 @pytest.fixture

@@ -565,9 +565,8 @@ def test_repin_over_existing_shards_does_not_double_count(tmp_path):
 
 def test_cache_accounting_matches_reference(tmp_path):
     """The ladder's view of the cache (bytes held against the device
-    budget, the bytes a pin would add, pressure) reads the same in both
-    packages: the reference's one-device plan_pin is the port's
-    pin_bytes."""
+    budget, the bytes a pin would add per device, pressure) reads the
+    same in both packages."""
     ladder = Ladder(tmp_path, [1, 2])
     ladder.note(1, 3)
     ladder.rebalance()
@@ -577,12 +576,12 @@ def test_cache_accounting_matches_reference(tmp_path):
     store, cache, _ = ladder.port
     jev, ev = jstore.find_ec_volume(2), store.find_ec_volume(2)
     plan = jcache.plan_pin(len(jev.shards), jev.shard_size, vid=2)
-    assert cache.pin_bytes(len(ev.shards), ev.shard_size) == plan[0]
+    assert cache.plan_pin(len(ev.shards), ev.shard_size, vid=2) == plan
     assert list(plan) == [0]
     for _store, c, _ctl in ladder.sides.values():
         c.budget = c.bytes_used // 2
     assert ladder.each(lambda s, c, ctl: c.bytes_used > c.device_budget)
-    assert jcache.pressure_devices() == [0]
+    assert jcache.pressure_devices() == cache.pressure_devices() == [0]
 
 
 # ----------------------------------------------------------- telemetry

@@ -444,6 +444,62 @@ def test_cli_flags_parse_with_the_reference_spellings(tmp_path):
         faultpolicy.configure(faultpolicy.FaultPolicyConfig())
     with pytest.raises(SystemExit):
         p.parse_args(["volume", "-ec.backend", "auto"])
+    # -ec.bulk.*, -readMode and -ec.serving.mesh.*: the reference's
+    # spellings, parsed by both packages to the same values
+    from seaweedfs_tpu.command import volume as ref_volume_cmd
+    from seaweedfs_tpu_torch.storage.ec import bulk
+
+    argv = ["-dir", str(tmp_path), "-mserver", "", "-ec.deviceCacheMB", "16",
+            "-ec.bulk.overlap.disable", "-ec.bulk.prefetch", "2",
+            "-ec.bulk.strideMB", "1", "-readMode", "redirect",
+            "-ec.serving.mesh.disable", "-ec.serving.mesh.devices", "2",
+            "-ec.serving.mesh.minShardMB", "16"]
+    ref_p = __import__("argparse").ArgumentParser()
+    ref_volume_cmd.add_args(ref_p)
+    ref_args = ref_p.parse_args(argv)
+    args = p.parse_args(["volume", "-ec.backend", "torch"] + argv)
+    for dest in ("ec_bulk_overlap_disable", "ec_bulk_prefetch",
+                 "ec_bulk_stride_mb", "read_mode", "ec_serving_mesh_disable",
+                 "ec_serving_mesh_devices", "ec_serving_mesh_min_shard_mb",
+                 "ec_mesh_coordinator", "ec_mesh_process_id",
+                 "ec_mesh_process_count"):
+        assert getattr(args, dest) == getattr(ref_args, dest), dest
+    cfg = command.volume.serving_config(args)
+    assert (cfg.mesh, cfg.mesh_devices, cfg.mesh_min_shard_mb) == (False, 2, 16)
+    vs = command.volume.build_server(args)
+    try:
+        # the bulk legs of VolumeEcShardsGenerate / VolumeEcShardsRebuild
+        # (storage/ec/encoder.py) read this process-global config
+        assert bulk.DEFAULT == bulk.BulkConfig(overlap=False, prefetch=2,
+                                               stride=1 << 20)
+        assert vs.read_mode == "redirect"
+        assert vs.store.ec_device_cache.mesh is None
+    finally:
+        vs.store.close()
+        bulk.configure(bulk.BulkConfig())
+        faultpolicy.configure(faultpolicy.FaultPolicyConfig())
+    with pytest.raises(ValueError, match="divide"):
+        command.volume.build_server(p.parse_args(
+            ["volume", "-dir", str(tmp_path), "-ec.backend", "torch",
+             "-ec.bulk.strideMB", "3"]))
+    bulk.configure(bulk.BulkConfig())
+    # -ec.mesh.*: the pod rendezvous fields, validated at parse time
+    pod = ["-ec.mesh.coordinator", "10.0.0.1:8476", "-ec.mesh.processId", "1",
+           "-ec.mesh.processCount", "2"]
+    ref_args = ref_p.parse_args(["-dir", str(tmp_path)] + pod)
+    args = p.parse_args(["volume", "-dir", str(tmp_path)] + pod)
+    cfg = command.volume.serving_config(args)
+    assert (cfg.mesh_coordinator, cfg.mesh_process_id,
+            cfg.mesh_process_count, cfg.multiprocess) == (
+        ref_args.ec_mesh_coordinator, ref_args.ec_mesh_process_id,
+        ref_args.ec_mesh_process_count, True)
+    for bad in (["-ec.mesh.processCount", "2"],
+                ["-ec.mesh.processId", "1"],
+                ["-ec.mesh.coordinator", "h:1", "-ec.mesh.processCount", "2",
+                 "-ec.mesh.processId", "2"]):
+        with pytest.raises(ValueError):
+            command.volume.serving_config(
+                p.parse_args(["volume", "-dir", str(tmp_path)] + bad))
     vs = command.volume.build_server(
         p.parse_args(["volume", "-dir", str(tmp_path), "-mserver", "m:1",
                       "-ec.backend", "torch"]))
