@@ -103,10 +103,15 @@ volume:
                  `volume -mserver ... -ec.backend cuda`, and the shell as
                  `python3 -m seaweedfs_tpu_torch shell -c ...`; every wait
                  is on the state the master reports (VolumeList,
-                 LookupEcVolume) or a server's /status.
+                 LookupEcVolume, /cluster/health.json) or a server's
+                 /status.  The master's repair plane runs every second.
                  9a, the main 11 GiB volume at full width by hard links (no
-                 byte written): server A (a cache for 14 shards) mounts all
-                 14 over the RPC plane and pins them; `ec.scrub` runs B5
+                 byte written), with `volume.repair.pause` (its status
+                 -json read back): server A (a cache for 14 shards) mounts
+                 all 14 over the RPC plane and pins them; `cluster.health
+                 -json` and `volume.device.status` show A's device block
+                 (the used bytes of A's /metrics, 14 resident shards of vid
+                 1, the breaker closed); `ec.scrub` runs B5
                  there (0 mismatches); shard 0 moves to server B (no
                  cache); GETs on A of 2,000 of the needles with bytes on
                  shard 0 and 400 others (K2-K5 on the card, 0 remote
@@ -118,15 +123,23 @@ volume:
                  local and 9
                  remote survivors through the hedged gather, K1's host
                  degraded read); p50/p99, reads/s, remote fetches and
-                 bytes a read, hedge and retry counters.
+                 bytes a read, hedge and retry counters.  A killed, the
+                 plane resumed until it flags vid 1 (shard 0 left on B)
+                 unrecoverable with nothing queued, paused, B killed.
                  9b, the verbs that write, on a 256 MiB volume: three
                  servers; /vol/grow of collection ec9; 32 writers assign
                  and POST the 4 KB-1 MB mix; the .dat hard-linked as the
                  oracle; `lock; ec.encode` (K1 on the holder, spread), every
                  shard sha256-equal to the native codec's encode hashed in
                  memory; GETs; the server with the fewest shards killed;
-                 GETs (remote survivors, K1); `ec.rebuild -force`,
-                 `ec.balance -force` (shards still equal), `ec.decode` (the
+                 GETs (remote survivors, K1); `ec.rebuild -force`; then
+                 `volume.repair.resume`, two shards unmounted and deleted
+                 on one survivor, and the master's repair plane rebuilds
+                 them with no shell verb (the wall from the loss to 14
+                 shards, the master's time to healthy, the rebuilder's K1
+                 launches, every shard equal to the native codec's),
+                 `volume.repair.pause`; `ec.balance -force` (shards still
+                 equal), `ec.decode` (the
                  .dat equal to the oracle); each verb's wall.  Before the
                  verbs, replicated writes: /vol/grow of a `001` volume
                  (collection ec9r, two copies), 32 writers assign and POST
@@ -3197,8 +3210,10 @@ class _Cluster:
         self.procs: dict = {}
         self.ports: dict = {}
         self.killed: set = set()
+        # the repair plane is on by default; 9a pauses it, 9b lets it heal
         self._start("master", "master", ["-port", str(http), "-port.grpc",
-                                          str(grpc), "-pulseSeconds", "1"])
+                                          str(grpc), "-pulseSeconds", "1",
+                                          "-ec.repair.intervalSeconds", "1"])
         self.mstub = Stub(sync_channel_cached(f"127.0.0.1:{grpc}"),
                           master_pb2, "Seaweed")
         self.wait("the master", lambda: self._try(self.nodes) is not None)
@@ -3287,6 +3302,16 @@ class _Cluster:
             raise AssertionError(f"shell {script!r} failed: {proc.stdout}"
                                  f"{proc.stderr[-4000:]}")
         return proc.stdout, wall
+
+    def health(self) -> dict:
+        """The master's /cluster/health.json."""
+        return _get_json(self.master_http, "/cluster/health.json")
+
+    def repair(self, verb: str) -> dict:
+        """`volume.repair.<verb>; volume.repair.status -json` in one shell:
+        -> the repair block the status prints after the verb."""
+        out, _ = self.shell(f"volume.repair.{verb}; volume.repair.status -json")
+        return json.loads(out[out.index("{"):])
 
     def kill(self, name: str) -> None:
         self.killed.add(name)
@@ -3385,6 +3410,49 @@ def _timed_gets(port: int, items: list, n_clients: int, scrape_port: int):
     return _read_row(lat, wall, d, nbytes), d
 
 
+def _cluster_telemetry(cl: _Cluster, a_port: int) -> dict:
+    """9a, once A pinned its 14 shards: the master's telemetry plane on the
+    card.  `cluster.health -json` and `volume.device.status` through the
+    shell; A's device block must hold the used bytes A's own /metrics
+    reports, 14 resident shards of vid 1 and a closed breaker.  Writes
+    nothing."""
+    a_url = cl.url("A")
+    used = 'SeaweedFS_volumeServer_ec_resident_bytes'
+
+    def agrees() -> bool:
+        node = cl.health()["nodes"].get(a_url, {})
+        dev = node.get("device", {})
+        return (dev.get("resident_shards_by_volume") == {"1": 14}
+                and dev.get("used_bytes") == _scrape(a_port).get(used))
+
+    waited = cl.wait("A's telemetry on the master", agrees)
+    out, wall = cl.shell("cluster.health -json; volume.device.status")
+    doc, end = json.JSONDecoder().raw_decode(out)
+    status = out[end:]
+    node = doc["nodes"][a_url]
+    dev, disp = node["device"], node["dispatcher"]
+    metrics_used = _scrape(a_port)[used]
+    if (dev["used_bytes"] != metrics_used
+            or dev["resident_shards_by_volume"] != {"1": 14}
+            or disp["qos_breaker_open"] is not False):
+        raise AssertionError(f"A's telemetry: {node}, /metrics {metrics_used}")
+    if f"{a_url} [fresh]" not in status or \
+            "ec volume 1: 14 resident shards" not in status:
+        raise AssertionError(f"volume.device.status: {status!r}")
+    row = {"used_bytes": dev["used_bytes"],
+           "metrics_used_bytes": metrics_used,
+           "budget_bytes": dev["budget_bytes"],
+           "resident_shards": dev["resident_shards"],
+           "resident_shards_by_volume": dev["resident_shards_by_volume"],
+           "evictions": dev["evictions"], "pin_claims": dev["pin_claims"],
+           "qos_breaker_open": disp["qos_breaker_open"],
+           "age_seconds": node["age_seconds"], "waited_s": waited,
+           "shell_wall_s": wall,
+           "device_status": status.strip().splitlines()}
+    log("cluster_telemetry", server="A", **row)
+    return row
+
+
 def _cluster_full_width(cl: _Cluster, workdir: str, vol: dict, deg: dict,
                         seed: int) -> dict:
     """9a: the main 11 GiB volume at full width, by hard links (no byte
@@ -3400,6 +3468,10 @@ def _cluster_full_width(cl: _Cluster, workdir: str, vol: dict, deg: dict,
     from seaweedfs_tpu_torch.storage.ec import layout
     from seaweedfs_tpu_torch.storage import types as t
 
+    # 9a's losses are its own (shard 5 unmounted at step 6): no repair
+    # behind its back, and no K1 rebuild inside its timed reads
+    if not cl.repair("pause")["paused"]:
+        raise AssertionError("volume.repair.pause left the plane running")
     cl.start_servers({"A": ["-ec.deviceCacheMB", str(CLUSTER_CACHE_MB)],
                       "B": ["-ec.deviceCacheMB", "0"]})
     a_port, b_port = cl.ports["A"][0], cl.ports["B"][0]
@@ -3423,6 +3495,7 @@ def _cluster_full_width(cl: _Cluster, workdir: str, vol: dict, deg: dict,
     pin_s = time.perf_counter() - t0
     cl.wait("the master lists A's 14 shards",
             lambda: cl.shards(1) == {s: [cl.url("A")] for s in range(14)})
+    telemetry = _cluster_telemetry(cl, a_port)
     # 2. the shell's ec.scrub: one VolumeEcShardsVerify(all_resident) on A
     k0 = _k_counts(_scrape(a_port))
     scrub_out, scrub_wall = cl.shell("ec.scrub")
@@ -3510,7 +3583,7 @@ def _cluster_full_width(cl: _Cluster, workdir: str, vol: dict, deg: dict,
         raise AssertionError(f"B's survivor gather: {d6}")
     a_final, b_final = _k_counts(_scrape(a_port)), _k_counts(_scrape(b_port))
     out = {"pin_s": pin_s, "scrub_wall_s": scrub_wall,
-           "scrub_launches": scrub_launches,
+           "scrub_launches": scrub_launches, "telemetry_A": telemetry,
            "step4_resident_on_A": row4, "step5_remote_on_B": row5,
            "step5_remote_on_B_64_clients": row5c,
            "step6_gather_on_B": row6,
@@ -3779,6 +3852,8 @@ def _cluster_shell_verbs(cl: _Cluster, seed: int) -> dict:
     if not rebuild_k1:
         raise AssertionError("ec.rebuild launched no K1")
     rebuilt = placement()
+    auto = _cluster_auto_repair(cl, vid, survivors, rebuilt, held_once,
+                                check_shards, placement)
     _, verbs["ec.balance"] = cl.shell("lock; ec.balance -force; unlock")
     cl.wait("the master lists 14 balanced shards", held_once)
     check_shards("ec.balance")
@@ -3796,8 +3871,9 @@ def _cluster_shell_verbs(cl: _Cluster, seed: int) -> dict:
     out = {"vid": vid, "writes": writes, "replicated": replicated,
            "native_encode_in_memory_s": native_s,
            "verb_wall_s": verbs, "holder": holder, "victim": victim,
+           "auto_repair": auto,
            "placement": {"encode": spread, "rebuild": rebuilt,
-                         "balance": balanced},
+                         "repair": auto["placement"], "balance": balanced},
            "reads_spread": read_spread, "reads_after_loss": read_lost,
            "k1": {"encode": encode_k1, "rebuild": rebuild_k1},
            "shards_equal_native": True, "decoded_dat_equal": True,
@@ -3808,6 +3884,95 @@ def _cluster_shell_verbs(cl: _Cluster, seed: int) -> dict:
                "counted; the main path writes 3.8x its 11 GiB volume and "
                "the verbs about 6x this .dat"})
     return out
+
+
+def _cluster_auto_repair(cl: _Cluster, vid: int, survivors: list,
+                         rebuilt: dict, held_once, check_shards,
+                         placement) -> dict:
+    """9b's second loss, after ec.rebuild healed the first: the repair
+    plane resumed, two shards unmounted and deleted on the survivor that
+    holds more, and the master brings the volume back to 14 shards with no
+    shell verb (its job's VolumeEcShardsRebuild is K1 on the rebuilder's
+    card).  Every shard is held against the native codec's; the plane is
+    paused again for ec.balance and ec.decode."""
+    tth = "SeaweedFS_master_repair_time_to_healthy_seconds"
+    cl.shell("volume.repair.resume")
+    # the resumed plane's first cycle closes the episode vid 1 opened
+    cl.wait("the repair plane's first cycle",
+            lambda: cl.health()["repair"]["last_time_to_healthy_s"]
+            is not None)
+    m0 = _scrape(cl.master_http)
+    k_before = {n: _k_counts(_scrape(cl.ports[n][0])) for n in survivors}
+    loser = max(survivors,
+                key=lambda n: sum(1 for v in rebuilt.values() if v == n))
+    lost = sorted(sid for sid, n in rebuilt.items() if n == loser)[:2]
+    stub = cl.vstub(loser)
+    t0 = time.perf_counter()
+    stub.VolumeEcShardsUnmount(cl.vpb.VolumeEcShardsUnmountRequest(
+        volume_id=vid, shard_ids=lost), timeout=60)
+    stub.VolumeEcShardsDelete(cl.vpb.VolumeEcShardsDeleteRequest(
+        volume_id=vid, collection=CLUSTER_COLLECTION, shard_ids=lost),
+        timeout=60)
+
+    def observed() -> bool:
+        return _scrape(cl.master_http)[tth + "_count"] > m0[tth + "_count"]
+
+    cl.wait("the master sees the loss",
+            lambda: not held_once() or observed())
+    cl.wait("the master lists 14 shards, healed with no shell verb",
+            held_once)
+    listed_wall = time.perf_counter() - t0
+    # the job done (its spread too) and the census healthy again
+    cl.wait("the repair's time to healthy", observed)
+    heal_wall = time.perf_counter() - t0
+    m1 = _scrape(cl.master_http)
+    st = cl.health()["repair"]
+    v = st["volumes"][str(vid)]
+    by_url = {cl.url(n): n for n in survivors}
+    rebuilder = by_url[v["last_result"]["rebuilder"]]
+    k_after = _k_counts(_scrape(cl.ports[rebuilder][0]))
+    k1 = {k: k_after[k] - k_before[rebuilder][k]
+          for k in ("gf2_matmul", "gf2_matmul_small")}
+    if not sum(k1.values()):
+        raise AssertionError(f"the repair on {rebuilder} launched no K1")
+    check_shards("the master's repair")
+    if not cl.repair("pause")["paused"]:
+        raise AssertionError("volume.repair.pause left the plane running")
+    row = {"lost": {"server": loser, "shards": lost},
+           "listed_wall_s": listed_wall, "heal_wall_s": heal_wall,
+           "time_to_healthy_s": m1[tth + "_sum"] - m0[tth + "_sum"],
+           "status_time_to_healthy_s": st["last_time_to_healthy_s"],
+           "completed": st["totals"]["completed"],
+           "totals": st["totals"], "rebuilder": rebuilder,
+           "rebuilt": v["last_result"]["rebuilt"],
+           "spread": {by_url.get(u, u): sids for u, sids
+                      in v["last_result"]["spread"].items()},
+           "rebuilder_k1": k1, "placement": placement(),
+           "shards_equal_native": True}
+    log("cluster_auto_repair", **row)
+    return row
+
+
+def _vid1_unrecoverable(cl: _Cluster) -> dict:
+    """Between 9a and 9b, A killed and B holding shard 0: the repair plane
+    resumed until its status flags vid 1 unrecoverable, then paused again
+    for 9b's first loss.  9a ran paused, so vid 1 was never queued."""
+    cl.wait("the master drops A", lambda: len(cl.shards(1)) == 1)
+    cl.shell("volume.repair.resume")
+
+    def seen() -> bool:
+        v = cl.health()["repair"]["volumes"].get("1", {})
+        return v.get("state") == "unrecoverable"
+
+    cl.wait("vid 1 flagged unrecoverable", seen)
+    st = cl.repair("pause")
+    v = st["volumes"]["1"]
+    if st["totals"]["queued"] or st["inflight"] or not st["paused"]:
+        raise AssertionError(f"vid 1 was queued for repair: {st}")
+    row = {"state": v["state"], "healthy_shards": v["healthy_shards"],
+           "missing": v["missing"], "totals": st["totals"]}
+    log("cluster_repair_9a", **row)
+    return row
 
 
 def phase_cluster(torch, workdir: str, vol: dict, deg: dict, seed: int) -> dict:
@@ -3823,8 +3988,12 @@ def phase_cluster(torch, workdir: str, vol: dict, deg: dict, seed: int) -> dict:
         with contextlib.ExitStack() as stack:
             cl = _Cluster(cdir, stack)
             full = _cluster_full_width(cl, workdir, vol, deg, seed)
-            for name in ("A", "B"):  # their HBM and page cache go to 9b
-                cl.kill(name)
+            # their HBM and page cache go to 9b; with A gone B's shard 0 is
+            # all of vid 1 the master knows: the planner must call it
+            # unrecoverable and queue nothing
+            cl.kill("A")
+            full["repair_after_9a"] = _vid1_unrecoverable(cl)
+            cl.kill("B")
             verbs = _cluster_shell_verbs(cl, seed)
     finally:
         shutil.rmtree(cdir, ignore_errors=True)
@@ -4459,6 +4628,9 @@ def main() -> int:
             "bound_by", "share_of_bound", "window_share_of_bound",
             "encode_call_ms", "max_abs_err")},
         "ingest_launches": ing["launches"]["gf2_matmul"],
+        # phase 9b: the master's repair job, on its rebuilder (in "cluster")
+        "repair_launches": clu["verbs"]["auto_repair"]["rebuilder_k1"][
+            "gf2_matmul"],
     }, {
         "name": "gf2_matmul_small",
         "route": "cuda",
@@ -4476,6 +4648,8 @@ def main() -> int:
         "bound_ms": small_row["bound_ms"],
         "bound_by": small_row["bound_by"],
         "library_ms": small_row["library_ms"],
+        "repair_launches": clu["verbs"]["auto_repair"]["rebuilder_k1"][
+            "gf2_matmul_small"],
     }, *resident, scrub_entry, *_b6_entries(mesh)]}), flush=True)
     print(SMI, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -6,8 +6,15 @@ raft serves, with the reference's spellings:
     python3 -m seaweedfs_tpu_torch master -ip 127.0.0.1 -port 9333 \\
         -volumeSizeLimitMB 30720 -defaultReplication 000
 
-The master does no device work.  `-peers`, `-mdir`, the -ec.repair.*
-flags, vacuum and the incident plane's flags wait for ROADMAP A4c.
+The -ec.repair.* flags configure the repair plane (repair/config.py
+RepairConfig), which is on by default:
+
+    python3 -m seaweedfs_tpu_torch master -port 9333 \
+        -ec.repair.intervalSeconds 1 -ec.repair.scrubIntervalSeconds 60
+
+The master itself does no device work; its repair jobs run K1 on the
+volume servers' cards.  `-peers`, `-mdir`, vacuum and the incident
+plane's flags wait for ROADMAP A4c-3, A4c-5 and A7c.
 """
 from __future__ import annotations
 
@@ -34,6 +41,76 @@ def add_args(p) -> None:
         help="XYZ replica placement when an assign doesn't specify one",
     )
     p.add_argument("-pulseSeconds", dest="pulse_seconds", type=int, default=5)
+    # the repair plane (repair/config.py RepairConfig): the master's
+    # autonomous ec.rebuild loop over the telemetry plane
+    p.add_argument(
+        "-ec.repair.disable", dest="ec_repair_disable",
+        action="store_true",
+        help="disable the autonomous EC repair scheduler (detection "
+        "status stays live; only manual ec.rebuild restores redundancy)",
+    )
+    p.add_argument(
+        "-ec.repair.intervalSeconds", dest="ec_repair_interval_seconds",
+        type=float, default=5.0,
+        help="repair scan cadence: how often the master diffs the EC "
+        "census against full redundancy and plans repairs",
+    )
+    p.add_argument(
+        "-ec.repair.maxInflight", dest="ec_repair_max_inflight",
+        type=int, default=2,
+        help="concurrent repair jobs (one volume's gather/rebuild "
+        "choreography each)",
+    )
+    p.add_argument(
+        "-ec.repair.fanout", dest="ec_repair_fanout", type=int, default=4,
+        help="per-job shard-copy fan-out width (the gather/spread "
+        "concurrency bound)",
+    )
+    p.add_argument(
+        "-ec.repair.backoffBaseSeconds",
+        dest="ec_repair_backoff_base_seconds", type=float, default=1.0,
+        help="first retry delay after a failed repair; doubles per "
+        "attempt",
+    )
+    p.add_argument(
+        "-ec.repair.backoffMaxSeconds",
+        dest="ec_repair_backoff_max_seconds", type=float, default=60.0,
+        help="exponential backoff ceiling for failed repairs",
+    )
+    p.add_argument(
+        "-ec.repair.maxAttempts", dest="ec_repair_max_attempts",
+        type=int, default=8,
+        help="park a volume as failed after this many repair attempts",
+    )
+    p.add_argument(
+        "-ec.repair.scrubIntervalSeconds",
+        dest="ec_repair_scrub_interval_seconds", type=float, default=0.0,
+        help="master-driven parity scrub sweep cadence feeding corrupt-"
+        "shard verdicts into the repair queue (0 disables)",
+    )
+    p.add_argument(
+        "-ec.repair.breakerPauseSeconds",
+        dest="ec_repair_breaker_pause_seconds", type=float, default=2.0,
+        help="defer repair scheduling this long whenever a fresh node "
+        "reports an open interactive QoS breaker",
+    )
+
+
+def repair_config(args):
+    """The RepairConfig the -ec.repair.* flags spell."""
+    from ..repair import RepairConfig
+
+    return RepairConfig(
+        enabled=not args.ec_repair_disable,
+        interval_seconds=args.ec_repair_interval_seconds,
+        max_inflight=args.ec_repair_max_inflight,
+        fanout_concurrency=args.ec_repair_fanout,
+        backoff_base_seconds=args.ec_repair_backoff_base_seconds,
+        backoff_max_seconds=args.ec_repair_backoff_max_seconds,
+        max_attempts=args.ec_repair_max_attempts,
+        scrub_interval_seconds=args.ec_repair_scrub_interval_seconds,
+        breaker_pause_seconds=args.ec_repair_breaker_pause_seconds,
+    ).validated()
 
 
 def build_server(args):
@@ -53,6 +130,7 @@ def build_server(args):
         volume_size_limit_mb=args.volume_size_limit_mb,
         default_replication=args.default_replication,
         pulse_seconds=args.pulse_seconds,
+        ec_repair=repair_config(args),
     )
 
 

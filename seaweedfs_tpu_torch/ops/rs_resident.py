@@ -263,6 +263,8 @@ class DevicePipeline:
                 wall = time.perf_counter() - self._window_t0
                 if wall > 0:
                     self.last_overlap = self._busy_s / wall
+                    stats_metrics.VOLUME_SERVER_EC_OVERLAP_FRACTION.set(
+                        self.last_overlap)
                 self._cond.notify()
             # the slot's seconds are the device section's busy time, so the
             # ledger's per-class sums conserve against total_busy_s (the

@@ -25,11 +25,14 @@ class LocalCluster:
         ec_backend: str = "cuda",
         volume_kwargs: dict | None = None,  # extra VolumeServer kwargs,
         # all servers (e.g. ec_device_cache_mb=...)
+        master_kwargs: dict | None = None,  # extra MasterServer kwargs
+        # (e.g. ec_repair=RepairConfig(...))
     ):
         # the reference LocalCluster's defaults: 1 GiB volumes, 16 slots a
         # server, every server in dc1/r1
         self.master = MasterServer(
             port=0, volume_size_limit_mb=1024, pulse_seconds=pulse_seconds,
+            **(master_kwargs or {}),
         )
         self.base_dir = base_dir
         self._specs = [

@@ -7,15 +7,21 @@ topology (topology/) that volume servers' heartbeats build, and answers:
     server's bidirectional stream: a full heartbeat, then deltas; a broken
     stream unregisters the node), Assign, LookupVolume, LookupEcVolume,
     VolumeList (the topology as JSON, which the shell reads),
-    LeaseAdminToken / ReleaseAdminToken (the shell's exclusive lock);
+    LeaseAdminToken / ReleaseAdminToken (the shell's exclusive lock),
+    PauseRepair / ResumeRepair;
   - HTTP (server/http.py): /dir/assign, /dir/lookup, /dir/status,
-    /vol/grow, /metrics.
+    /vol/grow, /cluster/health.json, /metrics.
 
-Volume growth allocates over the volume servers' AllocateVolume RPC.  The
-master does no device work.  Not here (ROADMAP A4c): raft and the leader
-proxying that comes with it, KeepConnected and the location broadcast (no
-client of the port subscribes), the repair scheduler, vacuum, collection
-RPCs, write JWTs, the cluster-health and timeline planes, the UI.
+Every heartbeat's telemetry feeds the cluster telemetry plane
+(stats/cluster.py: staleness, the SeaweedFS_cluster_* gauges, the health
+document), and the repair plane (repair/scheduler.py) rebuilds lost or
+corrupt EC shards on its own, each job ending in a VolumeEcShardsRebuild
+(K1 on the rebuilder's card).  Volume growth allocates over the volume
+servers' AllocateVolume RPC.  The master itself does no device work.  Not
+here (ROADMAP): raft and the leader proxying that comes with it (A4c-5;
+`is_leader` is always true), KeepConnected and the location broadcast (no
+client of the port subscribes), vacuum, collection RPCs, write JWTs, the
+SLO engine, the incident bundler and the cluster timeline (A7c), the UI.
 """
 from __future__ import annotations
 
@@ -30,6 +36,7 @@ from dataclasses import dataclass
 from .. import obs, stats
 from ..pb import RpcError, RpcServer, Stub, channel, master_pb2, volume_server_pb2
 from ..pb.rpc import StatusCode
+from ..repair import RepairScheduler
 from ..storage import types as t
 from ..storage.store import VolumeMessage
 from ..topology import (
@@ -75,6 +82,7 @@ class MasterServer:
         volume_size_limit_mb: int = 30 * 1024,
         default_replication: str = "000",
         pulse_seconds: int = 5,
+        ec_repair=None,  # repair.RepairConfig | None (-ec.repair.* flags)
     ):
         self.ip = ip
         self.port = port
@@ -85,9 +93,14 @@ class MasterServer:
             volume_size_limit=volume_size_limit_mb * 1024 * 1024,
             pulse_seconds=pulse_seconds,
         )
-        # each node's last heartbeat telemetry (the device cache, the
-        # ingest plane, the residency ladder), as it arrived
-        self.node_telemetry: dict[str, master_pb2.VolumeServerTelemetry] = {}
+        # heartbeat-carried telemetry aggregated into /cluster/health.json
+        # and the SeaweedFS_cluster_* series; a node missing 2 pulse
+        # intervals is flagged stale (stats/cluster.py)
+        self.telemetry = stats.ClusterTelemetry(pulse_seconds)
+        # the repair plane: watches the EC census and the telemetry for
+        # missing or corrupt shards and runs QoS-bulk rebuild fan-outs;
+        # its loop runs between start() and stop()
+        self.repair = RepairScheduler(self, ec_repair)
         self._growing: set[tuple] = set()
         self.locks: dict[str, AdminLock] = {}
         self._rpc: RpcServer | None = None
@@ -97,8 +110,14 @@ class MasterServer:
             "/dir/lookup": self.h_lookup,
             "/dir/status": self.h_dir_status,
             "/vol/grow": self.h_grow,
+            "/cluster/health.json": self.h_cluster_health,
             "/metrics": self.h_metrics,
         }
+
+    @property
+    def is_leader(self) -> bool:
+        """Always true: one master, no raft (ROADMAP A4c-5)."""
+        return True
 
     @property
     def url(self) -> str:
@@ -128,9 +147,11 @@ class MasterServer:
         )
         await self._http.start()
         self.port = self._http.port
+        self.repair.start()
         log.info("master up http=%s grpc=%s", self.url, self.grpc_url)
 
     async def stop(self) -> None:
+        await self.repair.stop()
         if self._rpc is not None:
             await self._rpc.stop(0.1)
             self._rpc = None
@@ -162,8 +183,13 @@ class MasterServer:
                     log.info("volume server joined: %s", node.url)
                 node.mesh_pod = hb.mesh_pod
                 stats.MASTER_RECEIVED_HEARTBEATS.labels(type="total").inc()
-                if hb.HasField("telemetry"):
-                    self.node_telemetry[node.url] = hb.telemetry
+                # every pulse refreshes freshness; the payload feeds the
+                # cluster health plane
+                self.telemetry.observe(
+                    node.url,
+                    hb.telemetry if hb.HasField("telemetry") else None,
+                    mesh_pod=node.mesh_pod,
+                )
                 if hb.volumes or hb.has_no_volumes or hb.ec_shards or hb.has_no_ec_shards:
                     self.topo.sync_node(node, heartbeat_state_from_pb(hb))
                 if hb.new_volumes or hb.deleted_volumes or hb.new_ec_shards or hb.deleted_ec_shards:
@@ -183,6 +209,10 @@ class MasterServer:
                 # stream broke: the server is gone; drop its volumes and
                 # shards (phantom cleanup :63-94)
                 self.topo.unregister_node(node)
+                # keep its last telemetry, flagged disconnected (age takes
+                # it stale): health.json shows what a dead node last
+                # looked like
+                self.telemetry.disconnect(node.url)
                 log.info("volume server left: %s", node.url)
 
     async def Assign(self, request, context):
@@ -269,6 +299,17 @@ class MasterServer:
         if lock and lock.token == request.previous_token:
             lock.token = 0
         return master_pb2.ReleaseAdminTokenResponse()
+
+    async def PauseRepair(self, request, context):
+        """volume.repair.pause: quiesce the autonomous repair loop
+        (planned maintenance, debugging); detection and the status plane
+        keep running, but no new repair job starts."""
+        self.repair.pause()
+        return master_pb2.PauseRepairResponse()
+
+    async def ResumeRepair(self, request, context):
+        self.repair.resume()
+        return master_pb2.ResumeRepairResponse()
 
     # ------------------------------------------------------------------ growth
 
@@ -444,7 +485,23 @@ class MasterServer:
             return json_response({"error": "growth failed"}, status=500)
         return json_response({"count": len(vids), "vids": vids})
 
+    def _health_doc(self) -> dict:
+        """The /cluster/health.json document: the telemetry plane plus
+        the repair block (the reference's `slo` block waits for A7c)."""
+        doc = self.telemetry.health()
+        doc["repair"] = self.repair.status()
+        return doc
+
+    async def h_cluster_health(self, request: Request) -> Response:
+        """Aggregated cluster health from heartbeat telemetry: per-node
+        freshness and staleness, device budget/used/headroom, dispatcher
+        state, the EC residency map, merged per-stage p50/p99 estimates,
+        and the repair plane's live view."""
+        return json_response(self._health_doc())
+
     async def h_metrics(self, request: Request) -> Response:
+        # re-export the telemetry plane's aggregate view at scrape time
+        self.telemetry.refresh_gauges()
         return Response(
             body=stats.generate_latest(stats.REGISTRY),
             content_type=stats.CONTENT_TYPE_LATEST,

@@ -96,6 +96,7 @@ from ..pb import (
     volume_server_pb2,
 )
 from ..serving import EcReadDispatcher, ServingConfig, TieringController
+from ..serving import qos as qos_mod
 from ..storage import types as t
 from ..storage.disk_location import DiskLocation
 from ..storage.ec import (
@@ -306,6 +307,9 @@ class VolumeServer:
         self.data_center = data_center
         self.rack = rack
         self.pulse_seconds = pulse_seconds
+        # a partition of the heartbeats: the stream stays up and no pulse
+        # goes out, so the master's staleness window flags the node
+        self.heartbeat_pause = False
         # vid -> (fetched at, shard id -> peer RPC addresses), from the
         # master's LookupEcVolume
         self._ec_locations: dict[int, tuple[float, dict[int, list[str]]]] = {}
@@ -1096,11 +1100,15 @@ class VolumeServer:
 
     def _build_telemetry(self) -> master_pb2.VolumeServerTelemetry:
         """One pulse's telemetry (the reference's _build_telemetry, for
-        what the port has): the device cache's occupancy, the
-        dispatcher's live state, the resident pipeline's transfer bytes,
-        the residency ladder's census and counters (TieringController.
-        status) and the streaming ingest plane's aggregates
-        (IngestPlane.snapshot)."""
+        what the port has): the device cache's occupancy, evictions and
+        pin claims, the dispatcher's live state and its interactive
+        breaker (the master's repair plane yields while one is open), the
+        read and shed totals, the resident pipeline's overlap and
+        transfer bytes, the residency ladder's census and counters
+        (TieringController.status) and the streaming ingest plane's
+        aggregates (IngestPlane.snapshot and its counters).  Not shipped
+        yet: the stage digests and timeline samples (ROADMAP A7c); the
+        compile_* fields stay 0 and false (no compile cache here)."""
         tel = master_pb2.VolumeServerTelemetry()
         tel.wall_clock_unix_ms = int(time.time() * 1e3)
         # pod rank: which member of the multi-process mesh this node is
@@ -1112,6 +1120,8 @@ class VolumeServer:
             tel.device_budget_bytes = cache.budget
             tel.device_used_bytes = n_bytes
             tel.device_resident_shards = n_resident
+            tel.device_evictions = cache.evictions
+            tel.device_pin_claims = cache.pin_claims
             tel.device_bytes_per_device.extend(
                 d["used_bytes"] for d in cache.device_stats())
             for vid, sids in cache.resident_by_vid().items():
@@ -1120,6 +1130,30 @@ class VolumeServer:
             tel.ec_d2h_bytes = cache.pipeline.d2h_bytes
         tel.dispatcher_queue_depth = self.ec_dispatcher.queue_depth
         tel.dispatcher_inflight = self.ec_dispatcher.inflight
+        tel.qos_breaker_open = bool(
+            self.ec_dispatcher.qos.breaker_state(qos_mod.INTERACTIVE)
+            == qos_mod.Breaker.OPEN
+        )
+        g = stats.REGISTRY.get_sample_value
+        tel.dispatcher_shed = int(
+            g("SeaweedFS_volumeServer_ec_batch_fallback_total") or 0)
+        # admitted EC reads (batched + native partition the admissions)
+        # and sheds: with QoS on, every coalescer-saturation fallback also
+        # lands in qos_shed{queue_budget}, so the qos series alone is the
+        # whole shed count; -ec.qos.disable leaves the fallback counter
+        tel.ec_reads_total = sum(
+            int(g("SeaweedFS_volumeServer_ec_read_route_total",
+                  {"route": r}) or 0)
+            for r in ("batched", "native"))
+        qos_sheds = sum(
+            int(g("SeaweedFS_volumeServer_ec_qos_shed_total",
+                  {"tier": t_, "reason": r_}) or 0)
+            for t_ in (qos_mod.INTERACTIVE, qos_mod.BULK)
+            for r_ in ("queue_budget", "deadline", "breaker_open"))
+        tel.ec_reads_shed_total = (
+            qos_sheds if self.ec_dispatcher.cfg.qos else tel.dispatcher_shed)
+        tel.overlap_fraction = float(
+            g("SeaweedFS_volumeServer_ec_overlap_fraction") or 0.0)
         if self.tiering is not None:
             st = self.tiering.status()
             tel.tier_hbm_volumes = st["tiers"].get("hbm", 0)
@@ -1129,6 +1163,13 @@ class VolumeServer:
             tel.tier_host_bytes = st["host_bytes"]
         if self.ingest is not None:
             ing = self.ingest.snapshot()
+            tel.ingest_bytes_total = int(
+                g("SeaweedFS_volumeServer_ingest_bytes_total") or 0)
+            tel.ingest_fsyncs_total = int(
+                g("SeaweedFS_volumeServer_ingest_fsyncs_total") or 0)
+            tel.ingest_streamed_seals = int(
+                g("SeaweedFS_volumeServer_ingest_seals_total",
+                  {"path": "streamed"}) or 0)
             tel.ingest_rows_device = int(ing["rows_device"])
             tel.ingest_rows_host = int(ing["rows_host"])
             tel.ingest_shed_total = sum(ing["sheds"].values())
@@ -1205,6 +1246,8 @@ class VolumeServer:
                     or not self.store.deleted_ec_shards.empty()
                     else self.pulse_seconds
                 )
+                while self.heartbeat_pause and not self._stopping:
+                    await asyncio.sleep(0.05)
                 hb = self._delta_heartbeat()
                 n += 1
                 if hb is None:

@@ -2,9 +2,14 @@
 
 A command is an async function `cmd(env, args: list[str])` registered under
 its dotted name; `help` text comes from the docstring.  The port registers
-the modules it has ported: lock/unlock and the EC verbs (ec.encode,
-ec.rebuild, ec.scrub, ec.balance, ec.decode); the volume, cluster, fs, s3,
-mq, remote, fsck and repair commands wait for ROADMAP A4c.
+the modules it has ported: lock/unlock, the EC verbs (ec.encode,
+ec.rebuild, ec.scrub, ec.balance, ec.decode), the repair plane's
+volume.repair.status / pause / resume, cluster.health, and the readers of
+the device planes (volume.device.status, volume.device.attribution,
+volume.tier.status, volume.ingest.status, volume.trace,
+volume.trace.why).  The other cluster.* and volume.* commands wait for
+ROADMAP A4c-5, A4c-6 and A7c, fsck for A4c-6, and fs, s3, mq and remote
+for A10.
 """
 from __future__ import annotations
 
@@ -65,5 +70,8 @@ async def run_command(env: CommandEnv, line: str) -> None:
 
 
 # import side-effect registration
+from . import command_cluster  # noqa: E402,F401
 from . import command_ec  # noqa: E402,F401
 from . import command_lock  # noqa: E402,F401
+from . import command_repair  # noqa: E402,F401
+from . import command_volume  # noqa: E402,F401

@@ -16,8 +16,9 @@ dispatch counter, the residency ladder's tier series
 (serving/tiering.py), the streaming ingest plane's series (ingest/), the
 device-time ledger's four series
 (obs/devledger.py), the per-stage request-tracing histogram
-(obs/trace.py) and the critical-path counters (obs/critpath.py,
-obs/tailstore.py).
+(obs/trace.py) with the heartbeat digest helpers, the critical-path
+counters (obs/critpath.py, obs/tailstore.py) and the master's
+heartbeat and repair-plane series (repair/scheduler.py).
 
 One process-wide registry, like the reference's default registry.
 """
@@ -32,11 +33,17 @@ CONTENT_TYPE_LATEST = "text/plain; version=0.0.4; charset=utf-8"
 
 
 def _fmt(v: float) -> str:
+    """A sample value as prometheus_client writes it (Go's float format:
+    an exponent once the integer part passes six digits)."""
+    v = float(v)
     if v == math.inf:
         return "+Inf"
-    if float(v).is_integer():
-        return f"{float(v):.1f}"
-    return repr(float(v))
+    s = repr(v)
+    dot = s.find(".")
+    if v > 0 and dot > 6:
+        mantissa = f"{s[0]}.{s[1:dot]}{s[dot + 1:]}".rstrip("0.")
+        return f"{mantissa}e+0{dot - 1}"
+    return s
 
 
 def _label_str(names, values, extra: str = "") -> str:
@@ -432,6 +439,49 @@ MASTER_RECEIVED_HEARTBEATS = Counter(
     registry=REGISTRY,
 )
 
+# the master's repair plane (repair/scheduler.py): lifecycle counters a
+# repair job (one EC volume's gather -> rebuild -> remount), the live job
+# gauge, deferrals by reason, and the recovery time itself
+MASTER_REPAIR_QUEUED = Counter(
+    "SeaweedFS_master_repair_queued_total",
+    "Repair jobs admitted to the scheduler's queue (one per EC volume "
+    "per detection; re-queues after backoff count again).",
+    registry=REGISTRY,
+)
+MASTER_REPAIR_INFLIGHT = Gauge(
+    "SeaweedFS_master_repair_inflight",
+    "Repair jobs currently executing their gather/rebuild fan-out.",
+    registry=REGISTRY,
+)
+MASTER_REPAIR_COMPLETED = Counter(
+    "SeaweedFS_master_repair_completed_total",
+    "Repair jobs that restored their volume's shards.",
+    registry=REGISTRY,
+)
+MASTER_REPAIR_FAILED = Counter(
+    "SeaweedFS_master_repair_failed_total",
+    "Repair jobs parked after exhausting -ec.repair.maxAttempts.",
+    registry=REGISTRY,
+)
+MASTER_REPAIR_BACKOFF = Counter(
+    "SeaweedFS_master_repair_backoff_total",
+    "Repair deferrals, by reason: 'retry' = a failed job entering "
+    "exponential backoff; 'breaker_open' = a whole scheduling cycle "
+    "deferred because a fresh node reported an open interactive QoS "
+    "breaker (repair yields to the front door).",
+    ["reason"],
+    registry=REGISTRY,
+)
+for _r in ("retry", "breaker_open"):
+    MASTER_REPAIR_BACKOFF.labels(reason=_r)
+MASTER_REPAIR_TIME_TO_HEALTHY = Histogram(
+    "SeaweedFS_master_repair_time_to_healthy_seconds",
+    "Wall seconds from first observing missing/corrupt EC shards to "
+    "the cluster reaching full redundancy again (the recovery SLO).",
+    registry=REGISTRY,
+    buckets=(0.5, 1, 2, 5, 10, 30, 60, 120, 300, 600, 1800),
+)
+
 # the resident pipeline's transfers (ops/rs_resident.DevicePipeline's
 # h2d_bytes / d2h_bytes, mirrored at scrape time)
 VOLUME_SERVER_EC_H2D_BYTES = Counter(
@@ -445,6 +495,14 @@ VOLUME_SERVER_EC_D2H_BYTES = Counter(
     "SeaweedFS_volumeServer_ec_d2h_bytes",
     "Device->host bytes of the resident EC reconstruct calls (the "
     "reconstructed intervals at their fetch lengths).",
+    registry=REGISTRY,
+)
+VOLUME_SERVER_EC_OVERLAP_FRACTION = Gauge(
+    "SeaweedFS_volumeServer_ec_overlap_fraction",
+    "Device-busy time / wall time over the double-buffered EC "
+    "pipeline's current batch window, refreshed at every batch "
+    "completion (1.0 = the device section was busy the whole window; "
+    ">1 = staging slots overlapped, up to the slot count).",
     registry=REGISTRY,
 )
 VOLUME_SERVER_SCRUB_CORRUPT_GAUGE = Gauge(
@@ -676,6 +734,35 @@ REQUEST_STAGE_SECONDS = Histogram(
 )
 for _stage in TRACE_STAGES:
     REQUEST_STAGE_SECONDS.labels(stage=_stage)
+
+
+def stage_histogram_snapshot() -> dict:
+    """{stage: (cumulative per-le counts incl +Inf, sum_seconds)} from the
+    stage histogram: the raw material of the heartbeat stage digests.
+    stage_digest_deltas() turns two snapshots into per-bucket increments."""
+    return {
+        values[0]: ([int(acc) for _, acc in child.cumulative()],
+                    float(child.sum))
+        for values, child in REQUEST_STAGE_SECONDS._series()
+    }
+
+
+def stage_digest_deltas(before: dict, after: dict) -> list:
+    """[(stage, per-bucket increments, count, sum_seconds_delta)] accrued
+    between two stage_histogram_snapshot() calls; stages with no new
+    observations are dropped so an idle pulse ships an empty digest."""
+    out = []
+    for stage, (cum_b, sum_b) in after.items():
+        cum_a, sum_a = before.get(stage, ([0] * len(cum_b), 0.0))
+        dcum = [b - a for a, b in zip(cum_a, cum_b)]
+        count = dcum[-1] if dcum else 0
+        if count <= 0:
+            continue
+        buckets = [dcum[0]] + [
+            dcum[i] - dcum[i - 1] for i in range(1, len(dcum))
+        ]
+        out.append((stage, buckets, count, max(0.0, sum_b - sum_a)))
+    return out
 
 # critical-path attribution (obs/critpath.py): every finished ROOT trace
 # has its client-visible wall time bucketed into exactly these six

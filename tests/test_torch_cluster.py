@@ -47,6 +47,7 @@ from seaweedfs_tpu_torch.operation import upload_data as port_upload
 from seaweedfs_tpu_torch.pb import Stub as PortStub
 from seaweedfs_tpu_torch.pb import channel as port_channel
 from seaweedfs_tpu_torch.pb import volume_server_pb2 as port_vpb
+from seaweedfs_tpu_torch.repair import RepairConfig as PortRepairConfig
 from seaweedfs_tpu_torch.server.cluster import LocalCluster as PortCluster
 from seaweedfs_tpu_torch.server.http import Client
 from seaweedfs_tpu_torch.shell import CommandEnv as PortEnv
@@ -81,15 +82,19 @@ class _Side:
 
     async def start(self):
         if self.kind == "port":
-            self.c = PortCluster(n_volume_servers=self.n, base_dir=self.base,
-                                 pulse_seconds=1, ec_backend="torch")
+            # without the autonomous repair loop, as on the reference side
+            self.c = PortCluster(
+                n_volume_servers=self.n, base_dir=self.base, pulse_seconds=1,
+                ec_backend="torch",
+                master_kwargs={"ec_repair": PortRepairConfig(enabled=False)})
             await self.c.start()
             self.env = PortEnv([self.c.master.advertise_url], out=self.out)
             return
         # the reference's LocalCluster, started one server at a time so the
-        # master's node order is the servers' order, as the port's is, and
-        # without its autonomous repair loop (the port's master has none:
-        # ROADMAP A4c), which would rebuild the lost shards on its own
+        # master's node order is the servers' order, as the port's is; on
+        # both sides without the autonomous repair loop, which would
+        # rebuild the lost shards before the script's ec.rebuild (repair
+        # is held against the reference in tests/test_torch_repair.py)
         c = ref_cluster_mod.LocalCluster(
             base_dir=self.base, n_volume_servers=self.n, pulse_seconds=1,
             master_kwargs={"ec_repair": RepairConfig(enabled=False)})

@@ -1256,6 +1256,104 @@ def test_cluster_generate_and_scrub_over_the_rpc_plane(cuda_device, tmp_path):
     asyncio.run(go())
 
 
+def test_master_repairs_a_lost_server_with_k1_on_the_card(cuda_device,
+                                                          tmp_path):
+    """The master's repair plane on the card: three servers on
+    -ec.backend cuda, shards 0-9 on server 0 and 10-13 on server 1; server
+    1 stops, and the master rebuilds 10-13 with no shell verb: the
+    rebuilder's VolumeEcShardsRebuild launches K1, and every shard on the
+    live servers equals the plain version's encode of the same .dat."""
+    import asyncio
+    import hashlib
+    import pathlib
+    import time
+
+    from seaweedfs_tpu_torch.pb import Stub, channel, volume_server_pb2 as vpb
+    from seaweedfs_tpu_torch.repair import RepairConfig
+    from seaweedfs_tpu_torch.server.cluster import LocalCluster
+
+    rng = np.random.default_rng(31)
+    plain = tmp_path / "plain"
+    plain.mkdir()
+    v = Volume(str(plain), 1)
+    for nid in range(1, 41):
+        v.write(nid, int(rng.integers(0, 1 << 32)),
+                rng.bytes(int(rng.integers(100, 300_000))))
+    v.close()
+    ec.write_ec_files(str(plain / "1"), backend="torch")
+    want = {sid: hashlib.sha256((plain / f"1{ec.to_ext(sid)}").read_bytes())
+            .hexdigest() for sid in range(14)}
+
+    async def go():
+        c = LocalCluster(n_volume_servers=3, base_dir=str(tmp_path / "c"),
+                         ec_backend="cuda", master_kwargs={
+                             "ec_repair": RepairConfig(
+                                 interval_seconds=0.25,
+                                 backoff_base_seconds=0.2)})
+        await c.start()
+        try:
+            vs0, vs1, _ = c.volume_servers
+            c.master.repair.pause()
+            for ext in (".dat", ".idx"):
+                shutil.copy(plain / f"1{ext}", vs0.store.locations[0].directory)
+            s0 = Stub(channel(vs0.grpc_url), vpb, "VolumeServer")
+            s1 = Stub(channel(vs1.grpc_url), vpb, "VolumeServer")
+            await s0.VolumeMount(vpb.VolumeMountRequest(volume_id=1))
+            await s0.VolumeMarkReadonly(vpb.VolumeMarkReadonlyRequest(
+                volume_id=1))
+            await s0.VolumeEcShardsGenerate(
+                vpb.VolumeEcShardsGenerateRequest(volume_id=1))
+            await s0.VolumeEcShardsMount(vpb.VolumeEcShardsMountRequest(
+                volume_id=1, shard_ids=list(range(14))))
+            moved = [10, 11, 12, 13]
+            await s1.VolumeEcShardsCopy(vpb.VolumeEcShardsCopyRequest(
+                volume_id=1, shard_ids=moved, copy_ecx_file=True,
+                copy_vif_file=True, source_data_node=vs0.grpc_url))
+            await s1.VolumeEcShardsMount(vpb.VolumeEcShardsMountRequest(
+                volume_id=1, shard_ids=moved))
+            await s0.VolumeEcShardsUnmount(vpb.VolumeEcShardsUnmountRequest(
+                volume_id=1, shard_ids=moved))
+            await s0.VolumeEcShardsDelete(vpb.VolumeEcShardsDeleteRequest(
+                volume_id=1, shard_ids=moved))
+            await s0.VolumeUnmount(vpb.VolumeUnmountRequest(volume_id=1))
+
+            def placement():
+                locs = c.master.topo.lookup_ec_shards(1)
+                return None if locs is None else [
+                    sorted(n.url for n in nodes) for nodes in locs.locations]
+
+            t_end = time.monotonic() + 60
+            while placement() != [[vs0.url]] * 10 + [[vs1.url]] * 4:
+                assert time.monotonic() < t_end, placement()
+                await asyncio.sleep(0.1)
+            k0 = rs_cuda.gf2_matmul.launches + rs_cuda.gf2_matmul_small.launches
+            c.master.repair.resume()
+            await vs1.stop()
+            sched = c.master.repair
+            t_end = time.monotonic() + 120
+            while not (placement() and all(
+                    any(u != vs1.url for u in us) for us in placement())
+                    and sched.totals["completed"] >= 1
+                    and sched.last_time_to_healthy_s is not None):
+                assert time.monotonic() < t_end, sched.status()
+                await asyncio.sleep(0.1)
+            assert rs_cuda.gf2_matmul.launches + \
+                rs_cuda.gf2_matmul_small.launches > k0
+            result = sched.status()["volumes"]["1"]["last_result"]
+            assert result["rebuilt"] == moved
+            got = {}
+            for vs in (c.volume_servers[0], c.volume_servers[2]):
+                for p in pathlib.Path(vs.store.locations[0].directory).glob(
+                        "1.ec[0-9][0-9]"):
+                    got.setdefault(int(p.name[-2:]), set()).add(
+                        hashlib.sha256(p.read_bytes()).hexdigest())
+            assert got == {sid: {h} for sid, h in want.items()}
+        finally:
+            await c.stop()
+
+    asyncio.run(go())
+
+
 # ------------------------------------------------- the mesh on the card
 
 

@@ -97,6 +97,15 @@ def test_every_port_module_is_walked():
                  "seaweedfs_tpu_torch.shell.commands",
                  "seaweedfs_tpu_torch.shell.command_lock",
                  "seaweedfs_tpu_torch.shell.command_ec",
+                 "seaweedfs_tpu_torch.shell.command_cluster",
+                 "seaweedfs_tpu_torch.shell.command_repair",
+                 "seaweedfs_tpu_torch.shell.command_volume",
+                 "seaweedfs_tpu_torch.stats.cluster",
+                 "seaweedfs_tpu_torch.repair",
+                 "seaweedfs_tpu_torch.repair.config",
+                 "seaweedfs_tpu_torch.repair.planner",
+                 "seaweedfs_tpu_torch.repair.executor",
+                 "seaweedfs_tpu_torch.repair.scheduler",
                  "seaweedfs_tpu_torch.parallel",
                  "seaweedfs_tpu_torch.parallel.mesh",
                  "seaweedfs_tpu_torch.parallel.distributed"):

@@ -377,7 +377,10 @@ def test_server_refuses_a_master_and_a_cache_on_numpy(tmp_path):
                 await asyncio.sleep(0.02)
             assert [n.url for n in ms.topo.lookup_volume("", 7)] == [vs.url]
             assert ms.topo.data_nodes()[0].grpc_port == vs.grpc_port
-            assert ms.node_telemetry[vs.url].wall_clock_unix_ms > 0
+            # the telemetry plane holds the node's payload, clock-stamped
+            # (wall_clock_unix_ms > 0 is what yields a skew estimate)
+            node = ms.telemetry.health()["nodes"][vs.url]
+            assert node["telemetry"] and "clock_skew_ms" in node
         finally:
             await vs.stop()
             await ms.stop()
