@@ -123,7 +123,26 @@ volume:
                  local and 9
                  remote survivors through the hedged gather, K1's host
                  degraded read); p50/p99, reads/s, remote fetches and
-                 bytes a read, hedge and retry counters.  A killed, the
+                 bytes a read, hedge and retry counters; the master's
+                 /debug/critpath of the ten slowest gathers (B's GET
+                 joined with A's VolumeEcShardRead legs) and their
+                 segment shares.  The incident plane: the master runs
+                 with a read_p99 SLO on the batch_dispatch digests (its
+                 target the lowest digest edge that 5c's first flat
+                 turn's one-client pass stayed under and its 64-client
+                 pass burned), 2 s and 4 s burn windows,
+                 -obs.incident.dir with a 2 s profile, and
+                 -metrics.address at a pushgateway sink of this script
+                 (A and B push too, every process runs with
+                 SWFS_DEBUG=1); then 64 clients on A (K2+K3) and 64 on B
+                 (K1) at once until the SLO fires, its one bundle lands
+                 (the health and slo blocks, A's and B's timeline
+                 samples, both nodes without error, critical paths, and a
+                 CUPTI capture naming a port kernel with device time) and
+                 `cluster.slo -json; cluster.incident.dump -json` has run
+                 (budget below 1; a second, forced bundle); the merged
+                 batch_dispatch and queue_wait p50/p99 within a bucket of
+                 the servers' /metrics; the pushes; /debug/stacks.  A killed, the
                  plane resumed until it flags vid 1 (shard 0 left on B)
                  unrecoverable with nothing queued, paused, B killed.
                  9b, the verbs that write, on a 256 MiB volume: three
@@ -1529,7 +1548,20 @@ def _serve_counts(m: dict) -> dict:
         "ledger_calls": m.get(
             'SeaweedFS_volumeServer_device_dispatches_total'
             '{workload="serving_interactive",device="default"}', 0.0),
+        "slo_stage": _stage_buckets(m, SLO_STAGE),
     }
+
+
+def _stage_buckets(m: dict, stage: str) -> list:
+    """Per-bucket counts (the digest ladder, +Inf last) of one stage of
+    SeaweedFS_request_stage_seconds, from one _scrape: the shape of a
+    heartbeat stage digest."""
+    from seaweedfs_tpu_torch.stats.metrics import STAGE_SECONDS_BUCKETS, _fmt
+
+    key = 'SeaweedFS_request_stage_seconds_bucket{stage="%s",le="%s"}'
+    cum = [m.get(key % (stage, _fmt(e)), 0.0)
+           for e in STAGE_SECONDS_BUCKETS + (float("inf"),)]
+    return [cum[0]] + [cum[i] - cum[i - 1] for i in range(1, len(cum))]
 
 
 def _serve_delta(before: dict, after: dict) -> dict:
@@ -1566,6 +1598,8 @@ def _serve_delta(before: dict, after: dict) -> dict:
                    for seg in after["crit"]},
         "crit_route_s": after["crit_route_s"] - before["crit_route_s"],
         "ledger_calls": after["ledger_calls"] - before["ledger_calls"],
+        "slo_stage": [b - a for a, b in zip(before["slo_stage"],
+                                            after["slo_stage"])],
     }
 
 
@@ -1715,11 +1749,12 @@ async def _serve_sequential(port: int, seq: list, vol: dict) -> list:
 
 async def _serve_clients(port: int, seq: list, n_clients: int, reads: int,
                          seconds: float, seed: int, vid: int = 1,
-                         traced: bool = True):
+                         traced: bool = True, stop_path: str = ""):
     """`n_clients` closed-loop keep-alive clients GET needles of `seq`
     ((nid, cookie, sha256) triples, seeded picks) of volume `vid` until
-    `reads` reads or `seconds`: -> (seconds per read, body bytes).  Every
-    body is byte-verified, and carries the trace header iff `traced`."""
+    `reads` reads, `seconds`, or the file `stop_path` exists: -> (seconds
+    per read, body bytes).  Every body is byte-verified, and carries the
+    trace header iff `traced`."""
     import numpy as np
 
     from seaweedfs_tpu_torch.server.http import Client
@@ -1733,7 +1768,8 @@ async def _serve_clients(port: int, seq: list, n_clients: int, reads: int,
         rng = np.random.default_rng(seed * 1000 + i)
         c = Client("127.0.0.1", port)
         try:
-            while len(lat) < reads and time.monotonic() < t_end:
+            while len(lat) < reads and time.monotonic() < t_end and not (
+                    stop_path and os.path.exists(stop_path)):
                 nid, cookie, digest = seq[int(rng.integers(0, len(seq)))]
                 t0 = time.perf_counter()
                 status, headers, body = await c.request(
@@ -1756,32 +1792,34 @@ async def _serve_clients(port: int, seq: list, n_clients: int, reads: int,
 
 def _client_proc(port: int, seq: list, n_clients: int, reads: int,
                  seconds: float, seed: int, vid: int = 1,
-                 traced: bool = True) -> dict:
+                 traced: bool = True, stop_path: str = "") -> dict:
     """One client process of the concurrent pass (run under spawn)."""
     sys.path.insert(0, HERE)
     cpu0, t0 = time.process_time(), time.monotonic()
     lat, nbytes = asyncio.run(_serve_clients(
-        port, seq, n_clients, reads, seconds, seed, vid, traced))
+        port, seq, n_clients, reads, seconds, seed, vid, traced, stop_path))
     return {"lat": lat, "bytes": nbytes, "start": t0, "end": time.monotonic(),
             "cpu_s": time.process_time() - cpu0}
 
 
 def _serve_concurrent(port: int, seq: list, seed: int, vid: int = 1,
-                      reads: int = SERVE_READS, traced: bool = True) -> dict:
-    """SERVE_CLIENTS clients in SERVE_CLIENT_PROCS processes reading volume
-    `vid`, `reads` reads in all: -> latencies, body bytes, wall (first start
-    to last end) and the clients' CPU s."""
+                      reads: int = SERVE_READS, traced: bool = True,
+                      procs: int = SERVE_CLIENT_PROCS,
+                      seconds: float = SERVE_SECONDS,
+                      stop_path: str = "") -> dict:
+    """SERVE_CLIENTS clients in `procs` processes reading volume `vid`,
+    `reads` reads in all (or for `seconds`, or until `stop_path` exists):
+    -> latencies, body bytes, wall (first start to last end) and the
+    clients' CPU s."""
     import concurrent.futures
     import multiprocessing
 
-    per = SERVE_CLIENTS // SERVE_CLIENT_PROCS
+    per = SERVE_CLIENTS // procs
     with concurrent.futures.ProcessPoolExecutor(
-            SERVE_CLIENT_PROCS,
-            mp_context=multiprocessing.get_context("spawn")) as pool:
-        futs = [pool.submit(_client_proc, port, seq, per,
-                            reads // SERVE_CLIENT_PROCS, SERVE_SECONDS,
-                            seed * 10 + i, vid, traced)
-                for i in range(SERVE_CLIENT_PROCS)]
+            procs, mp_context=multiprocessing.get_context("spawn")) as pool:
+        futs = [pool.submit(_client_proc, port, seq, per, reads // procs,
+                            seconds, seed * 10 + i, vid, traced, stop_path)
+                for i in range(procs)]
         parts = [f.result() for f in futs]
     return {"lat": [x for p in parts for x in p["lat"]],
             "bytes": sum(p["bytes"] for p in parts),
@@ -1949,7 +1987,9 @@ def _serve_layout(workdir: str, serve_dir: str, layout: str, seq: list,
                "d2h_MB_per_batch": d["d2h_bytes"] / d["batches"] / 1e6,
                "h2d_bytes": d["h2d_bytes"], "routes": d["routes"],
                "server_get_mean_ms": d["server_get_mean_ms"],
-               "queue_wait_mean_ms": d["queue_wait_mean_ms"]}
+               "queue_wait_mean_ms": d["queue_wait_mean_ms"],
+               # 9a's latency SLO takes its target from these (flat turn 0)
+               f"{SLO_STAGE}_buckets": d["slo_stage"]}
         if name == "concurrent":
             wall = con["wall"]
             row.update(clients=SERVE_CLIENTS, client_procs=SERVE_CLIENT_PROCS,
@@ -3187,6 +3227,27 @@ REPL_COLLECTION = "ec9r"
 CLUSTER_WRITERS = 32
 CLUSTER_READERS = 32
 CLUSTER_WAIT_S = 180.0
+# 9a's incident plane: the master judges a latency SLO on the servers'
+# SLO_STAGE digests over these burn windows, and its bundle of a fire
+# holds a SLO_PROFILE_S torch.profiler capture of the busiest node
+SLO_STAGE = "batch_dispatch"
+SLO_FAST_S, SLO_SLOW_S = 2.0, 4.0
+SLO_PROFILE_S = 2.0
+# a second SLO-fired bundle within the phase would break the rate limit
+SLO_MIN_INTERVAL_S = 3600.0
+# the target: the lowest digest edge that at most this share of 5c's
+# sequential batch_dispatch observations exceeded, if at least
+# SLO_MIN_BAD of its 64-client pass did (the budget is 1%)
+SLO_SEQ_MAX_BAD, SLO_MIN_BAD = 0.002, 0.02
+# the SLO window's readers stop once the bundle and the shell's reads are
+# in, or after this long
+SLO_LOAD_MAX_S = 120.0
+SLO_LOAD_PROCS = 2
+# the servers' trace rings hold all of step 6's gathers (9-10
+# VolumeEcShardRead entries each on A) until the master's /debug/critpath
+# has assembled the slowest of them
+SLO_TRACE_RING = 32768
+CRITPATH_SLOWEST = 10
 
 
 class _Cluster:
@@ -3194,7 +3255,8 @@ class _Cluster:
     phase makes to them: the master's state over its RPC plane, a volume
     server's rpcs, its /status and /metrics over HTTP, and the shell."""
 
-    def __init__(self, workdir: str, stack: contextlib.ExitStack):
+    def __init__(self, workdir: str, stack: contextlib.ExitStack,
+                 master_flags: list = (), env: dict | None = None):
         from seaweedfs_tpu_torch.pb import (
             Stub, master_pb2, sync_channel_cached, volume_server_pb2)
 
@@ -3210,10 +3272,16 @@ class _Cluster:
         self.procs: dict = {}
         self.ports: dict = {}
         self.killed: set = set()
+        # every process of the phase: its profile captures land under the
+        # phase's directory, and /debug/profile and /debug/stacks answer
+        self.env = {"TMPDIR": os.path.join(workdir, "tmp"), "SWFS_DEBUG": "1",
+                    **(env or {})}
+        os.makedirs(self.env["TMPDIR"], exist_ok=True)
         # the repair plane is on by default; 9a pauses it, 9b lets it heal
         self._start("master", "master", ["-port", str(http), "-port.grpc",
                                           str(grpc), "-pulseSeconds", "1",
-                                          "-ec.repair.intervalSeconds", "1"])
+                                          "-ec.repair.intervalSeconds", "1",
+                                          *master_flags])
         self.mstub = Stub(sync_channel_cached(f"127.0.0.1:{grpc}"),
                           master_pb2, "Seaweed")
         self.wait("the master", lambda: self._try(self.nodes) is not None)
@@ -3221,7 +3289,7 @@ class _Cluster:
     def _start(self, name: str, command: str, args: list) -> None:
         log_path = os.path.join(self.dir, f"{name}.log")
         self.procs[name] = self.stack.enter_context(
-            _volume_server(args, log_path, command=command))
+            _volume_server(args, log_path, self.env, command=command))
 
     def start_servers(self, specs: dict) -> None:
         """{name: extra flags}: volume servers started together, then waited
@@ -3355,10 +3423,12 @@ def _delta(before: dict, after: dict) -> dict:
     return {k: after[k] - before[k] for k in after}
 
 
-async def _get_each(port: int, items: list, n_clients: int) -> tuple[list, int]:
+async def _get_each(port: int, items: list, n_clients: int,
+                    traces: list | None = None) -> tuple[list, int]:
     """GET every (path, sha256 digest) of `items` once, over `n_clients`
     keep-alive clients: -> (seconds per read, body bytes).  Every body is
-    byte-verified."""
+    byte-verified; `traces`, when given, gets (seconds, trace id) of each
+    read."""
     from seaweedfs_tpu_torch.server.http import Client
 
     lat: list = []
@@ -3371,11 +3441,14 @@ async def _get_each(port: int, items: list, n_clients: int) -> tuple[list, int]:
             while queue:
                 path, digest = queue.pop()
                 t0 = time.perf_counter()
-                status, _, body = await c.request("GET", path)
+                status, headers, body = await c.request("GET", path)
                 lat.append(time.perf_counter() - t0)
                 if status != 200 or hashlib.sha256(body).digest() != digest:
                     raise AssertionError(f"{path}: HTTP {status}, {len(body)} "
                                          "bytes differ from the written needle")
+                if traces is not None:
+                    traces.append((lat[-1], headers.get(
+                        "X-Seaweed-Trace-Id", "").split("-")[0]))
                 nbytes[0] += len(body)
         finally:
             await c.close()
@@ -3399,12 +3472,13 @@ def _read_row(lat: list, wall: float, d: dict, nbytes: int) -> dict:
             "launches": {k: d[k] for k in _k_counts({})}}
 
 
-def _timed_gets(port: int, items: list, n_clients: int, scrape_port: int):
+def _timed_gets(port: int, items: list, n_clients: int, scrape_port: int,
+                traces: list | None = None):
     """-> (row, counter delta) of one pass of GETs, counters read on the
-    server that answered (`scrape_port`)."""
+    server that answered (`scrape_port`); `traces` as _get_each's."""
     before = _peer_counts(_scrape(scrape_port))
     t0 = time.perf_counter()
-    lat, nbytes = asyncio.run(_get_each(port, items, n_clients))
+    lat, nbytes = asyncio.run(_get_each(port, items, n_clients, traces))
     wall = time.perf_counter() - t0
     d = _delta(before, _peer_counts(_scrape(scrape_port)))
     return _read_row(lat, wall, d, nbytes), d
@@ -3453,15 +3527,309 @@ def _cluster_telemetry(cl: _Cluster, a_port: int) -> dict:
     return row
 
 
+class _PushSink:
+    """A pushgateway stand-in for 9a: records each PUT
+    /metrics/job/<job>/instance/<instance> (its series names); served by a
+    thread of this process until close()."""
+
+    def __init__(self):
+        import http.server
+        import urllib.parse
+
+        self.pushes: list = []
+        sink = self
+
+        class Handler(http.server.BaseHTTPRequestHandler):
+            def do_PUT(self):
+                body = self.rfile.read(int(self.headers["Content-Length"]))
+                parts = self.path.strip("/").split("/")
+                if parts[:2] == ["metrics", "job"] and parts[3:4] == ["instance"]:
+                    sink.pushes.append((parts[2], urllib.parse.unquote(
+                        parts[4]), body.count(b"\nSeaweedFS_")))
+                self.send_response(200)
+                self.send_header("Content-Length", "0")
+                self.end_headers()
+
+            def log_message(self, *args):
+                pass
+
+        self.server = http.server.ThreadingHTTPServer(("127.0.0.1", 0),
+                                                      Handler)
+        self.address = f"127.0.0.1:{self.server.server_address[1]}"
+        self.thread = threading.Thread(target=self.server.serve_forever,
+                                       daemon=True)
+        self.thread.start()
+
+    def close(self) -> None:
+        self.server.shutdown()
+        self.server.server_close()
+
+
+def _slo_target(serve: dict) -> dict:
+    """9a's read_p99 target, from 5c's first flat turn (its server had
+    the cache and layout A has): the lowest edge of the stage-digest
+    ladder that at most SLO_SEQ_MAX_BAD of the sequential pass's
+    batch_dispatch observations exceeded — so 9a's one-client reads on A
+    (step 4) stay inside the 1% budget — provided at least SLO_MIN_BAD of
+    the 64-client pass's did, so that 64 clients burn it.  On an edge, a
+    digest counts an observation bad exactly when it is slower."""
+    from seaweedfs_tpu_torch.stats.cluster import quantile_from_buckets
+    from seaweedfs_tpu_torch.stats.metrics import STAGE_SECONDS_BUCKETS
+
+    key = f"{SLO_STAGE}_buckets"
+    seq = serve["flat"]["sequential"][key]
+    con = serve["flat"]["concurrent"][0][key]
+
+    def above(counts, i):  # share of the observations past edge i
+        return sum(counts[i + 1:]) / max(1.0, sum(counts))
+
+    pick = next(i for i in range(len(STAGE_SECONDS_BUCKETS))
+                if above(seq, i) <= SLO_SEQ_MAX_BAD)
+    p99 = quantile_from_buckets(con, 0.99)
+    row = {"target_ms": STAGE_SECONDS_BUCKETS[pick] * 1e3,
+           "sequential_share_above": above(seq, pick),
+           "concurrent_share_above": above(con, pick),
+           "concurrent_p99_ms": p99 * 1e3 if p99 is not None else None,
+           "sequential_p99_ms": (quantile_from_buckets(seq, 0.99) or 0) * 1e3,
+           "sequential_buckets": seq, "concurrent_buckets": con}
+    if row["concurrent_share_above"] < SLO_MIN_BAD:
+        raise AssertionError(f"no digest edge separates 5c's one-client and "
+                             f"64-client {SLO_STAGE} observations: {row}")
+    row["fraction_of_concurrent_p99"] = row["target_ms"] / row["concurrent_p99_ms"]
+    log("cluster_slo_target", stage=SLO_STAGE, **row)
+    return row
+
+
+def _cluster_critpath(cl: _Cluster, traces: list) -> dict:
+    """9a step 6: the master's /debug/critpath (its fan-out over every
+    node's /debug/traces, clocks reconciled by the heartbeat skew) of the
+    CRITPATH_SLOWEST slowest gathers, each anchored on the client's time.
+    At least one must join B's GET with A's VolumeEcShardRead legs."""
+    rows = []
+    for sec, tid in sorted(traces, reverse=True)[:CRITPATH_SLOWEST]:
+        doc = _get_json(cl.master_http, f"/debug/critpath?id={tid}"
+                        f"&client_total_us={int(sec * 1e6)}")
+        names = [p["name"] for p in doc["participants"]]
+        rows.append({
+            "client_ms": sec * 1e3, "total_us": doc["total_us"],
+            "front": sum(n.startswith("GET /") for n in names),
+            "legs": sum(n == "grpc VolumeEcShardRead" for n in names),
+            "segments_pct": doc["segments_pct"],
+            "coverage_pct": doc["coverage_pct"],
+            "fetch_errors": doc.get("fetch_errors", {})})
+        if sum(doc["segments_us"].values()) != doc["total_us"]:
+            raise AssertionError(f"critpath {tid}: segments do not sum to "
+                                 f"the client's time: {doc['segments_us']}")
+    crossed = [r for r in rows if r["front"] and r["legs"]]
+    if not crossed:
+        raise AssertionError(f"no gather assembled across B and A: {rows}")
+    mean = {seg: statistics.fmean(r["segments_pct"][seg] for r in rows)
+            for seg in rows[0]["segments_pct"]}
+    out = {"gathers": len(traces), "slowest": rows,
+           "cross_server": len(crossed), "mean_segments_pct": mean}
+    log("cluster_critpath", **out)
+    return out
+
+
+def _cluster_slo(cl: _Cluster, slo: dict, seq_a: list, seq_b: list,
+                 seed: int, sink: "_PushSink") -> dict:
+    """9a step 7: 64 clients on A (resident reads: K2+K3, judged by the
+    read_p99 SLO through A's batch_dispatch digests) and 64 on B (the
+    step-6 gathers: K1) at once, until the master's SLO has fired, its
+    one bundle has landed, and `cluster.slo -json; cluster.incident.dump
+    -json` has run through the shell.  Then every check of the incident
+    plane, each fatal: the bundle's parts, its CUPTI capture naming a
+    port kernel with device time, the forced second bundle, the merged
+    digests against A's and B's /metrics, the pushes, /debug/stacks."""
+    from seaweedfs_tpu_torch.stats.cluster import quantile_from_buckets
+    from seaweedfs_tpu_torch.stats.metrics import STAGE_SECONDS_BUCKETS
+    from seaweedfs_tpu_torch.utils import devtime
+
+    a_url, b_url = cl.url("A"), cl.url("B")
+    inc_dir = cl.incident_dir
+    stop = os.path.join(cl.dir, "slo_stop")
+    loads: dict = {}
+
+    def load(name: str, seq: list) -> None:
+        try:
+            loads[name] = _serve_concurrent(
+                cl.ports[name][0], seq, seed, reads=1 << 40,
+                procs=SLO_LOAD_PROCS, seconds=SLO_LOAD_MAX_S, stop_path=stop)
+        except BaseException as e:  # noqa: BLE001 — judged below
+            loads[name] = e
+
+    def objective() -> dict:
+        return cl.health()["slo"]["objectives"]["read_p99"]
+
+    def bundles(kind: str) -> list:
+        names = os.listdir(inc_dir) if os.path.isdir(inc_dir) else []
+        return sorted(f for f in names
+                      if f.startswith("incident-") and f.endswith(f"-{kind}.json"))
+
+    if objective()["violations_total"]:
+        raise AssertionError(f"the SLO fired before its window: {objective()}")
+    k0 = {n: _k_counts(_scrape(cl.ports[n][0])) for n in ("A", "B")}
+    threads = [threading.Thread(target=load, args=(n, q))
+               for n, q in (("A", seq_a), ("B", seq_b))]
+    t0 = time.perf_counter()
+    for th in threads:
+        th.start()
+    try:
+        fired_s = cl.wait("the read_p99 SLO to fire",
+                          lambda: objective()["violations_total"] >= 1,
+                          SLO_LOAD_MAX_S)
+        bundle_s = cl.wait("its incident bundle",
+                           lambda: bundles("read_p99"), SLO_LOAD_MAX_S) + fired_s
+        shell_out, shell_wall = cl.shell(
+            "cluster.slo -json; cluster.incident.dump -json")
+    finally:
+        with open(stop, "w"):
+            pass
+        for th in threads:
+            th.join()
+    wall = time.perf_counter() - t0
+    for name in ("A", "B"):
+        if isinstance(loads.get(name), BaseException) or name not in loads:
+            raise AssertionError(f"the SLO window's readers on {name}: "
+                                 f"{loads.get(name)!r}")
+    launches = {n: _delta(k0[n], _k_counts(_scrape(cl.ports[n][0])))
+                for n in ("A", "B")}
+    # 2. fired once, judged in the shell while the readers still burned
+    dec = json.JSONDecoder()
+    slo_doc, end = dec.raw_decode(shell_out[shell_out.index("{"):])
+    rest = shell_out[shell_out.index("{") + end:]
+    dump, _ = dec.raw_decode(rest[rest.index("{"):])
+    rp = slo_doc["objectives"]["read_p99"]
+    if not rp["violations_total"] or rp["budget_remaining"] >= 1 \
+            or rp["stage"] != SLO_STAGE:
+        raise AssertionError(f"cluster.slo -json: {rp}")
+    # 3. exactly one bundle of the fire: a burn that dips under the
+    # threshold and rises again is a second violation, and the rate limit
+    # (SLO_MIN_INTERVAL_S) holds it to the one bundle
+    fired = bundles("read_p99")
+    violations = objective()["violations_total"]
+    if len(fired) != 1:
+        raise AssertionError(f"SLO bundles {fired}, {objective()}")
+    with open(os.path.join(inc_dir, fired[0])) as f:
+        bundle = json.load(f)
+    nodes = bundle["nodes"]
+    tl_nodes = {n for row in (bundle["timeline"] or {}).get("samples", [])
+                for n in row["nodes"]}
+    prof = bundle["profile"] or {}
+    problems = []
+    if "slo" not in bundle["health"]:
+        problems.append("health has no slo block")
+    if not {a_url, b_url} <= tl_nodes:
+        problems.append(f"timeline samples of {sorted(tl_nodes)}")
+    for u in (a_url, b_url):
+        if u not in nodes or "error" in nodes[u]:
+            problems.append(f"node {u}: {nodes.get(u)}")
+    if not bundle["critpaths"]:
+        problems.append("no critical path")
+    if "error" in prof or not prof.get("trace_dir"):
+        problems.append(f"profile {prof}")
+    kernels: dict = {}
+    if not problems:
+        for name, _, dur in devtime.kernel_events(
+                os.path.join(prof["trace_dir"], "trace.json")):
+            port_kernel = next((k for k in ("fused_reconstruct", "gf2_matmul")
+                                if k in name), None)
+            if port_kernel:
+                row = kernels.setdefault(name, {"count": 0, "ms": 0.0})
+                row["count"] += 1
+                row["ms"] += dur / 1e3
+        if not any(r["ms"] > 0 for r in kernels.values()):
+            problems.append(f"the capture on {prof['node']} names no port "
+                            "kernel with device time")
+    if problems:
+        raise AssertionError(f"incident bundle {fired[0]}: {problems}")
+    # 4. the operator's dump: a second bundle past the rate limit
+    if not dump["path"].endswith("-manual.json") or not os.path.exists(
+            dump["path"]) or len(bundles("manual")) != 1:
+        raise AssertionError(f"cluster.incident.dump: {dump}")
+    # 1. A's (and B's) stage digests reached the master: once all are
+    # shipped and acknowledged, the merged p50/p99 sit within one bucket
+    # of the estimate from the servers' own /metrics histograms
+    stages = {}
+    for stage in (SLO_STAGE, "queue_wait"):
+        def local():
+            per = [_stage_buckets(_scrape(cl.ports[n][0]), stage)
+                   for n in ("A", "B")]
+            return [a + b for a, b in zip(*per)]
+
+        def merged():
+            return cl.health()["cluster"]["stages"].get(stage, {})
+
+        cl.wait(f"the merged {stage} digest",
+                lambda: merged().get("count") == sum(local()), 30.0)
+        counts, doc = local(), merged()
+        row = {"count": doc["count"]}
+        for q in (50, 99):
+            mine = quantile_from_buckets(counts, q / 100)
+            theirs = doc[f"p{q}_seconds"]
+            idx = [next((i for i, e in enumerate(STAGE_SECONDS_BUCKETS)
+                         if v <= e), len(STAGE_SECONDS_BUCKETS))
+                   for v in (mine, theirs)]
+            if abs(idx[0] - idx[1]) > 1:
+                raise AssertionError(f"{stage} p{q}: master {theirs} s, "
+                                     f"/metrics {mine} s")
+            row[f"p{q}_ms"] = theirs * 1e3
+            row[f"metrics_p{q}_ms"] = mine * 1e3
+        stages[stage] = row
+    # 6. the pushes, and the master's /debug/stacks
+    jobs = {(job, inst) for job, inst, n in sink.pushes if n}
+    want = {("master", f"127.0.0.1:{cl.master_http}"),
+            ("volumeServer", a_url), ("volumeServer", b_url)}
+    if not want <= jobs:
+        raise AssertionError(f"pushes {sorted(jobs)}, wanted {sorted(want)}")
+    import urllib.request
+
+    with urllib.request.urlopen(
+            f"http://127.0.0.1:{cl.master_http}/debug/stacks",
+            timeout=30) as r:
+        stacks = (r.status, len(r.read()))
+    if stacks[0] != 200:
+        raise AssertionError(f"/debug/stacks answered {stacks[0]}")
+    reads = {n: {"reads": len(loads[n]["lat"]),
+                 "p50_ms": _pct(loads[n]["lat"], 50),
+                 "p99_ms": _pct(loads[n]["lat"], 99),
+                 "reads_per_s": len(loads[n]["lat"]) / loads[n]["wall"],
+                 "launches": launches[n]}
+             for n in ("A", "B")}
+    out = {"target_ms": slo["target_ms"], "fired_s": fired_s,
+           "violations": violations,
+           "bundle_s": bundle_s, "window_s": wall,
+           "shell_wall_s": shell_wall,
+           "budget_remaining": rp["budget_remaining"],
+           "fast_burn": rp["fast_burn"], "slow_burn": rp["slow_burn"],
+           "window_p99_ms": (rp["window_p99_seconds"] or 0) * 1e3,
+           "bundle": {"bytes": os.path.getsize(os.path.join(inc_dir, fired[0])),
+                      "nodes": sorted(nodes), "critpaths": len(bundle["critpaths"]),
+                      "correlation": {k: len(v) if isinstance(v, list) else v
+                                      for k, v in bundle["correlation"].items()},
+                      "timeline_rows": len(bundle["timeline"]["samples"])},
+           "profile": {"node": "A" if prof["node"] == a_url else "B",
+                       "seconds": prof["seconds"], "kernels": kernels},
+           "dump_bytes": os.path.getsize(dump["path"]),
+           "merged_stages": stages,
+           "pushes": len(sink.pushes), "stacks_bytes": stacks[1],
+           "reads": reads}
+    log("cluster_slo", **out)
+    return out
+
+
 def _cluster_full_width(cl: _Cluster, workdir: str, vol: dict, deg: dict,
-                        seed: int) -> dict:
+                        seed: int, slo: dict, sink: "_PushSink") -> dict:
     """9a: the main 11 GiB volume at full width, by hard links (no byte
     written).  A pins all 14 shards and ec.scrub runs B5 there; shard 0
     moves to B; A serves shard 0's needles from the card (K2-K5, no remote
     hop); B serves needles of shards 1-9 from A over VolumeEcShardRead, in
     sequence and with 64 clients; with shard 5 gone too, B gathers shard 0
     and 9 remote survivors through the hedged gather and reconstructs on
-    the card (K1's host degraded read)."""
+    the card (K1's host degraded read), and the master's /debug/critpath
+    assembles the slowest gathers across B and A.  Then the SLO window
+    (_cluster_slo): A's resident reads and B's gathers at once until the
+    master's latency SLO fires and its incident bundle lands."""
     import numpy as np
 
     from seaweedfs_tpu_torch.storage import ec, needle as needle_mod
@@ -3472,8 +3840,12 @@ def _cluster_full_width(cl: _Cluster, workdir: str, vol: dict, deg: dict,
     # behind its back, and no K1 rebuild inside its timed reads
     if not cl.repair("pause")["paused"]:
         raise AssertionError("volume.repair.pause left the plane running")
-    cl.start_servers({"A": ["-ec.deviceCacheMB", str(CLUSTER_CACHE_MB)],
-                      "B": ["-ec.deviceCacheMB", "0"]})
+    # both push to the phase's pushgateway sink and keep step 6's traces
+    common = ["-metrics.address", sink.address, "-metrics.intervalSeconds",
+              "1", "-obs.traceRing", str(SLO_TRACE_RING)]
+    cl.start_servers({"A": ["-ec.deviceCacheMB", str(CLUSTER_CACHE_MB),
+                            *common],
+                      "B": ["-ec.deviceCacheMB", "0", *common]})
     a_port, b_port = cl.ports["A"][0], cl.ports["B"][0]
     base = os.path.join(workdir, "1")
     sidecars = [x for x in (".ecx", ".ecj", ".vif") if os.path.exists(base + x)]
@@ -3576,17 +3948,25 @@ def _cluster_full_width(cl: _Cluster, workdir: str, vol: dict, deg: dict,
     cl.wait("the master drops shard 5", lambda: 5 not in cl.shards(1))
     seq6 = sorted(rng.choice(by_shard[5], size=min(
         CLUSTER_GATHER_READS, len(by_shard[5])), replace=False).tolist())
+    traces6: list = []
     row6, d6 = _timed_gets(b_port, [item(n) for n in seq6], SERVE_CLIENTS,
-                           b_port)
+                           b_port, traces6)
     k1_6 = d6["gf2_matmul"] + d6["gf2_matmul_small"]
     if not k1_6 or d6["remote_ok"] < 9 * len(seq6):
         raise AssertionError(f"B's survivor gather: {d6}")
+    critpath = _cluster_critpath(cl, traces6)
+    # 7. the SLO window: A's resident reads (K2+K3, the batch_dispatch
+    # stage the SLO judges) and B's gathers (K1) at once
+    triple = lambda nid: (nid, vol["needles"][nid][3], vol["needles"][nid][2])
+    slo_row = _cluster_slo(cl, slo, [triple(n) for n in seq4],
+                           [triple(n) for n in seq6], seed + 9, sink)
     a_final, b_final = _k_counts(_scrape(a_port)), _k_counts(_scrape(b_port))
     out = {"pin_s": pin_s, "scrub_wall_s": scrub_wall,
            "scrub_launches": scrub_launches, "telemetry_A": telemetry,
            "step4_resident_on_A": row4, "step5_remote_on_B": row5,
            "step5_remote_on_B_64_clients": row5c,
-           "step6_gather_on_B": row6,
+           "step6_gather_on_B": row6, "step6_critpath": critpath,
+           "step7_slo": slo_row,
            "launches": {"A": a_final, "B": b_final}}
     log("cluster_full_width", needles=len(vol["needles"]),
         shards={"A": "1-13 (0 to B; 5 unmounted at step 6)", "B": "0"},
@@ -3975,19 +4355,37 @@ def _vid1_unrecoverable(cl: _Cluster) -> dict:
     return row
 
 
-def phase_cluster(torch, workdir: str, vol: dict, deg: dict, seed: int) -> dict:
+def phase_cluster(torch, workdir: str, vol: dict, deg: dict, serve: dict,
+                  seed: int) -> dict:
     """The cluster as users run it: `python3 -m seaweedfs_tpu_torch master`,
     volume servers started with `volume -mserver ... -ec.backend cuda` and
     the shell as `python3 -m seaweedfs_tpu_torch shell`, every wait on the
     state the master reports (VolumeList, LookupEcVolume) or a server's
-    /status.  -> 9a's and 9b's rows and every server's kernel launches."""
+    /status.  The master judges a read_p99 SLO on the servers'
+    batch_dispatch digests, its target from 5c (`serve`), and writes its
+    incident bundles under the phase's directory.  -> 9a's and 9b's rows
+    and every server's kernel launches."""
     torch.cuda.empty_cache()
     cdir = os.path.join(workdir, "cluster")
     os.makedirs(cdir)
+    slo = _slo_target(serve)
+    inc_dir = os.path.join(cdir, "incidents")
     try:
         with contextlib.ExitStack() as stack:
-            cl = _Cluster(cdir, stack)
-            full = _cluster_full_width(cl, workdir, vol, deg, seed)
+            sink = _PushSink()
+            stack.callback(sink.close)
+            cl = _Cluster(cdir, stack, [
+                "-obs.slo.readP99Ms", repr(slo["target_ms"]),
+                "-obs.slo.readStage", SLO_STAGE,
+                "-obs.slo.fastWindowSeconds", str(SLO_FAST_S),
+                "-obs.slo.slowWindowSeconds", str(SLO_SLOW_S),
+                "-obs.incident.dir", inc_dir,
+                "-obs.incident.profileSeconds", str(SLO_PROFILE_S),
+                "-obs.incident.minIntervalSeconds", str(SLO_MIN_INTERVAL_S),
+                "-metrics.address", sink.address,
+                "-metrics.intervalSeconds", "1"])
+            cl.incident_dir = inc_dir
+            full = _cluster_full_width(cl, workdir, vol, deg, seed, slo, sink)
             # their HBM and page cache go to 9b; with A gone B's shard 0 is
             # all of vid 1 the master knows: the planner must call it
             # unrecoverable and queue nothing
@@ -4485,7 +4883,7 @@ def main() -> int:
         phase = "tiering"
         tier = phase_tiering(torch, workdir, vol, deg, args.seed)
         phase = "cluster"
-        clu = phase_cluster(torch, workdir, vol, deg, args.seed)
+        clu = phase_cluster(torch, workdir, vol, deg, serve, args.seed)
         phase = "mesh"
         mesh = phase_mesh(torch, workdir, vol, deg, args.seed)
     except Exception:  # noqa: BLE001 — every phase is fatal

@@ -20,6 +20,15 @@ def parser() -> argparse.ArgumentParser:
         prog="seaweedfs_tpu_torch",
         description="SeaweedFS-compatible storage on PyTorch/CUDA",
     )
+    # global profiling flags before the subcommand (reference: every weed
+    # command honors -cpuprofile/-memprofile via grace/pprof)
+    p.add_argument(
+        "-cpuprofile", default="", help="write a cProfile dump here on exit"
+    )
+    p.add_argument(
+        "-memprofile", default="",
+        help="write tracemalloc top allocations here on exit",
+    )
     sub = p.add_subparsers(dest="command", metavar="command")
     for name, mod in sorted(COMMANDS.items()):
         mod.add_args(sub.add_parser(name, help=mod.HELP))
@@ -32,6 +41,9 @@ def main(argv: list[str] | None = None) -> int:
     if not args.command:
         p.print_help()
         return 2
+    from ..utils import profiling
+
+    profiling.maybe_start(args)
     try:
         asyncio.run(COMMANDS[args.command].run(args))
     except KeyboardInterrupt:

@@ -12,14 +12,27 @@ RepairConfig), which is on by default:
     python3 -m seaweedfs_tpu_torch master -port 9333 \
         -ec.repair.intervalSeconds 1 -ec.repair.scrubIntervalSeconds 60
 
+The -obs.slo.* flags declare the SLOs the master judges every pulse
+(obs/slo.py) and the -obs.incident.* flags where and how often the
+incident bundler writes (obs/incident.py); -metrics.* and -obs.* are the
+flags every server role shares (command/common_args.py):
+
+    python3 -m seaweedfs_tpu_torch master -port 9333 \
+        -obs.slo.readP99Ms 50 -obs.slo.readStage batch_dispatch \
+        -obs.incident.dir /var/lib/swfs/incidents \
+        -obs.incident.profileSeconds 2
+
 The master itself does no device work; its repair jobs run K1 on the
-volume servers' cards.  `-peers`, `-mdir`, vacuum and the incident
-plane's flags wait for ROADMAP A4c-3, A4c-5 and A7c.
+volume servers' cards, and a latency SLO's bundle holds a torch.profiler
+capture of the busiest volume server's card.  `-peers`, `-mdir` and
+vacuum wait for ROADMAP A4c-3 and A4c-5.
 """
 from __future__ import annotations
 
 import asyncio
 import logging
+
+from . import common_args
 
 NAME = "master"
 HELP = "start a master server"
@@ -94,6 +107,11 @@ def add_args(p) -> None:
         help="defer repair scheduling this long whenever a fresh node "
         "reports an open interactive QoS breaker",
     )
+    common_args.add_metrics_args(p)
+    common_args.add_obs_args(p)
+    # incident plane (obs/slo.py + obs/incident.py): declared SLOs +
+    # bundle disk/rate knobs — master-side, it hosts the engine
+    common_args.add_slo_incident_args(p)
 
 
 def repair_config(args):
@@ -115,6 +133,7 @@ def repair_config(args):
 
 def build_server(args):
     """A MasterServer from the parsed flags (not started)."""
+    common_args.apply_obs_args(args)
     from ..server.master import MasterServer
     from ..storage import types as storage_types
 
@@ -131,6 +150,8 @@ def build_server(args):
         default_replication=args.default_replication,
         pulse_seconds=args.pulse_seconds,
         ec_repair=repair_config(args),
+        **common_args.metrics_kwargs(args),
+        **common_args.slo_incident_kwargs(args),
     )
 
 

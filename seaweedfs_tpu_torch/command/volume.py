@@ -17,9 +17,10 @@ native) and defaults to `-ec.backend`.  `-mserver` names the masters the
 server heartbeats to (the reference's default, 127.0.0.1:9333; an empty
 value runs the server alone), `-port.grpc` its RPC listener (default:
 port + 10000), and the -ec.rpc.* flags the fault policy of its peer
-calls (utils/faultpolicy.py).  The -obs.* flags are the reference's
-(seaweedfs_tpu/command/common_args.py), less the incident bundler's, which
-wait for the master (ROADMAP A7c).
+calls (utils/faultpolicy.py).  The -obs.* and -metrics.* flags are the
+reference's, shared with the master (command/common_args.py): with
+-metrics.address the server pushes its registry to a Prometheus
+pushgateway every -metrics.intervalSeconds.
 """
 from __future__ import annotations
 
@@ -29,6 +30,12 @@ import logging
 
 from ..ingest import IngestConfig
 from ..serving.config import ServingConfig
+from .common_args import (
+    add_metrics_args,
+    add_obs_args,
+    apply_obs_args,
+    metrics_kwargs,
+)
 
 NAME = "volume"
 HELP = "start a volume server"
@@ -80,6 +87,7 @@ def add_args(p) -> None:
         help="scrub resident EC volumes one device call per volume instead "
         "of one pass over the whole cache per cycle",
     )
+    add_metrics_args(p)
     add_obs_args(p)
     serving_defaults = ServingConfig()
     p.add_argument(
@@ -412,121 +420,6 @@ def ingest_config(args: argparse.Namespace) -> IngestConfig:
     ).validated()
 
 
-def add_obs_args(p) -> None:
-    """The -obs.* request-tracing, flight-recorder, timeline, tail and
-    ledger flags (ObsConfig and IncidentConfig are the single sources of
-    the defaults)."""
-    from ..obs import IncidentConfig, ObsConfig
-
-    d = ObsConfig()
-    di = IncidentConfig()
-    p.add_argument(
-        "-obs.disable", dest="obs_disable", action="store_true",
-        help="disable request tracing (/debug/traces stays empty; the "
-        "per-stage histograms keep recording)",
-    )
-    p.add_argument(
-        "-obs.slowMs", dest="obs_slow_ms", type=float, default=d.slow_ms,
-        help="log any request whose end-to-end trace exceeds this many "
-        "milliseconds, with its per-stage breakdown (0 = off)",
-    )
-    p.add_argument(
-        "-obs.traceRing", dest="obs_trace_ring", type=int,
-        default=d.trace_ring,
-        help="completed traces kept in memory for /debug/traces",
-    )
-    p.add_argument(
-        "-obs.incident.disable", dest="obs_incident_disable",
-        action="store_true",
-        help="disable the flight recorder (decision events — QoS sheds, "
-        "breaker flips, dispatcher saturation, spent deadlines, stall "
-        "aborts — stop landing in /debug/incident)",
-    )
-    p.add_argument(
-        "-obs.incident.events", dest="obs_incident_events", type=int,
-        default=di.events,
-        help="flight-recorder events kept in memory per process "
-        "(newest win), served at /debug/incident",
-    )
-    p.add_argument(
-        "-obs.ledger.disable", dest="obs_ledger_disable",
-        action="store_true",
-        help="disable the per-workload device-time ledger (the "
-        "SeaweedFS_volumeServer_device_* attribution series stop moving; "
-        "workload tagging context still propagates)",
-    )
-    p.add_argument(
-        "-obs.timeline.disable", dest="obs_timeline_disable",
-        action="store_true",
-        help="disable the flight-timeline sampler (/debug/timeline "
-        "stays empty)",
-    )
-    p.add_argument(
-        "-obs.timeline.intervalSeconds",
-        dest="obs_timeline_interval_seconds", type=float,
-        default=d.timeline_interval_seconds,
-        help="seconds between flight-timeline samples",
-    )
-    p.add_argument(
-        "-obs.timeline.window", dest="obs_timeline_window", type=int,
-        default=d.timeline_window,
-        help="flight-timeline samples kept (the ring bound; default 120 "
-        "≈ two minutes at the 1s interval)",
-    )
-    p.add_argument(
-        "-obs.tail.disable", dest="obs_tail_disable", action="store_true",
-        help="disable tail-based trace retention (/debug/tail answers "
-        "404; slow traces churn out of the ring like fast ones and "
-        "SeaweedFS_critpath_seconds stops accumulating)",
-    )
-    p.add_argument(
-        "-obs.tail.ring", dest="obs_tail_ring", type=int,
-        default=d.tail_ring,
-        help="pinned slow/incident span trees kept per process "
-        "(newest pins win; fast requests never evict a pin)",
-    )
-    p.add_argument(
-        "-obs.tail.alpha", dest="obs_tail_alpha", type=float,
-        default=d.tail_alpha,
-        help="EWMA smoothing factor for the per-route p99 estimate "
-        "that gates tail pinning (0 < alpha <= 1)",
-    )
-    p.add_argument(
-        "-obs.tail.floorMs", dest="obs_tail_floor_ms", type=float,
-        default=d.tail_floor_ms,
-        help="also pin any request at least this slow, regardless of "
-        "its route's p99 estimate (0 = off)",
-    )
-
-
-def apply_obs_args(args: argparse.Namespace) -> None:
-    """Process-global, like the metrics registry: call once at entry."""
-    from ..obs import IncidentConfig, ObsConfig, configure, devledger, incident
-
-    configure(
-        ObsConfig(
-            enabled=not args.obs_disable,
-            slow_ms=args.obs_slow_ms,
-            trace_ring=args.obs_trace_ring,
-            ledger_enabled=not args.obs_ledger_disable,
-            timeline_enabled=not args.obs_timeline_disable,
-            timeline_interval_seconds=args.obs_timeline_interval_seconds,
-            timeline_window=args.obs_timeline_window,
-            tail_enabled=not args.obs_tail_disable,
-            tail_ring=args.obs_tail_ring,
-            tail_alpha=args.obs_tail_alpha,
-            tail_floor_ms=args.obs_tail_floor_ms,
-        )
-    )
-    devledger.configure(enabled=not args.obs_ledger_disable)
-    incident.configure(
-        IncidentConfig(
-            enabled=not args.obs_incident_disable,
-            events=args.obs_incident_events,
-        )
-    )
-
-
 def serving_config(args: argparse.Namespace) -> ServingConfig:
     """The -ec.serving.*, -ec.qos.* and -ec.tier.* flags as a validated
     config."""
@@ -624,6 +517,7 @@ def build_server(args: argparse.Namespace):
         ec_scrub_megakernel=not args.ec_scrub_megakernel_disable,
         ec_ingest=ingest_config(args),
         read_mode=args.read_mode,
+        **metrics_kwargs(args),
     )
 
 

@@ -1,23 +1,22 @@
-"""Observability of the port (seaweedfs_tpu/obs/ less its master half):
-request tracing (trace ids, spans, /debug/traces), the flight recorder
-(incident.py), on-demand device profiling on torch.profiler (profile.py),
-the per-workload device-time ledger (devledger.py), the flight timeline
-(timeline.py), and critical-path attribution (critpath.py) over
-tail-pinned full span trees (tailstore.py).
-
-What waits for the master (ROADMAP A7c): the SLO burn-rate engine
-(slo.py), the incident bundler, the timeline's heartbeat shipping, the
-master's cross-node /debug/critpath fan-out and the gRPC trace metadata.
-"""
-from . import critpath, devledger, incident, profile, tailstore, timeline
+"""Observability of the port (seaweedfs_tpu/obs/): request tracing (trace
+ids, spans, /debug/traces; the ids ride HTTP headers and RPC metadata),
+the incident plane's flight recorder + bundler (incident.py), the
+master-side SLO burn-rate engine (slo.py), on-demand device profiling on
+torch.profiler (profile.py), the per-workload device-time ledger
+(devledger.py), the flight timeline (timeline.py), and the tail-latency
+forensics plane — cross-node trace assembly + critical-path attribution
+(critpath.py) over tail-pinned full span trees (tailstore.py)."""
+from . import critpath, devledger, incident, profile, slo, tailstore, timeline
 from .config import ObsConfig
 from .critpath import critpath_handler
 from .devledger import DeviceLedger, LEDGER
-from .incident import IncidentConfig
+from .incident import IncidentBundler, IncidentConfig
 from .profile import device_hot_handler, profile_handler
+from .slo import SloConfig, SloEngine
 from .tailstore import TailStore, tail_handler
 from .timeline import TimelineSampler
 from .trace import (
+    GRPC_TRACE_KEY,
     RING,
     TRACE_HEADER,
     Trace,
@@ -25,6 +24,7 @@ from .trace import (
     current,
     detached,
     finish_trace,
+    grpc_metadata,
     middleware,
     outbound_headers,
     parse_trace_header,
@@ -38,10 +38,14 @@ from .trace import (
 
 __all__ = [
     "DeviceLedger",
+    "GRPC_TRACE_KEY",
+    "IncidentBundler",
     "IncidentConfig",
     "LEDGER",
     "ObsConfig",
     "RING",
+    "SloConfig",
+    "SloEngine",
     "TailStore",
     "TimelineSampler",
     "critpath",
@@ -51,6 +55,7 @@ __all__ = [
     "incident",
     "profile",
     "profile_handler",
+    "slo",
     "tail_handler",
     "tailstore",
     "timeline",
@@ -60,6 +65,7 @@ __all__ = [
     "current",
     "detached",
     "finish_trace",
+    "grpc_metadata",
     "middleware",
     "outbound_headers",
     "parse_trace_header",

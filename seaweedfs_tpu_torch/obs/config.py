@@ -33,9 +33,8 @@ class ObsConfig:
     ledger_enabled: bool = True
     # sample the flight timeline (ledger deltas, QoS depths, ingest
     # backpressure, cache residency, breaker states + slow-span
-    # exemplars) into the per-node ring; shipping it over heartbeats
-    # waits for the master (ROADMAP A7c)
-    # (-obs.timeline.disable)
+    # exemplars) into the per-node ring, shipped over heartbeats to the
+    # master's cluster timeline (-obs.timeline.disable)
     timeline_enabled: bool = True
     # seconds between timeline samples (-obs.timeline.intervalSeconds)
     timeline_interval_seconds: float = 1.0

@@ -1,10 +1,10 @@
-"""Trace assembly + critical-path attribution.
+"""Cross-node trace assembly + critical-path attribution.
 
 Port of seaweedfs_tpu/obs/critpath.py: the assembly and the attribution
 are the reference's arithmetic, copied (tests/test_torch_critpath.py holds
 them equal on seeded inputs); the master's fan-out over every node's
-/debug/traces (`fetch_entries`) waits for the master (ROADMAP A7c), so
-the handler here assembles from this process's ring and tail pins.
+/debug/traces (`fetch_entries`) rides the port's HTTP client
+(server/http.py).
 
 Dapper-style tracing (obs/trace.py) is only half the system: each server
 keeps ITS OWN span entries for a request, correlated by the propagated
@@ -17,8 +17,8 @@ devledger's per-class answer to "who used the device":
     propagated header: a child entry's `parent_span_id` is the span id
     that was active on the parent when it fanned out, so the child hangs
     off that exact span.  Each node's wall clock is reconciled against
-    a skew estimate when the caller has one (the reference's master
-    reads it off heartbeats), and the child is additionally
+    the master's heartbeat skew estimate (stats/cluster.py reads the
+    `wall_clock_unix_ms` telemetry field), and the child is additionally
     clamped into its parent-side call span's window — millisecond wall
     clocks plus residual skew error must never make a child appear to
     run outside the RPC that invoked it;
@@ -30,8 +30,10 @@ devledger's per-class answer to "who used the device":
     parent's covering network-call span — so the network_gap segment is
     exactly the remote-call time the remote's own spans do NOT explain,
     and `untraced` is whatever no span anywhere covers;
-  * `critpath_handler()` serves GET /debug/critpath?id= on the volume
-    server, assembled from its local ring + tail pins.
+  * `critpath_handler()` serves GET /debug/critpath?id= on every role:
+    the master assembles cluster-wide (fan-out over the existing
+    /debug/traces?id= lane, 404 = that node holds no entries), a volume
+    server assembles from its local ring + tail pins.
 
 The same bucketing feeds SeaweedFS_critpath_seconds{route,segment} for
 every finished root trace (obs/tailstore.py), so the aggregate per-route
@@ -40,7 +42,10 @@ different arithmetic.
 """
 from __future__ import annotations
 
-from ..server.http import HTTPError, json_response
+import asyncio
+import json
+
+from ..server.http import HTTPError, fetch, json_response
 from ..stats import metrics as _metrics
 from . import trace as obs_trace
 
@@ -352,9 +357,45 @@ def local_entries(trace_id: str) -> list[dict]:
     return entries
 
 
-def critpath_handler():
+async def fetch_entries(
+    trace_id: str, node_urls, timeout_s: float = 2.5
+) -> tuple[list[dict], dict[str, str]]:
+    """Fan the /debug/traces?id= lane out to `node_urls`; a 404 means
+    that node holds no entries for the id (normal for non-participants),
+    any other failure is recorded per node instead of failing the
+    assembly."""
+    urls = sorted(set(node_urls))
+    entries: list[dict] = []
+    errors: dict[str, str] = {}
+    if not urls:
+        return entries, errors
+
+    async def one(u: str) -> list[dict]:
+        status, _, body = await fetch(
+            u, "GET", f"/debug/traces?id={trace_id}", timeout=timeout_s)
+        if status == 404:
+            return []
+        if status != 200:
+            raise ValueError(f"HTTP {status}")
+        return list(json.loads(body).get("traces", ()))
+
+    results = await asyncio.gather(
+        *(one(u) for u in urls), return_exceptions=True
+    )
+    for u, res in zip(urls, results):
+        if isinstance(res, BaseException):
+            errors[u] = str(res) or type(res).__name__
+        else:
+            entries.extend(res)
+    return entries, errors
+
+
+def critpath_handler(node_urls_fn=None, skew_ms_fn=None):
     """GET /debug/critpath?id=<trace_id>: the assembled request DAG +
-    critical-path attribution from this process's ring and tail pins.
+    critical-path attribution.  With `node_urls_fn` (the master) the
+    assembly fans out to every fresh node's /debug/traces?id= and
+    reconciles clocks via `skew_ms_fn(server) -> ms`; without it (a
+    volume server) the local ring + tail pins are the universe.
     ?client_total_us= anchors the timeline on the client's measured wall
     time.  404 + JSON error when no entry holds the id."""
 
@@ -371,8 +412,12 @@ def critpath_handler():
                 raise HTTPError(
                     400, "client_total_us must be a number (microseconds)"
                 )
-        doc = assemble(local_entries(trace_id),
-                       client_total_us=client_total_us)
+        entries = local_entries(trace_id)
+        errors: dict[str, str] = {}
+        if node_urls_fn is not None:
+            remote, errors = await fetch_entries(trace_id, node_urls_fn())
+            entries.extend(remote)
+        doc = assemble(entries, skew_ms_fn, client_total_us=client_total_us)
         if doc is None:
             return json_response(
                 {
@@ -382,6 +427,8 @@ def critpath_handler():
                 },
                 status=404,
             )
+        if errors:
+            doc["fetch_errors"] = errors
         return json_response(doc)
 
     return handler

@@ -13,10 +13,9 @@ slowest span — so a spike in the timeline links to a concrete trace in
 /debug/traces instead of a shrug.
 
 Every sample's `t` is a whole unix second, so samples of several nodes
-align by `t`.  Shipping them to the master over heartbeats (`take_new`
-is the shipper's cursor) waits for the master (ROADMAP A7c); the port
-has no ingest plane yet (ROADMAP A6), so the ingest block reads 0 until
-it lands.
+align by `t`.  The volume server ships them to the master over its
+heartbeats, ACK-gated (`take_new` is the shipper's cursor), and the
+master assembles the cluster timeline (stats/cluster.py).
 
 Bounded memory by construction: the ring holds `-obs.timeline.window`
 samples (default 120 ≈ two minutes at the default 1s

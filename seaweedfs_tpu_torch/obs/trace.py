@@ -10,8 +10,9 @@ This module is the request-scoped view:
     header, in the reference's format, so a port node's entries join a
     reference node's by id; each server that sees the header records ITS
     OWN spans for the request under the shared trace id (the Dapper model
-    — per-process rings, correlated by id).  The gRPC metadata twin
-    (`grpc_metadata`) waits for the RPC plane (ROADMAP A7c);
+    — per-process rings, correlated by id).  Its metadata twin
+    (`grpc_metadata`) rides every call of the port's RPC plane
+    (pb/rpc.py), whose server side opens a `grpc <method>` entry;
   * inside a process the active trace rides a contextvar, so it crosses
     await points AND `asyncio.to_thread` hops (to_thread runs the worker
     in a copy of the caller's context) without threading a ctx argument

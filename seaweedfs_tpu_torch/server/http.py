@@ -399,3 +399,25 @@ class Client:
             except ConnectionError:
                 pass
             self._writer = self._reader = None
+
+
+async def fetch(hostport: str, method: str, path: str, headers=None,
+                body: bytes = b"", timeout: float | None = None):
+    """One request to "host:port" on a connection of its own, within
+    `timeout` seconds (None: no limit) -> (status, headers, body)."""
+    host, _, port = hostport.rpartition(":")
+    cl = Client(host, int(port))
+    try:
+        return await asyncio.wait_for(
+            cl.request(method, path, headers=headers, body=body), timeout)
+    finally:
+        await cl.close()
+
+
+async def get_json(hostport: str, path: str, timeout: float | None = None):
+    """GET http://hostport/path -> the JSON body; ValueError on a status
+    other than 200."""
+    status, _, body = await fetch(hostport, "GET", path, timeout=timeout)
+    if status != 200:
+        raise ValueError(f"http://{hostport}{path} returned HTTP {status}")
+    return json.loads(body)

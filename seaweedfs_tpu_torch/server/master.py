@@ -10,18 +10,30 @@ topology (topology/) that volume servers' heartbeats build, and answers:
     LeaseAdminToken / ReleaseAdminToken (the shell's exclusive lock),
     PauseRepair / ResumeRepair;
   - HTTP (server/http.py): /dir/assign, /dir/lookup, /dir/status,
-    /vol/grow, /cluster/health.json, /metrics.
+    /vol/grow, /cluster/health.json, /metrics, and the observability
+    plane: /debug/traces (its own ring), /debug/critpath (assembled
+    cluster-wide: a fan-out over every fresh node's /debug/traces, clocks
+    reconciled by the heartbeat skew estimates), /debug/tail (its own
+    tail store), /debug/timeline (the clock-aligned cluster flight
+    timeline from heartbeat-shipped samples), /debug/incident (its own
+    flight recorder), POST /cluster/incident/dump, and with SWFS_DEBUG=1
+    /debug/stacks.
 
 Every heartbeat's telemetry feeds the cluster telemetry plane
-(stats/cluster.py: staleness, the SeaweedFS_cluster_* gauges, the health
-document), and the repair plane (repair/scheduler.py) rebuilds lost or
-corrupt EC shards on its own, each job ending in a VolumeEcShardsRebuild
-(K1 on the rebuilder's card).  Volume growth allocates over the volume
-servers' AllocateVolume RPC.  The master itself does no device work.  Not
-here (ROADMAP): raft and the leader proxying that comes with it (A4c-5;
-`is_leader` is always true), KeepConnected and the location broadcast (no
-client of the port subscribes), vacuum, collection RPCs, write JWTs, the
-SLO engine, the incident bundler and the cluster timeline (A7c), the UI.
+(stats/cluster.py: staleness, the SeaweedFS_cluster_* gauges, the merged
+stage digests, the timeline, the health document), and the repair plane
+(repair/scheduler.py) rebuilds lost or corrupt EC shards on its own, each
+job ending in a VolumeEcShardsRebuild (K1 on the rebuilder's card).  The
+SLO engine (obs/slo.py) judges the declared -obs.slo.* objectives every
+pulse; a sustained burn fires the incident bundler (obs/incident.py),
+which writes one correlated bundle under -obs.incident.dir — for a
+latency SLO with a torch.profiler capture of the busiest node's card.
+With -metrics.address the registry is pushed to a pushgateway.  Volume
+growth allocates over the volume servers' AllocateVolume RPC.  The master
+itself does no device work.  Not here (ROADMAP): raft and the leader
+proxying that comes with it (A4c-5; `is_leader` is always true),
+KeepConnected and the location broadcast (no client of the port
+subscribes), vacuum, collection RPCs, write JWTs, the UI.
 """
 from __future__ import annotations
 
@@ -29,6 +41,8 @@ import asyncio
 import functools
 import json
 import logging
+import math
+import os
 import time
 import urllib.parse
 from dataclasses import dataclass
@@ -46,6 +60,7 @@ from ..topology import (
     target_count_per_request,
 )
 from ..topology.node import DataNode
+from ..utils.tasks import spawn_logged
 from .conversions import (
     ec_msg_from_pb,
     heartbeat_state_from_pb,
@@ -83,7 +98,13 @@ class MasterServer:
         default_replication: str = "000",
         pulse_seconds: int = 5,
         ec_repair=None,  # repair.RepairConfig | None (-ec.repair.* flags)
+        metrics_address: str = "",  # pushgateway host:port (ref -metrics.address)
+        metrics_interval_seconds: int = 15,  # ref -metrics.intervalSeconds
+        obs_slo=None,  # obs.SloConfig | None (-obs.slo.* flags)
+        obs_incident=None,  # obs.IncidentConfig | None (-obs.incident.*)
     ):
+        self.metrics_address = metrics_address
+        self.metrics_interval_seconds = metrics_interval_seconds
         self.ip = ip
         self.port = port
         self.grpc_port = grpc_port or (port + 10000 if port else 0)
@@ -101,6 +122,25 @@ class MasterServer:
         # missing or corrupt shards and runs QoS-bulk rebuild fan-outs;
         # its loop runs between start() and stop()
         self.repair = RepairScheduler(self, ec_repair)
+        # incident plane (obs/slo.py + obs/incident.py): declared SLOs
+        # evaluated against the telemetry plane every pulse; a sustained
+        # burn (fast window trips, slow window confirms) fires the
+        # bundler, which snapshots every fresh node's flight recorder +
+        # trace ring into one correlated bundle under -obs.incident.dir
+        if obs_incident is not None:
+            obs.incident.configure(obs_incident)
+        self.slo = obs.SloEngine(obs_slo, self.telemetry, self.repair)
+        self.incident = obs.IncidentBundler(
+            self.telemetry.fresh_node_urls, self._health_doc,
+            timeline_fn=self.telemetry.timeline,
+            skew_ms_fn=self.telemetry.clock_skew_ms,
+        )
+        self.slo.on_violation.append(self._on_slo_violation)
+        self._incident_captures: set = set()
+        # tail-forensics retention for the master's own requests, built
+        # in start() as the -obs.tail.* flags say
+        self.tailstore = None
+        self._tasks: list[asyncio.Task] = []
         self._growing: set[tuple] = set()
         self.locks: dict[str, AdminLock] = {}
         self._rpc: RpcServer | None = None
@@ -112,7 +152,28 @@ class MasterServer:
             "/vol/grow": self.h_grow,
             "/cluster/health.json": self.h_cluster_health,
             "/metrics": self.h_metrics,
+            "/debug/traces": obs.traces_handler,
+            # cross-node critical-path assembly: fans out to every fresh
+            # node's /debug/traces and reconciles clocks against the
+            # heartbeat skew estimates (volume.trace.why reads it)
+            "/debug/critpath": obs.critpath_handler(
+                node_urls_fn=self.telemetry.fresh_node_urls,
+                skew_ms_fn=self.telemetry.clock_skew_ms,
+            ),
+            "/debug/tail": self.h_debug_tail,
+            "/debug/timeline": self.h_debug_timeline,
+            # the master's own flight-recorder ring (repair + SLO
+            # events); volume servers serve the same endpoint for the
+            # bundler's fan-out
+            "/debug/incident": obs.incident.incident_handler,
+            "/cluster/incident/dump": self.h_incident_dump,
         }
+        if os.environ.get("SWFS_DEBUG") == "1":
+            # stack dumps reveal internals; opt-in only (the reference
+            # gates pprof handlers the same way)
+            from ..utils.profiling import debug_stacks_handler
+
+            self._routes["/debug/stacks"] = debug_stacks_handler
 
     @property
     def is_leader(self) -> bool:
@@ -147,17 +208,39 @@ class MasterServer:
         )
         await self._http.start()
         self.port = self._http.port
+        if obs.trace.CONFIG.tail_enabled:
+            self.tailstore = obs.TailStore(node=self.url).install()
+        if self.slo.specs:
+            self._tasks.append(
+                spawn_logged(self._slo_loop(), log, "slo evaluation loop")
+            )
         self.repair.start()
+        push = stats.start_push_loop(
+            "master", self.url, self.metrics_address,
+            self.metrics_interval_seconds,
+        )
+        if push is not None:
+            self._tasks.append(push)
         log.info("master up http=%s grpc=%s", self.url, self.grpc_url)
 
     async def stop(self) -> None:
         await self.repair.stop()
+        captures = list(self._incident_captures)
+        for task in self._tasks + captures:
+            task.cancel()
+        await asyncio.gather(*self._tasks, *captures, return_exceptions=True)
+        self._tasks.clear()
         if self._rpc is not None:
             await self._rpc.stop(0.1)
             self._rpc = None
         if self._http is not None:
             await self._http.stop()
             self._http = None
+        if self.tailstore is not None:
+            # unhook the finished-trace tap: the process-global observer
+            # list outlives this server (co-hosted roles, test restarts)
+            self.tailstore.uninstall()
+            self.tailstore = None
 
     # ------------------------------------------------------------------ RPC
 
@@ -485,19 +568,114 @@ class MasterServer:
             return json_response({"error": "growth failed"}, status=500)
         return json_response({"count": len(vids), "vids": vids})
 
+    # ---------------------------------------------------------- incident plane
+
+    async def _slo_loop(self) -> None:
+        """Evaluate the declared SLOs once per telemetry pulse — the
+        judging half of the observability loop (obs/slo.py)."""
+        while True:
+            await asyncio.sleep(self.pulse_seconds)
+            if not self.is_leader:
+                continue
+            try:
+                self.slo.evaluate()
+            except asyncio.CancelledError:
+                raise
+            except Exception:  # noqa: BLE001 — one failed evaluation
+                # must not end the judge; the next pulse re-samples
+                log.exception("slo evaluation failed")
+
+    def _on_slo_violation(self, verdict: dict) -> None:
+        """Rising-edge hook from the SLO engine: record the verdict
+        into the master's own flight recorder, then capture an incident
+        bundle in the background (the evaluate() caller must not block
+        on a cluster-wide fan-out)."""
+        obs.incident.record("slo_violation", **verdict)
+        # the bundle should cover the burn AND its lead-up: second-scale
+        # windows would otherwise capture only the last pulse or two of
+        # traces (the rings bound the cost either way)
+        window = max(self.slo.cfg.slow_window_seconds, 30.0)
+        # registry set, not _tasks: captures self-discard on completion,
+        # so a flapping SLO can't grow the master's task list forever
+        spawn_logged(
+            self.incident.capture(verdict, window_s=window),
+            log,
+            f"incident bundle for {verdict.get('slo')}",
+            registry=self._incident_captures,
+        )
+
     def _health_doc(self) -> dict:
-        """The /cluster/health.json document: the telemetry plane plus
-        the repair block (the reference's `slo` block waits for A7c)."""
+        """The /cluster/health.json document — telemetry plane + repair
+        + slo blocks; also what every incident bundle embeds."""
         doc = self.telemetry.health()
         doc["repair"] = self.repair.status()
+        doc["slo"] = self.slo.status()
         return doc
+
+    async def h_incident_dump(self, request: Request) -> Response:
+        """POST /cluster/incident/dump: operator-triggered incident
+        bundle (shell `cluster.incident.dump`) — same fan-out and
+        bundle shape as an SLO fire, skipping only the rate limit.
+        ?window=S overrides the capture window (default: the slow SLO
+        window)."""
+        if request.method != "POST":
+            raise HTTPError(405, "POST /cluster/incident/dump")
+        if not obs.incident.CONFIG.dir:
+            return json_response(
+                {"error": "incident bundling disabled: set -obs.incident.dir"},
+                status=503,
+            )
+        try:
+            window = float(
+                request.query.get("window", self.slo.cfg.slow_window_seconds)
+            )
+        except ValueError:
+            window = math.nan
+        if not math.isfinite(window) or window <= 0:
+            # nan/-5 would silently produce an EMPTY bundle (every
+            # since-comparison false) — the operator's manual capture
+            # must fail loudly instead of capturing nothing
+            return json_response(
+                {"error": "window must be a positive number of seconds"},
+                status=400,
+            )
+        summary = await self.incident.capture(
+            {"slo": "manual", "latency": False},
+            window_s=window,
+            trigger="manual",
+            force=True,
+        )
+        return json_response(summary)
 
     async def h_cluster_health(self, request: Request) -> Response:
         """Aggregated cluster health from heartbeat telemetry: per-node
         freshness and staleness, device budget/used/headroom, dispatcher
         state, the EC residency map, merged per-stage p50/p99 estimates,
-        and the repair plane's live view."""
+        the repair plane's live view and the SLO engine's verdicts."""
         return json_response(self._health_doc())
+
+    async def h_debug_timeline(self, request: Request) -> Response:
+        """GET /debug/timeline[?window=S]: the clock-aligned cluster
+        flight timeline assembled from heartbeat-shipped node samples."""
+        window = request.query.get("window")
+        try:
+            window_s = float(window) if window else None
+        except ValueError:
+            return json_response({"error": f"bad window: {window!r}"},
+                                 status=400)
+        return json_response(self.telemetry.timeline(window_s=window_s))
+
+    async def h_debug_tail(self, request: Request) -> Response:
+        """GET /debug/tail: the master's own tail ring (route stats +
+        pinned slow/incident span trees; ?id= resolves one full tree).
+        Per-node by design — cluster.tail fans out over every node's
+        endpoint, like the incident bundler does for /debug/traces."""
+        if self.tailstore is None:
+            return json_response(
+                {"error": "tail retention disabled (-obs.tail.disable)"},
+                status=404,
+            )
+        return await obs.tail_handler(self.tailstore)(request)
 
     async def h_metrics(self, request: Request) -> Response:
         # re-export the telemetry plane's aggregate view at scrape time

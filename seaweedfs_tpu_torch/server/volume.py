@@ -21,7 +21,7 @@ asyncio process per storage node, serving one node's volumes:
     the flight recorder; GET /debug/timeline the ~1 s flight timeline;
     GET /debug/device/hot the resident calls by class; and, with
     SWFS_DEBUG=1, GET /debug/profile?seconds=N a torch.profiler capture
-    of the live process;
+    of the live process and GET /debug/stacks every thread's stack;
   - with -ec.scrub.intervalSeconds, an idle loop that parity-scrubs every
     locally complete EC volume each interval: the resident ones in one
     pass of csrc/scrub.cu over the cache, the rest from their files, and
@@ -41,7 +41,9 @@ asyncio process per storage node, serving one node's volumes:
 With -mserver, the server heartbeats to the master over the RPC plane
 (pb/rpc.py): one bidirectional SendHeartbeat stream carrying a full
 heartbeat, then the store's deltas, with the device cache's, the ingest
-plane's and the residency ladder's telemetry on every pulse.  Its own RPC
+plane's and the residency ladder's telemetry, the stage digests and the
+flight timeline's samples on every pulse (the last two ACK-gated: what a
+pulse the master never answered carried ships again).  Its own RPC
 listener (-port.grpc) serves the `VolumeServer` rpcs the shell's EC verbs
 and peers call: volume lifecycle (AllocateVolume, VolumeMount/Unmount/
 Delete, VolumeMarkReadonly/Writable, VolumeStatus), CopyFile, and the EC
@@ -61,9 +63,7 @@ GET of a volume held elsewhere is proxied to a holder or, with
 
 Blocking storage and device work runs via asyncio.to_thread.  Not here
 (ROADMAP A4c): write JWTs, TTL sweeps, vacuum, tier moves and
-the other admin rpcs; image resizing waits for the images package; the
-timeline's heartbeat shipping, stage digests and /debug/stacks wait for
-A7c.
+the other admin rpcs; image resizing waits for the images package.
 """
 from __future__ import annotations
 
@@ -71,6 +71,7 @@ import asyncio
 import dataclasses
 import functools
 import gzip
+import json
 import logging
 import os
 import time
@@ -116,11 +117,11 @@ from ..utils.tasks import spawn_logged
 from .conditional import content_disposition, format_http_date, not_modified
 from .conversions import ec_msg_to_pb, volume_msg_to_pb
 from .http import (
-    Client,
     HTTPError,
     HTTPServer,
     Request,
     Response,
+    fetch,
     json_response,
 )
 
@@ -152,18 +153,6 @@ def _quoted_path(request: Request) -> str:
     """The request's path quoted again for a peer (its sub-delims kept,
     as the reference's URL library does)."""
     return urllib.parse.quote(request.path, safe="/:@!$&'()*+,;=~")
-
-
-async def _peer_request(peer: str, method: str, path: str, headers=None,
-                        body: bytes = b""):
-    """One HTTP request to a peer server ("host:port") on a connection of
-    its own -> (status, headers, body)."""
-    host, port = peer.rsplit(":", 1)
-    cl = Client(host, int(port))
-    try:
-        return await cl.request(method, path, headers=headers, body=body)
-    finally:
-        await cl.close()
 
 
 class ByteLimiter:
@@ -248,7 +237,11 @@ class VolumeServer:
         # volumes per cycle (-ec.scrub.megakernel.disable)
         ec_ingest=None,  # ingest.IngestConfig | None (-ec.ingest.* flags)
         read_mode: str = "proxy",  # local | proxy | redirect (-readMode)
+        metrics_address: str = "",  # pushgateway host:port (ref -metrics.address)
+        metrics_interval_seconds: int = 15,  # ref -metrics.intervalSeconds
     ):
+        self.metrics_address = metrics_address
+        self.metrics_interval_seconds = metrics_interval_seconds
         # "cuda" without a card fails here, before anything is served
         ec_backend = rs.resolve_backend(ec_backend)
         # validate the serving config BEFORE the Store exists: the cache
@@ -351,6 +344,25 @@ class VolumeServer:
                 heat=self.tiering.heat if self.tiering is not None else None,
             )
         self.store.ingest = self.ingest
+        # stage-digest shipping state: deltas against _stage_snapshot
+        # accrue in _digest_backlog until the heartbeat that carried
+        # them is ACKED (the master answers every heartbeat in order),
+        # so a stream break re-ships instead of silently dropping the
+        # lost pulse's observations from the cluster's merged digests
+        self._stage_snapshot: dict = {}
+        self._digest_backlog: dict = {}  # stage -> [buckets, count, sum_s]
+        self._digest_shipped: dict = {}  # the outstanding shipment's content
+        self._digest_inflight_at: int | None = None  # its heartbeat seq
+        self._hb_sent = 0  # per-stream counters (reset on reconnect)
+        self._hb_acked = 0
+        # flight-timeline shipping state (obs/timeline.py): samples
+        # accrue in the backlog until the heartbeat that carried them is
+        # ACKed — same protocol as the stage digests above; reships
+        # after a stream break are safe because the master dedupes
+        # samples by (node, t)
+        self._timeline_backlog: list[dict] = []
+        self._timeline_shipped = 0  # leading backlog entries in flight
+        self._timeline_inflight_at: int | None = None
         self._http: HTTPServer | None = None
         # the flight timeline (obs/timeline.py) and the tail store
         # (obs/tailstore.py), built in start() as the -obs.* flags say
@@ -371,7 +383,10 @@ class VolumeServer:
             "/debug/device/attribution": self.h_debug_device_attribution,
         }
         if os.environ.get("SWFS_DEBUG") == "1":
+            from ..utils.profiling import debug_stacks_handler
+
             self._get_routes["/debug/profile"] = obs.profile_handler
+            self._get_routes["/debug/stacks"] = debug_stacks_handler
         # the pipeline's byte totals already mirrored into the counters
         self._mirrored = {"h2d": 0, "d2h": 0}
         self._mirrored_launches = {k.__name__: 0 for k in _KERNELS}
@@ -440,6 +455,12 @@ class VolumeServer:
             )
         if obs_trace.CONFIG.tail_enabled:
             self.tailstore = tailstore_mod.TailStore(node=self.url).install()
+        push = stats.start_push_loop(
+            "volumeServer", self.url, self.metrics_address,
+            self.metrics_interval_seconds, collect=self._collect_metrics,
+        )
+        if push is not None:
+            self._tasks.append(push)
 
     async def stop(self) -> None:
         self._stopping = True
@@ -809,7 +830,7 @@ class VolumeServer:
             if k in request.headers
         }
         fwd.update(obs.outbound_headers())
-        status, h, body = await _peer_request(target, "GET", path_qs, fwd)
+        status, h, body = await fetch(target, "GET", path_qs, fwd)
         back = {
             k: h[k]
             for k in ("Etag", "Last-Modified", "Accept-Ranges",
@@ -1021,7 +1042,7 @@ class VolumeServer:
 
         async def one(peer):
             try:
-                status, _, _ = await _peer_request(
+                status, _, _ = await fetch(
                     peer, request.method, path, headers, body)
             except Exception as e:  # noqa: BLE001 — reported in the 500
                 errors.append(f"{peer}: {e}")
@@ -1042,7 +1063,7 @@ class VolumeServer:
             headers["Authorization"] = request.headers["Authorization"]
         for peer in acked:
             try:
-                await _peer_request(
+                await fetch(
                     peer, "DELETE",
                     f"{_quoted_path(request)}?type=replicate",
                     headers)
@@ -1098,17 +1119,35 @@ class VolumeServer:
 
     # ------------------------------------------------------------------ heartbeat
 
+    @staticmethod
+    def _fold_digest(dst: dict, stage, buckets, count, dsum, sign=1) -> None:
+        rec = dst.setdefault(stage, [[0] * len(buckets), 0, 0.0])
+        rec[0] = [a + sign * b for a, b in zip(rec[0], buckets)]
+        rec[1] += sign * count
+        rec[2] += sign * dsum
+
     def _build_telemetry(self) -> master_pb2.VolumeServerTelemetry:
-        """One pulse's telemetry (the reference's _build_telemetry, for
-        what the port has): the device cache's occupancy, evictions and
-        pin claims, the dispatcher's live state and its interactive
-        breaker (the master's repair plane yields while one is open), the
-        read and shed totals, the resident pipeline's overlap and
-        transfer bytes, the residency ladder's census and counters
-        (TieringController.status) and the streaming ingest plane's
-        aggregates (IngestPlane.snapshot and its counters).  Not shipped
-        yet: the stage digests and timeline samples (ROADMAP A7c); the
-        compile_* fields stay 0 and false (no compile cache here)."""
+        """One pulse's telemetry (the reference's _build_telemetry): the
+        device cache's occupancy, evictions and pin claims, the
+        dispatcher's live state and its interactive breaker (the master's
+        repair plane yields while one is open), the read and shed totals,
+        the resident pipeline's overlap and transfer bytes, the residency
+        ladder's census and counters (TieringController.status), the
+        streaming ingest plane's aggregates (IngestPlane.snapshot and its
+        counters), the stage-histogram delta since the previous pulse
+        (pb StageDigest — fixed buckets, so the master merges without raw
+        samples) and the flight timeline's new samples.  The compile_*
+        fields stay 0 and false (no compile cache here).
+
+        Digest and timeline delivery is ack-gated: each pulse's delta
+        joins the backlog, the backlog ships only while no earlier
+        shipment is unconfirmed, and a shipment is confirmed (removed
+        from the backlog) once its heartbeat's response arrives —
+        responses are 1:1 and ordered.  A broken stream re-ships the
+        unconfirmed backlog on reconnect, so observations survive blips;
+        the rare cost is one pulse's digest double-counted when the
+        master applied a heartbeat whose response the break ate — a
+        bounded skew, versus guaranteed loss."""
         tel = master_pb2.VolumeServerTelemetry()
         tel.wall_clock_unix_ms = int(time.time() * 1e3)
         # pod rank: which member of the multi-process mesh this node is
@@ -1174,6 +1213,70 @@ class VolumeServer:
             tel.ingest_rows_host = int(ing["rows_host"])
             tel.ingest_shed_total = sum(ing["sheds"].values())
             tel.ingest_active_pipelines = int(ing["pipelines"])
+        snap = stats.stage_histogram_snapshot()
+        for stage, buckets, count, dsum in stats.stage_digest_deltas(
+            self._stage_snapshot, snap
+        ):
+            self._fold_digest(self._digest_backlog, stage, buckets, count, dsum)
+        self._stage_snapshot = snap
+        if (
+            self._digest_inflight_at is not None
+            and self._hb_acked >= self._digest_inflight_at
+        ):
+            # the shipment's heartbeat was answered: the master applied
+            # it — retire exactly what was shipped from the backlog
+            for stage, (buckets, count, dsum) in self._digest_shipped.items():
+                self._fold_digest(
+                    self._digest_backlog, stage, buckets, count, dsum, sign=-1
+                )
+            self._digest_backlog = {
+                s: rec for s, rec in self._digest_backlog.items() if rec[1] > 0
+            }
+            self._digest_shipped = {}
+            self._digest_inflight_at = None
+        if self._digest_inflight_at is None and self._digest_backlog:
+            for stage, (buckets, count, dsum) in sorted(
+                self._digest_backlog.items()
+            ):
+                d = tel.stage_digests.add()
+                d.stage = stage
+                d.bucket_counts.extend(buckets)
+                d.count = count
+                d.sum_seconds = dsum
+            self._digest_shipped = {
+                s: (list(b), c, ds)
+                for s, (b, c, ds) in self._digest_backlog.items()
+            }
+            # pulses() bumps _hb_sent right after this build, so the
+            # heartbeat carrying this shipment is number _hb_sent + 1
+            self._digest_inflight_at = self._hb_sent + 1
+        # flight-timeline samples ride the same ACK gate: fold the
+        # ring's new suffix into the backlog, retire the in-flight
+        # shipment once its heartbeat is answered, ship the backlog only
+        # while nothing is unconfirmed.  The backlog is capped at one
+        # ring's worth — a long partition drops the OLDEST unshipped
+        # samples (bounded memory; the local /debug/timeline ring still
+        # has them until they age out).
+        if self.timeline is not None:
+            self._timeline_backlog.extend(self.timeline.take_new())
+            drop = len(self._timeline_backlog) - self.timeline.capacity
+            if drop > 0:
+                del self._timeline_backlog[:drop]
+                self._timeline_shipped = max(0, self._timeline_shipped - drop)
+            if (
+                self._timeline_inflight_at is not None
+                and self._hb_acked >= self._timeline_inflight_at
+            ):
+                del self._timeline_backlog[: self._timeline_shipped]
+                self._timeline_shipped = 0
+                self._timeline_inflight_at = None
+            if self._timeline_inflight_at is None and self._timeline_backlog:
+                tel.timeline_samples_json.extend(
+                    json.dumps(s, separators=(",", ":"))
+                    for s in self._timeline_backlog
+                )
+                self._timeline_shipped = len(self._timeline_backlog)
+                self._timeline_inflight_at = self._hb_sent + 1
         return tel
 
     def _identity_heartbeat(self) -> master_pb2.Heartbeat:
@@ -1236,7 +1339,9 @@ class VolumeServer:
                     master_pb2, "Seaweed")
 
         async def pulses():
-            yield self._full_heartbeat()
+            hb = self._full_heartbeat()
+            self._hb_sent += 1
+            yield hb
             n = 0
             while not self._stopping:
                 await asyncio.sleep(
@@ -1257,15 +1362,30 @@ class VolumeServer:
                         self._full_heartbeat() if n % 4 == 0
                         else self._identity_heartbeat()
                     )
+                self._hb_sent += 1
                 yield hb
 
-        # the heartbeat stream is the liveness signal: deliberately
-        # unbounded; a wedged master surfaces as a broken stream
-        async for resp in stub.SendHeartbeat(pulses()):
-            if resp.volume_size_limit:
-                self.store.volume_size_limit = resp.volume_size_limit
-            if resp.leader:
-                self.current_master = resp.leader
+        try:
+            # the heartbeat stream is the liveness signal: deliberately
+            # unbounded; a wedged master surfaces as a broken stream
+            async for resp in stub.SendHeartbeat(pulses()):
+                self._hb_acked += 1
+                if resp.volume_size_limit:
+                    self.store.volume_size_limit = resp.volume_size_limit
+                if resp.leader:
+                    self.current_master = resp.leader
+        finally:
+            # per-stream bookkeeping dies with the stream; an
+            # unconfirmed digest shipment stays in the backlog and
+            # re-ships on the next connection
+            self._hb_sent = 0
+            self._hb_acked = 0
+            self._digest_shipped = {}
+            self._digest_inflight_at = None
+            # unconfirmed timeline samples stay in the backlog and
+            # re-ship whole on the next connection (master dedupes by t)
+            self._timeline_shipped = 0
+            self._timeline_inflight_at = None
 
     # ------------------------------------------------------------------ peer shards
 

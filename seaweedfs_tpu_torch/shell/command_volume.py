@@ -5,10 +5,10 @@ command_volume.py: volume.device.status [-hot], volume.device.attribution,
 volume.tier.status, volume.ingest.status, volume.trace and
 volume.trace.why.  They read the master's /cluster/health.json and each
 volume server's /debug/device/hot, /debug/device/attribution,
-/debug/traces and /debug/critpath over the port's HTTP client.  The port's
-master has no /debug/critpath fan-out yet (ROADMAP A7c), so
-volume.trace.why asks a server given with -node.  The other volume.*
-commands wait for ROADMAP A4c-6.
+/debug/traces and /debug/critpath over the port's HTTP client;
+volume.trace.why asks the master's /debug/critpath (the cross-node
+assembly) unless -node names one server.  The other volume.* commands
+wait for ROADMAP A4c-6.
 """
 from __future__ import annotations
 

@@ -4,12 +4,13 @@ A command is an async function `cmd(env, args: list[str])` registered under
 its dotted name; `help` text comes from the docstring.  The port registers
 the modules it has ported: lock/unlock, the EC verbs (ec.encode,
 ec.rebuild, ec.scrub, ec.balance, ec.decode), the repair plane's
-volume.repair.status / pause / resume, cluster.health, and the readers of
+volume.repair.status / pause / resume, cluster.health, cluster.slo,
+cluster.timeline, cluster.tail, cluster.incident.dump, and the readers of
 the device planes (volume.device.status, volume.device.attribution,
 volume.tier.status, volume.ingest.status, volume.trace,
 volume.trace.why).  The other cluster.* and volume.* commands wait for
-ROADMAP A4c-5, A4c-6 and A7c, fsck for A4c-6, and fs, s3, mq and remote
-for A10.
+ROADMAP A4c-5 and A4c-6, fsck for A4c-6, and fs, s3, mq and remote for
+A10.
 """
 from __future__ import annotations
 

@@ -22,9 +22,8 @@ is the receiving half:
     buckets ("The Tail at Scale"'s prerequisite for hedged routing).
 
 A copy of seaweedfs_tpu/stats/cluster.py on the port's own metric types
-(stats/metrics.py).  The port's volume servers ship no stage digests and
-no timeline samples yet (ROADMAP A7c); the merge below takes them from
-any sender all the same.
+(stats/metrics.py); the port's volume servers ship the stage digests and
+timeline samples it merges (server/volume.py, ACK-gated).
 """
 from __future__ import annotations
 

@@ -800,3 +800,83 @@ def time_request(counter: Counter, histogram: Histogram, kind: str):
         yield
     finally:
         histogram.labels(type=kind).observe(time.perf_counter() - t0)
+
+
+def start_push_loop(
+    job: str,
+    instance: str,
+    address: str,
+    interval_seconds: int,
+    collect=None,
+):
+    """Background task PUSHING the registry to a Prometheus pushgateway
+    (reference metrics.go:263-283 LoopPushingMetric): PUT the text
+    exposition to /metrics/job/<job>/instance/<instance> every
+    `interval_seconds`, over the port's HTTP client (server/http.py).
+    Returns the asyncio.Task (cancel on server stop), or None when no
+    address/interval is configured — serving /metrics locally is
+    unaffected either way."""
+    import asyncio
+
+    # interval 0 = pushing disabled even with an address, matching the
+    # reference's early return (metrics.go:264-266)
+    if not address or interval_seconds == 0:
+        return None
+    if interval_seconds < 0:
+        # misconfigured negative interval would busy-loop; the reference
+        # clamps to its 15s default the same way (metrics.go:277-279)
+        interval_seconds = 15
+    return asyncio.create_task(
+        _push_loop(job, instance, address, interval_seconds, collect)
+    )
+
+
+async def _push_loop(job, instance, address, interval_seconds, collect):
+    import asyncio
+    import logging
+    import urllib.parse
+
+    from ..server.http import fetch
+
+    log = logging.getLogger("stats")
+    parts = urllib.parse.urlsplit(
+        address if "://" in address else f"http://{address}")
+    hostport = f"{parts.hostname}:{parts.port or 80}"
+    path = (
+        f"{parts.path.rstrip('/')}/metrics/job/"
+        f"{urllib.parse.quote(job, safe='')}"
+        f"/instance/{urllib.parse.quote(instance, safe='')}"
+    )
+    url = f"http://{hostport}{path}"
+    log.info("pushing metrics to %s every %ds", url, interval_seconds)
+
+    async def push_once():
+        if collect is not None:
+            collect()
+        status, _, _ = await fetch(
+            hostport, "PUT", path,
+            headers={"Content-Type": CONTENT_TYPE_LATEST},
+            body=generate_latest(REGISTRY), timeout=30.0,
+        )
+        if status >= 300:
+            log.warning("pushgateway %s returned HTTP %d", url, status)
+
+    try:
+        while True:
+            try:
+                await push_once()
+            except asyncio.CancelledError:
+                raise
+            except Exception as e:  # noqa: BLE001 — the gateway being
+                # down must not kill the server's push loop
+                log.warning("could not push metrics to %s: %s", url, e)
+            await asyncio.sleep(interval_seconds)
+    except asyncio.CancelledError:
+        # final best-effort push so a short-lived run (benchmark, CI
+        # job) doesn't silently drop the last interval's samples —
+        # bounded, so a dead gateway can't stall server shutdown
+        try:
+            await asyncio.wait_for(push_once(), timeout=2.0)
+        except Exception:  # noqa: BLE001
+            log.debug("final metrics push to %s failed", url)
+        raise

@@ -7,7 +7,8 @@ master's /cluster/health.json and /metrics, the shell's readers).
   plain volume behind the streaming ingest plane) get the same writes, the
   same reads and the same forced breaker state; their `_build_telemetry()`
   must agree field for field but the stage digests and timeline samples
-  (the port ships none yet, ROADMAP A7c), the compile_* fields (the port
+  (timing-dependent; their shipping is held against the reference in
+  tests/test_torch_telemetry_shipping.py), the compile_* fields (the port
   has no compile cache), the wall clock and the pipeline's transfer bytes
   (each package's kernels move different bytes).
 - `ClusterTelemetry`: a seeded heartbeat sequence, carried across as wire
@@ -81,7 +82,7 @@ def small_caches(monkeypatch):
 _REGISTRY_FIELDS = ("dispatcher_shed", "ec_reads_total",
                     "ec_reads_shed_total", "ingest_bytes_total",
                     "ingest_fsyncs_total", "ingest_streamed_seals")
-# the reference's and not the port's (see the module docstring)
+# not compared field for field (see the module docstring)
 _SKIPPED = {"stage_digests", "timeline_samples_json", "compile_hits",
             "compile_misses", "compile_cache_enabled", "wall_clock_unix_ms",
             "ec_h2d_bytes", "ec_d2h_bytes"}
@@ -296,8 +297,8 @@ def _cluster_lines(text: str, stage_set) -> list[str]:
     """The SeaweedFS_cluster_* samples of a /metrics text, sorted, that
     this ClusterTelemetry's refresh sets: stage series only for
     `stage_set`, and no SLO series (earlier tests in the process may
-    have set others, which a refresh leaves as they were; nothing sets
-    the port's SLO series before ROADMAP A7c)."""
+    have set others, which a refresh leaves as they were; the SLO
+    series are the SLO engine's, not the refresh's)."""
     out = []
     for line in text.splitlines():
         if not re.match(r"^SeaweedFS_cluster_\w", line) or "_created" in line \
@@ -577,9 +578,30 @@ async def _shell_case(side, blobs):
     return out
 
 
-def test_telemetry_shell_commands_match_the_reference(tmp_path, small_caches):
+def _digests_from_construction(monkeypatch, vs_cls, metrics_mod):
+    """Each server's first heartbeat ships its stage histograms' growth
+    since the server was built, not since the process began: earlier
+    tests of this process observed into each package's registry
+    differently."""
+    init = vs_cls.__init__
+
+    def patched(self, *args, **kwargs):
+        init(self, *args, **kwargs)
+        self._stage_snapshot = metrics_mod.stage_histogram_snapshot()
+
+    monkeypatch.setattr(vs_cls, "__init__", patched)
+
+
+def test_telemetry_shell_commands_match_the_reference(tmp_path, small_caches,
+                                                      monkeypatch):
+    from seaweedfs_tpu.server.volume import VolumeServer as RefVolumeServer
     from test_torch_cluster import _blobs
     from test_torch_repair import _side_class
+
+    _digests_from_construction(monkeypatch, server_volume.VolumeServer,
+                               stats.metrics)
+    _digests_from_construction(monkeypatch, RefVolumeServer,
+                               jax_stats.metrics)
 
     Side = _side_class()
     blobs = _blobs()[:8]
@@ -593,18 +615,17 @@ def test_telemetry_shell_commands_match_the_reference(tmp_path, small_caches):
                                        vkw), blobs))
     port = asyncio.run(_shell_case(Side("port", str(tmp_path / "port"), 2,
                                         kw, vkw), blobs))
-    # the reference's servers ship stage digests, the port's not yet
-    # (ROADMAP A7c): its merged-digest block is left out
-    lines = ref["cluster.health"]
-    if "stage latency estimates (merged digests):" in lines:
-        ref["cluster.health"] = lines[:lines.index(
-            "stage latency estimates (merged digests):")]
+    # both packages' servers ship stage digests: the merged-digest block
+    # is compared with the rest
+    assert "stage latency estimates (merged digests):" in port[
+        "cluster.health"]
     for key in ("cluster.health", "volume.device.status",
                 "volume.tier.status", "volume.ingest.status",
                 "volume.trace", "volume.trace.why"):
         # rows come in address order, and the ports are the OS's choice
         assert sorted(port[key]) == sorted(ref[key]), key
-    # the documents: the port's lacks only the SLO block (ROADMAP A7c)
+    # the documents: the same blocks, the SLO engine's (no objective
+    # declared) and the merged stage digests included
     docs, compile_fields = [], []
     for side in (port, ref):
         doc = json.loads(side["cluster.health -json"])
@@ -620,10 +641,10 @@ def test_telemetry_shell_commands_match_the_reference(tmp_path, small_caches):
     assert compile_fields[0] == [{"compile_hits": 0, "compile_misses": 0,
                                   "compile_cache_enabled": False}] * 2
     mine, theirs = docs
-    assert set(theirs) - set(mine) == {"slo"} and set(mine) <= set(theirs)
-    theirs.pop("slo")
-    assert mine["cluster"]["stages"] == {}
-    theirs["cluster"]["stages"] = {}
+    assert set(mine) == set(theirs)
+    assert mine["slo"] == theirs["slo"] and mine["slo"]["objectives"] == {}
+    assert mine["cluster"]["stages"] and \
+        set(mine["cluster"]["stages"]) == set(theirs["cluster"]["stages"])
     assert _doc_shape(mine) == _doc_shape(theirs)
     assert mine["cluster"]["ec_volume_residency"] == \
         theirs["cluster"]["ec_volume_residency"] == {"1": {"server-a": 14}}

@@ -1055,6 +1055,97 @@ def test_debug_profile_on_a_live_server_returns_kernel_events(
     assert doc["hot_shapes"] and doc["hot_shapes"][0]["dispatches"] > 0
 
 
+def test_incident_bundle_profiles_a_live_server_on_the_card(
+        cuda_device, tmp_path, monkeypatch):
+    """The master's incident bundler, fired by hand for a latency SLO
+    against an in-process server serving resident reads: the bundle's
+    profile is the server's CUPTI capture, with no error, and its trace
+    names the fused reconstruct kernel with device time."""
+    import asyncio
+    import json
+    import tempfile
+
+    from seaweedfs_tpu_torch.obs import incident as obs_incident
+    from seaweedfs_tpu_torch.server.http import Client
+    from seaweedfs_tpu_torch.server.volume import VolumeServer
+    from seaweedfs_tpu_torch.storage import types as t
+    from seaweedfs_tpu_torch.utils import devtime
+
+    monkeypatch.setenv("SWFS_DEBUG", "1")
+    monkeypatch.setenv("TMPDIR", str(tmp_path))
+    monkeypatch.setattr(tempfile, "tempdir", None)
+    monkeypatch.setattr(obs_incident, "CONFIG", obs_incident.IncidentConfig(
+        dir=str(tmp_path / "incidents"), min_interval_seconds=0.0,
+        profile_seconds=2.0))
+    rng = np.random.default_rng(31)
+    items = [(i, int(rng.integers(0, 1 << 32)), rng.bytes(30000))
+             for i in range(1, 41)]
+    vdir = tmp_path / "v"
+    vdir.mkdir()
+    v = Volume(str(vdir), 1)
+    for nid, cookie, data in items:
+        v.write(nid, cookie, data)
+    v.close()
+    base = str(vdir / "1")
+    ec.write_ec_files(base)
+    ec.write_sorted_file_from_idx(base)
+    for ext in (".dat", ".idx", ec.to_ext(0), ec.to_ext(11)):
+        os.remove(base + ext)
+
+    async def go():
+        vs = VolumeServer([], [str(vdir)], port=0, ec_backend="cuda",
+                          ec_device_cache_mb=2048)
+        await vs.start()
+        try:
+            c = Client("127.0.0.1", vs.port)
+            for _ in range(600):
+                st = json.loads((await c.request("GET", "/status"))[2])
+                if st["EcVolumes"][0]["serving"]:
+                    break
+                await asyncio.sleep(0.05)
+            await c.close()
+            stop = asyncio.Event()
+
+            async def reader(i):
+                cl = Client("127.0.0.1", vs.port)
+                try:
+                    k = i
+                    while not stop.is_set():
+                        nid, cookie, data = items[k % len(items)]
+                        status, _, body = await cl.request(
+                            "GET", "/" + t.format_fid(1, nid, cookie))
+                        assert (status, body) == (200, data)
+                        k += 1
+                finally:
+                    await cl.close()
+
+            readers = [asyncio.ensure_future(reader(i)) for i in range(8)]
+            bundler = obs_incident.IncidentBundler(
+                lambda: [vs.url],
+                lambda: {"nodes": {vs.url: {"dispatcher": {
+                    "queue_depth": 1}}}})
+            await asyncio.sleep(0.5)
+            summary = await bundler.capture(
+                {"slo": "read_p99", "latency": True}, window_s=30.0)
+            stop.set()
+            await asyncio.gather(*readers)
+            return summary
+        finally:
+            await vs.stop()
+
+    summary = asyncio.run(go())
+    with open(summary["path"]) as f:
+        bundle = json.load(f)
+    prof = bundle["profile"]
+    assert "error" not in prof and prof["node"] in bundle["nodes"]
+    assert "error" not in bundle["nodes"][prof["node"]]
+    assert bundle["critpaths"]
+    events = devtime.kernel_events(os.path.join(prof["trace_dir"],
+                                                "trace.json"))
+    fused = [dur for name, _, dur in events if "fused_reconstruct" in name]
+    assert fused and sum(fused) > 0, {name for name, _, _ in events}
+
+
 def test_device_avg_ms_is_kernel_time(cuda_device):
     """devtime.device_avg_ms sums the capture's kernel records: at or
     under a CUDA-event bracket of the same calls, and above 0."""

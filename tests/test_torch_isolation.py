@@ -62,7 +62,10 @@ def test_every_port_module_is_walked():
                  "seaweedfs_tpu_torch.obs.tailstore",
                  "seaweedfs_tpu_torch.obs.timeline",
                  "seaweedfs_tpu_torch.obs.profile",
+                 "seaweedfs_tpu_torch.obs.slo",
                  "seaweedfs_tpu_torch.utils.devtime",
+                 "seaweedfs_tpu_torch.utils.profiling",
+                 "seaweedfs_tpu_torch.command.common_args",
                  "seaweedfs_tpu_torch.command.version",
                  "seaweedfs_tpu_torch.ops.rs_resident",
                  "seaweedfs_tpu_torch.storage.store",
@@ -329,6 +332,98 @@ def test_chip_smoke_refuses_without_cuda(tmp_path):
         )
         assert proc.returncode != 0
         assert '"ok"' not in proc.stdout
+
+
+def test_incident_plane_runs_without_aiohttp_grpc_or_prometheus(tmp_path):
+    """The master's SLO engine, incident bundler (its fan-out and a
+    profile capture), /debug/critpath fan-out, /debug/timeline,
+    /debug/stacks, the push loop and the four cluster.* shell readers, in
+    an interpreter where aiohttp, grpc, google.protobuf,
+    prometheus_client, JAX and the JAX package cannot be imported."""
+    code = f"""
+import asyncio, importlib.abc, io, json, os, sys
+def bad_name(name):
+    return name.split(".")[0] in {FORBIDDEN_ROOTS!r} or any(
+        name == p or name.startswith(p + ".") for p in {FORBIDDEN_PACKAGES!r})
+class Refuse(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path, target=None):
+        if bad_name(name):
+            raise ImportError("port imported " + name)
+sys.meta_path.insert(0, Refuse())
+os.environ["SWFS_DEBUG"] = "1"
+from seaweedfs_tpu_torch import obs, stats
+from seaweedfs_tpu_torch.operation import assign, upload_data
+from seaweedfs_tpu_torch.server.cluster import LocalCluster
+from seaweedfs_tpu_torch.server.http import Client, HTTPServer, Response
+from seaweedfs_tpu_torch.shell import CommandEnv, run_command
+pushes = []
+async def sink(req):
+    pushes.append(req.path.split("/")[3])
+    return Response(200)
+async def go():
+    gw = HTTPServer(sink)
+    await gw.start()
+    addr = "127.0.0.1:%d" % gw.port
+    c = LocalCluster(n_volume_servers=2, base_dir={str(tmp_path)!r},
+                     ec_backend="torch",
+                     volume_kwargs=dict(metrics_address=addr,
+                                        metrics_interval_seconds=1),
+                     master_kwargs=dict(
+                         metrics_address=addr, metrics_interval_seconds=1,
+                         obs_slo=obs.SloConfig(read_p99_ms=1e-4,
+                                               read_stage="shard_read",
+                                               fast_window_seconds=1.0,
+                                               slow_window_seconds=2.0),
+                         obs_incident=obs.IncidentConfig(
+                             dir={str(tmp_path / "inc")!r},
+                             profile_seconds=0.1)))
+    await c.start()
+    try:
+        a = await assign(c.master.advertise_url)
+        await upload_data("http://" + a.url + "/" + a.fid, b"x" * 5000, "x")
+        host, port = a.url.split(":")
+        for _ in range(100):
+            cl = Client(host, int(port))
+            st, h, body = await cl.request("GET", "/" + a.fid)
+            await cl.close()
+            assert st == 200 and body == b"x" * 5000
+            # a plain volume's read records no shard_read span: observe
+            # one into the servers' (co-hosted) stage histogram
+            stats.REQUEST_STAGE_SECONDS.labels(stage="shard_read").observe(
+                0.01)
+            if c.master.incident.bundles_written:
+                break
+            await asyncio.sleep(0.2)
+        assert c.master.incident.bundles_written == 1
+        tid = h["X-Seaweed-Trace-Id"].split("-")[0]
+        mc = Client(c.master.ip, c.master.port)
+        for path in ("/debug/critpath?id=" + tid, "/debug/timeline",
+                     "/debug/stacks", "/debug/tail", "/debug/incident"):
+            st, _, _ = await mc.request("GET", path)
+            assert st == 200, path
+        await mc.close()
+        env = CommandEnv([c.master.advertise_url], out=io.StringIO())
+        for line in ("cluster.slo", "cluster.timeline", "cluster.tail",
+                     "cluster.incident.dump"):
+            await run_command(env, line)
+        return env.out.getvalue()
+    finally:
+        await c.stop()
+        await gw.stop()
+out = asyncio.run(go())
+assert "incident bundle written" in out and "read_p99" in out, out
+assert {{"master", "volumeServer"}} <= set(pushes), pushes
+bad = [m for m in sys.modules if bad_name(m)]
+assert not bad, bad
+print("clean")
+"""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run(
+        [sys.executable, "-c", code], cwd=REPO, env=env,
+        capture_output=True, text=True, timeout=180,
+    )
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    assert proc.stdout.strip().endswith("clean")
 
 
 def test_cluster_path_runs_without_grpc_or_protobuf(tmp_path):

@@ -505,12 +505,80 @@ def test_cli_flags_parse_with_the_reference_spellings(tmp_path):
                 p.parse_args(["volume", "-dir", str(tmp_path)] + bad))
     vs = command.volume.build_server(
         p.parse_args(["volume", "-dir", str(tmp_path), "-mserver", "m:1",
-                      "-ec.backend", "torch"]))
+                      "-ec.backend", "torch", "-metrics.address", "gw:9091",
+                      "-metrics.intervalSeconds", "7"]))
     try:
         assert vs.masters == ["m:1"]
+        assert (vs.metrics_address, vs.metrics_interval_seconds) == (
+            "gw:9091", 7)
     finally:
         vs.store.close()
         faultpolicy.configure(faultpolicy.FaultPolicyConfig())
+    _master_flags_parse_with_the_reference_spellings(p, tmp_path)
+
+
+MASTER_ARGV = [
+    "-obs.slo.readP99Ms", "12.5", "-obs.slo.readStage", "queue_wait",
+    "-obs.slo.errorRatePct", "2", "-obs.slo.timeToHealthySeconds", "45",
+    "-obs.slo.breakerOpenPct", "5", "-obs.slo.fastWindowSeconds", "3",
+    "-obs.slo.slowWindowSeconds", "9", "-obs.slo.burnThreshold", "1.5",
+    "-obs.incident.dir", "/var/incidents", "-obs.incident.keep", "4",
+    "-obs.incident.minIntervalSeconds", "30",
+    "-obs.incident.profileSeconds", "2", "-metrics.address", "gw:9091",
+    "-metrics.intervalSeconds", "3", "-obs.traceRing", "64",
+]
+
+
+def _master_flags_parse_with_the_reference_spellings(p, tmp_path):
+    """The master's -obs.slo.*, -obs.incident.*, -metrics.* and -obs.*
+    flags parse to the reference's values and build the same SloConfig
+    and IncidentConfig; -cpuprofile and -memprofile go before the
+    command, as the reference's."""
+    import argparse
+    import dataclasses
+
+    from seaweedfs_tpu.command import master as ref_master_cmd
+    from seaweedfs_tpu.obs import incident as ref_incident
+    from seaweedfs_tpu.obs import trace as ref_trace
+    from seaweedfs_tpu_torch.obs import incident as port_incident
+    from seaweedfs_tpu_torch.obs import trace as port_trace
+
+    ref_p = argparse.ArgumentParser()
+    ref_master_cmd.add_args(ref_p)
+    for argv in ([], MASTER_ARGV, ["-obs.slo.disable"]):
+        ref = ref_p.parse_args(argv)
+        port = p.parse_args(["master"] + argv)
+        for dest in vars(ref):
+            if dest.startswith(("obs_", "metrics_")):
+                assert getattr(port, dest) == getattr(ref, dest), dest
+        saved = (port_trace.CONFIG, port_incident.CONFIG,
+                 ref_trace.CONFIG, ref_incident.CONFIG)
+        try:
+            ms = command.master.build_server(port)
+            from seaweedfs_tpu.command import common_args as ref_common
+
+            want = ref_common.slo_incident_kwargs(ref)
+            assert dataclasses.asdict(ms.slo.cfg) == dataclasses.asdict(
+                want["obs_slo"].validated())
+            assert dataclasses.asdict(port_incident.CONFIG) == \
+                dataclasses.asdict(want["obs_incident"])
+            assert (ms.metrics_address, ms.metrics_interval_seconds) == (
+                ref.metrics_address, ref.metrics_interval_seconds)
+            assert port_trace.CONFIG.trace_ring == ref.obs_trace_ring
+        finally:
+            port_trace.configure(saved[0])
+            port_incident.configure(saved[1])
+            ref_trace.configure(saved[2])
+            ref_incident.configure(saved[3])
+    args = p.parse_args(["-cpuprofile", str(tmp_path / "cpu.prof"),
+                         "-memprofile", str(tmp_path / "mem.txt"), "master"])
+    assert (args.cpuprofile, args.memprofile, args.command) == (
+        str(tmp_path / "cpu.prof"), str(tmp_path / "mem.txt"), "master")
+    assert p.parse_args(["master"]).cpuprofile == ""
+    with pytest.raises(ValueError):
+        command.master.build_server(p.parse_args(
+            ["master", "-obs.slo.readP99Ms", "5", "-obs.slo.readStage",
+             "batch_dispach"]))
 
 
 def test_cli_cuda_without_a_card_fails_at_start(tmp_path):
