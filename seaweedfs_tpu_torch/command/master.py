@@ -24,8 +24,15 @@ flags every server role shares (command/common_args.py):
 
 The master itself does no device work; its repair jobs run K1 on the
 volume servers' cards, and a latency SLO's bundle holds a torch.profiler
-capture of the busiest volume server's card.  `-peers`, `-mdir` and
-vacuum wait for ROADMAP A4c-3 and A4c-5.
+capture of the busiest volume server's card.  `-garbageThreshold` is the
+garbage ratio past which a vacuum pass compacts a volume, and
+`-autoVacuum` runs a pass every three pulses (off by default, as in the
+reference):
+
+    python3 -m seaweedfs_tpu_torch master -port 9333 \
+        -garbageThreshold 0.3 -autoVacuum
+
+`-peers` and `-mdir` wait for ROADMAP A4c-5.
 """
 from __future__ import annotations
 
@@ -54,6 +61,14 @@ def add_args(p) -> None:
         help="XYZ replica placement when an assign doesn't specify one",
     )
     p.add_argument("-pulseSeconds", dest="pulse_seconds", type=int, default=5)
+    p.add_argument(
+        "-garbageThreshold", dest="garbage_threshold", type=float, default=0.3,
+        help="vacuum when garbage ratio exceeds this",
+    )
+    p.add_argument(
+        "-autoVacuum", dest="auto_vacuum", action="store_true",
+        help="periodically drive the vacuum protocol",
+    )
     # the repair plane (repair/config.py RepairConfig): the master's
     # autonomous ec.rebuild loop over the telemetry plane
     p.add_argument(
@@ -149,6 +164,8 @@ def build_server(args):
         volume_size_limit_mb=args.volume_size_limit_mb,
         default_replication=args.default_replication,
         pulse_seconds=args.pulse_seconds,
+        garbage_threshold=args.garbage_threshold,
+        auto_vacuum=args.auto_vacuum,
         ec_repair=repair_config(args),
         **common_args.metrics_kwargs(args),
         **common_args.slo_incident_kwargs(args),

@@ -8,9 +8,10 @@ topology (topology/) that volume servers' heartbeats build, and answers:
     stream unregisters the node), Assign, LookupVolume, LookupEcVolume,
     VolumeList (the topology as JSON, which the shell reads),
     LeaseAdminToken / ReleaseAdminToken (the shell's exclusive lock),
-    PauseRepair / ResumeRepair;
+    PauseRepair / ResumeRepair, VacuumVolume / DisableVacuum /
+    EnableVacuum;
   - HTTP (server/http.py): /dir/assign, /dir/lookup, /dir/status,
-    /vol/grow, /cluster/health.json, /metrics, and the observability
+    /vol/grow, /vol/vacuum, /cluster/health.json, /metrics, and the observability
     plane: /debug/traces (its own ring), /debug/critpath (assembled
     cluster-wide: a fan-out over every fresh node's /debug/traces, clocks
     reconciled by the heartbeat skew estimates), /debug/tail (its own
@@ -23,7 +24,10 @@ Every heartbeat's telemetry feeds the cluster telemetry plane
 (stats/cluster.py: staleness, the SeaweedFS_cluster_* gauges, the merged
 stage digests, the timeline, the health document), and the repair plane
 (repair/scheduler.py) rebuilds lost or corrupt EC shards on its own, each
-job ending in a VolumeEcShardsRebuild (K1 on the rebuilder's card).  The
+job ending in a VolumeEcShardsRebuild (K1 on the rebuilder's card).
+Vacuum drives Check -> Compact (every replica) -> Commit, or Cleanup on
+all when one compact failed, over the volume servers' rpcs, on demand
+(VacuumVolume, /vol/vacuum) or every three pulses with -autoVacuum.  The
 SLO engine (obs/slo.py) judges the declared -obs.slo.* objectives every
 pulse; a sustained burn fires the incident bundler (obs/incident.py),
 which writes one correlated bundle under -obs.incident.dir — for a
@@ -33,7 +37,7 @@ growth allocates over the volume servers' AllocateVolume RPC.  The master
 itself does no device work.  Not here (ROADMAP): raft and the leader
 proxying that comes with it (A4c-5; `is_leader` is always true),
 KeepConnected and the location broadcast (no client of the port
-subscribes), vacuum, collection RPCs, write JWTs, the UI.
+subscribes), collection RPCs, write JWTs, the UI.
 """
 from __future__ import annotations
 
@@ -97,6 +101,8 @@ class MasterServer:
         volume_size_limit_mb: int = 30 * 1024,
         default_replication: str = "000",
         pulse_seconds: int = 5,
+        garbage_threshold: float = 0.3,
+        auto_vacuum: bool = False,
         ec_repair=None,  # repair.RepairConfig | None (-ec.repair.* flags)
         metrics_address: str = "",  # pushgateway host:port (ref -metrics.address)
         metrics_interval_seconds: int = 15,  # ref -metrics.intervalSeconds
@@ -110,6 +116,9 @@ class MasterServer:
         self.grpc_port = grpc_port or (port + 10000 if port else 0)
         self.default_replication = default_replication
         self.pulse_seconds = pulse_seconds
+        self.garbage_threshold = garbage_threshold
+        self.auto_vacuum = auto_vacuum
+        self.vacuum_disabled = False
         self.topo = Topology(
             volume_size_limit=volume_size_limit_mb * 1024 * 1024,
             pulse_seconds=pulse_seconds,
@@ -150,6 +159,7 @@ class MasterServer:
             "/dir/lookup": self.h_lookup,
             "/dir/status": self.h_dir_status,
             "/vol/grow": self.h_grow,
+            "/vol/vacuum": self.h_vacuum,
             "/cluster/health.json": self.h_cluster_health,
             "/metrics": self.h_metrics,
             "/debug/traces": obs.traces_handler,
@@ -215,6 +225,10 @@ class MasterServer:
                 spawn_logged(self._slo_loop(), log, "slo evaluation loop")
             )
         self.repair.start()
+        if self.auto_vacuum:
+            self._tasks.append(
+                spawn_logged(self._vacuum_loop(), log, "auto-vacuum loop")
+            )
         push = stats.start_push_loop(
             "master", self.url, self.metrics_address,
             self.metrics_interval_seconds,
@@ -394,6 +408,24 @@ class MasterServer:
         self.repair.resume()
         return master_pb2.ResumeRepairResponse()
 
+    async def VacuumVolume(self, request, context):
+        await self._vacuum_pass(
+            request.garbage_threshold or self.garbage_threshold,
+            request.volume_id or 0,
+        )
+        return master_pb2.VacuumVolumeResponse()
+
+    async def DisableVacuum(self, request, context):
+        """volume.vacuum.disable (reference master_grpc_server_volume.go
+        DisableVacuum): stops the periodic scan AND manual passes until
+        re-enabled."""
+        self.vacuum_disabled = True
+        return master_pb2.DisableVacuumResponse()
+
+    async def EnableVacuum(self, request, context):
+        self.vacuum_disabled = False
+        return master_pb2.EnableVacuumResponse()
+
     # ------------------------------------------------------------------ growth
 
     def _grow_option(
@@ -567,6 +599,77 @@ class MasterServer:
         if not vids:
             return json_response({"error": "growth failed"}, status=500)
         return json_response({"count": len(vids), "vids": vids})
+
+    async def h_vacuum(self, request: Request) -> Response:
+        threshold = float(
+            request.query.get("garbageThreshold", self.garbage_threshold)
+        )
+        n = await self._vacuum_pass(threshold)
+        return json_response({"vacuumed": n})
+
+    # ------------------------------------------------------------------ vacuum
+
+    async def _vacuum_loop(self) -> None:
+        while True:
+            await asyncio.sleep(self.pulse_seconds * 3)
+            try:
+                await self._vacuum_pass(self.garbage_threshold)
+            except Exception:
+                log.exception("vacuum pass failed")
+
+    async def _vacuum_pass(self, threshold: float, only_vid: int = 0) -> int:
+        """Drive Check -> Compact -> Commit over the RPC plane
+        (topology_vacuum.go:220-269).  With `only_vid` that volume is
+        vacuumed whatever its garbage ratio.  The volume is read-only in
+        its layout for the duration; it commits on every replica only
+        when every compact succeeded, else cleans up on all."""
+        if self.vacuum_disabled:
+            return 0
+        done = 0
+        for _, vl in self.topo.layouts():
+            for vid, loc in list(vl.vid2location.items()):
+                if only_vid and vid != only_vid:
+                    continue
+                nodes = list(loc.nodes)
+                if not nodes:
+                    continue
+                ratios = []
+                for n in nodes:
+                    try:
+                        r = await self._volume_stub(n).VacuumVolumeCheck(
+                            volume_server_pb2.VacuumVolumeCheckRequest(
+                                volume_id=vid)
+                        )
+                        ratios.append(r.garbage_ratio)
+                    except RpcError:
+                        ratios.append(0.0)
+                if not only_vid and (not ratios or min(ratios) <= threshold):
+                    continue
+                vl.set_readonly(vid, True)
+                try:
+                    ok = True
+                    for n in nodes:
+                        try:
+                            async for _ in self._volume_stub(n).VacuumVolumeCompact(
+                                volume_server_pb2.VacuumVolumeCompactRequest(
+                                    volume_id=vid)
+                            ):
+                                pass
+                        except RpcError:
+                            ok = False
+                    for n in nodes:
+                        verb = "VacuumVolumeCommit" if ok else "VacuumVolumeCleanup"
+                        try:
+                            await getattr(self._volume_stub(n), verb)(
+                                getattr(volume_server_pb2, verb + "Request")(
+                                    volume_id=vid)
+                            )
+                        except RpcError:
+                            pass
+                    done += ok
+                finally:
+                    vl.set_readonly(vid, False)
+        return done
 
     # ---------------------------------------------------------- incident plane
 

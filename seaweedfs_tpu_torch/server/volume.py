@@ -46,7 +46,9 @@ flight timeline's samples on every pulse (the last two ACK-gated: what a
 pulse the master never answered carried ships again).  Its own RPC
 listener (-port.grpc) serves the `VolumeServer` rpcs the shell's EC verbs
 and peers call: volume lifecycle (AllocateVolume, VolumeMount/Unmount/
-Delete, VolumeMarkReadonly/Writable, VolumeStatus), CopyFile, and the EC
+Delete, VolumeMarkReadonly/Writable, VolumeConfigure, VolumeStatus), the
+master's vacuum protocol (VacuumVolumeCheck/Compact/Commit/Cleanup; the
+compact invalidates the volume's ingest pipeline first), CopyFile, and the EC
 service — VolumeEcShardsGenerate and VolumeEcShardsRebuild (K1 on the
 card), VolumeEcShardsCopy/Delete/Mount/Unmount, VolumeEcShardRead (raw
 shard bytes to a peer), VolumeEcBlobDelete, VolumeEcShardsVerify (the
@@ -62,8 +64,8 @@ GET of a volume held elsewhere is proxied to a holder or, with
 `-readMode redirect`, redirected at it.
 
 Blocking storage and device work runs via asyncio.to_thread.  Not here
-(ROADMAP A4c): write JWTs, TTL sweeps, vacuum, tier moves and
-the other admin rpcs; image resizing waits for the images package.
+(ROADMAP A4c-4): write JWTs, TTL sweeps, tier moves and the other admin
+rpcs; image resizing waits for the images package.
 """
 from __future__ import annotations
 
@@ -99,6 +101,7 @@ from ..pb import (
 from ..serving import EcReadDispatcher, ServingConfig, TieringController
 from ..serving import qos as qos_mod
 from ..storage import types as t
+from ..storage import vacuum as vacuum_mod
 from ..storage.disk_location import DiskLocation
 from ..storage.ec import (
     ec_base_name,
@@ -306,6 +309,9 @@ class VolumeServer:
         # vid -> (fetched at, shard id -> peer RPC addresses), from the
         # master's LookupEcVolume
         self._ec_locations: dict[int, tuple[float, dict[int, list[str]]]] = {}
+        # vid -> (cpd, cpx, idx snapshot) between VacuumVolumeCompact and
+        # its Commit or Cleanup
+        self._pending_compacts: dict[int, tuple[str, str, int]] = {}
         self._stopping = False
         self._rpc: RpcServer | None = None
         self.ec_scrub_interval_seconds = ec_scrub_interval_seconds
@@ -543,7 +549,9 @@ class VolumeServer:
 
     async def h_status(self, request: Request) -> Response:
         """The reference's JSON status, plus each EC volume's local and
-        resident shards (its operator page shows the same)."""
+        resident shards (its operator page shows the same) and, with the
+        ingest plane on, each volume's streaming pipeline (rows encoded
+        on the card or the host, valid, and why not)."""
         infos = await asyncio.to_thread(self.store.volume_infos)
         cache = self.store.ec_device_cache
         resident = cache.resident_by_vid() if cache is not None else {}
@@ -558,13 +566,14 @@ class VolumeServer:
             for loc in self.store.locations
             for ev in loc.ec_volumes.values()
         ]
-        return json_response(
-            {
-                "Version": "seaweedfs-tpu",
-                "Volumes": [vars(i) for i in infos],
-                "EcVolumes": ec,
-            }
-        )
+        doc = {
+            "Version": "seaweedfs-tpu",
+            "Volumes": [vars(i) for i in infos],
+            "EcVolumes": ec,
+        }
+        if self.store.ingest is not None:
+            doc["Ingest"] = self.store.ingest.status()
+        return json_response(doc)
 
     async def h_metrics(self, request: Request) -> Response:
         self._collect_metrics()
@@ -1532,6 +1541,19 @@ class VolumeServer:
             await context.abort(StatusCode.NOT_FOUND, str(e))
         return volume_server_pb2.VolumeMarkWritableResponse()
 
+    async def VolumeConfigure(self, request, context):
+        v = self.store.find_volume(request.volume_id)
+        if v is None:
+            return volume_server_pb2.VolumeConfigureResponse(error="not found")
+        try:
+            await asyncio.to_thread(
+                v.update_replica_placement,
+                t.ReplicaPlacement.parse(request.replication),
+            )
+        except ValueError as e:
+            return volume_server_pb2.VolumeConfigureResponse(error=str(e))
+        return volume_server_pb2.VolumeConfigureResponse()
+
     async def VolumeStatus(self, request, context):
         v = self.store.find_volume(request.volume_id)
         if v is None:
@@ -1542,10 +1564,63 @@ class VolumeServer:
             volume_size=info.size,
             file_count=info.file_count,
             file_deleted_count=info.delete_count,
+            compact_revision=v.super_block.compaction_revision,
             version=v.version,
             ttl=str(v.super_block.ttl),
             replication=str(v.super_block.replica_placement),
         )
+
+    # ------------------------------------------------------------------ RPC: vacuum
+
+    async def VacuumVolumeCheck(self, request, context):
+        t0 = time.perf_counter()
+        v = self.store.find_volume(request.volume_id)
+        if v is None:
+            await context.abort(StatusCode.NOT_FOUND, "volume not found")
+        ratio = v.garbage_ratio
+        stats.VOLUME_SERVER_VACUUMING_SECONDS.labels(type="check").observe(
+            time.perf_counter() - t0)
+        return volume_server_pb2.VacuumVolumeCheckResponse(garbage_ratio=ratio)
+
+    async def VacuumVolumeCompact(self, request, context):
+        t0 = time.perf_counter()
+        v = self.store.find_volume(request.volume_id)
+        if v is None:
+            await context.abort(StatusCode.NOT_FOUND, "volume not found")
+        # Departure from the reference, which leaves the pipeline valid on
+        # this path: the compaction moves every needle's offset, so the
+        # streamed parity is stale from here on.  Invalidated before the
+        # copy, not at commit: a feed between the two would stage a row of
+        # the old .dat.  A Cleanup leaves it invalid (the seal runs
+        # offline, which is always right).
+        self.store.invalidate_ingest(request.volume_id)
+        cpd, cpx, snap = await asyncio.to_thread(vacuum_mod.compact, v)
+        self._pending_compacts[request.volume_id] = (cpd, cpx, snap)
+        stats.VOLUME_SERVER_VACUUMING_SECONDS.labels(type="compact").observe(
+            time.perf_counter() - t0)
+        yield volume_server_pb2.VacuumVolumeCompactResponse(
+            processed_bytes=os.path.getsize(cpd))
+
+    async def VacuumVolumeCommit(self, request, context):
+        t0 = time.perf_counter()
+        v = self.store.find_volume(request.volume_id)
+        pending = self._pending_compacts.pop(request.volume_id, None)
+        if v is None or pending is None:
+            await context.abort(StatusCode.FAILED_PRECONDITION,
+                                "no pending compact")
+        await asyncio.to_thread(vacuum_mod.commit, v, *pending)
+        stats.VOLUME_SERVER_VACUUMING_SECONDS.labels(type="commit").observe(
+            time.perf_counter() - t0)
+        return volume_server_pb2.VacuumVolumeCommitResponse(
+            is_read_only=v.read_only)
+
+    async def VacuumVolumeCleanup(self, request, context):
+        pending = self._pending_compacts.pop(request.volume_id, None)
+        if pending:
+            for p in pending[:2]:
+                if os.path.exists(p):
+                    os.remove(p)
+        return volume_server_pb2.VacuumVolumeCleanupResponse()
 
     # ------------------------------------------------------------------ RPC: copy
 

@@ -1,10 +1,13 @@
-"""volume.* commands: the readers of the device planes' telemetry.
+"""volume.* commands: vacuum, replica placement, and the readers of the
+device planes' telemetry.
 
-The port of the device-plane half of seaweedfs_tpu/shell/
-command_volume.py: volume.device.status [-hot], volume.device.attribution,
+The port of seaweedfs_tpu/shell/command_volume.py's volume.vacuum,
+volume.vacuum.disable, volume.vacuum.enable (the master's vacuum rpcs),
+volume.configure.replication (VolumeConfigure on every holder), and its
+device-plane half: volume.device.status [-hot], volume.device.attribution,
 volume.tier.status, volume.ingest.status, volume.trace and
-volume.trace.why.  They read the master's /cluster/health.json and each
-volume server's /debug/device/hot, /debug/device/attribution,
+volume.trace.why.  The readers read the master's /cluster/health.json and
+each volume server's /debug/device/hot, /debug/device/attribution,
 /debug/traces and /debug/critpath over the port's HTTP client;
 volume.trace.why asks the master's /debug/critpath (the cross-node
 assembly) unless -node names one server.  The other volume.* commands
@@ -14,8 +17,70 @@ from __future__ import annotations
 
 import json
 
+from ..pb import master_pb2, volume_server_pb2
 from .command_cluster import fetch_cluster_health, fmt_bytes, http_get_json
 from .commands import command, parse_flags
+
+
+@command("volume.vacuum")
+async def cmd_volume_vacuum(env, args):
+    """-garbageThreshold 0.3 [-volumeId N] : trigger a master vacuum pass"""
+    flags = parse_flags(args)
+    await env.master_stub.VacuumVolume(
+        master_pb2.VacuumVolumeRequest(
+            garbage_threshold=float(flags.get("garbageThreshold", 0.3)),
+            volume_id=int(flags.get("volumeId", 0)),
+        )
+    )
+    env.write("vacuum pass requested")
+
+
+@command("volume.vacuum.disable")
+async def cmd_volume_vacuum_disable(env, args):
+    """pause master vacuum (periodic + manual) — command_volume_vacuum_disable.go"""
+    await env.master_stub.DisableVacuum(master_pb2.DisableVacuumRequest())
+    env.write("vacuum disabled")
+
+
+@command("volume.vacuum.enable")
+async def cmd_volume_vacuum_enable(env, args):
+    """resume master vacuum — command_volume_vacuum_enable.go"""
+    await env.master_stub.EnableVacuum(master_pb2.EnableVacuumRequest())
+    env.write("vacuum enabled")
+
+
+@command("volume.configure.replication")
+async def cmd_volume_configure_replication(env, args):
+    """-volumeId N -replication XYZ : change a volume's replica placement
+    on every holder (command_volume_configure_replication.go); persists
+    into the on-disk superblock"""
+    env.confirm_is_locked()
+    flags = parse_flags(args)
+    vid = int(flags["volumeId"])
+    replication = flags["replication"]
+    nodes, _ = await env.collect_topology()
+    holders = [n for n in nodes if any(v["id"] == vid for v in n.volumes)]
+    if not holders:
+        raise ValueError(f"volume {vid} not found in topology")
+    failures = []
+    for node in holders:
+        resp = await env.volume_stub(node.grpc_address).VolumeConfigure(
+            volume_server_pb2.VolumeConfigureRequest(
+                volume_id=vid, replication=replication
+            )
+        )
+        if resp.error:
+            env.write(f"{node.url}: {resp.error}")
+            failures.append(node.url)
+        else:
+            env.write(f"{node.url}: volume {vid} -> replication {replication}")
+    if failures:
+        # a partial application leaves replicas with divergent superblocks
+        # — that must fail loudly, not read as success
+        raise ValueError(
+            f"replication change failed on {', '.join(failures)}; "
+            f"replicas may now disagree"
+        )
 
 
 @command("volume.device.status")

@@ -430,6 +430,18 @@ VOLUME_SERVER_EC_REMOTE_SHARD_BYTES = Counter(
     "Shard bytes fetched from peers over VolumeEcShardRead.",
     registry=REGISTRY,
 )
+# the vacuum rpcs (server/volume.py): each VacuumVolumeCheck, Compact and
+# Commit's wall, the Go server's vacuuming_seconds
+VOLUME_SERVER_VACUUMING_SECONDS = Histogram(
+    "SeaweedFS_volumeServer_vacuuming_seconds",
+    "Wall of each vacuum rpc this server answered, by type (check, "
+    "compact, commit).",
+    ["type"],
+    registry=REGISTRY,
+    buckets=(0.001, 0.01, 0.1, 1.0, 10.0, 100.0),
+)
+for _type in ("check", "compact", "commit"):
+    VOLUME_SERVER_VACUUMING_SECONDS.labels(type=_type)
 
 # the master (server/master.py)
 MASTER_RECEIVED_HEARTBEATS = Counter(

@@ -26,10 +26,12 @@ The residency ladder (serving/tiering.py) attaches its host-RAM tier
 through set_ec_host_cache, so every mounted EcVolume reads staged bytes
 before its shard files; ec_volume_tier names a volume's rung.  The
 streaming ingest plane (ingest/, attached as `ingest` by the volume
-server) lets ec_generate seal a volume from its streamed parity.
+server) lets ec_generate seal a volume from its streamed parity; every
+path that rewrites a `.dat` (vacuum here and in the volume server's
+VacuumVolumeCompact) invalidates the volume's pipeline first, through
+invalidate_ingest, so the seal runs offline on the new bytes.
 
-Not here, each named in ROADMAP A4c: the `.dat` tier moves, and vacuum
-(with it the ingest pipeline's vacuum invalidation).
+Not here (ROADMAP A4c-4): the `.dat` tier moves.
 """
 from __future__ import annotations
 
@@ -56,7 +58,11 @@ from .ec import (
     write_sorted_file_from_idx,
 )
 from .needle import Needle
+from .vacuum import vacuum as vacuum_volume
 from .volume import CookieMismatch, NotFoundError, Volume, VolumeInfo
+
+# the ingest plane's reason when a vacuum rewrote the .dat under its rows
+VACUUM_REWRITE = "vacuum rewrote the .dat"
 
 
 @dataclass
@@ -340,6 +346,29 @@ class Store:
             raise NotFoundError(f"volume {vid} not found")
         return v.delete(needle_id, cookie)
 
+    # -- vacuum (store_vacuum.go) --------------------------------------------
+
+    def invalidate_ingest(self, vid: int) -> None:
+        """Vacuum is about to rewrite the .dat: every needle's offset
+        moves, so streamed parity rows no longer describe it.  Called
+        BEFORE the rewrite so no feed stages a row mid-rewrite; the next
+        seal of the volume runs offline."""
+        if self.ingest is not None:
+            self.ingest.invalidate(vid, VACUUM_REWRITE)
+
+    def vacuum_volume(self, vid: int) -> float:
+        v = self.find_volume(vid)
+        if v is None:
+            raise NotFoundError(f"volume {vid} not found")
+        self.invalidate_ingest(vid)
+        ratio = vacuum_volume(v)
+        # a vacuumed volume that shrank back under the limit re-opens for
+        # writes; tell the master right away
+        if v.full and v.content_size <= self.volume_size_limit:
+            v.full = False
+            self._push_volume_delta(v)
+        return ratio
+
     # -- EC shard lifecycle (store_ec.go) ------------------------------------
 
     def ec_generate(self, vid: int) -> None:
@@ -351,10 +380,7 @@ class Store:
         re-reads the .dat for the data shards and encodes the zero-padded
         tail row; an invalidated or absent pipeline falls through to the
         offline bulk encode (the same bytes either way).  Quiesce the
-        volume's writers first: the seal takes the pipeline's feed lock.
-        The reference also invalidates a pipeline when vacuum rewrites the
-        .dat (Store.vacuum_volume); the port has no vacuum yet (ROADMAP
-        A4b), so nothing here rewrites a streaming volume's offsets."""
+        volume's writers first: the seal takes the pipeline's feed lock."""
         v = self.find_volume(vid)
         if v is None:
             raise NotFoundError(f"volume {vid} not found")

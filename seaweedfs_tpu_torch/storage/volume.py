@@ -10,9 +10,16 @@ volume_write.go, volume_read.go, volume_loading.go).  Semantics preserved:
   - delete: append a tombstone needle (empty body) + tombstone idx entry
   - read(read_deleted=True) serves a deleted-but-not-vacuumed needle;
     read(zero_copy=True) keeps `data` a memoryview over the one pread
+  - garbage ratio drives vacuum (volume_vacuum.go -> vacuum.py here)
 
-Tiered (remote) volumes, the persistent needle maps, vacuum and tail sync
-are ROADMAP A4b.
+Vacuum swap: reads are lock-free, so the (dat file, needle map) pair is
+published as one immutable _ReadState; vacuum's commit swaps the whole
+state in a single reference assignment and leaves the old dat file open
+for readers still holding the previous state (closed by refcounting when
+they finish).
+
+Tiered (remote) volumes, the persistent needle maps and tail sync are
+ROADMAP A4c-4.
 """
 from __future__ import annotations
 
@@ -58,6 +65,16 @@ class VolumeInfo:
     compact_revision: int
 
 
+class _ReadState:
+    """Immutable (dat file, needle map) pair captured by lock-free reads."""
+
+    __slots__ = ("dat", "nm")
+
+    def __init__(self, dat, nm):
+        self.dat = dat
+        self.nm = nm
+
+
 class Volume:
     def __init__(
         self,
@@ -91,8 +108,8 @@ class Volume:
                 logging.getLogger("volume").warning(
                     "volume %d was not cleanly closed; recovering tail", vid
                 )
-            self.nm = needle_map.CompactMap.load_from_idx(self.idx_path, self.version)
-            self._recover_tail()
+            nm = self._build_map()
+            self._recover_tail(nm)
         else:
             self.super_block = SuperBlock(
                 version=version,
@@ -102,21 +119,33 @@ class Volume:
             with open(self.dat_path, "wb") as f:
                 f.write(self.super_block.to_bytes())
             open(self.idx_path, "ab").close()
-            self.nm = needle_map.CompactMap.load_from_idx(self.idx_path, self.version)
-        self._dat = open(self.dat_path, "r+b")
+            nm = self._build_map()
+        self._state = _ReadState(open(self.dat_path, "r+b"), nm)
         self._idx = open(self.idx_path, "ab")
         # dirty marker: present while the volume is open for writing, so a
         # crash is detectable on the next load; removed on clean close
         with open(self.note_path, "w") as f:
             f.write("open for writing\n")
 
-    def _recover_tail(self) -> None:
+    def _build_map(self) -> needle_map.CompactMap:
+        """The volume's in-memory needle map, replayed from its .idx (the
+        persistent maps are ROADMAP A4c-4)."""
+        return needle_map.CompactMap.load_from_idx(self.idx_path, self.version)
+
+    @property
+    def nm(self) -> needle_map.CompactMap:
+        return self._state.nm
+
+    @property
+    def _dat(self):
+        return self._state.dat
+
+    def _recover_tail(self, nm: needle_map.CompactMap) -> None:
         """Re-index complete CRC-valid records written after the last .idx
         entry (crash between .dat append and .idx append), then truncate any
         torn or corrupt tail to the last record boundary.  Only size>0
         records are recovered — a trailing size-0 record is ambiguous
         between an empty write and a delete tombstone."""
-        nm = self.nm
         indexed_end = max(SUPER_BLOCK_SIZE, nm.indexed_end)
         dat_size = os.path.getsize(self.dat_path)
         if dat_size <= indexed_end:
@@ -233,9 +262,16 @@ class Volume:
 
     # -- read path -----------------------------------------------------------
 
-    def _read_at(self, offset: int, size: int, zero_copy: bool = False) -> Needle:
+    def _read_at(
+        self,
+        offset: int,
+        size: int,
+        st: _ReadState | None = None,
+        zero_copy: bool = False,
+    ) -> Needle:
+        st = st or self._state
         total = needle_mod.actual_size(size, self.version)
-        buf = os.pread(self._dat.fileno(), total, offset)
+        buf = os.pread(st.dat.fileno(), total, offset)
         # zero_copy: data stays a memoryview over this pread's own buffer
         return Needle.from_bytes(buf, self.version, copy=not zero_copy)
 
@@ -246,11 +282,14 @@ class Volume:
         read_deleted: bool = False,
         zero_copy: bool = False,
     ) -> Needle:
-        loc = self.nm.get(needle_id)
+        # one state capture: the offset from st.nm is only ever applied to
+        # st.dat, so a concurrent vacuum swap can't mix old map / new file
+        st = self._state
+        loc = st.nm.get(needle_id)
         if loc is not None:
-            n = self._read_at(loc[0], loc[1], zero_copy=zero_copy)
+            n = self._read_at(loc[0], loc[1], st, zero_copy=zero_copy)
         else:
-            n = self._read_tombstoned(needle_id) if read_deleted else None
+            n = self._read_tombstoned(needle_id, st) if read_deleted else None
             if n is None:
                 raise NotFoundError(
                     f"needle {needle_id:x} not found in volume {self.id}"
@@ -259,14 +298,16 @@ class Volume:
             raise CookieMismatch(f"cookie mismatch for needle {needle_id:x}")
         return n
 
-    def _tombstoned_location(self, needle_id: int) -> tuple[int, int] | None:
+    def _tombstoned_location(
+        self, needle_id: int, st: _ReadState
+    ) -> tuple[int, int] | None:
         """(offset, original size) of a deleted-but-not-vacuumed needle:
         the map keeps the original record's offset under the tombstone,
         and the record's own header carries the pre-delete size."""
-        raw = self.nm.get_any(needle_id)
+        raw = st.nm.get_any(needle_id)
         if raw is None:
             return None
-        hdr = os.pread(self._dat.fileno(), t.NEEDLE_HEADER_SIZE, raw[0])
+        hdr = os.pread(st.dat.fileno(), t.NEEDLE_HEADER_SIZE, raw[0])
         if len(hdr) < t.NEEDLE_HEADER_SIZE:
             return None
         _, _, size = Needle.parse_header(hdr)
@@ -276,16 +317,16 @@ class Volume:
 
     def deleted_needle_size(self, needle_id: int) -> int | None:
         """Size a ?readDeleted=true read would return (throttle hints)."""
-        loc = self._tombstoned_location(needle_id)
+        loc = self._tombstoned_location(needle_id, self._state)
         return loc[1] if loc else None
 
-    def _read_tombstoned(self, needle_id: int) -> Needle | None:
+    def _read_tombstoned(self, needle_id: int, st: _ReadState) -> Needle | None:
         """Deleted-but-not-vacuumed needle (?readDeleted=true, reference
         ReadOption.ReadDeleted)."""
-        loc = self._tombstoned_location(needle_id)
+        loc = self._tombstoned_location(needle_id, st)
         if loc is None:
             return None
-        return self._read_at(loc[0], loc[1])
+        return self._read_at(loc[0], loc[1], st)
 
     def has(self, needle_id: int) -> bool:
         return self.nm.has(needle_id)
@@ -296,6 +337,12 @@ class Volume:
     def content_size(self) -> int:
         self._dat.flush()
         return os.path.getsize(self.dat_path)
+
+    @property
+    def garbage_ratio(self) -> float:
+        s = self.nm.stats
+        total = s.file_bytes + s.deleted_bytes
+        return (s.deleted_bytes / total) if total else 0.0
 
     def info(self) -> VolumeInfo:
         s = self.nm.stats
@@ -312,6 +359,45 @@ class Volume:
             version=self.version,
             compact_revision=self.super_block.compaction_revision,
         )
+
+    def _walk_records(self, start_offset: int, st: _ReadState | None = None):
+        """Yield (offset, header_bytes, rest_bytes, header_size, Needle) for
+        every record from start_offset to EOF.  One _ReadState is captured
+        for the whole walk so a concurrent vacuum swap can't mix old
+        offsets with the compacted file (same discipline as read())."""
+        st = st or self._state
+        fd = st.dat.fileno()
+        size = os.fstat(fd).st_size
+        offset = max(start_offset, SUPER_BLOCK_SIZE)
+        while offset + t.NEEDLE_HEADER_SIZE <= size:
+            hdr = os.pread(fd, t.NEEDLE_HEADER_SIZE, offset)
+            if len(hdr) < t.NEEDLE_HEADER_SIZE:
+                break
+            _, _, nsize = Needle.parse_header(hdr)
+            body_size = max(nsize, 0)
+            total = needle_mod.actual_size(body_size, self.version)
+            if offset + total > size:
+                break  # torn record at EOF — stop, don't crash
+            rest = os.pread(fd, total - t.NEEDLE_HEADER_SIZE, offset + len(hdr))
+            n = Needle.from_bytes(hdr + rest, self.version, verify=False)
+            yield offset, hdr, rest, nsize, n
+            offset += total
+
+    def scan(self, include_deleted: bool = False):
+        """Yield (offset, Needle) for every record in .dat file order —
+        the scan_volume_file analogue vacuum walks."""
+        self._dat.flush()
+        for offset, _, _, nsize, n in self._walk_records(SUPER_BLOCK_SIZE):
+            if include_deleted or t.size_is_valid(nsize):
+                yield offset, n
+
+    def update_replica_placement(self, rp: t.ReplicaPlacement) -> None:
+        """Persist a new replica placement into the on-disk superblock
+        (volume_super_block.go maybeWriteSuperBlock on configure)."""
+        with self._lock:
+            self.super_block.replica_placement = rp
+            os.pwrite(self._dat.fileno(), self.super_block.to_bytes(), 0)
+            self._dat.flush()
 
     def sync(self) -> None:
         with self._lock:

@@ -1445,6 +1445,93 @@ def test_master_repairs_a_lost_server_with_k1_on_the_card(cuda_device,
     asyncio.run(go())
 
 
+def test_rpc_vacuum_then_seal_on_the_card(cuda_device, tmp_path):
+    """A volume server on -ec.backend cuda streams three 10 MiB stripe
+    rows of a growing volume on the card (K1), a third of the needles are
+    deleted, then the master's vacuum path over the RPC plane
+    (VacuumVolumeCompact, VacuumVolumeCommit) and VolumeEcShardsGenerate:
+    the compact invalidated the pipeline, so the seal ran offline with K1
+    launches on the card, and the 14 shards equal the native codec's
+    encode of the compacted .dat."""
+    import asyncio
+    import time
+
+    from seaweedfs_tpu_torch.ingest import IngestConfig
+    from seaweedfs_tpu_torch.pb import Stub, channel, volume_server_pb2 as vpb
+    from seaweedfs_tpu_torch.server.volume import VolumeServer
+    from seaweedfs_tpu_torch.storage.needle import Needle
+
+    rng = np.random.default_rng(15)
+    d = tmp_path / "d"
+    d.mkdir()
+
+    async def go():
+        vs = VolumeServer([], [str(d)], port=0, ec_backend="cuda",
+                          ec_ingest=IngestConfig(backend="cuda"))
+        v = vs.store.add_volume(1)
+        await vs.start()
+        try:
+            live, nid = {}, 0
+            while v.content_size < 35 << 20:
+                nid += 1
+                data = rng.bytes(int(rng.integers(4096, 1 << 20)))
+                await asyncio.to_thread(vs.store.write_needle, 1,
+                                        Needle(id=nid, cookie=nid, data=data))
+                await asyncio.to_thread(vs.store.ingest.on_write, v,
+                                        len(data), "interactive")
+                live[nid] = data
+            p = vs.store.ingest.pipelines[1]
+            t_end = time.monotonic() + 60
+            while p.encoded_rows < p.staged_rows:
+                assert time.monotonic() < t_end
+                await asyncio.sleep(0.05)
+            assert p.valid and p.rows_device == p.encoded_rows >= 3
+            for gone in list(live)[::3]:
+                vs.store.delete_needle(1, gone)
+                del live[gone]
+            size = v.content_size
+            stub = Stub(channel(vs.grpc_url), vpb, "VolumeServer")
+            async for _ in stub.VacuumVolumeCompact(
+                    vpb.VacuumVolumeCompactRequest(volume_id=1)):
+                pass
+            await stub.VacuumVolumeCommit(
+                vpb.VacuumVolumeCommitRequest(volume_id=1))
+            assert v.super_block.compaction_revision == 1
+            assert v.content_size < size
+            assert not p.valid and "vacuum" in p.invalid_reason
+            for k, data in live.items():
+                assert bytes(v.read(k).data) == data
+            k0 = rs_cuda.gf2_matmul.launches + rs_cuda.gf2_matmul_small.launches
+            await stub.VolumeEcShardsGenerate(
+                vpb.VolumeEcShardsGenerateRequest(volume_id=1))
+            assert rs_cuda.gf2_matmul.launches + \
+                rs_cuda.gf2_matmul_small.launches > k0
+        finally:
+            await vs.stop()
+
+    asyncio.run(go())
+    # the native CPU codec's encode of the compacted .dat, row by row
+    from seaweedfs_tpu_torch.storage.ec import bulk
+    from seaweedfs_tpu_torch.storage.ec.encoder import _iter_rows
+    from seaweedfs_tpu_torch.storage.ec.layout import (
+        LARGE_BLOCK_SIZE, SMALL_BLOCK_SIZE)
+
+    parity = gf256.parity_matrix(10, 14)
+    want = [bytearray() for _ in range(14)]
+    size = os.path.getsize(d / "1.dat")
+    with open(d / "1.dat", "rb") as f:
+        for row_start, block in _iter_rows(size, LARGE_BLOCK_SIZE,
+                                           SMALL_BLOCK_SIZE):
+            stripe = bulk.read_stripe(f, size, row_start, block, 0, block)
+            out = rs_cpu.apply_matrix_native(parity, stripe)
+            for i in range(10):
+                want[i] += stripe[i].tobytes()
+            for i in range(4):
+                want[10 + i] += out[i].tobytes()
+    for sid in range(14):
+        assert (d / f"1{ec.to_ext(sid)}").read_bytes() == want[sid], sid
+
+
 # ------------------------------------------------- the mesh on the card
 
 

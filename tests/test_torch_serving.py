@@ -306,8 +306,9 @@ def test_spawn_logged_retains_and_logs(caplog):
 def test_metric_series_carry_the_reference_names():
     """The port's declared metric families (name, type, label names) are
     the reference's, less the ones the port does not serve, plus its own
-    families: the kernels' launch counts, and the remote shard reader's
-    fetches and bytes (which the cluster's chip phase reads per GET).
+    families: the kernels' launch counts, the remote shard reader's
+    fetches and bytes (which the cluster's chip phase reads per GET), and
+    the vacuum rpcs' walls (which the chip phase's vacuum step reads).
     Families, not samples: a
     labelled family shows samples only once some caller has touched a
     child, so a sample comparison would depend on what ran before it in
@@ -321,7 +322,8 @@ def test_metric_series_carry_the_reference_names():
             for m in stats.REGISTRY.collect()}
     own = (stats.VOLUME_SERVER_EC_KERNEL_LAUNCHES,
            stats.VOLUME_SERVER_EC_REMOTE_SHARD_READS,
-           stats.VOLUME_SERVER_EC_REMOTE_SHARD_BYTES)
+           stats.VOLUME_SERVER_EC_REMOTE_SHARD_BYTES,
+           stats.VOLUME_SERVER_VACUUMING_SECONDS)
     assert ours - ref == {fam(m.name, m.kind, m.labelnames) for m in own}
     # every reference family of the slices ported so far is declared,
     # the ingest plane's and the residency ladder's included

@@ -530,10 +530,11 @@ MASTER_ARGV = [
 
 
 def _master_flags_parse_with_the_reference_spellings(p, tmp_path):
-    """The master's -obs.slo.*, -obs.incident.*, -metrics.* and -obs.*
-    flags parse to the reference's values and build the same SloConfig
-    and IncidentConfig; -cpuprofile and -memprofile go before the
-    command, as the reference's."""
+    """The master's -obs.slo.*, -obs.incident.*, -metrics.*, -obs.*,
+    -garbageThreshold and -autoVacuum flags parse to the reference's
+    values and build the same SloConfig, IncidentConfig and vacuum
+    settings; -cpuprofile and -memprofile go before the command, as the
+    reference's."""
     import argparse
     import dataclasses
 
@@ -570,6 +571,21 @@ def _master_flags_parse_with_the_reference_spellings(p, tmp_path):
             port_incident.configure(saved[1])
             ref_trace.configure(saved[2])
             ref_incident.configure(saved[3])
+    # vacuum: the garbage threshold and the periodic pass
+    for argv in ([], ["-garbageThreshold", "0.45", "-autoVacuum"]):
+        ref = ref_p.parse_args(argv)
+        port = p.parse_args(["master"] + argv)
+        want = (ref.garbage_threshold, ref.auto_vacuum)
+        assert (port.garbage_threshold, port.auto_vacuum) == want
+        saved = (port_trace.CONFIG, port_incident.CONFIG)
+        try:
+            ms = command.master.build_server(port)
+            assert (ms.garbage_threshold, ms.auto_vacuum) == want
+            assert ms.vacuum_disabled is False
+        finally:
+            port_trace.configure(saved[0])
+            port_incident.configure(saved[1])
+    assert want == (0.45, True)
     args = p.parse_args(["-cpuprofile", str(tmp_path / "cpu.prof"),
                          "-memprofile", str(tmp_path / "mem.txt"), "master"])
     assert (args.cpuprofile, args.memprofile, args.command) == (
