@@ -46,7 +46,7 @@ volume:
                  (python3 -m seaweedfs_tpu_torch volume -ec.backend cuda
                  -ec.deviceCacheMB ...) over the sidecars and 12 survivors,
                  a fresh server a turn (flat, block-diagonal): HTTP GETs of
-                 a seeded 1,000 of every needle with bytes on shard 0
+                 a seeded 2,000 of every needle with bytes on shard 0
                  plus 400 others one at a time, then 64 concurrent
                  keep-alive clients (12,000 reads or 8 s; 20 s in the
                  profiled turn); every
@@ -129,9 +129,9 @@ volume:
                  segment shares.  The incident plane: the master runs
                  with a read_p99 SLO on the batch_dispatch digests (its
                  target the highest digest edge that 5c's first flat
-                 turn's one-client pass stayed under and at least 5% of
-                 its 64-client pass passed; steps 4-6 must leave it
-                 quiet), 2 s and 4 s burn windows,
+                 turn's one-client pass stayed under (0.5%) and at
+                 least 2% of its 64-client pass passed; steps 4-6 must
+                 leave it quiet), 2 s and 4 s burn windows,
                  -obs.incident.dir with a 2 s profile, and
                  -metrics.address at a pushgateway sink of this script
                  (A and B push too, every process runs with
@@ -1493,7 +1493,7 @@ SERVE_CLIENT_PROCS = 4
 SERVE_READS = 12_000
 SERVE_SECONDS = 8.0
 # the one-client pass of each layout's turn: a seeded sample of the reads
-SERVE_SEQ_READS = 1000
+SERVE_SEQ_READS = 2000
 SERVE_PIN_TIMEOUT = 180.0
 # one turn a layout (flat, block-diagonal twice, flat before: cut for the
 # run's time limit)
@@ -3275,9 +3275,10 @@ SLO_PROFILE_S = 2.0
 SLO_MIN_INTERVAL_S = 3600.0
 # the target: the highest digest edge that at most SLO_SEQ_MAX_BAD of 5c's
 # sequential batch_dispatch observations exceeded while at least
-# SLO_MIN_BAD of its 64-client pass did (the budget is 1%: 64 clients
-# burn it 5x over, and 9a's one-client reads on A keep the most margin)
-SLO_SEQ_MAX_BAD, SLO_MIN_BAD = 0.002, 0.05
+# SLO_MIN_BAD of its 64-client pass did (the budget is 1%: one-client
+# reads burn at most half of it, 64 clients at least twice, and 9a's
+# one-client reads on A keep the most margin)
+SLO_SEQ_MAX_BAD, SLO_MIN_BAD = 0.005, 0.02
 # the SLO window's readers stop once the bundle and the shell's reads are
 # in, or after this long
 SLO_LOAD_MAX_S = 120.0
