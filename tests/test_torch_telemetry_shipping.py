@@ -53,10 +53,29 @@ def _stream_break(vs) -> None:
     vs._timeline_inflight_at = None
 
 
+# (the series, its gauge in each package's stats.metrics)
+QOS_GAUGES = (
+    ("SeaweedFS_volumeServer_ec_qos_queue_depth",
+     "VOLUME_SERVER_EC_QOS_QUEUE_DEPTH"),
+    ("SeaweedFS_volumeServer_ec_qos_breaker_state",
+     "VOLUME_SERVER_EC_QOS_BREAKER_STATE"),
+)
+
+
 def _timeline_shipping(side, tmp_path):
     """The reference's test_timeline_heartbeat_shipping_ack_gated, on one
-    package: -> what each build shipped and the master's timeline."""
-    _, tl_mod, cl_mod, *_ = SIDES[side]
+    package: -> what each build shipped and the master's timeline.  A
+    sample reads the QoS queue-depth and breaker gauges of the process's
+    registry live: they start at a fresh process's 0 here (an earlier
+    test in the same process, e.g. tests/test_qos_admission.py, may leave
+    one set) and get their values back after."""
+    _, tl_mod, cl_mod, metrics_mod, *_ = SIDES[side]
+    saved = {}
+    for series, name in QOS_GAUGES:
+        for tier in ("interactive", "bulk"):
+            saved[name, tier] = metrics_mod.REGISTRY.get_sample_value(
+                series, {"tier": tier})
+            getattr(metrics_mod, name).labels(tier=tier).set(0)
     vs = _server(side, tmp_path)
     vs.timeline = tl_mod.TimelineSampler(node="vs:1", window=8)
 
@@ -95,6 +114,8 @@ def _timeline_shipping(side, tmp_path):
         return out, ct.timeline()
     finally:
         vs.store.close()
+        for (name, tier), v in saved.items():
+            getattr(metrics_mod, name).labels(tier=tier).set(v or 0)
 
 
 def test_timeline_heartbeat_shipping_ack_gated(tmp_path):
