@@ -56,8 +56,11 @@ volume:
                  composition of the GET route from /metrics, the slowest
                  traced GET's /debug/critpath and /debug/tail, a 5 s
                  /debug/profile capture (SWFS_DEBUG=1) in the block-
-                 diagonal turn (the card's kernel-busy share), and a
-                 short flat turn with -obs.disable (tracing's cost)
+                 diagonal turn (the card's kernel-busy share), and two
+                 short flat turns, with -obs.disable (tracing's cost,
+                 4,000 reads) and with -obs.tail.disable (the tail
+                 store's share of it, 2,000 reads: the GET route's
+                 critical path must not move)
   6. rebuild     shards 0, 5, 10, 13 removed: rebuild_ec_files +
                  rebuild_ecx_file, sha256 of every rebuilt shard
   6a. scrub      all 14 shards pinned through a port Store (15.75 GiB
@@ -1510,10 +1513,11 @@ PROFILE_DELAY_S = 3.0
 # the profiled turn's concurrent pass runs this long at most (the others
 # SERVE_SECONDS): its readers must span the capture on a slow host too
 PROFILE_PASS_S = 20.0
-# the added turn, flat and concurrent only: -obs.disable (tracing's cost;
-# an -obs.tail.disable turn cut for the run's time limit)
-COST_TURNS = (("-obs.disable",),)
-COST_READS = 10_000
+# the added turns, flat and concurrent only, each with its reads:
+# -obs.disable (tracing's cost), then -obs.tail.disable (the tail store's
+# share of it; short: it checks that the GET route's critical path stays
+# still with the tail store off)
+COST_TURNS = ((("-obs.disable",), 4_000), (("-obs.tail.disable",), 2_000))
 
 
 def _free_port() -> int:
@@ -1636,19 +1640,21 @@ def _serve_delta(before: dict, after: dict) -> dict:
     }
 
 
-def _trace_checks(name: str, d: dict, traces: int, kern: str) -> dict:
+def _trace_checks(name: str, d: dict, traces: int, kern: str,
+                  tail: bool = True) -> dict:
     """The trace plane's accounting over one pass of `traces` traced GETs
     (`d` from _serve_delta): fatal where it does not add up.  -> the
     per-stage means and the critical-path composition of the GET route
-    (fed by the tail store)."""
+    (fed by the tail store: with `tail` False it must not move)."""
     st = d["stages"]
     crit_sum = sum(d["crit_s"].values())
     if abs(crit_sum - d["crit_route_s"]) > 1e-6 * max(1, traces):
         raise AssertionError(f"{name}: critical-path segments sum to "
                              f"{crit_sum} s, the route to {d['crit_route_s']} s")
-    if not d["crit_route_s"] > 0:
-        raise AssertionError(f"{name}: the GET route's critical path did not "
-                             "move with the tail store on")
+    if (d["crit_route_s"] > 0) != tail:
+        raise AssertionError(f"{name}: the GET route's critical path moved "
+                             f"{d['crit_route_s']} s with the tail store "
+                             f"{'on' if tail else 'off'}")
     batched = d["routes"]["batched"]
     calls = d["launches"][kern]
     checks = {
@@ -1903,12 +1909,14 @@ def _serve_layout(workdir: str, serve_dir: str, layout: str, seq: list,
     """One fresh server in `layout` (with the -obs `flags`): pin, then the
     one-client pass over the needles `sequential` names (none when empty)
     and the concurrent pass of `reads` reads, with its trace accounting
-    and documents (unless -obs.disable), and, when `profile`, a
+    (unless -obs.disable) and the trace documents (unless
+    -obs.tail.disable too), and, when `profile`, a
     /debug/profile capture in its middle (the server runs with
     SWFS_DEBUG=1)."""
     import urllib.request
 
     traced = "-obs.disable" not in flags
+    tail = traced and "-obs.tail.disable" not in flags
     port = _free_port()
     log_path = os.path.join(workdir, f"serve_{turn}_{layout}.log")
     args = ["-dir", serve_dir, "-port", str(port), "-mserver", "",
@@ -1980,7 +1988,8 @@ def _serve_layout(workdir: str, serve_dir: str, layout: str, seq: list,
         trace = {}
         if traced:
             trace = _trace_checks(f"{layout} turn {turn}", passes[-1][2],
-                                  len(con["lat"]), kern)
+                                  len(con["lat"]), kern, tail)
+        if tail:
             trace.update(_trace_docs(port))
         if profile:
             window.join()
@@ -2084,12 +2093,13 @@ def phase_serve(torch, workdir: str, vol: dict, deg: dict, seed: int) -> dict:
             row["trace"].append(run["trace"])
             if first:
                 row["sequential"] = run["sequential"]
-        # tracing's cost: a flat turn with -obs.disable, concurrent only
+        # tracing's cost: flat turns with -obs.disable and with
+        # -obs.tail.disable, concurrent only
         out["flat"]["cost_turns"] = {}
-        for i, flags in enumerate(COST_TURNS):
+        for i, (flags, reads) in enumerate(COST_TURNS):
             run = _serve_layout(workdir, serve_dir, "flat", seq, vol,
                                 sorted(deleted), seed, len(SERVE_TURNS) + i,
-                                [], flags=flags, reads=COST_READS)
+                                [], flags=flags, reads=reads)
             out["flat"]["launches"] += run["launches"]
             out["flat"]["cost_turns"][flags[0]] = run["concurrent"]
     finally:

@@ -447,6 +447,9 @@ class IngestPlane:
             else None
         )
         self.pipelines: dict[int, IngestPipeline] = {}
+        # volumes invalidated while they had no pipeline: none is built
+        # for them until their seal or drop (vid -> reason)
+        self._invalidated: dict[int, str] = {}
         self._plock = threading.Lock()
         deadline_s = cfg.deadline_ms / 1e3
         self.qos = qos_mod.QosController(
@@ -516,6 +519,8 @@ class IngestPlane:
         with self._plock:
             p = self.pipelines.get(volume.id)
             if p is None:
+                if volume.id in self._invalidated:
+                    return None  # a rewrite began before any pipeline
                 if volume.content_size > STREAMABLE_BYTES:
                     return None  # born past the small-row regime
                 p = IngestPipeline(volume, self.encoder, self.cfg)
@@ -543,8 +548,14 @@ class IngestPlane:
     # ------------------------------------------------------ lifecycle/seal
 
     def invalidate(self, vid: int, reason: str) -> None:
+        """The volume's .dat is being rewritten: its pipeline, or the one
+        a write would otherwise build before the rewrite ends (whose read
+        fd would hold the old inode), never streams again until the seal
+        or drop."""
         with self._plock:
             p = self.pipelines.get(vid)
+            if p is None:
+                self._invalidated[vid] = reason
         if p is not None:
             p.invalidate(reason)
 
@@ -555,6 +566,7 @@ class IngestPlane:
         encode (any stale parity scratch is cleaned either way)."""
         with self._plock:
             p = self.pipelines.pop(vid, None)
+            self._invalidated.pop(vid, None)
             stats_metrics.VOLUME_SERVER_INGEST_PIPELINES.set(
                 len(self.pipelines)
             )
@@ -576,6 +588,7 @@ class IngestPlane:
         """Volume going away (delete/unmount): discard streaming state."""
         with self._plock:
             p = self.pipelines.pop(vid, None)
+            self._invalidated.pop(vid, None)
             stats_metrics.VOLUME_SERVER_INGEST_PIPELINES.set(
                 len(self.pipelines)
             )
@@ -585,6 +598,7 @@ class IngestPlane:
     def close(self) -> None:
         with self._plock:
             pipelines, self.pipelines = list(self.pipelines.values()), {}
+            self._invalidated.clear()
             stats_metrics.VOLUME_SERVER_INGEST_PIPELINES.set(0)
         for p in pipelines:
             p.close(remove_scratch=True)

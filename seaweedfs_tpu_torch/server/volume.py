@@ -101,7 +101,6 @@ from ..pb import (
 from ..serving import EcReadDispatcher, ServingConfig, TieringController
 from ..serving import qos as qos_mod
 from ..storage import types as t
-from ..storage import vacuum as vacuum_mod
 from ..storage.disk_location import DiskLocation
 from ..storage.ec import (
     ec_base_name,
@@ -1584,22 +1583,19 @@ class VolumeServer:
 
     async def VacuumVolumeCompact(self, request, context):
         t0 = time.perf_counter()
-        v = self.store.find_volume(request.volume_id)
-        if v is None:
+        if self.store.find_volume(request.volume_id) is None:
             await context.abort(StatusCode.NOT_FOUND, "volume not found")
-        # Departure from the reference, which leaves the pipeline valid on
-        # this path: the compaction moves every needle's offset, so the
-        # streamed parity is stale from here on.  Invalidated before the
-        # copy, not at commit: a feed between the two would stage a row of
-        # the old .dat.  A Cleanup leaves it invalid (the seal runs
-        # offline, which is always right).
-        self.store.invalidate_ingest(request.volume_id)
-        cpd, cpx, snap = await asyncio.to_thread(vacuum_mod.compact, v)
-        self._pending_compacts[request.volume_id] = (cpd, cpx, snap)
+        # Departure from the reference, whose compact on this path leaves
+        # the ingest pipeline valid: Store.compact_volume invalidates it
+        # before the copy (and commit_compact after the swap), so the
+        # next seal runs offline instead of from stale parity.
+        pending = await asyncio.to_thread(
+            self.store.compact_volume, request.volume_id)
+        self._pending_compacts[request.volume_id] = pending
         stats.VOLUME_SERVER_VACUUMING_SECONDS.labels(type="compact").observe(
             time.perf_counter() - t0)
         yield volume_server_pb2.VacuumVolumeCompactResponse(
-            processed_bytes=os.path.getsize(cpd))
+            processed_bytes=os.path.getsize(pending[0]))
 
     async def VacuumVolumeCommit(self, request, context):
         t0 = time.perf_counter()
@@ -1608,7 +1604,8 @@ class VolumeServer:
         if v is None or pending is None:
             await context.abort(StatusCode.FAILED_PRECONDITION,
                                 "no pending compact")
-        await asyncio.to_thread(vacuum_mod.commit, v, *pending)
+        await asyncio.to_thread(
+            self.store.commit_compact, request.volume_id, pending)
         stats.VOLUME_SERVER_VACUUMING_SECONDS.labels(type="commit").observe(
             time.perf_counter() - t0)
         return volume_server_pb2.VacuumVolumeCommitResponse(
@@ -1617,9 +1614,7 @@ class VolumeServer:
     async def VacuumVolumeCleanup(self, request, context):
         pending = self._pending_compacts.pop(request.volume_id, None)
         if pending:
-            for p in pending[:2]:
-                if os.path.exists(p):
-                    os.remove(p)
+            self.store.cleanup_compact(pending)
         return volume_server_pb2.VacuumVolumeCleanupResponse()
 
     # ------------------------------------------------------------------ RPC: copy

@@ -27,8 +27,9 @@ through set_ec_host_cache, so every mounted EcVolume reads staged bytes
 before its shard files; ec_volume_tier names a volume's rung.  The
 streaming ingest plane (ingest/, attached as `ingest` by the volume
 server) lets ec_generate seal a volume from its streamed parity; every
-path that rewrites a `.dat` (vacuum here and in the volume server's
-VacuumVolumeCompact) invalidates the volume's pipeline first, through
+path that rewrites a `.dat` (vacuum: compact_volume and commit_compact,
+which the volume server's Vacuum* rpcs and vacuum_volume call) invalidates
+the volume's pipeline, even one a write has not built yet, through
 invalidate_ingest, so the seal runs offline on the new bytes.
 
 Not here (ROADMAP A4c-4): the `.dat` tier moves.
@@ -58,7 +59,7 @@ from .ec import (
     write_sorted_file_from_idx,
 )
 from .needle import Needle
-from .vacuum import vacuum as vacuum_volume
+from . import vacuum as vacuum_mod
 from .volume import CookieMismatch, NotFoundError, Volume, VolumeInfo
 
 # the ingest plane's reason when a vacuum rewrote the .dat under its rows
@@ -349,24 +350,52 @@ class Store:
     # -- vacuum (store_vacuum.go) --------------------------------------------
 
     def invalidate_ingest(self, vid: int) -> None:
-        """Vacuum is about to rewrite the .dat: every needle's offset
-        moves, so streamed parity rows no longer describe it.  Called
-        BEFORE the rewrite so no feed stages a row mid-rewrite; the next
-        seal of the volume runs offline."""
+        """Vacuum is rewriting the .dat: every needle's offset moves, so
+        streamed parity rows no longer describe it.  The volume's next
+        seal runs offline."""
         if self.ingest is not None:
             self.ingest.invalidate(vid, VACUUM_REWRITE)
 
-    def vacuum_volume(self, vid: int) -> float:
+    def _vacuum_target(self, vid: int) -> Volume:
         v = self.find_volume(vid)
         if v is None:
             raise NotFoundError(f"volume {vid} not found")
+        return v
+
+    def compact_volume(self, vid: int) -> tuple[str, str, int]:
+        """Vacuum's first phase (CompactVolume, store_vacuum.go): the
+        ingest plane invalidated BEFORE the copy, so no feed stages a row
+        of the old .dat, then the live needles copied.  -> the pending
+        (cpd, cpx, idx snapshot) for commit_compact or cleanup_compact."""
+        v = self._vacuum_target(vid)
         self.invalidate_ingest(vid)
-        ratio = vacuum_volume(v)
-        # a vacuumed volume that shrank back under the limit re-opens for
-        # writes; tell the master right away
+        return vacuum_mod.compact(v)
+
+    def commit_compact(self, vid: int, pending: tuple[str, str, int]) -> None:
+        """Vacuum's second phase (CommitCompactVolume): makeupDiff and the
+        swap, the ingest plane invalidated again after it, and a full
+        volume that shrank back under the limit re-opened for writes and
+        pushed to the master right away."""
+        v = self._vacuum_target(vid)
+        vacuum_mod.commit(v, *pending)
+        self.invalidate_ingest(vid)
         if v.full and v.content_size <= self.volume_size_limit:
             v.full = False
             self._push_volume_delta(v)
+
+    @staticmethod
+    def cleanup_compact(pending: tuple[str, str, int]) -> None:
+        """A compact that will not commit: its shadow files removed (the
+        ingest plane stays invalid; the next seal runs offline)."""
+        for path in pending[:2]:
+            if os.path.exists(path):
+                os.remove(path)
+
+    def vacuum_volume(self, vid: int) -> float:
+        """Compact and commit in one call.  -> the garbage ratio that was
+        reclaimed."""
+        ratio = self._vacuum_target(vid).garbage_ratio
+        self.commit_compact(vid, self.compact_volume(vid))
         return ratio
 
     # -- EC shard lifecycle (store_ec.go) ------------------------------------

@@ -13,7 +13,8 @@ map only, and the persistent maps are ROADMAP A4c-4.
 
 A caller that streams parity from the .dat (the ingest plane) must
 invalidate it before compact(): every needle's offset moves.
-Store.vacuum_volume and the volume server's VacuumVolumeCompact do.
+Store.compact_volume / commit_compact do, for Store.vacuum_volume and the
+volume server's Vacuum* rpcs alike.
 """
 from __future__ import annotations
 

@@ -2,13 +2,12 @@
 
 A copy of seaweedfs_tpu/topology/ (reference: weed/topology/): the
 DC/rack/node tree, per-collection volume layouts, XYZ replica-placement
-growth, the EC shard map, the sequencer and master-driven vacuum
-(`vacuum.py`).
+growth, the EC shard map and the sequencer.  Master-driven vacuum
+(`vacuum.py`) waits for ROADMAP A4c.
 """
 from .node import DataCenter, DataNode, EcShardInfo, Rack
 from .sequence import MemorySequencer, SnowflakeSequencer
 from .topology import Collection, EcShardLocations, Topology
-from .vacuum import scan_and_vacuum, vacuum_one_volume
 from .volume_growth import NoFreeSpace, VolumeGrowOption, VolumeGrowth, target_count_per_request
 from .volume_layout import VolumeLayout, VolumeLocationList
 
@@ -28,6 +27,4 @@ __all__ = [
     "target_count_per_request",
     "VolumeLayout",
     "VolumeLocationList",
-    "scan_and_vacuum",
-    "vacuum_one_volume",
 ]

@@ -5,7 +5,7 @@ compact (live records copied to .cpd/.cpx) and commit (makeupDiff: index
 entries appended since the compact replayed onto the copy, then the
 swap), Store.vacuum_volume, the volume server's VacuumVolumeCheck/
 Compact/Commit/Cleanup and VolumeConfigure rpcs, the master's vacuum pass
-(topology/vacuum.py's protocol over the RPC plane) and the shell's
+(Check, Compact, Commit or Cleanup over the RPC plane) and the shell's
 volume.vacuum, volume.vacuum.disable, volume.vacuum.enable and
 volume.configure.replication.
 
@@ -527,6 +527,156 @@ def test_rpc_vacuum_then_seal_departs_from_the_reference(
     assert [i for i in range(14)
             if got["ref"][i] != want_shards[i]] == [10, 11, 12, 13]
     assert _read(base["port"] + ".ecx") == _read(base["ref"] + ".ecx")
+
+
+def test_rpc_vacuum_with_no_pipeline_seals_the_compacted_dat(
+        tmp_path, frozen_clock, small_geometry):
+    """A volume whose needles landed before its server started has no
+    ingest pipeline.  The master's path then runs VacuumVolumeCompact, a
+    POST lands before VacuumVolumeCommit (the race makeupDiff absorbs),
+    and VolumeEcShardsGenerate seals.  In the reference that POST builds
+    a fresh, valid pipeline that streams rows of the pre-vacuum .dat, and
+    its parity is stale after the swap.  The port's compact recorded the
+    invalidation for a pipeline not built yet: no pipeline streams, the
+    seal runs offline, and its 14 shards equal write_ec_files of the
+    compacted .dat.  Both .dat files are the same bytes, the late needle
+    included."""
+    needles = _needles(SEED + 5, 40, lo=500, hi=3000)
+    late = (len(needles) + 1, 0x1a7e,
+            np.random.default_rng(SEED + 6).integers(
+                0, 256, 1500, np.uint8).tobytes())
+
+    async def go():
+        out = {}
+        for kind in ("port", "ref"):
+            d = tmp_path / kind
+            d.mkdir()
+            if kind == "port":
+                vs = server_volume.VolumeServer(
+                    [], [str(d)], port=0, ec_backend="torch",
+                    ec_ingest=IngestConfig(backend="torch"))
+                Needle = port_needle.Needle
+            else:
+                vs = RefVolumeServer(masters=[], directories=[str(d)],
+                                     port=0, grpc_port=0, ec_backend="numpy",
+                                     ec_ingest=JaxIngestConfig(backend="cpu"))
+                Needle = jax_needle.Needle
+            vs.store.add_volume(VID)
+            for k, (nid, cookie, data) in enumerate(needles):
+                vs.store.write_needle(VID, Needle(
+                    id=nid, cookie=cookie, data=data,
+                    last_modified=FROZEN_S,
+                    append_at_ns=FROZEN_S * 10**9 + k))
+            for nid, cookie, _ in needles[1::2]:
+                vs.store.delete_needle(VID, nid, cookie)
+            if kind == "port":
+                await vs.start()
+            else:
+                await vs.start(heartbeat=False)
+            c = Client("127.0.0.1", vs.port)
+            try:
+                assert VID not in vs.ingest.pipelines
+                stub, vpb = _stub(kind, vs)
+                async for _ in stub.VacuumVolumeCompact(
+                        vpb.VacuumVolumeCompactRequest(volume_id=VID)):
+                    pass
+                nid, cookie, body = late
+                st, _, _ = await c.request(
+                    "POST", "/" + port_t.format_fid(VID, nid, cookie),
+                    {"Content-Type": "application/octet-stream"}, body)
+                assert st == 200
+                p = vs.ingest.pipelines.get(VID)
+                t_end = time.monotonic() + DEADLINE_S
+                while (p is not None and p.encoded_rows < p.staged_rows
+                       and time.monotonic() < t_end):
+                    await asyncio.sleep(0.01)
+                rows = (p.encoded_rows, p.valid) if p is not None else None
+                await stub.VacuumVolumeCommit(
+                    vpb.VacuumVolumeCommitRequest(volume_id=VID))
+                await stub.VolumeEcShardsGenerate(
+                    vpb.VolumeEcShardsGenerateRequest(volume_id=VID))
+            finally:
+                await c.close()
+                await vs.stop()
+            out[kind] = rows
+        return out
+
+    rows = asyncio.run(go())
+    assert rows["port"] is None
+    assert rows["ref"][0] >= 4 and rows["ref"][1] is True  # the defect
+    base = {k: str(tmp_path / k / str(VID)) for k in ("port", "ref")}
+    assert _read(base["port"] + ".dat") == _read(base["ref"] + ".dat")
+    oracle = str(tmp_path / "oracle")
+    shutil.copyfile(base["port"] + ".dat", oracle + ".dat")
+    jax_encoder.write_ec_files(oracle, backend="cpu", large_block=LARGE,
+                               small_block=SMALL)
+    want = [_read(oracle + port_ec.to_ext(i)) for i in range(14)]
+    got = {k: [_read(b + port_ec.to_ext(i)) for i in range(14)]
+           for k, b in base.items()}
+    assert got["port"] == want
+    assert [i for i in range(14) if got["ref"][i] != want[i]] == [
+        10, 11, 12, 13]
+
+
+def test_rpc_vacuum_reopens_a_full_volume(tmp_path, frozen_clock):
+    """A volume written past its size limit is full and pushed so.  Half
+    its needles deleted, the master's path (VacuumVolumeCompact, then
+    VacuumVolumeCommit) shrinks it back under the limit: the port's
+    commit re-opens it and pushes the delta, as Store.vacuum_volume does
+    in both packages.  The reference's rpcs leave it full (pinned)."""
+    needles = _needles(SEED + 7, 40, lo=500, hi=2000)
+    limit = sum(len(data) for _, _, data in needles) // 2
+
+    async def go():
+        out = {}
+        for kind in ("port", "ref"):
+            d = tmp_path / kind
+            d.mkdir()
+            if kind == "port":
+                vs = server_volume.VolumeServer([], [str(d)], port=0,
+                                                ec_backend="torch")
+                Needle = port_needle.Needle
+            else:
+                vs = RefVolumeServer(masters=[], directories=[str(d)],
+                                     port=0, grpc_port=0, ec_backend="numpy")
+                Needle = jax_needle.Needle
+            store = vs.store
+            store.volume_size_limit = limit
+            v = store.add_volume(VID)
+            written = []
+            for k, (nid, cookie, data) in enumerate(needles):
+                store.write_needle(VID, Needle(
+                    id=nid, cookie=cookie, data=data,
+                    last_modified=FROZEN_S,
+                    append_at_ns=FROZEN_S * 10**9 + k))
+                written.append((nid, cookie))
+                if v.full:
+                    break
+            assert v.full
+            for nid, cookie in written[::2]:
+                store.delete_needle(VID, nid, cookie)
+            store.drain_deltas()
+            if kind == "port":
+                await vs.start()
+            else:
+                await vs.start(heartbeat=False)
+            try:
+                stub, vpb = _stub(kind, vs)
+                async for _ in stub.VacuumVolumeCompact(
+                        vpb.VacuumVolumeCompactRequest(volume_id=VID)):
+                    pass
+                await stub.VacuumVolumeCommit(
+                    vpb.VacuumVolumeCommitRequest(volume_id=VID))
+                deltas = store.drain_deltas()[0]
+                out[kind] = (v.full, v.content_size <= limit,
+                             [(m.id, m.read_only) for m in deltas])
+            finally:
+                await vs.stop()
+        return out
+
+    out = asyncio.run(go())
+    assert out["port"] == (False, True, [(VID, False)])
+    assert out["ref"] == (True, True, [])  # the reference stays full
 
 
 # ------------------------------------------------------------ the cluster
