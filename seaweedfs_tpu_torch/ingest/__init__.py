@@ -9,8 +9,22 @@ while the `.dat` is still growing, and group-commit their fsyncs.
 `ec_generate` of a streamed volume then only sweeps the zero-padded tail
 row — the bulk after-the-fact batch job becomes an online pipeline.
 """
+import importlib
+
 from .config import IngestConfig
-from .pipeline import GroupCommitter, IngestPipeline, IngestPlane
+
+# the pipeline brings the stream encoder, and so torch: it loads on its
+# first use, so that a process that parses the volume command's flags
+# (every command's parser) starts without it
+
+
+def __getattr__(name: str):
+    if name not in ("GroupCommitter", "IngestPipeline", "IngestPlane"):
+        raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+    value = getattr(importlib.import_module(".pipeline", __name__), name)
+    globals()[name] = value
+    return value
+
 
 __all__ = [
     "GroupCommitter",
