@@ -48,8 +48,8 @@ volume:
                  a fresh server a turn (flat, block-diagonal): HTTP GETs of
                  a seeded 2,000 of every needle with bytes on shard 0
                  plus 400 others one at a time, then 64 concurrent
-                 keep-alive clients (12,000 reads or 8 s; 20 s in the
-                 profiled turn); every
+                 keep-alive clients (12,000 reads or 8 s; in the
+                 profiled turn until its capture returns); every
                  body byte-verified, no native route once resident; batch
                  widths, launches and D2H bytes per batch from /metrics;
                  the trace plane: per-stage means and the critical-path
@@ -1510,9 +1510,10 @@ GET_ROUTE = "GET /<fid>"
 PROFILE_TURNS = (1,)
 PROFILE_SECONDS = 5.0
 PROFILE_DELAY_S = 3.0
-# the profiled turn's concurrent pass runs this long at most (the others
-# SERVE_SECONDS): its readers must span the capture on a slow host too
-PROFILE_PASS_S = 20.0
+# the profiled turn's concurrent pass runs until its capture has returned
+# (CUPTI's first start in the server takes seconds, more on a slow host),
+# and this long at most (the others SERVE_SECONDS or SERVE_READS)
+PROFILE_PASS_S = 120.0
 # the added turns, flat and concurrent only, each with its reads:
 # -obs.disable (tracing's cost), then -obs.tail.disable (the tail store's
 # share of it; short: it checks that the GET route's critical path stays
@@ -1717,10 +1718,11 @@ def _trace_docs(port: int) -> dict:
     }
 
 
-def _profile_window(port: int, delay_s: float, out: dict) -> None:
+def _profile_window(port: int, delay_s: float, out: dict,
+                    stop_path: str) -> None:
     """In a thread: after `delay_s`, a PROFILE_SECONDS /debug/profile
     capture of the server on `port` (its status and document into
-    `out`)."""
+    `out`); then the file `stop_path` tells the readers to stop."""
     import urllib.error
     import urllib.request
 
@@ -1734,6 +1736,9 @@ def _profile_window(port: int, delay_s: float, out: dict) -> None:
         out["status"], out["doc"] = e.code, e.read().decode(errors="replace")
     except OSError as e:
         out["status"], out["doc"] = None, repr(e)
+    finally:
+        with open(stop_path, "w"):
+            pass
 
 
 def _profile_summary(doc: dict) -> dict:
@@ -1970,16 +1975,20 @@ def _serve_layout(workdir: str, serve_dir: str, layout: str, seq: list,
                 raise AssertionError("a deleted needle did not answer 404")
         mid = _serve_counts(_scrape(port))
         prof: dict = {}
+        stop_path = ""
         if profile:
+            stop_path = os.path.join(workdir, f"serve_{turn}.stop")
             window = threading.Thread(
-                target=_profile_window, args=(port, PROFILE_DELAY_S, prof),
-                daemon=True)
+                target=_profile_window,
+                args=(port, PROFILE_DELAY_S, prof, stop_path), daemon=True)
             window.start()
         cpu0 = _proc_cpu_s(proc.pid)
         con = _serve_concurrent(port, [
             (nid, vol["needles"][nid][3], vol["needles"][nid][2])
-            for nid in seq], seed, reads=reads, traced=traced,
-            seconds=PROFILE_PASS_S if profile else SERVE_SECONDS)
+            for nid in seq], seed, reads=sys.maxsize if profile else reads,
+            traced=traced,
+            seconds=PROFILE_PASS_S if profile else SERVE_SECONDS,
+            stop_path=stop_path)
         server_cpu_s = _proc_cpu_s(proc.pid) - cpu0
         passes.append(("concurrent", con["lat"], _serve_delta(
             mid, _serve_counts(_scrape(port)))))

@@ -33,6 +33,11 @@ def start_cpu_profile(path: str) -> None:
 def start_mem_profile(path: str) -> None:
     import tracemalloc
 
+    # most commands load torch on first use; imported under tracemalloc it
+    # takes some 20x longer and its import's allocations would fill the
+    # dump, so it is imported before the tracing starts
+    import torch  # noqa: F401
+
     tracemalloc.start(10)
 
     def dump() -> None:
