@@ -3130,6 +3130,9 @@ def _tier_round(pool, srv, seq, vid: int, seed: int, label: str, rnd: int) -> di
            "reads_per_s": len(lat) / wall, "p50_ms": _pct(lat, 50),
            "p99_ms": _pct(lat, 99), "routes": d["routes"],
            "k2_k5_launches": rs_resident.fused_reconstruct.launches - k0,
+           "qos_sheds": {k: m1[k] - m0.get(k, 0.0) for k in m1
+                         if k.startswith("SeaweedFS_volumeServer_ec_qos_shed_total{")
+                         and m1[k] != m0.get(k, 0.0)},
            "tier_of": {v: srv.vs.store.ec_volume_tier(v) for v in (2, 3)},
            "tier_series": _tier_series(m1)}
     log("tiering_round", **row)

@@ -281,17 +281,19 @@ class QosController:
         """Feed one batch's per-needle service time into the EWMA the
         deadline estimate rides on.
 
-        Departure from the reference: neither the first batch after a
-        start nor a batch served while a pin uploaded (`pinning`) seeds
-        the estimate.  Both are outliers (warm-up, a card busy with the
-        upload): seeded by one, the estimate alone sheds a queue of
-        reads on the interactive deadline that the next batches serve in
-        a fraction of it.  Once seeded the EWMA is the reference's."""
-        if per_needle_s <= 0:
+        Departure from the reference: the first batch after a start does
+        not seed the estimate, and a batch served while a pin uploaded
+        (`pinning`) never feeds it, seeded or not.  Both are outliers
+        (warm-up, a card busy with the upload): fed one, the estimate
+        alone sheds a queue of reads on the interactive deadline that
+        the next batches serve in a fraction of it (a promotion's pin
+        under 64 readers did so once the estimate was seeded).  Other
+        batches feed the reference's EWMA."""
+        if per_needle_s <= 0 or pinning:
             return
         if self._service_s is None:
             first, self._first_seen = not self._first_seen, True
-            if first or pinning:
+            if first:
                 return
             self._service_s = per_needle_s
         else:

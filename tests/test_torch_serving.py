@@ -169,18 +169,47 @@ def test_first_batch_does_not_seed_the_estimate():
     # a batch served while a pin uploads does not seed either
     port.observe_service(0.9, pinning=True)
     assert port.estimated_wait_s(11, 4) == 0.0
-    # the next batch seeds, and from there the EWMA is the reference's,
-    # pinning or not
+    # the next batch seeds, and from there the EWMA is the reference's
+    # over the batches served without a pin
     port.observe_service(0.2)
     ref2 = jax_qos.QosController(pol(jax_qos), clock=clk)
     ref2.observe_service(0.2)
-    for s, pinning in ((0.9, True), (0.1, False), (0.3, True)):
+    for s, pinning in ((0.9, True), (0.1, False), (0.3, True), (0.25, False)):
         port.observe_service(s, pinning=pinning)
-        ref2.observe_service(s)
+        if not pinning:
+            ref2.observe_service(s)
         assert port.estimated_wait_s(11, 4) == ref2.estimated_wait_s(11, 4)
     # a deadline shed still happens when the seeded estimate earns it
     port.observe_service(3.0)
     assert port.admit("interactive", 11, 4) == qos.SHED_DEADLINE
+
+
+def test_batches_during_a_promotion_pin_do_not_feed_a_seeded_estimate():
+    """A promotion's pin under 64 readers: the estimate is already seeded
+    by fast batches, and the batches served while the promoted volume's
+    last survivors upload take 0.9 s a needle.  Fed them, the reference's
+    estimate sheds the 64 queued reads of the round after the pin on its
+    2 s deadline; the port's estimate holds the seeded rate and admits
+    them."""
+    clk = FakeClock()
+    pol = lambda mod: {  # noqa: E731
+        mod.INTERACTIVE: mod.TierPolicy(mod.INTERACTIVE, 1792, 2.0),
+        mod.BULK: mod.TierPolicy(mod.BULK, 1792, 0.0),
+    }
+    ref = jax_qos.QosController(pol(jax_qos), clock=clk)
+    port = qos.QosController(pol(qos), clock=clk)
+    port.observe_service(0.004)  # the first batch after the start
+    for s in (0.004, 0.003, 0.005):
+        ref.observe_service(s)
+        port.observe_service(s)
+    seeded = ref.estimated_wait_s(64, 4)
+    assert port.estimated_wait_s(64, 4) == seeded
+    for _ in range(3):
+        ref.observe_service(0.9)
+        port.observe_service(0.9, pinning=True)
+    assert ref.admit("interactive", 64, 4) == jax_qos.SHED_DEADLINE
+    assert port.admit("interactive", 64, 4) is None
+    assert port.estimated_wait_s(64, 4) == seeded
 
 
 def test_dispatcher_marks_batches_served_during_a_pin():
