@@ -4386,6 +4386,19 @@ def _cluster_shell_verbs(cl: _Cluster, seed: int) -> dict:
         return sorted(locs) == list(range(14)) and all(
             len(v) == 1 for v in locs.values())
 
+    def listed_where_stored() -> bool:
+        """The master lists each shard once, on the server whose disk holds
+        its file.  A verb's shell returns before the servers' heartbeat
+        deltas reach the master (up to a pulse later), and the state before
+        a spread or a balance also lists each shard once."""
+        on_disk = {sid: [cl.url(n) for n in names if n not in cl.killed
+                         and os.path.exists(os.path.join(
+                             cl.dir, n, stem + ec.to_ext(sid)))]
+                   for sid in range(14)}
+        locs = cl.shards(vid)
+        return all(len(on_disk[sid]) == 1 and locs.get(sid) == on_disk[sid]
+                   for sid in range(14))
+
     def placement() -> dict:
         by_url = {cl.url(n): n for n in names}
         return {sid: by_url[u[0]] for sid, u in sorted(cl.shards(vid).items())}
@@ -4410,7 +4423,7 @@ def _cluster_shell_verbs(cl: _Cluster, seed: int) -> dict:
     k_holder0 = _k_counts(m_holder0)
     _, verbs["ec.encode"] = cl.shell(
         f"lock; ec.encode -volumeId {vid}; unlock")
-    cl.wait("the master lists 14 spread shards", held_once)
+    cl.wait("the master lists 14 spread shards", listed_where_stored)
     m_holder1 = _scrape(cl.ports[holder][0])
     encode_k1 = {k: v - k_holder0[k] for k, v in _k_counts(m_holder1).items()}
     if not encode_k1["gf2_matmul"] + encode_k1["gf2_matmul_small"]:
@@ -4439,7 +4452,7 @@ def _cluster_shell_verbs(cl: _Cluster, seed: int) -> dict:
         raise AssertionError("reads after the loss launched no K1")
     k_before = {n: _k_counts(_scrape(cl.ports[n][0])) for n in survivors}
     _, verbs["ec.rebuild"] = cl.shell("lock; ec.rebuild -force; unlock")
-    cl.wait("the master lists 14 shards again", held_once)
+    cl.wait("the master lists 14 shards again", listed_where_stored)
     check_shards("ec.rebuild")
     rebuild_k1 = sum(
         _k_counts(_scrape(cl.ports[n][0]))[k] - k_before[n][k]
@@ -4448,9 +4461,9 @@ def _cluster_shell_verbs(cl: _Cluster, seed: int) -> dict:
         raise AssertionError("ec.rebuild launched no K1")
     rebuilt = placement()
     auto = _cluster_auto_repair(cl, vid, survivors, rebuilt, held_once,
-                                check_shards, placement)
+                                listed_where_stored, check_shards, placement)
     _, verbs["ec.balance"] = cl.shell("lock; ec.balance -force; unlock")
-    cl.wait("the master lists 14 balanced shards", held_once)
+    cl.wait("the master lists 14 balanced shards", listed_where_stored)
     check_shards("ec.balance")
     balanced = placement()
     _, verbs["ec.decode"] = cl.shell(f"lock; ec.decode -volumeId {vid}; unlock")
@@ -4483,8 +4496,8 @@ def _cluster_shell_verbs(cl: _Cluster, seed: int) -> dict:
 
 
 def _cluster_auto_repair(cl: _Cluster, vid: int, survivors: list,
-                         rebuilt: dict, held_once, check_shards,
-                         placement) -> dict:
+                         rebuilt: dict, held_once, listed_where_stored,
+                         check_shards, placement) -> dict:
     """9b's second loss, after ec.rebuild healed the first: the repair
     plane resumed, two shards unmounted and deleted on the survivor that
     holds more, and the master brings the volume back to 14 shards with no
@@ -4521,6 +4534,8 @@ def _cluster_auto_repair(cl: _Cluster, vid: int, survivors: list,
     # the job done (its spread too) and the census healthy again
     cl.wait("the repair's time to healthy", observed)
     heal_wall = time.perf_counter() - t0
+    cl.wait("the master lists the healed shards where they are stored",
+            listed_where_stored)
     m1 = _scrape(cl.master_http)
     st = cl.health()["repair"]
     v = st["volumes"][str(vid)]
