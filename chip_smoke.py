@@ -3269,6 +3269,11 @@ CLUSTER_CONCURRENT_READS = 2000
 # second)
 CLUSTER_SEQ_READS = 600
 CLUSTER_GATHER_READS = 400
+# 9a's memo step: at most this many needles wholly on shard 5 (outside step
+# 6's sample), their intervals summing to at most half the memo's budget,
+# read twice on B by one client; the degraded-read memo's series
+MEMO_NEEDLES = 16
+MEMO = 'SeaweedFS_volumeServer_ec_degraded_memo_total{result="%s"}'
 # 9b: the volume the shell verbs vacuum, encode, spread, rebuild, balance
 # and decode.  Its writes come on top of the main path's (a call may write
 # 45 GiB, deleted files counted): about 6x this .dat (§4 of PERF.md)
@@ -3295,12 +3300,14 @@ SLO_FAST_S, SLO_SLOW_S = 2.0, 4.0
 SLO_PROFILE_S = 2.0
 # a second SLO-fired bundle within the phase would break the rate limit
 SLO_MIN_INTERVAL_S = 3600.0
-# the target: the highest digest edge that at most SLO_SEQ_MAX_BAD of 5c's
+# the target: the highest target that at most SLO_SEQ_MAX_BAD of 5c's
 # sequential batch_dispatch observations exceeded while at least
 # SLO_MIN_BAD of its 64-client pass did (the budget is 1%: one-client
 # reads burn at most half of it, 64 clients at least twice, and 9a's
 # one-client reads on A keep the most margin)
 SLO_SEQ_MAX_BAD, SLO_MIN_BAD = 0.005, 0.02
+# where no edge fits: candidate targets at these fractions of each bucket
+SLO_TARGET_STEPS = 8
 # the SLO window's readers stop once the bundle and the shell's reads are
 # in, or after this long
 SLO_LOAD_MAX_S = 120.0
@@ -3477,6 +3484,8 @@ def _peer_counts(m: dict) -> dict:
             "SeaweedFS_volumeServer_ec_deadline_exceeded_total", 0.0),
         "batched": m.get(route % "batched", 0.0),
         "native": m.get(route % "native", 0.0),
+        "memo_hit": m.get(MEMO % "hit", 0.0),
+        "memo_miss": m.get(MEMO % "miss", 0.0),
         **_k_counts(m),
     }
 
@@ -3629,16 +3638,21 @@ class _PushSink:
 
 def _slo_target(serve: dict) -> dict:
     """9a's read_p99 target, from 5c's first flat turn (its server had
-    the cache and layout A has): the highest edge of the stage-digest
-    ladder that at least SLO_MIN_BAD of the 64-client pass's
-    batch_dispatch observations exceeded — so that 64 clients burn it —
-    provided at most SLO_SEQ_MAX_BAD of the sequential pass's did, so
-    that 9a's one-client reads on A (step 4) stay inside the 1% budget.
-    The highest such edge, not the lowest: the SLO engine judges windows
-    of a pulse or two, so a few slow one-client reads early in step 4
-    burn a target set at the one-client pass's tail (5 ms fired at the
-    start of step 4 in one run).  On an edge, a digest counts an
-    observation bad exactly when it is slower."""
+    the cache and layout A has): the highest target that at least
+    SLO_MIN_BAD of the 64-client pass's batch_dispatch observations
+    exceeded — so that 64 clients burn it — provided at most
+    SLO_SEQ_MAX_BAD of the sequential pass's did, so that 9a's one-client
+    reads on A (step 4) stay inside the 1% budget.  The highest such
+    target, not the lowest: the SLO engine judges windows of a pulse or
+    two, so a few slow one-client reads early in step 4 burn a target set
+    at the one-client pass's tail (5 ms fired at the start of step 4 in
+    one run).  The candidates are the digest ladder's edges, where a
+    digest counts an observation bad exactly when it is slower; only when
+    no edge fits (on a fast host both passes can fill one bucket), also
+    SLO_TARGET_STEPS points inside each bucket, where the share is the
+    master's own estimate (obs/slo.py `_bad_from_buckets`, linear inside
+    the bucket that straddles the target)."""
+    from seaweedfs_tpu_torch.obs.slo import _bad_from_buckets
     from seaweedfs_tpu_torch.stats.cluster import quantile_from_buckets
     from seaweedfs_tpu_torch.stats.metrics import STAGE_SECONDS_BUCKETS
 
@@ -3646,19 +3660,26 @@ def _slo_target(serve: dict) -> dict:
     seq = serve["flat"]["sequential"][key]
     con = serve["flat"]["concurrent"][0][key]
 
-    def above(counts, i):  # share of the observations past edge i
-        return sum(counts[i + 1:]) / max(1.0, sum(counts))
+    def above(counts, target_s):  # the share the master counts slower
+        bad, total = _bad_from_buckets(counts, target_s)
+        return bad / max(1.0, total)
 
-    fits = [i for i in range(len(STAGE_SECONDS_BUCKETS))
-            if above(seq, i) <= SLO_SEQ_MAX_BAD
-            and above(con, i) >= SLO_MIN_BAD]
+    def fitting(targets):
+        return [t for t in targets if above(seq, t) <= SLO_SEQ_MAX_BAD
+                and above(con, t) >= SLO_MIN_BAD]
+
+    lows = (0.0,) + tuple(STAGE_SECONDS_BUCKETS[:-1])
+    fits = fitting(STAGE_SECONDS_BUCKETS) or fitting(sorted(
+        lo + (hi - lo) * k / SLO_TARGET_STEPS
+        for lo, hi in zip(lows, STAGE_SECONDS_BUCKETS)
+        for k in range(1, SLO_TARGET_STEPS)))
     if not fits:
-        raise AssertionError(f"no digest edge separates 5c's one-client and "
+        raise AssertionError(f"no target separates 5c's one-client and "
                              f"64-client {SLO_STAGE} observations: {seq}, "
                              f"{con}")
     pick = fits[-1]
     p99 = quantile_from_buckets(con, 0.99)
-    row = {"target_ms": STAGE_SECONDS_BUCKETS[pick] * 1e3,
+    row = {"target_ms": round(pick * 1e3, 6),
            "sequential_share_above": above(seq, pick),
            "concurrent_share_above": above(con, pick),
            "concurrent_p99_ms": p99 * 1e3 if p99 is not None else None,
@@ -4043,23 +4064,91 @@ def _cluster_full_width(cl: _Cluster, workdir: str, vol: dict, deg: dict,
         raise AssertionError(f"B's survivor gather: {d6}")
     critpath = _cluster_critpath(cl, traces6)
     quiet("6", m5)
+    # 6b. the reconstruct memo: needles of shard 5 not in seq6, read twice
+    # on B; the second pass within the memo's TTL pulls nothing off A and
+    # launches no K1
+    row6b = _cluster_memo(b_port, spans, by_shard, set(seq6), item, rng)
+    quiet("6b", m5)
     # 7. the SLO window: A's resident reads (K2+K3, the batch_dispatch
     # stage the SLO judges) and B's gathers (K1) at once
     triple = lambda nid: (nid, vol["needles"][nid][3], vol["needles"][nid][2])
+    b7 = _peer_counts(_scrape(b_port))
     slo_row = _cluster_slo(cl, slo, [triple(n) for n in seq4],
                            [triple(n) for n in seq6], seed + 9, sink)
+    d7 = _delta(b7, _peer_counts(_scrape(b_port)))
+    # B's K1 launches and memo outcomes over step 7's re-reads of seq6
+    # (400 needles, far more than the memo's budget)
+    slo_row["B_memo"] = {"k1": d7["gf2_matmul"] + d7["gf2_matmul_small"],
+                         "memo_hit": d7["memo_hit"],
+                         "memo_miss": d7["memo_miss"],
+                         "remote_ok": d7["remote_ok"]}
     a_final, b_final = _k_counts(_scrape(a_port)), _k_counts(_scrape(b_port))
     out = {"pin_s": pin_s, "scrub_wall_s": scrub_wall,
            "scrub_launches": scrub_launches, "telemetry_A": telemetry,
            "step4_resident_on_A": row4, "step5_remote_on_B": row5,
            "step5_remote_on_B_64_clients": row5c,
            "step6_gather_on_B": row6, "step6_critpath": critpath,
+           "step6b_memo_on_B": row6b,
            "step7_slo": slo_row,
            "launches": {"A": a_final, "B": b_final}}
     log("cluster_full_width", needles=len(vol["needles"]),
         shards={"A": "1-13 (0 to B; 5 unmounted at step 6)", "B": "0"},
         scrub_shell=scrub_out.strip().splitlines()[-1], **out)
     return out
+
+
+def _cluster_memo(b_port: int, spans: dict, by_shard: dict, skip: set,
+                  item, rng) -> dict:
+    """9a step 6b: up to MEMO_NEEDLES needles wholly inside one interval of
+    shard 5 (missing since step 6) and outside step 6's sample, whose
+    intervals sum to at most half of RECONSTRUCT_MEMO_BUDGET (reckoned from
+    the needle map), read on B by one client twice.  The first pass
+    gathers >=9 survivors an interval from A and launches K1, each
+    interval a memo miss; the second, within RECONSTRUCT_MEMO_TTL_S of the
+    first's start, is all hits: no remote fetch, no K1 launch, the same
+    bytes (each body is checked against the needle's sha256 on both
+    passes).  Each failure is fatal; writes nothing."""
+    from seaweedfs_tpu_torch.storage.ec import volume as ec_volume
+
+    budget = ec_volume.RECONSTRUCT_MEMO_BUDGET // 2
+    cands = sorted(n for n in by_shard[5] if n not in skip
+                   and spans[n][1] == {5} and len(spans[n][0]) == 1)
+    pick, total = [], 0
+    for n in rng.permutation(cands).tolist():
+        size = spans[n][0][0].size
+        if total + size <= budget:
+            pick.append(n)
+            total += size
+            if len(pick) == MEMO_NEEDLES:
+                break
+    if len(pick) < MEMO_NEEDLES // 2:
+        raise AssertionError(f"memo step: {len(pick)} needles of shard 5 "
+                             f"fit {budget} B ({len(cands)} candidates)")
+    items = [item(n) for n in pick]
+    t0 = time.monotonic()
+    row1, d1 = _timed_gets(b_port, items, 1, b_port)
+    row2, d2 = _timed_gets(b_port, items, 1, b_port)
+    span_s = time.monotonic() - t0
+    n = len(pick)
+    k1 = [d["gf2_matmul"] + d["gf2_matmul_small"] for d in (d1, d2)]
+    if d1["remote_ok"] < 9 * n or not k1[0] or d1["memo_miss"] != n \
+            or d1["memo_hit"]:
+        raise AssertionError(f"memo step, first pass over {n} intervals: "
+                             f"{d1}")
+    if span_s >= ec_volume.RECONSTRUCT_MEMO_TTL_S:
+        raise AssertionError(f"memo step: the two passes took {span_s} s, "
+                             "past the memo's TTL")
+    if d2["remote_ok"] or k1[1] or d2["memo_hit"] != n or d2["memo_miss"]:
+        raise AssertionError(f"memo step, second pass over {n} intervals: "
+                             f"{d2}")
+    return {"needles": n, "memo_bytes": total, "budget_half": budget,
+            "two_passes_s": span_s,
+            "first": {**row1, "memo": {"hit": d1["memo_hit"],
+                                       "miss": d1["memo_miss"]},
+                      "remote_ok": d1["remote_ok"], "k1": k1[0]},
+            "second": {**row2, "memo": {"hit": d2["memo_hit"],
+                                        "miss": d2["memo_miss"]},
+                       "remote_ok": d2["remote_ok"], "k1": k1[1]}}
 
 
 async def _cluster_writes(master: str, pool: bytes, needles: list,

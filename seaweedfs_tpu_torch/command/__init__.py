@@ -44,6 +44,11 @@ def main(argv: list[str] | None = None) -> int:
     from ..utils import profiling
 
     profiling.maybe_start(args)
+    # process-wide mutual TLS from security.toml [tls] (the reference
+    # loads the same file for every command)
+    from ..security import tls as tls_mod
+
+    tls_mod.configure(tls_mod.from_security_toml())
     try:
         asyncio.run(COMMANDS[args.command].run(args))
     except KeyboardInterrupt:

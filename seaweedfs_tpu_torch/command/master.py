@@ -32,7 +32,10 @@ reference):
     python3 -m seaweedfs_tpu_torch master -port 9333 \
         -garbageThreshold 0.3 -autoVacuum
 
-`-peers` and `-mdir` wait for ROADMAP A4c-5.
+security.toml (./, ~/.seaweedfs/, /etc/seaweedfs/) gives the write-JWT
+key and lifetime (`[jwt.signing] key`, `expires_after_seconds`), the peer
+white list (`[access] white_list`) and mutual TLS for the RPC plane
+(`[tls] ca`, `cert`, `key`).  `-peers` and `-mdir` wait for ROADMAP A4c-5.
 """
 from __future__ import annotations
 
@@ -149,8 +152,10 @@ def repair_config(args):
 def build_server(args):
     """A MasterServer from the parsed flags (not started)."""
     common_args.apply_obs_args(args)
+    from ..security import guard as guard_mod
     from ..server.master import MasterServer
     from ..storage import types as storage_types
+    from ..utils import config as config_util
 
     if args.volume_size_limit_mb * 1024 * 1024 > storage_types.MAX_POSSIBLE_VOLUME_SIZE:
         # volumes past the 4-byte 32GB address cap need 5-byte needle-map
@@ -167,6 +172,9 @@ def build_server(args):
         garbage_threshold=args.garbage_threshold,
         auto_vacuum=args.auto_vacuum,
         ec_repair=repair_config(args),
+        jwt_signing_key=config_util.jwt_signing_key(),
+        jwt_expires_sec=config_util.jwt_expires_sec(),
+        white_list=guard_mod.from_security_toml(),
         **common_args.metrics_kwargs(args),
         **common_args.slo_incident_kwargs(args),
     )

@@ -21,6 +21,13 @@ calls (utils/faultpolicy.py).  The -obs.* and -metrics.* flags are the
 reference's, shared with the master (command/common_args.py): with
 -metrics.address the server pushes its registry to a Prometheus
 pushgateway every -metrics.intervalSeconds.
+
+`-images.fix.orientation` turns uploaded JPEGs upright by their EXIF tag,
+as the reference does.  `-ec.serving.aot.disable` is accepted and does
+nothing: the kernels take runtime shapes, so there is no ahead-of-time
+compile to turn off.  security.toml (./, ~/.seaweedfs/, /etc/seaweedfs/)
+gives the write-JWT key (`[jwt.signing] key`), the peer white list
+(`[access] white_list`) and mutual TLS for the RPC plane (`[tls]`).
 """
 from __future__ import annotations
 
@@ -128,6 +135,13 @@ def add_args(p) -> None:
         "-ec.serving.overlap.disable", dest="ec_serving_overlap_disable",
         action="store_true",
         help="one device pipeline slot instead of two",
+    )
+    p.add_argument(
+        "-ec.serving.aot.disable", dest="ec_serving_aot_disable",
+        action="store_true",
+        help="accepted for the reference's command lines and ignored: the "
+        "CUDA kernels take their shapes at run time, so nothing is "
+        "compiled ahead of time and there is no cold shape to shed",
     )
     p.add_argument(
         "-ec.serving.mesh.disable", dest="ec_serving_mesh_disable",
@@ -316,6 +330,11 @@ def add_args(p) -> None:
         "redirect at it",
     )
     p.add_argument(
+        "-images.fix.orientation", dest="fix_jpg_orientation",
+        action="store_true",
+        help="rotate JPEG pixels per EXIF orientation at upload",
+    )
+    p.add_argument(
         "-fileSizeLimitMB", dest="client_max_size_mb", type=int, default=256,
         help="reject uploads larger than this",
     )
@@ -463,6 +482,8 @@ def build_server(args: argparse.Namespace):
     from ..parallel import mesh as mesh_mod
     from ..server.volume import VolumeServer
     from ..storage.ec import bulk as ec_bulk
+    from ..security import guard as guard_mod
+    from ..utils import config as config_util
     from ..utils import faultpolicy
 
     apply_obs_args(args)
@@ -517,6 +538,9 @@ def build_server(args: argparse.Namespace):
         ec_scrub_megakernel=not args.ec_scrub_megakernel_disable,
         ec_ingest=ingest_config(args),
         read_mode=args.read_mode,
+        jwt_signing_key=config_util.jwt_signing_key(),
+        white_list=guard_mod.from_security_toml(),
+        fix_jpg_orientation=args.fix_jpg_orientation,
         **metrics_kwargs(args),
     )
 

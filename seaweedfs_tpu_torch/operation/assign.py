@@ -15,6 +15,7 @@ class AssignResult:
     grpc_port: int
     count: int
     replicas: list[tuple[str, str]]  # (url, public_url)
+    auth: str = ""  # the master-signed write jwt (security/jwt.py)
 
     def fid_for(self, index: int) -> str:
         """fid of the index-th file in a count>1 assignment: 'vid,key_N'."""
@@ -51,4 +52,5 @@ async def assign(
         grpc_port=resp.location.grpc_port,
         count=resp.count,
         replicas=[(r.url, r.public_url) for r in resp.replicas],
+        auth=resp.auth,
     )

@@ -24,6 +24,10 @@ def _should_gzip(mime: str, data: bytes) -> bool:
     return any(mime.startswith(p) for p in _COMPRESSIBLE)
 
 
+def auth_headers(jwt: str) -> dict:
+    return {"Authorization": f"Bearer {jwt}"} if jwt else {}
+
+
 def multipart_body(data: bytes, filename: str, mime: str,
                    gzipped: bool) -> tuple[bytes, str]:
     """-> (body, content type) of a one-part form upload."""
@@ -46,10 +50,12 @@ async def upload_data(
     mime: str = "",
     retries: int = 2,
     client: Client | None = None,
+    jwt: str = "",
 ) -> dict:
     """POST to http://volume/fid as multipart/form-data; returns the volume
     server's JSON ({name, size, eTag}).  `client` reuses a keep-alive
-    connection to the same server."""
+    connection to the same server; `jwt` is the master's write token for
+    the fid (sent as `Authorization: Bearer`)."""
     body = data
     gzipped = False
     if _should_gzip(mime, data):
@@ -61,13 +67,12 @@ async def upload_data(
                                     gzipped)
     parts = urllib.parse.urlsplit(url)
     path = parts.path + (f"?{parts.query}" if parts.query else "")
+    headers = {"Content-Type": ctype, **auth_headers(jwt)}
     last_err: Exception | None = None
     for _ in range(retries + 1):
         c = client if client is not None else Client(parts.hostname, parts.port)
         try:
-            status, _, resp = await c.request(
-                "POST", path, {"Content-Type": ctype}, payload,
-            )
+            status, _, resp = await c.request("POST", path, headers, payload)
             if status >= 300:
                 raise RuntimeError(f"upload {url}: HTTP {status} {resp[:200]!r}")
             return json.loads(resp)

@@ -223,9 +223,13 @@ class RpcServer:
                 self._handlers[m.full_path] = (m, fn, role)
 
     async def start(self) -> int:
+        """Bind and serve; a TLS listener requiring client certificates
+        when security/tls.py is configured."""
+        from ..security import tls
+
         self._server = await asyncio.start_server(
             self._serve_conn, self.host, self.port,
-            limit=1 << 20, reuse_address=True,
+            limit=1 << 20, reuse_address=True, ssl=tls.server_ssl(),
         )
         self.port = self._server.sockets[0].getsockname()[1]
         return self.port
@@ -432,10 +436,14 @@ class Channel:
                 conn.reused = True
                 return conn
             conn.close()
+        from ..security import tls
+
         host, port = _split(self.address)
+        ctx = tls.client_ssl()
         try:
             reader, writer = await asyncio.open_connection(
-                host, port, limit=1 << 20)
+                host, port, limit=1 << 20, ssl=ctx,
+                server_hostname=host if ctx is not None else None)
         except OSError as e:
             raise RpcError(StatusCode.UNAVAILABLE,
                            f"connect {self.address}: {e}") from e
@@ -657,10 +665,20 @@ class SyncChannel:
         with self._lock:
             if self._idle:
                 return self._idle.pop(), True
+        from ..security import tls
+
+        host, port = _split(self.address)
         try:
-            s = socket.create_connection(_split(self.address),
-                                         timeout=timeout)
+            s = socket.create_connection((host, port), timeout=timeout)
         except OSError as e:
+            raise RpcError(StatusCode.UNAVAILABLE,
+                           f"connect {self.address}: {e}") from e
+        ctx = tls.client_ssl()
+        try:
+            if ctx is not None:
+                s = ctx.wrap_socket(s, server_hostname=host)
+        except OSError as e:
+            s.close()
             raise RpcError(StatusCode.UNAVAILABLE,
                            f"connect {self.address}: {e}") from e
         s.setsockopt(socket.IPPROTO_TCP, socket.TCP_NODELAY, 1)
@@ -827,6 +845,17 @@ def sync_channel_cached(address: str) -> SyncChannel:
         if ch is None:
             ch = _sync_channels[address] = SyncChannel(address)
         return ch
+
+
+def drop_cached_channels() -> None:
+    """Forget every cached pool, so the next dial takes the current TLS
+    setting (security/tls.py configure); the blocking pools' idle sockets
+    close now, the async pools' with their event loop."""
+    _channels.clear()
+    with _sync_lock:
+        for ch in _sync_channels.values():
+            ch.close()
+        _sync_channels.clear()
 
 
 async def close_all_channels() -> None:

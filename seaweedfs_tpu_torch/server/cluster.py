@@ -27,12 +27,13 @@ class LocalCluster:
         # all servers (e.g. ec_device_cache_mb=...)
         master_kwargs: dict | None = None,  # extra MasterServer kwargs
         # (e.g. ec_repair=RepairConfig(...))
+        jwt_signing_key: str = "",  # the write-JWT key of every server
     ):
         # the reference LocalCluster's defaults: 1 GiB volumes, 16 slots a
         # server, every server in dc1/r1
         self.master = MasterServer(
             port=0, volume_size_limit_mb=1024, pulse_seconds=pulse_seconds,
-            **(master_kwargs or {}),
+            jwt_signing_key=jwt_signing_key, **(master_kwargs or {}),
         )
         self.base_dir = base_dir
         self._specs = [
@@ -43,6 +44,7 @@ class LocalCluster:
                 ec_backend=ec_backend,
                 data_center="dc1",
                 rack="r1",
+                jwt_signing_key=jwt_signing_key,
                 **(volume_kwargs or {}),
             )
             for i in range(n_volume_servers)

@@ -87,8 +87,11 @@ def json_response(obj, status: int = 200) -> Response:
 class Request:
     def __init__(self, method: str, target: str, version: str,
                  headers: Headers, reader: asyncio.StreamReader,
-                 writer: asyncio.StreamWriter, max_body: int):
+                 writer: asyncio.StreamWriter, max_body: int,
+                 remote: str = ""):
         self.method = method
+        # the peer's IP address (aiohttp's request.remote)
+        self.remote = remote
         self.version = version
         self.headers = headers
         parts = urllib.parse.urlsplit(target)
@@ -213,11 +216,15 @@ async def _read_head(reader: asyncio.StreamReader):
 
 class HTTPServer:
     """`handler(request) -> Response` served on host:port (0 = any free
-    port; `port` holds the bound one after start)."""
+    port; `port` holds the bound one after start).  With a `guard`
+    (security/guard.py) whose white list is set, a request from a peer
+    outside it is answered 403 before the handler runs, as the reference's
+    guard middleware does."""
 
     def __init__(self, handler, host: str = "127.0.0.1", port: int = 0,
-                 client_max_size: int = 256 << 20):
+                 client_max_size: int = 256 << 20, guard=None):
         self.handler = handler
+        self.guard = guard if guard is not None and guard.enabled else None
         self.host = host
         self.port = port
         self.client_max_size = client_max_size
@@ -244,13 +251,16 @@ class HTTPServer:
     async def _serve_conn(self, reader, writer) -> None:
         task = asyncio.current_task()
         self._conns.add(task)
+        peer = writer.get_extra_info("peername")
+        remote = peer[0] if peer else ""
         try:
             while True:
                 try:
                     head = await _read_head(reader)
                     if head is None:
                         break
-                    req = Request(*head, reader, writer, self.client_max_size)
+                    req = Request(*head, reader, writer, self.client_max_size,
+                                  remote)
                 except HTTPError as e:
                     await self._write(writer, "GET", _error_response(e),
                                       close=True)
@@ -287,6 +297,9 @@ class HTTPServer:
             writer.close()
 
     async def _handle(self, req: Request) -> Response:
+        if self.guard is not None and not self.guard.allowed(req.remote):
+            return _error_response(
+                HTTPError(403, self.guard.refusal(req.remote)))
         try:
             return await self.handler(req)
         except HTTPError as e:

@@ -37,7 +37,10 @@ growth allocates over the volume servers' AllocateVolume RPC.  The master
 itself does no device work.  Not here (ROADMAP): raft and the leader
 proxying that comes with it (A4c-5; `is_leader` is always true),
 KeepConnected and the location broadcast (no client of the port
-subscribes), collection RPCs, write JWTs, the UI.
+subscribes), collection RPCs, the UI.  With a `[jwt.signing] key` in
+security.toml, Assign and a full-fid LookupVolume carry a write token for
+the fid (security/jwt.py), which the volume servers check; with an
+`[access] white_list` a peer outside it is answered 403 over HTTP.
 """
 from __future__ import annotations
 
@@ -55,6 +58,8 @@ from .. import obs, stats
 from ..pb import RpcError, RpcServer, Stub, channel, master_pb2, volume_server_pb2
 from ..pb.rpc import StatusCode
 from ..repair import RepairScheduler
+from ..security import gen_volume_write_jwt
+from ..security.guard import Guard
 from ..storage import types as t
 from ..storage.store import VolumeMessage
 from ..topology import (
@@ -108,8 +113,14 @@ class MasterServer:
         metrics_interval_seconds: int = 15,  # ref -metrics.intervalSeconds
         obs_slo=None,  # obs.SloConfig | None (-obs.slo.* flags)
         obs_incident=None,  # obs.IncidentConfig | None (-obs.incident.*)
+        jwt_signing_key: str = "",  # security.toml [jwt.signing] key
+        jwt_expires_sec: int = 10,  # [jwt.signing] expires_after_seconds
+        white_list: list[str] | None = None,  # [access] white_list guard
     ):
         self.metrics_address = metrics_address
+        self.jwt_signing_key = jwt_signing_key
+        self.jwt_expires_sec = jwt_expires_sec
+        self.guard = Guard(white_list)
         self.metrics_interval_seconds = metrics_interval_seconds
         self.ip = ip
         self.port = port
@@ -214,7 +225,7 @@ class MasterServer:
         self.grpc_port = await self._rpc.start()
         self._http = HTTPServer(
             functools.partial(obs.middleware("master"), handler=self._route),
-            self.ip, self.port,
+            self.ip, self.port, guard=self.guard,
         )
         await self._http.start()
         self.port = self._http.port
@@ -334,6 +345,9 @@ class MasterServer:
                     count=n,
                     location=node_to_location(nodes[0]),
                     replicas=[node_to_location(x) for x in nodes[1:]],
+                    auth=gen_volume_write_jwt(
+                        self.jwt_signing_key, fid, self.jwt_expires_sec
+                    ),
                 )
             except LookupError:
                 grown = await self._grow_now(option)
@@ -354,6 +368,12 @@ class MasterServer:
                     entry.error = f"volume {vid_s} not found"
                 else:
                     entry.locations.extend(node_to_location(n) for n in nodes)
+                    if "," in vof:
+                        # a full-fid lookup gets a write token, so the
+                        # client may delete or overwrite it
+                        entry.auth = gen_volume_write_jwt(
+                            self.jwt_signing_key, vof, self.jwt_expires_sec
+                        )
             except ValueError:
                 entry.error = f"bad volume id {vof!r}"
         return resp
@@ -550,12 +570,15 @@ class MasterServer:
         resp = await self.Assign(req, None)
         if resp.error:
             return json_response({"error": resp.error}, status=404)
-        return json_response({
+        out = {
             "fid": resp.fid,
             "url": resp.location.url,
             "publicUrl": resp.location.public_url,
             "count": resp.count,
-        })
+        }
+        if resp.auth:
+            out["auth"] = resp.auth
+        return json_response(out)
 
     async def h_lookup(self, request: Request) -> Response:
         vof = request.query.get("volumeId", "")

@@ -61,11 +61,17 @@ through the hedged gather.
 A write to a volume placed for copies fans out to the other holders the
 master lists (LookupVolume), and is rolled back when a peer refuses; a
 GET of a volume held elsewhere is proxied to a holder or, with
-`-readMode redirect`, redirected at it.
+`-readMode redirect`, redirected at it.  With a `[jwt.signing] key` every
+write and delete must carry the master's token for its fid (security/);
+with an `[access] white_list` a peer outside it is answered 403.  An image
+GET with width/height/mode or crop_* is cropped, then resized (images/),
+and `-images.fix.orientation` turns uploaded JPEGs upright.  A loop
+deletes TTL volumes whose time ran out since their last write.  The admin
+rpcs DeleteCollection, VolumeServerStatus, VolumeServerLeave,
+ReadNeedleBlob and WriteNeedleBlob are served too.
 
 Blocking storage and device work runs via asyncio.to_thread.  Not here
-(ROADMAP A4c-4): write JWTs, TTL sweeps, tier moves and the other admin
-rpcs; image resizing waits for the images package.
+(ROADMAP A4c-4b): VolumeCopy, the tier moves and the volume tail.
 """
 from __future__ import annotations
 
@@ -80,13 +86,16 @@ import time
 import urllib.parse
 from collections import deque
 
-from .. import obs, stats
+from .. import images, obs, stats
 from ..obs import devledger
 from ..obs import tailstore as tailstore_mod
 from ..obs import timeline as timeline_mod
 from ..obs import trace as obs_trace
+from ..images.orientation import fix_orientation
 from ..ingest import IngestConfig, IngestPlane
 from ..ops import rs, rs_cuda, rs_resident
+from ..security import verify_volume_write_jwt
+from ..security.guard import Guard
 from ..pb import (
     RpcError,
     RpcServer,
@@ -241,8 +250,14 @@ class VolumeServer:
         read_mode: str = "proxy",  # local | proxy | redirect (-readMode)
         metrics_address: str = "",  # pushgateway host:port (ref -metrics.address)
         metrics_interval_seconds: int = 15,  # ref -metrics.intervalSeconds
+        jwt_signing_key: str = "",  # security.toml [jwt.signing] key
+        white_list: list[str] | None = None,  # [access] white_list guard
+        fix_jpg_orientation: bool = False,  # -images.fix.orientation
     ):
         self.metrics_address = metrics_address
+        self.jwt_signing_key = jwt_signing_key
+        self.guard = Guard(white_list)
+        self.fix_jpg_orientation = fix_jpg_orientation
         self.metrics_interval_seconds = metrics_interval_seconds
         # "cuda" without a card fails here, before anything is served
         ec_backend = rs.resolve_backend(ec_backend)
@@ -427,6 +442,7 @@ class VolumeServer:
             functools.partial(obs.middleware("volume"), handler=self._route),
             self.ip, self.port,
             client_max_size=self.client_max_size_mb << 20,
+            guard=self.guard,
         )
         await self._http.start()
         self.port = self._http.port
@@ -438,6 +454,9 @@ class VolumeServer:
             self._tasks.append(
                 spawn_logged(self._heartbeat_forever(), log, "heartbeat loop")
             )
+        self._tasks.append(
+            spawn_logged(self._ttl_sweep_forever(), log, "ttl sweep loop")
+        )
         if self.ec_scrub_interval_seconds > 0:
             self._tasks.append(
                 spawn_logged(self._ec_scrub_forever(), log, "ec scrub loop")
@@ -590,6 +609,7 @@ class VolumeServer:
             ):
                 return await self.h_read(request)
         if request.method in ("POST", "PUT"):
+            self._check_write_jwt(request)
             with stats.time_request(
                 stats.VOLUME_SERVER_REQUEST_COUNTER,
                 stats.VOLUME_SERVER_REQUEST_HISTOGRAM,
@@ -597,6 +617,7 @@ class VolumeServer:
             ):
                 return await self.h_write(request)
         if request.method == "DELETE":
+            self._check_write_jwt(request)
             with stats.time_request(
                 stats.VOLUME_SERVER_REQUEST_COUNTER,
                 stats.VOLUME_SERVER_REQUEST_HISTOGRAM,
@@ -604,6 +625,14 @@ class VolumeServer:
             ):
                 return await self.h_delete(request)
         raise HTTPError(405, headers={"Allow": "GET, POST, PUT, DELETE"})
+
+    def _check_write_jwt(self, request: Request) -> None:
+        """Refuse a write or delete without the master's token for its fid
+        when a signing key is set (volume_server_handlers.go write guard):
+        401, as the reference answers."""
+        raw_fid = request.path.strip("/").split(".")[0]
+        if not verify_volume_write_jwt(self.jwt_signing_key, request, raw_fid):
+            raise HTTPError(401, "missing or invalid write jwt")
 
     async def h_debug_device_attribution(self, request: Request) -> Response:
         """GET /debug/device/attribution: the device-time ledger — busy
@@ -705,6 +734,47 @@ class VolumeServer:
             except Exception:  # noqa: BLE001 — one failed cycle must
                 # not end the ladder; the next cycle retries
                 log.exception("tier rebalance failed")
+
+    async def _ttl_sweep_forever(self, interval: float = 60.0) -> None:
+        while not self._stopping:
+            await asyncio.sleep(interval)
+            try:
+                await asyncio.to_thread(self.sweep_expired_ttl_volumes)
+            except Exception:  # noqa: BLE001 — the next sweep retries
+                log.exception("ttl sweep failed")
+
+    def sweep_expired_ttl_volumes(self, grace: float = 0.1) -> list[int]:
+        """Delete volumes whose TTL lapsed (plus `grace` of it) since their
+        last write, as the reference expires whole TTL volumes.  Deletion
+        goes through Store.delete_volume, which drops the volume's ingest
+        pipeline too.  Returns the deleted vids."""
+        deleted = []
+        now = time.time()
+        for loc in self.store.locations:
+            for vid, v in list(loc.volumes.items()):
+                ttl_min = v.super_block.ttl.minutes
+                if not ttl_min or v.is_tiered:
+                    continue
+                try:
+                    last_write = os.path.getmtime(v.dat_path)
+                except OSError:
+                    continue
+                if last_write + ttl_min * 60 * (1 + grace) >= now:
+                    continue
+                # close the write window before deleting: mark read-only
+                # (pushed to the master at once, so assigns stop), then
+                # re-check — a write that raced the first mtime read keeps
+                # the volume for its records' full TTL
+                try:
+                    self.store.mark_volume_readonly(vid, True)
+                except NotFoundError:  # deleted since the listing
+                    continue
+                if os.path.getmtime(v.dat_path) != last_write:
+                    continue
+                log.info("ttl volume %d expired; deleting", vid)
+                self.store.delete_volume(vid)
+                deleted.append(vid)
+        return deleted
 
     def _collect_metrics(self) -> None:
         """Refresh volume/EC gauges from store state at scrape time, and
@@ -812,7 +882,7 @@ class VolumeServer:
                     and n.last_modified + ttl_min * 60 < time.time()
                 ):
                     raise HTTPError(404, "needle expired")
-            return self._respond_needle(request, n)
+            return await self._respond_needle(request, n)
 
     async def _read_remote(self, request: Request, vid: int) -> Response:
         """Volume not local: proxy to or redirect at a peer holding it
@@ -865,11 +935,36 @@ class VolumeServer:
             return []
         return [l.url for e in resp.volume_id_locations for l in e.locations]
 
-    def _respond_needle(self, request: Request, n: Needle) -> Response:
+    async def _respond_needle(self, request: Request, n: Needle) -> Response:
         headers = {"Etag": f'"{n.etag}"', "Accept-Ranges": "bytes"}
         if n.last_modified:
             headers["Last-Modified"] = format_http_date(n.last_modified)
         ct = n.mime.decode() if n.mime else "application/octet-stream"
+        is_image = ct.startswith("image/")
+        resize = is_image and (
+            "width" in request.query or "height" in request.query
+        )
+        crop = is_image and any(
+            f"crop_{k}" in request.query for k in ("x1", "y1", "x2", "y2")
+        )
+        if resize or crop:
+            try:
+                rw = int(request.query.get("width") or 0)
+                rh = int(request.query.get("height") or 0)
+                cx1 = int(request.query.get("crop_x1") or 0)
+                cy1 = int(request.query.get("crop_y1") or 0)
+                cx2 = int(request.query.get("crop_x2") or 0)
+                cy2 = int(request.query.get("crop_y2") or 0)
+            except ValueError:
+                raise HTTPError(400, "width/height/crop_* must be integers")
+            rmode = request.query.get("mode", "")
+            # a processed variant must not share the original's cache
+            # identity; the crop suffix appears only when cropping, so
+            # resize-only Etags stay as the reference's
+            variant = f"{n.etag}-{rw}x{rh}{rmode}"
+            if crop:
+                variant += f"-{cx1},{cy1},{cx2},{cy2}"
+            headers["Etag"] = f'"{variant}"'
         cd = content_disposition(
             request, n.name.decode("utf-8", "replace") if n.name else ""
         )
@@ -883,11 +978,23 @@ class VolumeServer:
         if isinstance(body, bytes) and body:
             copied += len(body)
         if n.is_compressed:
-            if "gzip" in request.headers.get("Accept-Encoding", ""):
+            # a transform needs pixels: never hand gzip bytes to crop or
+            # resize (they would pass through under the variant Etag)
+            if not (resize or crop) and "gzip" in request.headers.get(
+                    "Accept-Encoding", ""):
                 headers["Content-Encoding"] = "gzip"
             else:
                 body = gzip.decompress(body)
                 copied += len(body)
+        if crop:
+            # the reference's order: crop first, then resize
+            body = await asyncio.to_thread(
+                images.cropped, bytes(body), cx1, cy1, cx2, cy2)
+            copied += len(body)
+        if resize:
+            body = await asyncio.to_thread(
+                images.resized, bytes(body), rw, rh, rmode)
+            copied += len(body)
         if request.method == "HEAD":
             stats.VOLUME_SERVER_RESPONSE_COPY_BYTES.inc(copied)
             return Response(
@@ -989,6 +1096,17 @@ class VolumeServer:
             name, mime, data, compressed = self._parse_upload(
                 request.headers.get("Content-Type", ""), body
             )
+            if (
+                self.fix_jpg_orientation
+                and not compressed
+                and (
+                    mime == b"image/jpeg"
+                    or (name or b"").lower().endswith((b".jpg", b".jpeg"))
+                )
+            ):
+                # turn the pixels upright at ingest (reference needle.go
+                # images.FixJpgOrientation, behind -images.fix.orientation)
+                data = await asyncio.to_thread(fix_orientation, data)
             n = Needle(
                 id=nid,
                 cookie=cookie,
@@ -1568,6 +1686,74 @@ class VolumeServer:
             ttl=str(v.super_block.ttl),
             replication=str(v.super_block.replica_placement),
         )
+
+    async def DeleteCollection(self, request, context):
+        """Delete every normal volume of the collection (its EC volumes
+        stay, as in the reference); Store.delete_volume drops each one's
+        ingest pipeline."""
+        for loc in self.store.locations:
+            for vid, v in list(loc.volumes.items()):
+                if v.collection == request.collection:
+                    await asyncio.to_thread(self.store.delete_volume, vid)
+        return volume_server_pb2.DeleteCollectionResponse()
+
+    async def VolumeServerStatus(self, request, context):
+        return volume_server_pb2.VolumeServerStatusResponse(
+            data_dirs=[loc.directory for loc in self.store.locations],
+            volume_count=sum(len(loc.volumes) for loc in self.store.locations),
+            ec_shard_count=sum(
+                ev.shard_bits().count()
+                for loc in self.store.locations
+                for ev in loc.ec_volumes.values()
+            ),
+        )
+
+    async def VolumeServerLeave(self, request, context):
+        """Leave the cluster and keep serving reads, as the reference: the
+        heartbeat loop ends (the stream closes, so the master drops this
+        node's volumes and its telemetry goes stale), and so do the other
+        asyncio loops in `_tasks` — the TTL sweep, the scrub loop, the tier
+        loop, the timeline sampler and the metrics push.  None is cut
+        mid-pin or mid-row: a scrub pass or a tier move runs in its worker
+        thread to its end, so no volume is left half pinned in the
+        DeviceShardCache, and the ingest plane's committer and encode
+        workers (threads, not tasks) keep running, so acked writes still
+        reach their group commit.  HTTP and RPC stay up."""
+        self._stopping = True
+        for task in self._tasks:
+            task.cancel()
+        return volume_server_pb2.VolumeServerLeaveResponse()
+
+    async def ReadNeedleBlob(self, request, context):
+        try:
+            n = await asyncio.to_thread(
+                self.store.read_needle, request.volume_id, request.needle_id
+            )
+        except (NotFoundError, KeyError):
+            await context.abort(StatusCode.NOT_FOUND, "needle not found")
+        return volume_server_pb2.ReadNeedleBlobResponse(
+            needle_blob=n.data, cookie=n.cookie,
+            last_modified=n.last_modified,
+        )
+
+    async def WriteNeedleBlob(self, request, context):
+        """Append one needle to a local replica — volume.check.disk's sync
+        path (reference volume_grpc_read_write.go WriteNeedleBlob).  An
+        append through store.write_needle: the ingest pipeline's next seal
+        reads the new rows from the file, so nothing is invalidated."""
+        n = Needle(
+            id=request.needle_id,
+            cookie=request.cookie,
+            data=request.needle_blob,
+            last_modified=request.last_modified or int(time.time()),
+        )
+        try:
+            await asyncio.to_thread(self.store.write_needle, request.volume_id, n)
+        except NotFoundError:
+            await context.abort(StatusCode.NOT_FOUND, "volume not found")
+        except VolumeReadOnly as e:
+            await context.abort(StatusCode.FAILED_PRECONDITION, str(e))
+        return volume_server_pb2.WriteNeedleBlobResponse()
 
     # ------------------------------------------------------------------ RPC: vacuum
 

@@ -425,6 +425,17 @@ VOLUME_SERVER_EC_REMOTE_SHARD_READS = Counter(
 )
 for _r in ("ok", "deleted", "miss"):
     VOLUME_SERVER_EC_REMOTE_SHARD_READS.labels(result=_r)
+VOLUME_SERVER_EC_DEGRADED_MEMO = Counter(
+    "SeaweedFS_volumeServer_ec_degraded_memo",
+    "Degraded-read reconstructed-interval memo outcomes: a 'hit' serves a "
+    "previously reconstructed interval without gathering >=10 survivor "
+    "shards again; a 'miss' pays the gather and the reconstruct (and "
+    "fills the memo when the gather pulled bytes off a peer).",
+    ["result"],
+    registry=REGISTRY,
+)
+for _r in ("hit", "miss"):
+    VOLUME_SERVER_EC_DEGRADED_MEMO.labels(result=_r)
 VOLUME_SERVER_EC_REMOTE_SHARD_BYTES = Counter(
     "SeaweedFS_volumeServer_ec_remote_shard_bytes",
     "Shard bytes fetched from peers over VolumeEcShardRead.",

@@ -31,16 +31,24 @@ server/volume.py): a missing interval goes to its holder first, and the
 degraded gather fetches its remote survivors concurrently through the
 hedged gather (utils/faultpolicy.py).  A burst of a resident volume
 (read_needles_batch with >=10 survivors pinned) reconstructs on the card
-without the remote hop.  The reconstruct memo is ROADMAP A4c.
+without the remote hop.
+
+A host degraded read whose gather pulled survivor bytes off a peer keeps
+its result in a per-volume memo (RECONSTRUCT_MEMO_BUDGET bytes, entries
+living RECONSTRUCT_MEMO_TTL_S), so a repeat read of a hot interval while
+the shard is missing costs neither the peer round trips nor a K1 launch.
+Hits and misses count on SeaweedFS_volumeServer_ec_degraded_memo_total.
 """
 from __future__ import annotations
 
 import os
 import threading
+import time
 from typing import Callable, Optional
 
 import numpy as np
 
+from ... import stats
 from ...obs import trace as obs_trace
 from ...ops import rs, rs_resident
 from .. import needle as needle_mod
@@ -122,6 +130,18 @@ _GATHER_POOL = None
 _GATHER_POOL_LOCK = threading.Lock()
 
 
+# budget of the per-volume reconstructed-interval memo (bytes): sized for a
+# hot needle set, far below one shard
+RECONSTRUCT_MEMO_BUDGET = 8 << 20
+# memo entry lifetime — the corruption-exposure bound.  A reconstruct whose
+# gather included a corrupt survivor is wrong with or without the memo;
+# the memo can only extend that window, and only by this TTL, because no
+# shard lifecycle event is a reliable invalidation signal (the corrupt copy
+# usually lives on a peer whose drop this node never sees, and a local
+# shard delete fires for moves whose content is fine)
+RECONSTRUCT_MEMO_TTL_S = 15.0
+
+
 def _gather_pool():
     global _GATHER_POOL
     with _GATHER_POOL_LOCK:
@@ -185,6 +205,19 @@ class EcVolume:
         self.host_cache = None
         # missing-shard intervals a CacheMiss sent to the host path
         self.device_misses = 0
+        # reconstructed-interval memo, (missing shard, offset, size) ->
+        # (bytes, expiry on the monotonic clock), oldest first.  While a
+        # shard is missing the hot needles hit the same intervals over and
+        # over, and each host reconstruct pays a >=10-shard gather, remote
+        # under spread placement.  Shard content is immutable once encoded
+        # (deletes are .ecj tombstones), so adding a shard never
+        # invalidates an entry; what can go wrong is an entry gathered
+        # from a corrupt survivor, bounded by the TTL.
+        self._reconstruct_memo: dict[
+            tuple[int, int, int], tuple[bytes, float]
+        ] = {}
+        self._reconstruct_memo_bytes = 0
+        self._reconstruct_memo_lock = threading.Lock()
         info = load_volume_info(self.base_name + ".vif")
         if info:
             self.version = int(info.get("version", needle_mod.CURRENT_VERSION))
@@ -373,7 +406,22 @@ class EcVolume:
         survivors are read first; the rest come from their holders through
         `remote_read`, concurrently, by the hedged gather.  With the
         survivors resident in `device_cache` the gather happens on the
-        device instead; `use_device=False` forces the host path."""
+        device instead; `use_device=False` forces the host path.  A memo
+        hit answers before either."""
+        memo_key = (missing_shard, off, size)
+        hit = None
+        with self._reconstruct_memo_lock:
+            rec = self._reconstruct_memo.get(memo_key)
+            if rec is not None:
+                if time.monotonic() < rec[1]:
+                    hit = rec[0]
+                else:
+                    self._reconstruct_memo_bytes -= len(rec[0])
+                    del self._reconstruct_memo[memo_key]
+        if hit is not None:
+            stats.VOLUME_SERVER_EC_DEGRADED_MEMO.labels(result="hit").inc()
+            return hit
+        stats.VOLUME_SERVER_EC_DEGRADED_MEMO.labels(result="miss").inc()
         if use_device and self.device_cache is not None:
             try:
                 return rs_resident.reconstruct_intervals(
@@ -383,6 +431,7 @@ class EcVolume:
                 self.device_misses += 1
         got: dict[int, np.ndarray] = {}
         n_remote = 0
+        n_remote_ok = 0
         with obs_trace.span("shard_read", op="gather_survivors") as gather:
             remote_candidates: list[int] = []
             for sid in range(TOTAL_SHARDS):
@@ -421,6 +470,7 @@ class EcVolume:
                     what=f"ec {self.id} survivor gather",
                 )
                 n_remote = res.sent
+                n_remote_ok = res.ok
                 for sid, buf in res.got.items():
                     got[sid] = np.frombuffer(buf, dtype=np.uint8)
                 gather.annotate(
@@ -436,7 +486,29 @@ class EcVolume:
         with obs_trace.span("host_reconstruct", backend=backend, bytes=size):
             codec = rs.RSCodec(backend=backend)
             out = codec.reconstruct(got, wanted=[missing_shard])
-            return out[missing_shard].tobytes()
+            data = out[missing_shard].tobytes()
+        if n_remote_ok > 0:
+            # memo only a result whose gather really pulled survivor bytes
+            # off a peer: that is the cost the memo saves.  Failed
+            # attempts at a shard missing cluster-wide do not count, and a
+            # purely local reconstruct is left to the residency ladder.
+            self._memo_reconstructed(memo_key, data)
+        return data
+
+    def _memo_reconstructed(self, key: tuple[int, int, int],
+                            data: bytes) -> None:
+        with self._reconstruct_memo_lock:
+            if key in self._reconstruct_memo:
+                return
+            self._reconstruct_memo[key] = (
+                data, time.monotonic() + RECONSTRUCT_MEMO_TTL_S)
+            self._reconstruct_memo_bytes += len(data)
+            while (self._reconstruct_memo_bytes > RECONSTRUCT_MEMO_BUDGET
+                   and self._reconstruct_memo):
+                # dicts iterate in insertion order: drop the oldest
+                old_key = next(iter(self._reconstruct_memo))
+                self._reconstruct_memo_bytes -= len(
+                    self._reconstruct_memo.pop(old_key)[0])
 
     def read_needle_bytes(
         self, needle_id: int, remote_read: RemoteReadFn | None = None,

@@ -331,6 +331,18 @@ class Volume:
     def has(self, needle_id: int) -> bool:
         return self.nm.has(needle_id)
 
+    @property
+    def is_tiered(self) -> bool:
+        """The .vif records a remote .dat (the reference's remote_files:
+        a `files` entry with a key).  The port moves no .dat to a tier
+        yet (ROADMAP A4c-4b); a volume the reference tiered keeps its
+        mark, and the TTL sweep leaves it alone."""
+        from .volume_info import load_volume_info
+
+        info = load_volume_info(
+            self.base_name(self.dir, self.id, self.collection) + ".vif")
+        return any(f.get("key") for f in info.get("files", []))
+
     # -- stats / lifecycle ---------------------------------------------------
 
     @property

@@ -95,6 +95,16 @@ def test_every_port_module_is_walked():
                  "seaweedfs_tpu_torch.operation.assign",
                  "seaweedfs_tpu_torch.operation.lookup",
                  "seaweedfs_tpu_torch.operation.upload",
+                 "seaweedfs_tpu_torch.operation.delete",
+                 "seaweedfs_tpu_torch.operation.submit",
+                 "seaweedfs_tpu_torch.images",
+                 "seaweedfs_tpu_torch.images.orientation",
+                 "seaweedfs_tpu_torch.images.resizing",
+                 "seaweedfs_tpu_torch.security",
+                 "seaweedfs_tpu_torch.security.jwt",
+                 "seaweedfs_tpu_torch.security.guard",
+                 "seaweedfs_tpu_torch.security.tls",
+                 "seaweedfs_tpu_torch.utils.config",
                  "seaweedfs_tpu_torch.shell",
                  "seaweedfs_tpu_torch.shell.command_env",
                  "seaweedfs_tpu_torch.shell.commands",

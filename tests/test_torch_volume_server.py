@@ -469,6 +469,14 @@ def test_cli_flags_parse_with_the_reference_spellings(tmp_path):
         assert getattr(args, dest) == getattr(ref_args, dest), dest
     cfg = command.volume.serving_config(args)
     assert (cfg.mesh, cfg.mesh_devices, cfg.mesh_min_shard_mb) == (False, 2, 16)
+    # C7: the reference's -ec.serving.aot.disable parses, and is a no-op
+    # (the kernels take runtime shapes; nothing compiles ahead of time)
+    aot = ["-dir", str(tmp_path), "-ec.serving.aot.disable"]
+    args_aot = p.parse_args(["volume"] + aot)
+    assert args_aot.ec_serving_aot_disable is ref_p.parse_args(
+        aot).ec_serving_aot_disable is True
+    assert command.volume.serving_config(args_aot) == ServingConfig()
+    assert p.parse_args(["volume"]).ec_serving_aot_disable is False
     vs = command.volume.build_server(args)
     try:
         # the bulk legs of VolumeEcShardsGenerate / VolumeEcShardsRebuild
