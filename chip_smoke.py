@@ -4392,7 +4392,7 @@ def _cluster_replicated(cl: _Cluster, seed: int, unreplicated: dict) -> dict:
     out["reads_proxy"] = {"server": other, "reads": len(lat),
                           "reads_per_s": len(lat) / (time.perf_counter() - t0),
                           "p50_ms": _pct(lat, 50), "p99_ms": _pct(lat, 99)}
-    cl.start_servers({"F": ["-readMode", "redirect"]})
+    cl.start_servers({"F": ["-readMode", "redirect", "-index", "native"]})
     t0 = time.perf_counter()
     lat, hosts = asyncio.run(_redirected_gets(cl.ports["F"][0], items))
     if not hosts <= set(holders):
@@ -4401,11 +4401,149 @@ def _cluster_replicated(cl: _Cluster, seed: int, unreplicated: dict) -> dict:
                              "reads_per_s": len(lat) / (time.perf_counter() - t0),
                              "p50_ms": _pct(lat, 50), "p99_ms": _pct(lat, 99),
                              "redirected_to": sorted(by_url[h] for h in hosts)}
+    out["movers"] = _cluster_movers(cl, vid, [by_url[u] for u in holders],
+                                    written, seed)
     cl.kill("F")
     log("cluster_replicated", **out, bodies_equal=True, reduced={
         "dat_mib": REPL_DAT_BYTES >> 20,
         "why": "the write budget: two copies of this .dat"})
     return out
+
+
+def _cluster_movers(cl: _Cluster, vid: int, holders: list, written: list,
+                    seed: int) -> dict:
+    """9b's `.dat` movers, on the 001 volume both holders streamed stripe
+    rows of on the card while its writes landed.  H, the holder whose
+    pipeline holds rows on the card, moves its .dat to its local tier
+    (VolumeMarkReadonly, VolumeTierMoveDatToRemote): the pipeline goes
+    invalid (TIER_UPLOAD), the local .dat goes, the tier object is the
+    .dat's bytes, and every fid reads byte-equal from the tier.  Then back
+    (VolumeTierMoveDatFromRemote): the .dat's bytes again, the object
+    deleted, 64 seeded fids read.  Then VolumeCopy onto F (`-index
+    native`): its .dat and .idx equal H's, its .ndx exists, every fid is
+    served by F itself, and F deletes it.  Then the seal on H
+    (VolumeEcShardsGenerate): offline, with K1 on the card, its 14 shards
+    equal to the native codec's encode of H's .dat; the seal's files are
+    removed.  Every failed check is fatal."""
+    import numpy as np
+
+    from seaweedfs_tpu_torch.storage.store import TIER_DOWNLOAD, TIER_UPLOAD
+
+    def pipeline(name: str) -> dict:
+        return next((p for p in _get_json(cl.ports[name][0], "/status").get(
+            "Ingest", []) if p["volume"] == vid), {})
+
+    armed = {n: pipeline(n) for n in holders}
+    h = next((n for n in holders if armed[n].get("valid")
+              and armed[n].get("rows_device", 0) > 0), None)
+    if h is None:
+        raise AssertionError(f"neither holder streamed a row of volume {vid} "
+                             f"on the card: {armed}")
+    stub, vpb = cl.vstub(h), cl.vpb
+    stem = f"{REPL_COLLECTION}_{vid}"
+    base = os.path.join(cl.dir, h, stem)
+    tier = os.path.join(cl.dir, h, "tier")
+    items = [("/" + fid, digest) for fid, _, digest in written]
+    port = cl.ports[h][0]
+    walls: dict = {}
+
+    def timed(name: str, call):
+        t0 = time.perf_counter()
+        out = call()
+        walls[name] = time.perf_counter() - t0
+        return out
+
+    def gets(server: str, sample: list) -> dict:
+        t0 = time.perf_counter()
+        lat, _ = asyncio.run(_get_each(cl.ports[server][0], sample,
+                                       CLUSTER_READERS))
+        return {"server": server, "reads": len(lat),
+                "reads_per_s": len(lat) / (time.perf_counter() - t0),
+                "p50_ms": _pct(lat, 50), "p99_ms": _pct(lat, 99)}
+
+    dat_sha = sha256_file(base + ".dat")
+    dat_bytes = os.path.getsize(base + ".dat")
+    timed("VolumeMarkReadonly", lambda: stub.VolumeMarkReadonly(
+        vpb.VolumeMarkReadonlyRequest(volume_id=vid), timeout=60))
+    up = timed("VolumeTierMoveDatToRemote", lambda: list(
+        stub.VolumeTierMoveDatToRemote(vpb.VolumeTierMoveDatToRemoteRequest(
+            volume_id=vid, collection=REPL_COLLECTION,
+            destination_backend_name="local.default"), timeout=300)))
+    after_up = pipeline(h)
+    objects = os.listdir(tier)
+    if (after_up.get("valid", True) or after_up.get("reason") != TIER_UPLOAD
+            or os.path.exists(base + ".dat") or len(objects) != 1
+            or sha256_file(os.path.join(tier, objects[0])) != dat_sha
+            or [r.processed for r in up] != [dat_bytes]):
+        raise AssertionError(f"the upload left the pipeline {after_up}, the "
+                             f"tier {objects}, the .dat there: "
+                             f"{os.path.exists(base + '.dat')}")
+    tiered = gets(h, items)
+    timed("VolumeTierMoveDatFromRemote", lambda: list(
+        stub.VolumeTierMoveDatFromRemote(
+            vpb.VolumeTierMoveDatFromRemoteRequest(
+                volume_id=vid, collection=REPL_COLLECTION), timeout=300)))
+    after_down = pipeline(h)
+    if (after_down.get("valid", True)
+            or after_down.get("reason") != TIER_DOWNLOAD
+            or sha256_file(base + ".dat") != dat_sha or os.listdir(tier)):
+        raise AssertionError(f"the download left the pipeline {after_down}, "
+                             f"the tier {os.listdir(tier)}")
+    rng = np.random.default_rng(seed + 94)
+    sample = [items[i] for i in sorted(rng.choice(
+        len(items), min(64, len(items)), replace=False).tolist())]
+    local = gets(h, sample)
+    fbase = os.path.join(cl.dir, "F", stem)
+    fstub = cl.vstub("F")
+    copied = timed("VolumeCopy", lambda: list(fstub.VolumeCopy(
+        vpb.VolumeCopyRequest(volume_id=vid, collection=REPL_COLLECTION,
+                              source_data_node=f"127.0.0.1:{cl.ports[h][1]}"),
+        timeout=300)))
+    if (sha256_file(fbase + ".dat") != dat_sha
+            or sha256_file(fbase + ".idx") != sha256_file(base + ".idx")
+            or not os.path.exists(fbase + ".ndx")):
+        raise AssertionError("F's copy differs from H's files, or has no "
+                             ".ndx")
+    # every fid served by F itself: _get_each fails on the 301 F would
+    # answer for a volume it does not hold
+    on_f = gets("F", items)
+    timed("VolumeDelete_F", lambda: fstub.VolumeDelete(
+        vpb.VolumeDeleteRequest(volume_id=vid), timeout=60))
+    m0 = _scrape(port)
+    timed("VolumeEcShardsGenerate", lambda: stub.VolumeEcShardsGenerate(
+        vpb.VolumeEcShardsGenerateRequest(volume_id=vid,
+                                          collection=REPL_COLLECTION),
+        timeout=600))
+    m1 = _scrape(port)
+    seals = {p: m1[SEALS % p] - m0[SEALS % p] for p in ("offline", "streamed")}
+    k1 = _delta(_k_counts(m0), _k_counts(m1))
+    native, native_s = _native_shard_hashes(base + ".dat")
+    shards = [sha256_file(base + ec_ext) for ec_ext in (
+        f".ec{i:02d}" for i in range(14))]
+    if seals != {"offline": 1, "streamed": 0}:
+        raise AssertionError(f"the seal after the movers ran {seals}")
+    if k1["gf2_matmul"] + k1["gf2_matmul_small"] < 1:
+        raise AssertionError(f"the seal launched no K1 on {h}: {k1}")
+    if shards != native:
+        raise AssertionError("the seal's shards differ from the native "
+                             f"codec's: {[i for i in range(14) if shards[i] != native[i]]}")
+    for ext in [f".ec{i:02d}" for i in range(14)] + [".ecx"]:
+        os.remove(base + ext)
+    row = {"holder": h, "vid": vid, "rpc_wall_s": walls,
+           "pipeline": {"before": armed[h], "after_upload": after_up,
+                        "after_download": after_down},
+           "tiered_reads": tiered, "local_reads": local,
+           "copy": {"bytes": copied[0].processed_bytes if copied else 0,
+                    "wall_s": walls["VolumeCopy"], "reads_on_F": on_f,
+                    "redirects": 0},
+           "seal": {"wall_s": walls["VolumeEcShardsGenerate"], "seals": seals,
+                    "k1_launches": k1["gf2_matmul"] + k1["gf2_matmul_small"],
+                    "native_s": native_s, "shards_equal": True},
+           "dat_sha256_equal": True,
+           "reduced": {"dat_mib": REPL_DAT_BYTES >> 20,
+                       "why": "the write budget"}}
+    log("cluster_movers", **row)
+    return row
 
 
 def _cluster_shell_verbs(cl: _Cluster, seed: int) -> dict:
@@ -4424,7 +4562,9 @@ def _cluster_shell_verbs(cl: _Cluster, seed: int) -> dict:
     from seaweedfs_tpu_torch.storage import ec
 
     names = ("C", "D", "E")
-    cl.start_servers({n: [] for n in names})
+    # each with a local tier (the `.dat` movers' step, _cluster_movers)
+    cl.start_servers({n: ["-tier.dir", os.path.join(cl.dir, n, "tier")]
+                      for n in names})
     with urllib.request.urlopen(
             f"http://127.0.0.1:{cl.master_http}/vol/grow?count=1"
             f"&collection={CLUSTER_COLLECTION}", timeout=60) as r:

@@ -335,6 +335,24 @@ def add_args(p) -> None:
         help="rotate JPEG pixels per EXIF orientation at upload",
     )
     p.add_argument(
+        "-offset.bytes", dest="offset_bytes", type=int, default=4,
+        choices=[4, 5],
+        help="needle-map offset width: 5 raises the volume cap from 32GB "
+        "to 8TB (the reference's 5BytesOffset build tag; must match the "
+        "whole deployment: .idx/.ecx files are not readable across modes)",
+    )
+    p.add_argument(
+        "-tier.dir", dest="tier_dir", default="",
+        help="directory backing the 'local.default' tier storage backend",
+    )
+    p.add_argument(
+        "-index", dest="index_kind", default="memory",
+        choices=["memory", "sqlite", "native"],
+        help="needle map kind: memory (CompactMap), sqlite (persistent, "
+        "O(1) RAM per volume), or native (the embedded C++ KV, "
+        "csrc/host/kvstore.cpp: the reference's leveldb index role)",
+    )
+    p.add_argument(
         "-fileSizeLimitMB", dest="client_max_size_mb", type=int, default=256,
         help="reject uploads larger than this",
     )
@@ -513,6 +531,12 @@ def build_server(args: argparse.Namespace):
             retry_budget_pct=args.ec_rpc_retry_budget_pct,
         )
     )
+    if args.offset_bytes != 4:
+        # process-wide, like the reference's build tag: before any store
+        # opens an .idx
+        from ..storage import types as storage_types
+
+        storage_types.set_offset_size(args.offset_bytes)
     dirs = [d.strip() for d in args.dir.split(",") if d.strip()]
     counts = [int(c) for c in str(args.max_volume_counts).split(",")]
     if len(counts) == 1:
@@ -541,6 +565,13 @@ def build_server(args: argparse.Namespace):
         jwt_signing_key=config_util.jwt_signing_key(),
         white_list=guard_mod.from_security_toml(),
         fix_jpg_orientation=args.fix_jpg_orientation,
+        tier_backends={
+            # master.toml [storage.backend.*] and the -tier.dir shorthand
+            **config_util.storage_backends(),
+            **({"local.default": {"type": "local", "dir": args.tier_dir}}
+               if args.tier_dir else {}),
+        } or None,
+        index_kind=args.index_kind,
         **metrics_kwargs(args),
     )
 

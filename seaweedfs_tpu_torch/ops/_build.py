@@ -7,8 +7,9 @@ Two shared libraries, each compiled from the sources in this package into
     ``csrc/fused_reconstruct.cu`` and ``csrc/scrub.cu`` with ``nvcc`` for
     ``sm_90a`` into one library: a plain C interface, so the build takes
     seconds (no PyTorch headers).
-  * ``host()`` — ``csrc/host/crc32c.cpp`` and ``gf256.cpp`` with ``g++``:
-    CRC32C and the CPU GF(256) codec (the CPU yardstick).
+  * ``host()`` — ``csrc/host/crc32c.cpp``, ``gf256.cpp`` and
+    ``kvstore.cpp`` with ``g++``: CRC32C, the CPU GF(256) codec (the CPU
+    yardstick) and the embedded KV store under ``-index native``.
 
 Each source compiles to an object in its own compiler process, all started
 together, and the objects link into the library.  The output name carries
@@ -210,6 +211,15 @@ def _bind_kernels(lib: ctypes.CDLL) -> None:
     lib.scrub_error_string.restype = ctypes.c_char_p
 
 
+# kv_iterate's callback: (key, key length, value, value length, context)
+KV_ITER_CB = ctypes.CFUNCTYPE(
+    ctypes.c_int,
+    ctypes.POINTER(ctypes.c_uint8), ctypes.c_uint32,
+    ctypes.POINTER(ctypes.c_uint8), ctypes.c_uint32,
+    ctypes.c_void_p,
+)
+
+
 def _bind_host(lib: ctypes.CDLL) -> None:
     lib.swfs_crc32c.argtypes = [ctypes.c_uint32, ctypes.c_void_p, ctypes.c_size_t]
     lib.swfs_crc32c.restype = ctypes.c_uint32
@@ -222,6 +232,33 @@ def _bind_host(lib: ctypes.CDLL) -> None:
         ctypes.c_long,  # B
     ]
     lib.gf256_apply_matrix.restype = None
+    # the embedded KV store (csrc/host/kvstore.cpp; storage/kvstore.py)
+    lib.kv_open.argtypes = [ctypes.c_char_p]
+    lib.kv_open.restype = ctypes.c_void_p
+    lib.kv_put.argtypes = [ctypes.c_void_p, ctypes.c_char_p, ctypes.c_uint32,
+                           ctypes.c_char_p, ctypes.c_uint32]
+    lib.kv_put.restype = ctypes.c_int
+    lib.kv_get.argtypes = [ctypes.c_void_p, ctypes.c_char_p, ctypes.c_uint32,
+                           ctypes.c_void_p, ctypes.c_uint64]
+    lib.kv_get.restype = ctypes.c_int64
+    lib.kv_delete.argtypes = [ctypes.c_void_p, ctypes.c_char_p,
+                              ctypes.c_uint32]
+    lib.kv_delete.restype = ctypes.c_int
+    lib.kv_count.argtypes = [ctypes.c_void_p]
+    lib.kv_count.restype = ctypes.c_uint64
+    lib.kv_dead_bytes.argtypes = [ctypes.c_void_p]
+    lib.kv_dead_bytes.restype = ctypes.c_uint64
+    lib.kv_flush.argtypes = [ctypes.c_void_p]
+    lib.kv_flush.restype = ctypes.c_int
+    lib.kv_iterate.argtypes = [ctypes.c_void_p, KV_ITER_CB, ctypes.c_void_p]
+    lib.kv_iterate.restype = ctypes.c_int
+    lib.kv_iterate_keys.argtypes = [ctypes.c_void_p, KV_ITER_CB,
+                                    ctypes.c_void_p]
+    lib.kv_iterate_keys.restype = ctypes.c_int
+    lib.kv_compact.argtypes = [ctypes.c_void_p]
+    lib.kv_compact.restype = ctypes.c_int64
+    lib.kv_close.argtypes = [ctypes.c_void_p]
+    lib.kv_close.restype = None
 
 
 def kernels() -> ctypes.CDLL:
@@ -256,9 +293,10 @@ def mma_rate() -> ctypes.CDLL:
 
 
 def host() -> ctypes.CDLL:
-    """The host C++ library (CRC32C + CPU GF(256) codec), typed."""
+    """The host C++ library (CRC32C, the CPU GF(256) codec and the
+    embedded KV store), typed."""
     return _load(
         "swfs_host", lambda: "g++", _GXX_FLAGS,
-        [os.path.join(_CSRC, "host", "crc32c.cpp"),
-         os.path.join(_CSRC, "host", "gf256.cpp")], _bind_host,
+        [os.path.join(_CSRC, "host", name)
+         for name in ("crc32c.cpp", "gf256.cpp", "kvstore.cpp")], _bind_host,
     )

@@ -70,8 +70,20 @@ deletes TTL volumes whose time ran out since their last write.  The admin
 rpcs DeleteCollection, VolumeServerStatus, VolumeServerLeave,
 ReadNeedleBlob and WriteNeedleBlob are served too.
 
-Blocking storage and device work runs via asyncio.to_thread.  Not here
-(ROADMAP A4c-4b): VolumeCopy, the tier moves and the volume tail.
+The `.dat` movers: VolumeTierMoveDatToRemote uploads a read-only volume's
+.dat to a storage backend (storage/backend.py, from master.toml's
+[storage.backend] and -tier.dir) and serves it from there read-only;
+VolumeTierMoveDatFromRemote brings it back; VolumeCopy pulls a volume's
+.dat and .idx from a peer (CopyFile) and mounts them, and refuses a vid
+this server already holds (the reference pulls the files under the live
+volume and keeps serving the old inode); VolumeTailSender streams the
+records appended since a timestamp, and VolumeTailReceiver appends a
+peer's (operation/tail_volume.py) through Store.write_needle.  The tier
+moves and VolumeCopy invalidate the volume's ingest pipeline first, so
+the next seal runs offline (K1 over the whole .dat).  `-index
+sqlite|native` gives every volume a persistent needle map.
+
+Blocking storage and device work runs via asyncio.to_thread.
 """
 from __future__ import annotations
 
@@ -121,7 +133,7 @@ from ..storage.ec.decoder import write_idx_file_from_ec_index
 from ..storage.ec.layout import TOTAL_SHARDS
 from ..storage.ec.volume import NeedleNotFound, search_sorted_index
 from ..storage.needle import FLAG_IS_COMPRESSED, CrcError, Needle
-from ..storage.store import Store
+from ..storage.store import VOLUME_COPY, Store
 from ..storage.volume import CookieMismatch, NotFoundError, Volume, VolumeReadOnly
 from ..utils import faultpolicy
 from ..utils.tasks import spawn_logged
@@ -141,6 +153,8 @@ log = logging.getLogger("volume")
 # where the resident cache lives for each -ec.backend: the card, or the
 # kernels' plain PyTorch versions on the CPU
 _CACHE_DEVICE = {"cuda": "cuda", "torch": "cpu"}
+# -index -> the Volume's needle map kind
+_NEEDLE_MAP_KINDS = {"memory": None, "sqlite": "persistent", "native": "native"}
 
 # the kernels whose launches /metrics mirrors
 _KERNELS = (
@@ -158,6 +172,23 @@ _EC_LOCATION_TTL = 2.0
 _EC_LOOKUP_TIMEOUT_S = 5.0
 # CopyFile and VolumeEcShardRead stream in chunks of this size
 _STREAM_CHUNK = 1024 * 1024
+# the volume tail: a needle body goes out in messages of at most this many
+# bytes, and the sender reads records on a worker thread in batches of
+# about _TAIL_BATCH bytes
+_TAIL_CHUNK = 256 * 1024
+_TAIL_BATCH = 8 << 20
+
+
+def _tail_batch(v: Volume, pos: int) -> list:
+    """The records of `v` from byte offset `pos`, up to about _TAIL_BATCH
+    bytes: [(offset, header, rest, Needle)]."""
+    out, size = [], 0
+    for rec in v.scan_records(pos):
+        out.append(rec)
+        size += len(rec[1]) + len(rec[2])
+        if size >= _TAIL_BATCH:
+            break
+    return out
 
 
 def _quoted_path(request: Request) -> str:
@@ -253,7 +284,13 @@ class VolumeServer:
         jwt_signing_key: str = "",  # security.toml [jwt.signing] key
         white_list: list[str] | None = None,  # [access] white_list guard
         fix_jpg_orientation: bool = False,  # -images.fix.orientation
+        tier_backends: dict | None = None,  # storage/backend.py configure()
+        index_kind: str = "memory",  # memory | sqlite | native (-index)
     ):
+        if tier_backends:
+            from ..storage import backend as backend_mod
+
+            backend_mod.configure(tier_backends)
         self.metrics_address = metrics_address
         self.jwt_signing_key = jwt_signing_key
         self.guard = Guard(white_list)
@@ -295,9 +332,11 @@ class VolumeServer:
             max_volume_counts = [max_volume_counts] * len(directories)
         if len(max_volume_counts) != len(directories):
             raise ValueError("max_volume_counts must match directories 1:1")
+        needle_map_kind = _NEEDLE_MAP_KINDS[index_kind]
         self.store = Store(
             [
-                DiskLocation(d, max_volume_count=c)
+                DiskLocation(d, max_volume_count=c,
+                             needle_map_kind=needle_map_kind)
                 for d, c in zip(directories, max_volume_counts)
             ],
             ip=ip,
@@ -323,9 +362,9 @@ class VolumeServer:
         # vid -> (fetched at, shard id -> peer RPC addresses), from the
         # master's LookupEcVolume
         self._ec_locations: dict[int, tuple[float, dict[int, list[str]]]] = {}
-        # vid -> (cpd, cpx, idx snapshot) between VacuumVolumeCompact and
-        # its Commit or Cleanup
-        self._pending_compacts: dict[int, tuple[str, str, int]] = {}
+        # vid -> (cpd, cpx, idx snapshot, shadow map db) between
+        # VacuumVolumeCompact and its Commit or Cleanup
+        self._pending_compacts: dict[int, tuple] = {}
         self._stopping = False
         self._rpc: RpcServer | None = None
         self.ec_scrub_interval_seconds = ec_scrub_interval_seconds
@@ -1774,9 +1813,13 @@ class VolumeServer:
         # Departure from the reference, whose compact on this path leaves
         # the ingest pipeline valid: Store.compact_volume invalidates it
         # before the copy (and commit_compact after the swap), so the
-        # next seal runs offline instead of from stale parity.
-        pending = await asyncio.to_thread(
-            self.store.compact_volume, request.volume_id)
+        # next seal runs offline instead of from stale parity.  A tiered
+        # volume is refused.
+        try:
+            pending = await asyncio.to_thread(
+                self.store.compact_volume, request.volume_id)
+        except ValueError as e:
+            await context.abort(StatusCode.FAILED_PRECONDITION, str(e))
         self._pending_compacts[request.volume_id] = pending
         stats.VOLUME_SERVER_VACUUMING_SECONDS.labels(type="compact").observe(
             time.perf_counter() - t0)
@@ -1874,6 +1917,126 @@ class VolumeServer:
             return True
         os.remove(tmp)
         return False
+
+    async def VolumeCopy(self, request, context):
+        """Pull a volume's .dat and .idx from a peer and mount them
+        (volume_grpc_copy.go VolumeCopy); `disk_type` pins the copy onto a
+        matching DiskLocation.  Departure: a vid this server already holds
+        is refused before anything is pulled (the reference replaces the
+        files under the mounted volume, whose reads keep the old inode).
+        The ingest plane is invalidated before the first pull."""
+        vid = request.volume_id
+        if self.store.find_volume(vid) is not None:
+            await context.abort(StatusCode.FAILED_PRECONDITION,
+                                f"volume {vid} already exists")
+        loc = self.store._pick_location(request.disk_type or "")
+        if loc is None:
+            await context.abort(StatusCode.RESOURCE_EXHAUSTED, "no free slots")
+        self.store.invalidate_ingest(vid, VOLUME_COPY)
+        base = Volume.base_name(loc.directory, vid, request.collection)
+        n = 0
+        for ext in (".dat", ".idx"):
+            await self._pull_file(request.source_data_node, vid,
+                                  request.collection, ext, base + ext)
+            n += os.path.getsize(base + ext)
+        await asyncio.to_thread(self.store.mount_volume, vid)
+        yield volume_server_pb2.VolumeCopyResponse(processed_bytes=n)
+
+    # ------------------------------------------------------------------ RPC: tier and tail
+
+    async def VolumeTierMoveDatToRemote(self, request, context):
+        """Upload the .dat to a backend and keep serving reads from it
+        (volume_grpc_tier.go); Store.tier_move_to_remote invalidates the
+        ingest pipeline first."""
+        try:
+            size = await asyncio.to_thread(
+                self.store.tier_move_to_remote,
+                request.volume_id,
+                request.destination_backend_name,
+                request.keep_local_dat_file,
+            )
+        except (NotFoundError, ValueError, KeyError, OSError) as e:
+            await context.abort(StatusCode.FAILED_PRECONDITION, str(e))
+        yield volume_server_pb2.VolumeTierMoveDatToRemoteResponse(
+            processed=size, processedPercentage=100.0)
+
+    async def VolumeTierMoveDatFromRemote(self, request, context):
+        try:
+            size = await asyncio.to_thread(
+                self.store.tier_move_from_remote,
+                request.volume_id,
+                request.keep_remote_dat_file,
+            )
+        except (NotFoundError, ValueError, KeyError, OSError) as e:
+            await context.abort(StatusCode.FAILED_PRECONDITION, str(e))
+        yield volume_server_pb2.VolumeTierMoveDatFromRemoteResponse(
+            processed=size, processedPercentage=100.0)
+
+    async def VolumeTailSender(self, request, context):
+        """Stream the records appended after since_ns; with a nonzero idle
+        timeout, end the stream after that many idle seconds
+        (volume_grpc_tail.go VolumeTailSender).  Bodies of large needles
+        span several messages, each repeating the header."""
+        v = self.store.find_volume(request.volume_id)
+        if v is None:
+            await context.abort(StatusCode.NOT_FOUND,
+                                f"volume {request.volume_id} not found")
+        since_ns = request.since_ns
+        draining = request.idle_timeout_seconds
+        # position once by timestamp, then follow appends by byte offset:
+        # a cursor that advances even for v1/v2 records (no timestamps)
+        pos = await asyncio.to_thread(v.find_offset_since, since_ns)
+        while True:
+            records = await asyncio.to_thread(_tail_batch, v, pos)
+            for offset, hdr, rest, n in records:
+                pos = offset + len(hdr) + len(rest)
+                if 0 < n.append_at_ns <= since_ns:
+                    continue  # the initial positioning backs up one record
+                for i in range(0, max(len(rest), 1), _TAIL_CHUNK):
+                    yield volume_server_pb2.VolumeTailSenderResponse(
+                        needle_header=hdr,
+                        needle_body=rest[i:i + _TAIL_CHUNK],
+                        is_last_chunk=i + _TAIL_CHUNK >= len(rest),
+                    )
+            if not records:
+                # no new data: a keepalive, and the drain countdown
+                yield volume_server_pb2.VolumeTailSenderResponse(
+                    is_last_chunk=True)
+                if request.idle_timeout_seconds > 0:
+                    draining -= 1
+                    if draining <= 0:
+                        return
+            else:
+                draining = request.idle_timeout_seconds
+                if sum(len(r[1]) + len(r[2]) for r in records) >= _TAIL_BATCH:
+                    continue  # more is there already: no pause
+            await asyncio.sleep(1)
+
+    async def VolumeTailReceiver(self, request, context):
+        """Pull a peer's appends into the local volume, how a new or stale
+        replica catches up (volume_grpc_tail.go VolumeTailReceiver).  An
+        append through Store.write_needle: the ingest pipeline's next seal
+        reads the new rows from the file."""
+        from ..operation.tail_volume import tail_volume_from_source
+
+        v = self.store.find_volume(request.volume_id)
+        if v is None:
+            await context.abort(StatusCode.NOT_FOUND,
+                                f"volume {request.volume_id} not found")
+
+        async def write(n):
+            await asyncio.to_thread(self.store.write_needle,
+                                    request.volume_id, n)
+
+        await tail_volume_from_source(
+            request.source_volume_server,
+            request.volume_id,
+            request.since_ns,
+            int(request.idle_timeout_seconds),
+            write,
+            version=v.version,
+        )
+        return volume_server_pb2.VolumeTailReceiverResponse()
 
     # ------------------------------------------------------------------ RPC: erasure coding
 

@@ -5,9 +5,10 @@ weed/storage/disk_location.go + disk_location_ec.go).  A location scans
 its directory at startup, loads every `.dat`/`.idx` pair into a Volume and
 every `.ecx` (plus any `.ecNN` shard files) into an EcVolume, and answers
 free-slot questions for placement decisions, per disk type (which the
-heartbeat reports).  Tiered volumes (a `.vif` naming remote files), the
-persistent needle maps, the free-space floor and the directory's uuid
-file are ROADMAP A4c.
+heartbeat reports).  A tiered volume (only its `.idx` and a `.vif` naming
+remote files are local) loads from the `.vif`; every volume opens with the
+location's needle map kind (`-index`).  The free-space floor and the
+directory's uuid file are not here.
 """
 from __future__ import annotations
 
@@ -16,6 +17,7 @@ import re
 
 from .ec import TOTAL_SHARDS, EcVolume
 from .volume import Volume
+from .volume_info import load_volume_info
 
 _EC_SHARD_RE = re.compile(r"\.ec(\d{2})$")
 
@@ -36,11 +38,13 @@ class DiskLocation:
         directory: str,
         max_volume_count: int = 8,
         disk_type: str = "hdd",
+        needle_map_kind: str | None = None,  # compact | persistent | native
     ):
         self.directory = os.path.abspath(directory)
         self.max_volume_count = max_volume_count
         # the heartbeat reports slots and volumes per disk type
         self.disk_type = disk_type
+        self.needle_map_kind = needle_map_kind
         os.makedirs(self.directory, exist_ok=True)
         self.volumes: dict[int, Volume] = {}
         self.ec_volumes: dict[int, EcVolume] = {}
@@ -50,18 +54,34 @@ class DiskLocation:
     def load_existing_volumes(self) -> None:
         names = sorted(os.listdir(self.directory))
         for name in names:
-            if not name.endswith(".dat"):
+            # a .vif-only volume is tiered: its .dat lives on a storage
+            # backend (volume_tier.go), so both extensions mark a volume
+            if name.endswith(".dat"):
+                stem = name[: -len(".dat")]
+            elif name.endswith(".vif"):
+                # EC-encoded volumes leave .vif sidecars too: only a .vif
+                # recording remote files marks a tiered volume
+                vinfo = load_volume_info(os.path.join(self.directory, name))
+                if not any(f.get("key") for f in vinfo.get("files", [])):
+                    continue
+                stem = name[: -len(".vif")]
+                if os.path.exists(os.path.join(self.directory, stem + ".dat")):
+                    continue  # loaded through its .dat
+            else:
                 continue
-            parsed = parse_base_name(name[: -len(".dat")])
+            parsed = parse_base_name(stem)
             if parsed is None:
                 continue
             collection, vid = parsed
             if vid in self.volumes:
                 continue
             try:
-                self.volumes[vid] = Volume(self.directory, vid, collection)
+                self.volumes[vid] = Volume(
+                    self.directory, vid, collection,
+                    needle_map_kind=self.needle_map_kind,
+                )
             except (ValueError, KeyError):
-                continue  # bad superblock
+                continue  # bad superblock, or tier backend not configured
         self._load_ec_volumes(names)
 
     def _load_ec_volumes(self, names: list[str]) -> None:

@@ -27,12 +27,13 @@ through set_ec_host_cache, so every mounted EcVolume reads staged bytes
 before its shard files; ec_volume_tier names a volume's rung.  The
 streaming ingest plane (ingest/, attached as `ingest` by the volume
 server) lets ec_generate seal a volume from its streamed parity; every
-path that rewrites a `.dat` (vacuum: compact_volume and commit_compact,
-which the volume server's Vacuum* rpcs and vacuum_volume call) invalidates
-the volume's pipeline, even one a write has not built yet, through
-invalidate_ingest, so the seal runs offline on the new bytes.
-
-Not here (ROADMAP A4c-4): the `.dat` tier moves.
+path that rewrites or replaces a `.dat` invalidates the volume's pipeline,
+even one a write has not built yet, through invalidate_ingest with its own
+reason, so the seal runs offline on the new bytes: vacuum (compact_volume
+and commit_compact, which the volume server's Vacuum* rpcs and
+vacuum_volume call), the tier moves (tier_move_to_remote,
+tier_move_from_remote) and the volume server's VolumeCopy.  The
+reference's tier moves and VolumeCopy leave the pipeline valid.
 """
 from __future__ import annotations
 
@@ -44,6 +45,7 @@ import threading
 import time
 from dataclasses import dataclass, field
 
+from . import backend as backend_mod
 from . import needle as needle_mod
 from . import types as t
 from .disk_location import DiskLocation
@@ -61,9 +63,14 @@ from .ec import (
 from .needle import Needle
 from . import vacuum as vacuum_mod
 from .volume import CookieMismatch, NotFoundError, Volume, VolumeInfo
+from .volume_info import load_volume_info, save_volume_info
 
-# the ingest plane's reason when a vacuum rewrote the .dat under its rows
+# the ingest plane's reasons, one for each path that rewrites or replaces
+# a volume's .dat under its streamed rows
 VACUUM_REWRITE = "vacuum rewrote the .dat"
+TIER_UPLOAD = "the .dat moved to a storage backend"
+TIER_DOWNLOAD = "the .dat came back from a storage backend"
+VOLUME_COPY = "a copy from a peer replaced the .dat"
 
 
 @dataclass
@@ -232,7 +239,8 @@ class Store:
             if isinstance(ttl, str):
                 ttl = t.TTL.parse(ttl)
             v = Volume(
-                loc.directory, vid, collection, replica_placement, ttl, version
+                loc.directory, vid, collection, replica_placement, ttl,
+                version, needle_map_kind=loc.needle_map_kind,
             )
             loc.volumes[vid] = v
             self.new_volumes.put(self._volume_message(v, loc.disk_type))
@@ -285,16 +293,111 @@ class Store:
                     collection, _, vid_s = stem.rpartition("_")
                     if vid_s != str(vid):
                         continue
-                    v = Volume(loc.directory, vid, collection)
+                    v = Volume(
+                        loc.directory, vid, collection,
+                        needle_map_kind=loc.needle_map_kind,
+                    )
                     loc.volumes[vid] = v
                     self.new_volumes.put(self._volume_message(v, loc.disk_type))
                     return
         raise NotFoundError(f"volume {vid} not found on disk")
 
+    def _tier_key(self, v: Volume) -> str:
+        """Backend object key for this replica's .dat: it holds the
+        server's address, so replicas of one volume never share (and never
+        delete) each other's objects."""
+        return f"{self.ip}_{self.port}_{os.path.basename(v.dat_path)}"
+
+    def tier_move_to_remote(
+        self, vid: int, dest_backend_name: str, keep_local: bool = False
+    ) -> int:
+        """Upload a read-only volume's .dat to a storage backend and reload
+        it tiered (volume_grpc_tier.go VolumeTierMoveDatToRemote).  The
+        ingest plane is invalidated before the upload: the .dat its rows
+        read goes away.  -> the uploaded size."""
+        v = self.find_volume(vid)
+        loc = self.location_of_volume(vid)
+        if v is None or loc is None:
+            raise NotFoundError(f"volume {vid} not found")
+        if v.is_tiered:
+            raise ValueError(f"volume {vid} is already tiered")
+        if not (v.read_only or v.full):
+            raise ValueError(f"volume {vid} must be readonly before tiering")
+        btype, _, bid = dest_backend_name.partition(".")
+        storage = backend_mod.get_backend(btype, bid or "default")
+        self.invalidate_ingest(vid, TIER_UPLOAD)
+        v.sync()
+        key = self._tier_key(v)
+        size = storage.upload(v.dat_path, key)
+        save_volume_info(v.vif_path, {
+            "version": v.version,
+            "files": [{
+                "backendType": btype,
+                "backendId": bid or "default",
+                "key": key,
+                "fileSize": size,
+                "modifiedTime": int(time.time()),
+            }],
+        })
+        with self._lock:
+            # the old Volume is deliberately NOT closed: lock-free readers
+            # may still hold its _ReadState (the vacuum swap's discipline),
+            # and its fds close by refcounting when they finish; the unlink
+            # is safe for them, since the fd keeps the inode
+            if not keep_local:
+                os.remove(v.dat_path)
+                if os.path.exists(v.note_path):
+                    os.remove(v.note_path)
+            loc.volumes[vid] = Volume(
+                loc.directory, vid, v.collection,
+                needle_map_kind=loc.needle_map_kind,
+            )
+        return size
+
+    def tier_move_from_remote(self, vid: int, keep_remote: bool = False) -> int:
+        """Download a tiered volume's .dat back to local disk
+        (VolumeTierMoveDatFromRemote); the volume reloads read-only, as in
+        the reference.  The ingest plane is invalidated before the
+        download writes.  -> the local size."""
+        v = self.find_volume(vid)
+        loc = self.location_of_volume(vid)
+        if v is None or loc is None:
+            raise NotFoundError(f"volume {vid} not found")
+        # tiering read from the .vif: covers a volume served remotely and
+        # a keep_local one still holding its local copy
+        vinfo = load_volume_info(v.vif_path)
+        remote_files = [f for f in vinfo.get("files", []) if f.get("key")]
+        if not remote_files:
+            raise ValueError(f"volume {vid} is not tiered")
+        rf = remote_files[0]
+        storage = backend_mod.get_backend(
+            rf["backendType"], rf.get("backendId", "default"))
+        self.invalidate_ingest(vid, TIER_DOWNLOAD)
+        if not os.path.exists(v.dat_path):
+            storage.download(rf["key"], v.dat_path)
+        size = os.path.getsize(v.dat_path)
+        save_volume_info(v.vif_path, {"version": v.version, "files": []})
+        with self._lock:
+            # the old Volume left open for in-flight readers (see to_remote)
+            reloaded = Volume(
+                loc.directory, vid, v.collection,
+                needle_map_kind=loc.needle_map_kind,
+            )
+            reloaded.read_only = True
+            loc.volumes[vid] = reloaded
+        if not keep_remote:
+            storage.delete_key(rf["key"])
+        return size
+
     def mark_volume_readonly(self, vid: int, read_only: bool = True) -> None:
         v = self.find_volume(vid)
         if v is None:
             raise NotFoundError(f"volume {vid} not found")
+        if not read_only and v.is_tiered:
+            raise ValueError(
+                f"volume {vid} is tiered; volume.tier.download it before "
+                "marking writable"
+            )
         v.read_only = read_only
         if not read_only:
             v.full = False  # admin override re-opens a size-locked volume
@@ -349,46 +452,51 @@ class Store:
 
     # -- vacuum (store_vacuum.go) --------------------------------------------
 
-    def invalidate_ingest(self, vid: int) -> None:
-        """Vacuum is rewriting the .dat: every needle's offset moves, so
+    def invalidate_ingest(self, vid: int, reason: str) -> None:
+        """The .dat is being rewritten or replaced (`reason`: one of
+        VACUUM_REWRITE, TIER_UPLOAD, TIER_DOWNLOAD, VOLUME_COPY), so
         streamed parity rows no longer describe it.  The volume's next
         seal runs offline."""
         if self.ingest is not None:
-            self.ingest.invalidate(vid, VACUUM_REWRITE)
+            self.ingest.invalidate(vid, reason)
 
     def _vacuum_target(self, vid: int) -> Volume:
         v = self.find_volume(vid)
         if v is None:
             raise NotFoundError(f"volume {vid} not found")
+        if v.is_tiered:
+            raise ValueError(f"volume {vid} is tiered; download before vacuuming")
         return v
 
-    def compact_volume(self, vid: int) -> tuple[str, str, int]:
+    def compact_volume(self, vid: int) -> tuple[str, str, int, str | None]:
         """Vacuum's first phase (CompactVolume, store_vacuum.go): the
         ingest plane invalidated BEFORE the copy, so no feed stages a row
         of the old .dat, then the live needles copied.  -> the pending
-        (cpd, cpx, idx snapshot) for commit_compact or cleanup_compact."""
+        (cpd, cpx, idx snapshot, shadow map db) for commit_compact or
+        cleanup_compact."""
         v = self._vacuum_target(vid)
-        self.invalidate_ingest(vid)
+        self.invalidate_ingest(vid, VACUUM_REWRITE)
         return vacuum_mod.compact(v)
 
-    def commit_compact(self, vid: int, pending: tuple[str, str, int]) -> None:
+    def commit_compact(self, vid: int, pending: tuple) -> None:
         """Vacuum's second phase (CommitCompactVolume): makeupDiff and the
         swap, the ingest plane invalidated again after it, and a full
         volume that shrank back under the limit re-opened for writes and
         pushed to the master right away."""
         v = self._vacuum_target(vid)
         vacuum_mod.commit(v, *pending)
-        self.invalidate_ingest(vid)
+        self.invalidate_ingest(vid, VACUUM_REWRITE)
         if v.full and v.content_size <= self.volume_size_limit:
             v.full = False
             self._push_volume_delta(v)
 
     @staticmethod
-    def cleanup_compact(pending: tuple[str, str, int]) -> None:
+    def cleanup_compact(pending: tuple) -> None:
         """A compact that will not commit: its shadow files removed (the
         ingest plane stays invalid; the next seal runs offline)."""
-        for path in pending[:2]:
-            if os.path.exists(path):
+        cpd, cpx, _, shadow_db = pending
+        for path in (cpd, cpx, shadow_db):
+            if path and os.path.exists(path):
                 os.remove(path)
 
     def vacuum_volume(self, vid: int) -> float:

@@ -7,9 +7,10 @@ since the snapshot (writes that raced the copy) are replayed onto the
 shadow — and atomically renames.  The compaction revision increments in
 the new superblock.
 
-The reference's shadow needle-map database (built in compact() for its
-persistent needle map) is left out: the port's volumes keep the in-memory
-map only, and the persistent maps are ROADMAP A4c-4.
+Under `-index sqlite` compact() also pre-builds the shadow needle-map
+database over the .cpx off-lock (cpx + ".sdx"), and commit() swaps it in
+as the live .sdx; the makeupDiff entries fold in by its watermark's tail
+replay.  Every other map kind is rebuilt fresh at the swap.
 
 A caller that streams parity from the .dat (the ingest plane) must
 invalidate it before compact(): every needle's offset moves.
@@ -28,9 +29,12 @@ from .super_block import SUPER_BLOCK_SIZE, SuperBlock
 from .volume import Volume, _ReadState
 
 
-def compact(v: Volume) -> tuple[str, str, int]:
+def compact(v: Volume) -> tuple[str, str, int, str | None]:
     """Phase 1: copy live needles to .cpd/.cpx.  Returns (cpd, cpx,
-    idx_snapshot_bytes) — the snapshot marks where makeupDiff starts."""
+    idx_snapshot_bytes, shadow_db) — the snapshot marks where makeupDiff
+    starts; shadow_db is a pre-built persistent needle map over the .cpx
+    (built off-lock here so commit doesn't replay millions of entries
+    under the write lock), or None for the other map kinds."""
     base = Volume.base_name(v.dir, v.id, v.collection)
     cpd, cpx = base + ".cpd", base + ".cpx"
     v.sync()
@@ -53,10 +57,19 @@ def compact(v: Volume) -> tuple[str, str, int]:
             offset = dat.tell()
             dat.write(n.to_bytes(v.version))
             xf.write(idx_mod.pack_entry(n.id, offset, n.size))
-    return cpd, cpx, idx_snapshot
+    shadow_db = None
+    if v.needle_map_kind == "persistent":
+        from .needle_map_persistent import SqliteNeedleMap
+
+        shadow_db = cpx + ".sdx"
+        if os.path.exists(shadow_db):
+            os.remove(shadow_db)
+        SqliteNeedleMap(shadow_db, cpx, v.version).close()
+    return cpd, cpx, idx_snapshot, shadow_db
 
 
-def commit(v: Volume, cpd: str, cpx: str, idx_snapshot: int) -> None:
+def commit(v: Volume, cpd: str, cpx: str, idx_snapshot: int,
+           shadow_db: str | None = None) -> None:
     """Phase 2: replay post-snapshot index entries onto the shadow files
     (makeupDiff, volume_vacuum.go:200), then rename over the originals."""
     with v._lock:
@@ -91,6 +104,10 @@ def commit(v: Volume, cpd: str, cpx: str, idx_snapshot: int) -> None:
         v._idx.close()
         os.replace(cpd, v.dat_path)
         os.replace(cpx, v.idx_path)
+        if shadow_db is not None:
+            # the pre-built map becomes the live .sdx; readers holding the
+            # old map keep the old (now unlinked) inode open
+            os.replace(shadow_db, v.sdx_path)
         with open(v.dat_path, "rb") as f:
             v.super_block = SuperBlock.from_bytes(f.read(SUPER_BLOCK_SIZE))
         if str(v.super_block.replica_placement) != str(live_rp):
@@ -102,13 +119,13 @@ def commit(v: Volume, cpd: str, cpx: str, idx_snapshot: int) -> None:
         # readers that captured the previous _ReadState keep preading the
         # old (pre-rename) inode and the fd closes via refcounting when the
         # last of them finishes.
-        v._state = _ReadState(open(v.dat_path, "r+b"), v._build_map())
+        v._state = _ReadState(open(v.dat_path, "r+b"),
+                              v._build_map(fresh=shadow_db is None))
         v._idx = open(v.idx_path, "ab")
 
 
 def vacuum(v: Volume) -> float:
     """Full compact+commit.  Returns the garbage ratio that was reclaimed."""
     ratio = v.garbage_ratio
-    cpd, cpx, snap = compact(v)
-    commit(v, cpd, cpx, snap)
+    commit(v, *compact(v))
     return ratio

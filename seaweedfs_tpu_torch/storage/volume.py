@@ -11,15 +11,21 @@ volume_write.go, volume_read.go, volume_loading.go).  Semantics preserved:
   - read(read_deleted=True) serves a deleted-but-not-vacuumed needle;
     read(zero_copy=True) keeps `data` a memoryview over the one pread
   - garbage ratio drives vacuum (volume_vacuum.go -> vacuum.py here)
+  - the needle map is the in-memory CompactMap, or with `-index sqlite` /
+    `-index native` a persistent map (needle_map_persistent.py) that
+    replays only the .idx tail past its watermark at open
+  - a tiered volume (volume_tier.go): its `.vif` names a `.dat` held by a
+    storage backend (backend.py); it serves every read through one ranged
+    read of RemoteDat and refuses writes, deletes and placement changes.
+    A tiered volume that kept its local copy serves that, read-only.
+  - the tail cursor (volume_backup.go, volume_grpc_tail.go):
+    find_offset_since and scan_records, which VolumeTailSender streams
 
 Vacuum swap: reads are lock-free, so the (dat file, needle map) pair is
 published as one immutable _ReadState; vacuum's commit swaps the whole
 state in a single reference assignment and leaves the old dat file open
 for readers still holding the previous state (closed by refcounting when
 they finish).
-
-Tiered (remote) volumes, the persistent needle maps and tail sync are
-ROADMAP A4c-4.
 """
 from __future__ import annotations
 
@@ -30,12 +36,14 @@ import threading
 import time
 from dataclasses import dataclass
 
+from . import backend as backend_mod
 from . import idx as idx_mod
 from . import needle as needle_mod
 from . import needle_map
 from . import types as t
 from .needle import Needle
 from .super_block import SUPER_BLOCK_SIZE, SuperBlock
+from .volume_info import load_volume_info
 
 
 class NotFoundError(KeyError):
@@ -75,6 +83,19 @@ class _ReadState:
         self.nm = nm
 
 
+def _pread(dat, size: int, offset: int) -> bytes:
+    """Ranged read from a local file or a tiered RemoteDat backend."""
+    if hasattr(dat, "pread"):
+        return dat.pread(size, offset)
+    return os.pread(dat.fileno(), size, offset)
+
+
+def _dat_size(dat) -> int:
+    if hasattr(dat, "pread"):
+        return dat.size()
+    return os.fstat(dat.fileno()).st_size
+
+
 class Volume:
     def __init__(
         self,
@@ -84,10 +105,15 @@ class Volume:
         replica_placement: t.ReplicaPlacement | None = None,
         ttl: t.TTL | None = None,
         version: int = needle_mod.CURRENT_VERSION,
+        # "compact" (None) keeps the whole map in RAM (CompactMap);
+        # "persistent" (SQLite) and "native" (the embedded KV) are the
+        # reference's -index sqlite|native
+        needle_map_kind: str | None = None,
     ):
         self.dir = dirname
         self.id = vid
         self.collection = collection
+        self.needle_map_kind = needle_map_kind or "compact"
         self.read_only = False
         # size-induced write lock (reference noWriteCanDelete): the volume
         # stops accepting appends but still takes deletes
@@ -97,6 +123,25 @@ class Volume:
         self.dat_path = base + ".dat"
         self.idx_path = base + ".idx"
         self.note_path = base + ".note"
+        self.vif_path = base + ".vif"
+        self.remote_dat = None
+
+        # tiered volume: the .dat lives on a storage backend, the .idx stays
+        # local (volume_tier.go LoadRemoteFile)
+        vinfo = load_volume_info(self.vif_path)
+        self.remote_files = [f for f in vinfo.get("files", []) if f.get("key")]
+        if self.remote_files and not os.path.exists(self.dat_path):
+            rf = self.remote_files[0]
+            storage = backend_mod.get_backend(
+                rf["backendType"], rf.get("backendId", "default"))
+            self.remote_dat = backend_mod.RemoteDat(
+                storage, rf["key"], int(rf["fileSize"]))
+            self.super_block = SuperBlock.from_bytes(
+                self.remote_dat.pread(SUPER_BLOCK_SIZE, 0))
+            self._state = _ReadState(self.remote_dat, self._build_map())
+            self._idx = None
+            self.read_only = True
+            return
 
         if os.path.exists(self.dat_path):
             with open(self.dat_path, "rb") as f:
@@ -122,15 +167,48 @@ class Volume:
             nm = self._build_map()
         self._state = _ReadState(open(self.dat_path, "r+b"), nm)
         self._idx = open(self.idx_path, "ab")
+        if self.remote_files:
+            # tiered with keep_local_dat_file: serve the local copy, but the
+            # .vif still records the remote, so stay read-only and the two
+            # copies cannot diverge
+            self.read_only = True
         # dirty marker: present while the volume is open for writing, so a
         # crash is detectable on the next load; removed on clean close
         with open(self.note_path, "w") as f:
             f.write("open for writing\n")
 
-    def _build_map(self) -> needle_map.CompactMap:
-        """The volume's in-memory needle map, replayed from its .idx (the
-        persistent maps are ROADMAP A4c-4)."""
+    @property
+    def sdx_path(self) -> str:
+        return self.base_name(self.dir, self.id, self.collection) + ".sdx"
+
+    @property
+    def ndx_path(self) -> str:
+        return self.base_name(self.dir, self.id, self.collection) + ".ndx"
+
+    def _build_map(self, fresh: bool = False):
+        """The volume's needle map in its configured kind.  `fresh=True`
+        (vacuum's commit) starts a NEW db file: lock-free readers may still
+        hold the old map over the old .dat, so the old db is unlinked (its
+        open handle keeps the inode) rather than rebuilt in place."""
+        if self.needle_map_kind == "persistent":
+            from .needle_map_persistent import SqliteNeedleMap
+
+            if fresh and os.path.exists(self.sdx_path):
+                os.remove(self.sdx_path)
+            return SqliteNeedleMap(self.sdx_path, self.idx_path, self.version)
+        if self.needle_map_kind == "native":
+            from .needle_map_persistent import NativeNeedleMap
+
+            if fresh and os.path.exists(self.ndx_path):
+                os.remove(self.ndx_path)
+            return NativeNeedleMap(self.ndx_path, self.idx_path, self.version)
         return needle_map.CompactMap.load_from_idx(self.idx_path, self.version)
+
+    @property
+    def is_tiered(self) -> bool:
+        """The .vif records a remote .dat (serving remotely, or a kept
+        local copy that must not diverge from the uploaded one)."""
+        return bool(self.remote_files)
 
     @property
     def nm(self) -> needle_map.CompactMap:
@@ -197,6 +275,8 @@ class Volume:
         """Append; returns (actual_offset, size).  The volume's syncWrite
         (volume_write.go:93): record first, then index entry."""
         with self._lock:
+            if self.is_tiered:
+                raise VolumeReadOnly(f"volume {self.id} is tiered")
             if self.read_only or self.full:
                 raise VolumeReadOnly(f"volume {self.id} is read-only")
             record = n.to_bytes(self.version)
@@ -239,6 +319,8 @@ class Volume:
     def delete(self, needle_id: int, cookie: int | None = None) -> int:
         """Tombstone; returns reclaimed byte count (0 if absent)."""
         with self._lock:
+            if self.is_tiered:
+                raise VolumeReadOnly(f"volume {self.id} is tiered")
             if self.read_only:
                 raise VolumeReadOnly(f"volume {self.id} is read-only")
             loc = self.nm.get(needle_id)
@@ -271,8 +353,8 @@ class Volume:
     ) -> Needle:
         st = st or self._state
         total = needle_mod.actual_size(size, self.version)
-        buf = os.pread(st.dat.fileno(), total, offset)
-        # zero_copy: data stays a memoryview over this pread's own buffer
+        buf = _pread(st.dat, total, offset)
+        # zero_copy: data stays a memoryview over this one ranged read
         return Needle.from_bytes(buf, self.version, copy=not zero_copy)
 
     def read(
@@ -307,7 +389,7 @@ class Volume:
         raw = st.nm.get_any(needle_id)
         if raw is None:
             return None
-        hdr = os.pread(st.dat.fileno(), t.NEEDLE_HEADER_SIZE, raw[0])
+        hdr = _pread(st.dat, t.NEEDLE_HEADER_SIZE, raw[0])
         if len(hdr) < t.NEEDLE_HEADER_SIZE:
             return None
         _, _, size = Needle.parse_header(hdr)
@@ -331,22 +413,12 @@ class Volume:
     def has(self, needle_id: int) -> bool:
         return self.nm.has(needle_id)
 
-    @property
-    def is_tiered(self) -> bool:
-        """The .vif records a remote .dat (the reference's remote_files:
-        a `files` entry with a key).  The port moves no .dat to a tier
-        yet (ROADMAP A4c-4b); a volume the reference tiered keeps its
-        mark, and the TTL sweep leaves it alone."""
-        from .volume_info import load_volume_info
-
-        info = load_volume_info(
-            self.base_name(self.dir, self.id, self.collection) + ".vif")
-        return any(f.get("key") for f in info.get("files", []))
-
     # -- stats / lifecycle ---------------------------------------------------
 
     @property
     def content_size(self) -> int:
+        if self.remote_dat is not None:
+            return self.remote_dat.size()
         self._dat.flush()
         return os.path.getsize(self.dat_path)
 
@@ -378,11 +450,10 @@ class Volume:
         for the whole walk so a concurrent vacuum swap can't mix old
         offsets with the compacted file (same discipline as read())."""
         st = st or self._state
-        fd = st.dat.fileno()
-        size = os.fstat(fd).st_size
+        size = _dat_size(st.dat)
         offset = max(start_offset, SUPER_BLOCK_SIZE)
         while offset + t.NEEDLE_HEADER_SIZE <= size:
-            hdr = os.pread(fd, t.NEEDLE_HEADER_SIZE, offset)
+            hdr = _pread(st.dat, t.NEEDLE_HEADER_SIZE, offset)
             if len(hdr) < t.NEEDLE_HEADER_SIZE:
                 break
             _, _, nsize = Needle.parse_header(hdr)
@@ -390,7 +461,8 @@ class Volume:
             total = needle_mod.actual_size(body_size, self.version)
             if offset + total > size:
                 break  # torn record at EOF — stop, don't crash
-            rest = os.pread(fd, total - t.NEEDLE_HEADER_SIZE, offset + len(hdr))
+            rest = _pread(st.dat, total - t.NEEDLE_HEADER_SIZE,
+                          offset + len(hdr))
             n = Needle.from_bytes(hdr + rest, self.version, verify=False)
             yield offset, hdr, rest, nsize, n
             offset += total
@@ -407,19 +479,33 @@ class Volume:
         """Persist a new replica placement into the on-disk superblock
         (volume_super_block.go maybeWriteSuperBlock on configure)."""
         with self._lock:
+            if self.is_tiered:
+                raise VolumeReadOnly(f"volume {self.id} is tiered")
             self.super_block.replica_placement = rp
             os.pwrite(self._dat.fileno(), self.super_block.to_bytes(), 0)
             self._dat.flush()
 
     def sync(self) -> None:
         with self._lock:
+            if self.remote_dat is not None:
+                return
             self._dat.flush()
             os.fsync(self._dat.fileno())
             self._idx.flush()
             os.fsync(self._idx.fileno())
+            # a persistent map commits too: a second map opened over the
+            # same db (the reload after a tier move) must not find it
+            # locked (the reference's sqlite map fails there)
+            if hasattr(self.nm, "flush"):
+                self.nm.flush()
 
     def close(self) -> None:
         with self._lock:
+            if self.remote_dat is not None:
+                if not self.remote_dat.closed and hasattr(self.nm, "close"):
+                    self.nm.close()
+                self.remote_dat.close()
+                return
             clean = not self._dat.closed or not self._idx.closed
             if not self._dat.closed:
                 self._dat.flush()
@@ -427,12 +513,65 @@ class Volume:
             if not self._idx.closed:
                 self._idx.flush()
                 self._idx.close()
+            if clean and hasattr(self.nm, "close"):
+                self.nm.close()
             if clean and os.path.exists(self.note_path):
                 os.remove(self.note_path)
 
     def destroy(self) -> None:
         self.close()
-        for p in (self.dat_path, self.idx_path, self.note_path,
-                  self.base_name(self.dir, self.id, self.collection) + ".vif"):
+        if self.remote_dat is not None:
+            self.remote_dat.storage.delete_key(self.remote_dat.key)
+        for p in (self.dat_path, self.idx_path, self.note_path, self.vif_path,
+                  self.sdx_path, self.ndx_path):
             if os.path.exists(p):
                 os.remove(p)
+
+    # -- tail sync (incremental replica catch-up) ---------------------------
+
+    def _append_at_ns_at(self, dat, offset: int, size: int) -> int:
+        """The v3 append timestamp of the record at `offset` (the 8 bytes
+        just before the padding, needle.py to_bytes)."""
+        total = needle_mod.actual_size(size, self.version)
+        pad = needle_mod.padding_length(size, self.version)
+        return int.from_bytes(_pread(dat, 8, offset + total - pad - 8), "big")
+
+    def find_offset_since(self, since_ns: int) -> int:
+        """A .dat offset from which scanning forward covers every record
+        with append_at_ns > since_ns (BinarySearchByAppendAtNs,
+        volume_backup.go).  The binary search runs over the live map
+        entries (offsets increase in append order); the result backs up to
+        the preceding live record so delete tombstones between live
+        needles are never skipped — callers filter by timestamp.  One
+        _ReadState capture keeps the search consistent under a concurrent
+        vacuum swap."""
+        if since_ns == 0 or self.version != needle_mod.VERSION3:
+            # from the beginning; v1/v2 records carry no timestamps, so a
+            # nonzero cursor can't be honored — resend everything
+            return SUPER_BLOCK_SIZE
+        st = self._state
+        entries = sorted(
+            (off, size)
+            for _, off, size in st.nm.items()
+            if off > 0 and t.size_is_valid(size)
+        )
+        lo, hi = 0, len(entries)
+        while lo < hi:
+            mid = (lo + hi) // 2
+            if self._append_at_ns_at(st.dat, *entries[mid]) > since_ns:
+                hi = mid
+            else:
+                lo = mid + 1
+        # back up one live record: tombstones appended between live needle
+        # lo-1 and live needle lo may still be newer than the cursor
+        if lo == 0:
+            return SUPER_BLOCK_SIZE
+        return entries[lo - 1][0]
+
+    def scan_records(self, start_offset: int):
+        """Yield (offset, header_bytes, rest_bytes, Needle) for every record
+        from start_offset to EOF — the wire-shaped scan the tail streams
+        (ScanVolumeFileFrom, volume_grpc_tail.go)."""
+        self._dat.flush()
+        for offset, hdr, rest, _, n in self._walk_records(start_offset):
+            yield offset, hdr, rest, n

@@ -259,8 +259,9 @@ def _ttl_script(kind, base) -> dict:
     with open(os.path.join(d, "6.vif"), "w") as f:
         json.dump({"files": [{"backendType": "local", "key": "k6",
                               "fileSize": "8"}]}, f)
-    if kind == "ref":
-        store.find_volume(6).remote_files = [{"key": "k6"}]
+    # both packages read a volume's tiering from its .vif at load (the
+    # volume was loaded before this .vif was written)
+    store.find_volume(6).remote_files = [{"key": "k6"}]
 
     def dat(vid):
         return store.find_volume(vid).dat_path

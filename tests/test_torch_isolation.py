@@ -97,6 +97,10 @@ def test_every_port_module_is_walked():
                  "seaweedfs_tpu_torch.operation.upload",
                  "seaweedfs_tpu_torch.operation.delete",
                  "seaweedfs_tpu_torch.operation.submit",
+                 "seaweedfs_tpu_torch.operation.tail_volume",
+                 "seaweedfs_tpu_torch.storage.backend",
+                 "seaweedfs_tpu_torch.storage.kvstore",
+                 "seaweedfs_tpu_torch.storage.needle_map_persistent",
                  "seaweedfs_tpu_torch.images",
                  "seaweedfs_tpu_torch.images.orientation",
                  "seaweedfs_tpu_torch.images.resizing",

@@ -679,6 +679,90 @@ def test_rpc_vacuum_reopens_a_full_volume(tmp_path, frozen_clock):
     assert out["ref"] == (True, True, [])  # the reference stays full
 
 
+@pytest.mark.parametrize("index", ["sqlite", "native"])
+def test_rpc_vacuum_under_a_persistent_index(tmp_path, frozen_clock, index):
+    """Both packages' servers with `-index sqlite` or `-index native`:
+    needles written, every third deleted, VacuumVolumeCompact, two writes
+    and a delete racing it, VacuumVolumeCommit.  The compacted .dat and
+    .idx are the same bytes, the map holds the same entries and stats, and
+    so does the map a restart reopens from its db (under sqlite, the
+    shadow db compact() pre-built, swapped in by commit)."""
+    needles = _needles(SEED + 8, 30)
+    extra = _needles(SEED + 9, 2)
+    db_ext = ".sdx" if index == "sqlite" else ".ndx"
+
+    def state(v) -> tuple:
+        s = v.nm.stats
+        return (type(v.nm).__name__, sorted(v.nm.items()), len(v.nm),
+                s.file_count, s.deleted_count, s.file_bytes, s.deleted_bytes)
+
+    async def go():
+        out = {}
+        for kind in ("port", "ref"):
+            d = tmp_path / kind
+            d.mkdir()
+            if kind == "port":
+                vs = server_volume.VolumeServer([], [str(d)], port=0,
+                                                ec_backend="torch",
+                                                index_kind=index)
+                Needle, vol = port_needle.Needle, port_volume
+            else:
+                vs = RefVolumeServer(masters=[], directories=[str(d)],
+                                     port=0, grpc_port=0, ec_backend="numpy",
+                                     index_kind=index)
+                Needle, vol = jax_needle.Needle, jax_volume
+            store = vs.store
+            v = store.add_volume(VID)
+
+            def put(k, nid, cookie, data):
+                store.write_needle(VID, Needle(
+                    id=nid, cookie=cookie, data=data, last_modified=FROZEN_S,
+                    append_at_ns=FROZEN_S * 10**9 + k))
+
+            for k, (nid, cookie, data) in enumerate(needles):
+                put(k, nid, cookie, data)
+            for nid, cookie, _ in needles[::3]:
+                store.delete_needle(VID, nid, cookie)
+            if kind == "port":
+                await vs.start()
+            else:
+                await vs.start(heartbeat=False)
+            try:
+                stub, vpb = _stub(kind, vs)
+                async for _ in stub.VacuumVolumeCompact(
+                        vpb.VacuumVolumeCompactRequest(volume_id=VID)):
+                    pass
+                shadow = os.path.exists(d / f"{VID}.cpx.sdx")
+                for k, (nid, cookie, data) in enumerate(extra):
+                    put(100 + k, nid + 100, cookie, data)
+                store.delete_needle(VID, needles[1][0], needles[1][1])
+                await stub.VacuumVolumeCommit(
+                    vpb.VacuumVolumeCommitRequest(volume_id=VID))
+                live = {nid: (cookie, data) for nid, cookie, data in needles}
+                for i, (nid, _, _) in enumerate(needles):
+                    if i % 3 == 0 or i == 1:
+                        del live[nid]
+                live.update({nid + 100: (cookie, data)
+                             for nid, cookie, data in extra})
+                _check_reads(v, live, set())
+                got = (shadow, _files(v), state(v),
+                       v.super_block.compaction_revision,
+                       os.path.exists(d / f"{VID}{db_ext}"))
+            finally:
+                await vs.stop()  # closes the store, and so the volume
+            again = vol.Volume(str(d), VID, needle_map_kind=v.needle_map_kind)
+            out[kind] = (got, state(again))
+            again.close()
+        return out
+
+    out = asyncio.run(go())
+    assert out["port"] == out["ref"]
+    (shadow, _, st, rev, has_db), reopened = out["port"]
+    assert shadow == (index == "sqlite") and rev == 1 and has_db
+    assert reopened == st and st[0] == {"sqlite": "SqliteNeedleMap",
+                                        "native": "NativeNeedleMap"}[index]
+
+
 # ------------------------------------------------------------ the cluster
 
 

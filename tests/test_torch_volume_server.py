@@ -522,7 +522,46 @@ def test_cli_flags_parse_with_the_reference_spellings(tmp_path):
     finally:
         vs.store.close()
         faultpolicy.configure(faultpolicy.FaultPolicyConfig())
+    _mover_flags_parse_with_the_reference_spellings(p, ref_p, tmp_path)
     _master_flags_parse_with_the_reference_spellings(p, tmp_path)
+
+
+def _mover_flags_parse_with_the_reference_spellings(p, ref_p, tmp_path):
+    """-offset.bytes, -tier.dir and -index parse to the reference's values
+    (defaults 4, "" and memory; anything else refused by both); a built
+    server opens its volumes with the map kind, registers local.default
+    over the tier dir, and runs in 5-byte mode."""
+    from seaweedfs_tpu_torch.storage import backend
+
+    for argv in ([], ["-offset.bytes", "5", "-tier.dir", str(tmp_path / "t"),
+                      "-index", "native"], ["-index", "sqlite"]):
+        argv = ["-dir", str(tmp_path)] + argv
+        args, ref_args = p.parse_args(["volume"] + argv), ref_p.parse_args(
+            argv)
+        for dest in ("offset_bytes", "tier_dir", "index_kind"):
+            assert getattr(args, dest) == getattr(ref_args, dest), dest
+    assert (args.offset_bytes, args.tier_dir, args.index_kind) == (
+        4, "", "sqlite")
+    for bad in (["-offset.bytes", "6"], ["-index", "leveldb"]):
+        for parse in (lambda a: p.parse_args(["volume"] + a), ref_p.parse_args):
+            with pytest.raises(SystemExit):
+                parse(bad)
+    backend.clear_registry()
+    vs = command.volume.build_server(p.parse_args(
+        ["volume", "-dir", str(tmp_path / "v"), "-ec.backend", "torch",
+         "-mserver", "", "-offset.bytes", "5", "-tier.dir",
+         str(tmp_path / "t"), "-index", "native"]))
+    try:
+        assert t.OFFSET_SIZE == 5 and t.NEEDLE_MAP_ENTRY_SIZE == 17
+        assert vs.store.locations[0].needle_map_kind == "native"
+        assert backend.get_backend("local", "default").root == str(
+            tmp_path / "t")
+        v = vs.store.add_volume(3)
+        assert type(v.nm).__name__ == "NativeNeedleMap"
+    finally:
+        vs.store.close()
+        t.set_offset_size(4)
+        backend.clear_registry()
 
 
 MASTER_ARGV = [
