@@ -177,7 +177,23 @@ volume:
                  64 MiB (each write fanned out to the other copy); every
                  fid read with a sha256 check on both holders, on the third
                  server (proxied) and on a fourth started with `-readMode
-                 redirect` (each 301 followed)
+                 redirect` (each 301 followed).
+                 9c, master HA: three `master -peers M1,M2,M3 -mdir ...`, a
+                 `master.follower -masters M1,M2,M3` and three volume
+                 servers (`-mserver M1,M2,M3 -ec.backend cuda`, no cache),
+                 started together; the leader as `cluster.raft.ps` names
+                 it; a 64 MiB volume of collection ec9c grown and written
+                 through the leader's assign (a follower's /dir/assign
+                 answers 307 to the leader), `ec.encode` (K1, shards equal
+                 to the native codec's); the leader SIGKILLed: seconds to
+                 one new leader, to the servers and 14 shards listed at
+                 it, to the follower naming it; its repair totals then
+                 (none queued); fid keys and vids past the kill; every
+                 needle read back through the new leader's lookup (32
+                 clients); two shards lost on a holder and healed by the
+                 new leader's repair plane (K1 on the rebuilder, shards
+                 equal to the native codec's); the killed master back on
+                 its -mdir as a follower, caught up
   10. mesh       the mesh on one card (two lanes of cuda:0 built with
                  make_mesh(devices=...); no multi-GPU figure): vid 1's 12
                  survivors pinned lane-sharded beside the one-device cache;
@@ -4815,6 +4831,397 @@ def _vid1_unrecoverable(cl: _Cluster) -> dict:
     return row
 
 
+# 9c: the leader's SIGKILL mid-life of an EC volume: three masters under
+# raft, a master.follower and three volume servers; the volume the writers
+# fill through the leader's assign (64 MiB, 6x of writes with its shards
+# and the rebuilt two, §4 of PERF.md)
+HA_DAT_BYTES = 64 << 20
+HA_COLLECTION = "ec9c"
+HA_MASTERS = ("M1", "M2", "M3")
+HA_SERVERS = ("X", "Y", "Z")
+
+
+class _HaGroup:
+    """9c's processes, as users start them: three `master -peers ...
+    -mdir ...`, one `master.follower -masters ...` and three `volume
+    -mserver M1,M2,M3 -ec.backend cuda` (no device cache), and the calls
+    the step makes to them over the RPC plane and HTTP."""
+
+    def __init__(self, workdir: str, stack: contextlib.ExitStack):
+        from seaweedfs_tpu_torch.pb import (
+            Stub, master_pb2, sync_channel_cached, volume_server_pb2)
+
+        self.pb, self.vpb = master_pb2, volume_server_pb2
+        self._stub, self._chan = Stub, sync_channel_cached
+        self.dir = workdir
+        self.stack = stack
+        self.env = {"TMPDIR": os.path.join(workdir, "tmp")}
+        os.makedirs(self.env["TMPDIR"])
+        self.ports = {}
+        for n in HA_MASTERS + HA_SERVERS + ("F",):
+            http, grpc = _free_port(), _free_port()
+            while grpc == http + 10000:  # a master would advertise the
+                grpc = _free_port()      # short form -peers does not spell
+            self.ports[n] = (http, grpc)
+        self.peers = ",".join(self.advertise(n) for n in HA_MASTERS)
+        self.procs: dict = {}
+        self.killed: set = set()
+
+    def advertise(self, name: str) -> str:
+        http, grpc = self.ports[name]
+        return f"127.0.0.1:{http}.{grpc}"
+
+    def url(self, name: str) -> str:
+        return f"127.0.0.1:{self.ports[name][0]}"
+
+    def start(self, name: str) -> None:
+        http, grpc = self.ports[name]
+        base = ["-port", str(http), "-port.grpc", str(grpc)]
+        if name in HA_MASTERS:
+            command, args = "master", base + [
+                "-peers", self.peers, "-mdir", os.path.join(self.dir, name),
+                "-pulseSeconds", "1", "-ec.repair.intervalSeconds", "1"]
+        elif name == "F":
+            command, args = "master.follower", base + ["-masters", self.peers]
+        else:
+            d = os.path.join(self.dir, name)
+            os.makedirs(d, exist_ok=True)
+            command, args = "volume", base + [
+                "-dir", d, "-mserver", self.peers, "-ec.backend", "cuda",
+                "-pulseSeconds", "1"]
+        log_path = os.path.join(self.dir, f"{name}.log")
+        if name in self.procs:  # a restart keeps the first life's log
+            log_path = os.path.join(self.dir, f"{name}-restart.log")
+        self.killed.discard(name)
+        self.procs[name] = self.stack.enter_context(_volume_server(
+            args, log_path, self.env, command=command))
+
+    def kill(self, name: str) -> None:
+        """SIGKILL, as a crash."""
+        self.killed.add(name)
+        self.procs[name].kill()
+        self.procs[name].wait(30)
+
+    def mstub(self, name: str):
+        return self._stub(self._chan(f"127.0.0.1:{self.ports[name][1]}"),
+                          self.pb, "Seaweed")
+
+    def vstub(self, name: str):
+        return self._stub(self._chan(f"127.0.0.1:{self.ports[name][1]}"),
+                          self.vpb, "VolumeServer")
+
+    def wait(self, what: str, pred, timeout: float = CLUSTER_WAIT_S) -> float:
+        """Poll `pred` until true: -> seconds waited.  A process that exits
+        meanwhile is fatal."""
+        t0 = time.perf_counter()
+        while not _Cluster._try(pred):
+            for name, proc in self.procs.items():
+                if proc.poll() is not None and name not in self.killed:
+                    raise AssertionError(f"{name} exited ({proc.returncode})")
+            if time.perf_counter() - t0 > timeout:
+                raise AssertionError(f"timed out waiting for {what}")
+            time.sleep(0.05)
+        return time.perf_counter() - t0
+
+    def raft(self, name: str) -> dict:
+        """RaftListClusterServers on one master: term, members, leader."""
+        resp = self.mstub(name).RaftListClusterServers(
+            self.pb.RaftListClusterServersRequest(), timeout=5)
+        return {"term": resp.term,
+                "members": sorted(s.id for s in resp.cluster_servers),
+                "leader": [s.id for s in resp.cluster_servers if s.is_leader]}
+
+    def agreed_leader(self, names) -> str | None:
+        """The master every one of `names` names as the one leader, in one
+        term, itself among `names`; else None."""
+        views = [self.raft(n) for n in names]
+        leaders = {tuple(v["leader"]) for v in views}
+        if len(leaders) != 1 or len({v["term"] for v in views}) != 1:
+            return None
+        (leader,) = leaders
+        if len(leader) != 1:
+            return None
+        by_adv = {self.advertise(n): n for n in names}
+        return by_adv.get(leader[0])
+
+    def nodes(self, master: str) -> set:
+        info = json.loads(self.mstub(master).VolumeList(
+            self.pb.VolumeListRequest(), timeout=10).topology_info_json)
+        return {n["id"] for dc in info["data_centers"]
+                for r in dc["racks"] for n in r["nodes"]}
+
+    def shards(self, master: str, vid: int) -> dict:
+        from seaweedfs_tpu_torch.pb import RpcError, StatusCode
+
+        try:
+            resp = self.mstub(master).LookupEcVolume(
+                self.pb.LookupEcVolumeRequest(volume_id=vid), timeout=10)
+        except RpcError as e:
+            if e.code() == StatusCode.NOT_FOUND:
+                return {}
+            raise
+        return {e.shard_id: sorted(l.url for l in e.locations)
+                for e in resp.shard_id_locations}
+
+    def shell(self, script: str) -> str:
+        proc = subprocess.run(
+            [sys.executable, "-m", "seaweedfs_tpu_torch", "shell", "-master",
+             self.peers, "-c", script],
+            cwd=HERE, capture_output=True, text=True, timeout=600)
+        if proc.returncode != 0:
+            raise AssertionError(f"shell {script!r} failed: {proc.stdout}"
+                                 f"{proc.stderr[-4000:]}")
+        return proc.stdout
+
+
+def _http_status(port: int, path: str) -> tuple[int, dict, bytes]:
+    """One GET that follows no redirect: -> (status, headers, body)."""
+    import http.client
+
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=30)
+    try:
+        conn.request("GET", path)
+        r = conn.getresponse()
+        return r.status, dict(r.getheaders()), r.read()
+    finally:
+        conn.close()
+
+
+def _fid_key(fid: str) -> int:
+    return int(fid.split(",")[1][:-8], 16)
+
+
+def _cluster_ha(workdir: str, seed: int) -> dict:
+    """9c: three masters under raft, a master.follower and three volume
+    servers, started together.  The leader as `cluster.raft.ps` names it;
+    a volume of collection ec9c grown through the leader, a /dir/assign at
+    a follower answered 307 to the leader, 32 writers filling 64 MiB
+    through the leader's assign, `ec.encode` (K1 on the holder; every
+    shard equal to the native codec's).  Then the leader SIGKILLed: the
+    seconds to one new leader (RaftListClusterServers on each survivor),
+    to the three servers and 14 shards listed where stored, to the
+    follower naming the new leader and answering /dir/lookup; the new
+    leader's repair totals then (none queued; its plane running, as
+    PauseRepair is one master's); an assign's fid key and a growth's vid
+    past every one before the kill; every needle read back byte-equal
+    through the new leader's lookup (32 clients); two shards unmounted
+    and deleted on a holder and healed by the new leader's repair plane
+    (K1 on the rebuilder, every shard equal to the native codec's); the
+    killed master restarted on its -mdir: a follower at the new term or
+    later, three members and one leader on every master, its MaxVolumeId
+    the leader's."""
+    from seaweedfs_tpu_torch.storage import ec
+
+    tth = "SeaweedFS_master_repair_time_to_healthy_seconds"
+    row: dict = {}
+    with contextlib.ExitStack() as stack:
+        g = _HaGroup(workdir, stack)
+        t_start = time.perf_counter()
+        for name in HA_MASTERS + ("F",) + HA_SERVERS:
+            g.start(name)
+        g.wait("a single leader",
+               lambda: g.agreed_leader(HA_MASTERS) is not None)
+        row["election_s"] = time.perf_counter() - t_start
+        leader = g.agreed_leader(HA_MASTERS)
+        row["terms"] = {n: g.raft(n)["term"] for n in HA_MASTERS}
+        out = g.shell("cluster.raft.ps")
+        named = [ln.split()[0] for ln in out.splitlines()
+                 if ln.strip().endswith("leader")]
+        if named != [g.advertise(leader)]:
+            raise AssertionError(f"cluster.raft.ps names {named}, not "
+                                 f"{leader}: {out}")
+        row["raft_ps"] = out.strip().splitlines()
+        urls = {g.url(n): n for n in HA_SERVERS}
+        g.wait("three servers at the leader",
+               lambda: g.nodes(leader) == set(urls))
+        row["servers_registered_s"] = time.perf_counter() - t_start
+        lport = g.ports[leader][0]
+        vid = _get_json(lport, f"/vol/grow?count=1&collection="
+                        f"{HA_COLLECTION}")["vids"][0]
+        other = next(n for n in HA_MASTERS if n != leader)
+        status, headers, _ = _http_status(
+            g.ports[other][0], f"/dir/assign?collection={HA_COLLECTION}")
+        want = f"http://{g.url(leader)}/dir/assign?collection={HA_COLLECTION}"
+        if status != 307 or headers.get("Location") != want:
+            raise AssertionError(f"/dir/assign at {other}: {status} "
+                                 f"{headers.get('Location')}, not 307 {want}")
+        needles = _ingest_needles(seed + 93, HA_DAT_BYTES)
+        pool = _ingest_pool(seed + 93)
+        t0 = time.perf_counter()
+        written, ack = asyncio.run(_cluster_writes(
+            g.advertise(leader), pool, needles, CLUSTER_WRITERS,
+            collection=HA_COLLECTION))
+        wall = time.perf_counter() - t0
+        hosts = {u for _, u, _ in written}
+        if len(hosts) != 1 or any(not f.startswith(f"{vid},")
+                                  for f, _, _ in written):
+            raise AssertionError(f"writes left volume {vid}: {sorted(hosts)}")
+        holder = urls[hosts.pop()]
+        row["writes"] = {"needles": len(written), "wall_s": wall,
+                         "writes_per_s": len(written) / wall,
+                         "ack_p50_ms": _pct(ack, 50),
+                         "ack_p99_ms": _pct(ack, 99)}
+        keys_before = max(_fid_key(f) for f, _, _ in written)
+        stem = f"{HA_COLLECTION}_{vid}"
+        oracle = os.path.join(workdir, "oracle.dat")
+        os.link(os.path.join(workdir, holder, stem + ".dat"), oracle)
+        native, _ = _native_shard_hashes(oracle)
+
+        def where_stored() -> dict:
+            return {sid: [g.url(n) for n in HA_SERVERS if os.path.exists(
+                os.path.join(workdir, n, stem + ec.to_ext(sid)))]
+                for sid in range(14)}
+
+        def listed(master: str) -> bool:
+            on_disk = where_stored()
+            locs = g.shards(master, vid)
+            return all(len(on_disk[s]) == 1 and locs.get(s) == on_disk[s]
+                       for s in range(14))
+
+        def check_shards(what: str) -> None:
+            for sid in range(14):
+                got = [sha256_file(os.path.join(workdir, n,
+                                                stem + ec.to_ext(sid)))
+                       for n in HA_SERVERS if os.path.exists(os.path.join(
+                           workdir, n, stem + ec.to_ext(sid)))]
+                if got != [native[sid]]:
+                    raise AssertionError(f"{what}: shard {sid} {got}, not "
+                                         "the native codec's bytes")
+
+        k0 = _k_counts(_scrape(g.ports[holder][0]))
+        g.shell(f"lock; ec.encode -volumeId {vid}; unlock")
+        g.wait("the leader lists 14 spread shards", lambda: listed(leader))
+        k1 = _k_counts(_scrape(g.ports[holder][0]))
+        encode_k1 = {k: k1[k] - k0[k] for k in ("gf2_matmul",
+                                                "gf2_matmul_small")}
+        if not sum(encode_k1.values()):
+            raise AssertionError(f"ec.encode launched no K1 on {holder}")
+        check_shards("ec.encode")
+        vids_before = _get_json(lport, "/cluster/status")["MaxVolumeId"]
+        row.update(vid=vid, holder=holder, encode_k1=encode_k1,
+                   max_key_before=keys_before, max_vid_before=vids_before)
+
+        # the leader's SIGKILL
+        survivors = [n for n in HA_MASTERS if n != leader]
+        t_kill = time.perf_counter()
+        g.kill(leader)
+        g.wait("one new leader among the survivors",
+               lambda: g.agreed_leader(survivors) is not None)
+        row["new_leader_s"] = time.perf_counter() - t_kill
+        new = g.agreed_leader(survivors)
+        row["new_term"] = g.raft(new)["term"]
+        g.wait("the servers and 14 shards at the new leader",
+               lambda: g.nodes(new) == set(urls) and listed(new))
+        row["reregistered_s"] = time.perf_counter() - t_kill
+        fport = g.ports["F"][0]
+
+        def follower_switched() -> bool:
+            st = _get_json(fport, "/cluster/status")
+            code, _, _ = _http_status(fport, f"/dir/lookup?volumeId={vid}")
+            return st["Leader"] == g.advertise(new) and code == 200
+
+        g.wait("the follower on the new leader", follower_switched)
+        row["follower_switch_s"] = time.perf_counter() - t_kill
+        nport = g.ports[new][0]
+        health = _get_json(nport, "/cluster/health.json")["repair"]
+        row["repair_at_14"] = {"totals": health["totals"],
+                               "paused": health["paused"]}
+        if health["totals"]["queued"] or health["paused"]:
+            raise AssertionError(f"the new leader's repair plane: {health}")
+
+        # past the kill: ids above every one handed out before
+        a = _get_json(nport, f"/dir/assign?collection={HA_COLLECTION}")
+        grown = _get_json(nport, "/vol/grow?count=1")["vids"]
+        row["key_after"] = _fid_key(a["fid"])
+        row["vid_after"] = min(grown + [int(a["fid"].split(",")[0])])
+        if row["key_after"] <= keys_before or row["vid_after"] <= vids_before:
+            raise AssertionError(f"ids re-minted after the kill: {a}, "
+                                 f"{grown}, before {keys_before}, "
+                                 f"{vids_before}")
+        look = _get_json(nport, f"/dir/lookup?volumeId={vid}")
+        reader = urls[look["locations"][0]["url"]]
+        items = [("/" + fid, digest) for fid, _, digest in written]
+        read, _ = _timed_gets(g.ports[reader][0], items, CLUSTER_READERS,
+                              g.ports[reader][0])
+        read["server"] = reader
+        row["reads"] = read
+
+        # the loss, healed by the new leader's repair plane
+        counts = {n: sum(1 for locs in g.shards(new, vid).values()
+                         if g.url(n) in locs) for n in HA_SERVERS}
+        loser = max(HA_SERVERS, key=lambda n: counts[n])
+        lost = sorted(s for s, locs in g.shards(new, vid).items()
+                      if g.url(loser) in locs)[:2]
+        # the new leader's census runs from its election: a cycle that saw
+        # only part of the re-registered servers opened an unhealthy
+        # episode, closed by the first cycle that sees all 14 shards
+        def census_whole() -> bool:
+            rep = _get_json(nport, "/cluster/health.json")["repair"]
+            v = rep["volumes"].get(str(vid))
+            return not rep["queue_depth"] and (v is None
+                                               or v["state"] == "healthy")
+
+        g.wait("the new leader's census whole", census_whole)
+        rep = _get_json(nport, "/cluster/health.json")["repair"]
+        row["partial_view_seen"] = str(vid) in rep["volumes"]
+        m0 = _scrape(nport)
+        kb = {n: _k_counts(_scrape(g.ports[n][0])) for n in HA_SERVERS}
+        t0 = time.perf_counter()
+        stub = g.vstub(loser)
+        stub.VolumeEcShardsUnmount(g.vpb.VolumeEcShardsUnmountRequest(
+            volume_id=vid, shard_ids=lost), timeout=60)
+        stub.VolumeEcShardsDelete(g.vpb.VolumeEcShardsDeleteRequest(
+            volume_id=vid, collection=HA_COLLECTION, shard_ids=lost),
+            timeout=60)
+        g.wait("the new leader lists 14 shards again, healed",
+               lambda: _scrape(nport)[tth + "_count"] > m0[tth + "_count"]
+               and listed(new))
+        heal = time.perf_counter() - t0
+        m1 = _scrape(nport)
+        st = _get_json(nport, "/cluster/health.json")["repair"]
+        rebuilder = urls[st["volumes"][str(vid)]["last_result"]["rebuilder"]]
+        ka = _k_counts(_scrape(g.ports[rebuilder][0]))
+        k1_rebuild = {k: ka[k] - kb[rebuilder][k]
+                      for k in ("gf2_matmul", "gf2_matmul_small")}
+        if not sum(k1_rebuild.values()):
+            raise AssertionError(f"the repair on {rebuilder} launched no K1")
+        check_shards("the new leader's repair")
+        row["loss"] = {"server": loser, "shards": lost, "heal_wall_s": heal,
+                       "time_to_healthy_s": m1[tth + "_sum"] - m0[tth + "_sum"],
+                       "totals": st["totals"], "rebuilder": rebuilder,
+                       "rebuilder_k1": k1_rebuild}
+
+        # the killed master back on its -mdir
+        t0 = time.perf_counter()
+        g.start(leader)
+
+        def settled() -> bool:
+            views = {n: g.raft(n) for n in HA_MASTERS}
+            back = views[leader]
+            return (all(len(v["members"]) == 3 and v["leader"]
+                        == [g.advertise(new)] for v in views.values())
+                    and back["term"] >= row["new_term"]
+                    and _get_json(g.ports[leader][0], "/cluster/status")[
+                        "MaxVolumeId"] == _get_json(
+                            nport, "/cluster/status")["MaxVolumeId"])
+
+        g.wait("the restarted master a follower, caught up", settled)
+        row["restart"] = {"rejoin_s": time.perf_counter() - t0,
+                          "term": g.raft(leader)["term"],
+                          "max_volume_id": _get_json(
+                              g.ports[leader][0],
+                              "/cluster/status")["MaxVolumeId"]}
+        row.update(killed=leader, new_leader=new,
+                   shards_equal_native=True,
+                   launches={n: _k_counts(_scrape(g.ports[n][0]))
+                             for n in HA_SERVERS})
+    log("cluster_ha", **row, reduced={
+        "dat_mib": [FULL_VOLUME_GIB * 1024, HA_DAT_BYTES >> 20],
+        "why": "the run's time and write budgets: 9c has 90 s and about "
+               "0.17 GiB of writes"})
+    return row
+
+
 def phase_cluster(torch, workdir: str, vol: dict, deg: dict, serve: dict,
                   seed: int) -> dict:
     """The cluster as users run it: `python3 -m seaweedfs_tpu_torch master`,
@@ -4853,12 +5260,15 @@ def phase_cluster(torch, workdir: str, vol: dict, deg: dict, serve: dict,
             full["repair_after_9a"] = _vid1_unrecoverable(cl)
             cl.kill("B")
             verbs = _cluster_shell_verbs(cl, seed)
+        ha_dir = os.path.join(cdir, "ha")
+        os.makedirs(ha_dir)
+        ha = _cluster_ha(ha_dir, seed)
     finally:
         shutil.rmtree(cdir, ignore_errors=True)
-    launches = {k: sum(c[k] for part in (full, verbs)
+    launches = {k: sum(c[k] for part in (full, verbs, ha)
                        for c in part["launches"].values())
                 for k in _k_counts({})}
-    return {"full": full, "verbs": verbs, "launches": launches}
+    return {"full": full, "verbs": verbs, "ha": ha, "launches": launches}
 
 
 # -------------------------------------------------------------- phase 10
@@ -5503,6 +5913,11 @@ def main() -> int:
         "repair_launches": clu["verbs"]["auto_repair"]["rebuilder_k1"][
             "gf2_matmul"],
         "vacuum_seal_launches": clu["verbs"]["k1"]["encode"]["gf2_matmul"],
+        # phase 9c: the new leader's repair job after the leader's kill,
+        # on its rebuilder, and the encode under the first leader
+        "failover_repair_launches": clu["ha"]["loss"]["rebuilder_k1"][
+            "gf2_matmul"],
+        "failover_encode_launches": clu["ha"]["encode_k1"]["gf2_matmul"],
     }, {
         "name": "gf2_matmul_small",
         "route": "cuda",
@@ -5523,6 +5938,10 @@ def main() -> int:
         "repair_launches": clu["verbs"]["auto_repair"]["rebuilder_k1"][
             "gf2_matmul_small"],
         "vacuum_seal_launches": clu["verbs"]["k1"]["encode"][
+            "gf2_matmul_small"],
+        "failover_repair_launches": clu["ha"]["loss"]["rebuilder_k1"][
+            "gf2_matmul_small"],
+        "failover_encode_launches": clu["ha"]["encode_k1"][
             "gf2_matmul_small"],
     }, *resident, scrub_entry, *_b6_entries(mesh)]}), flush=True)
     print(SMI, flush=True)

@@ -2,7 +2,8 @@
 
 Each command module exposes NAME, HELP, add_args(parser), and async
 run(args).  `python -m seaweedfs_tpu_torch <command> ...` dispatches here.
-The port's commands: `master`, `volume`, `shell` and `version`.
+The port's commands: `master`, `master.follower`, `volume`, `shell` and
+`version`.
 """
 from __future__ import annotations
 
@@ -10,9 +11,10 @@ import argparse
 import asyncio
 import sys
 
-from . import master, shell, version, volume
+from . import master, master_follower, shell, version, volume
 
-COMMANDS = {m.NAME: m for m in (master, shell, version, volume)}
+COMMANDS = {m.NAME: m for m in (master, master_follower, shell, version,
+                                volume)}
 
 
 def parser() -> argparse.ArgumentParser:

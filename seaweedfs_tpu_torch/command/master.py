@@ -1,10 +1,19 @@
 """`master` — run a master server (reference: weed/command/master.go).
 
-Port of seaweedfs_tpu/command/master.py for the flags one master without
-raft serves, with the reference's spellings:
+Port of seaweedfs_tpu/command/master.py, with the reference's spellings:
 
     python3 -m seaweedfs_tpu_torch master -ip 127.0.0.1 -port 9333 \\
         -volumeSizeLimitMB 30720 -defaultReplication 000
+
+Three masters form a raft group (raft/node.py): each is given every
+master's address with -peers (itself included; `host:port.grpcPort` where
+the RPC port is not port+10000) and a directory of its own for the raft
+state with -mdir, where a restart finds its term, vote, log and
+snapshot.  Past -raft.snapshotThreshold log entries the log is compacted
+into a snapshot:
+
+    python3 -m seaweedfs_tpu_torch master -port 9333 -mdir /var/lib/m1 \
+        -peers 10.0.0.1:9333,10.0.0.2:9333,10.0.0.3:9333
 
 The -ec.repair.* flags configure the repair plane (repair/config.py
 RepairConfig), which is on by default:
@@ -35,7 +44,7 @@ reference):
 security.toml (./, ~/.seaweedfs/, /etc/seaweedfs/) gives the write-JWT
 key and lifetime (`[jwt.signing] key`, `expires_after_seconds`), the peer
 white list (`[access] white_list`) and mutual TLS for the RPC plane
-(`[tls] ca`, `cert`, `key`).  `-peers` and `-mdir` wait for ROADMAP A4c-5.
+(`[tls] ca`, `cert`, `key`).
 """
 from __future__ import annotations
 
@@ -71,6 +80,20 @@ def add_args(p) -> None:
     p.add_argument(
         "-autoVacuum", dest="auto_vacuum", action="store_true",
         help="periodically drive the vacuum protocol",
+    )
+    p.add_argument(
+        "-peers", default="",
+        help="comma-separated masters in the raft group (including this "
+        "one); empty = single-master",
+    )
+    p.add_argument(
+        "-mdir", dest="meta_dir", default="",
+        help="directory for durable raft state (term/vote/log/snapshot)",
+    )
+    p.add_argument(
+        "-raft.snapshotThreshold", dest="raft_snapshot_threshold",
+        type=int, default=1000,
+        help="compact the raft log into a snapshot past this many entries",
     )
     # the repair plane (repair/config.py RepairConfig): the master's
     # autonomous ec.rebuild loop over the telemetry plane
@@ -175,6 +198,9 @@ def build_server(args):
         jwt_signing_key=config_util.jwt_signing_key(),
         jwt_expires_sec=config_util.jwt_expires_sec(),
         white_list=guard_mod.from_security_toml(),
+        peers=[p.strip() for p in args.peers.split(",") if p.strip()],
+        meta_dir=args.meta_dir or None,
+        raft_snapshot_threshold=args.raft_snapshot_threshold,
         **common_args.metrics_kwargs(args),
         **common_args.slo_incident_kwargs(args),
     )

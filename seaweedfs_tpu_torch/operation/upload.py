@@ -84,3 +84,20 @@ async def upload_data(
             if client is None:
                 await c.close()
     raise RuntimeError(f"upload {url} failed after {retries + 1} tries: {last_err}")
+
+
+async def upload_multipart_body(
+    url: str, body: bytes, content_type: str = "", jwt: str = ""
+) -> dict:
+    """Re-post an already-multipart body (the master's /submit)."""
+    parts = urllib.parse.urlsplit(url)
+    headers = {"Content-Type": content_type} if content_type else {}
+    headers.update(auth_headers(jwt))
+    c = Client(parts.hostname, parts.port)
+    try:
+        status, _, resp = await c.request("POST", parts.path, headers, body)
+    finally:
+        await c.close()
+    if status >= 300:
+        raise RuntimeError(f"upload {url}: HTTP {status}")
+    return json.loads(resp)

@@ -102,7 +102,9 @@ class _Abort(Exception):
         self.details = details
 
 
-_SERVICE_ROLES = {"Seaweed": "master", "VolumeServer": "volume"}
+# the role a served call's trace carries; raft rides the master's listener
+_SERVICE_ROLES = {"Seaweed": "master", "SeaweedRaft": "master",
+                  "VolumeServer": "volume"}
 
 
 # ------------------------------------------------------------------ frames

@@ -24,6 +24,14 @@ Each scheduling cycle:
      each the shell's gather/rebuild/spread fan-out; a failed job backs
      off exponentially and parks as failed after maxAttempts.
 
+A new leader of a raft group queues no job while its master says it is
+settling (`MasterServer.leader_settling`): its topology holds only the
+volume servers that have re-registered since the election, and a shard
+on a server not yet back is not lost.  The census, the verdicts, the
+time-to-healthy clock and the scrub pass run all the same.  This is a
+departure from the reference, whose new leader queues a rebuild of such
+shards (ROADMAP §C).
+
 Convergence is measured: the first cycle that observes ANY missing or
 corrupt shard starts the clock, and the first cycle after that where
 the census is fully redundant again observes wall seconds into
@@ -184,12 +192,13 @@ class RepairScheduler:
         ):
             self._last_scrub = now
             await self._scrub_pass(nodes, shard_map)
+        settling = self.master.leader_settling()
         for job in result.jobs:
             if len(self._inflight) >= self.cfg.max_inflight:
                 break
             if job.vid in self._inflight or job.vid in self._parked:
                 continue
-            if now < self._settle_until.get(job.vid, 0.0):
+            if settling or now < self._settle_until.get(job.vid, 0.0):
                 continue  # census lag, not a fresh degradation
             attempts, next_ok = self._backoff.get(job.vid, (0, 0.0))
             if now < next_ok:

@@ -1,10 +1,12 @@
 """cluster.* commands (reference: weed/shell/command_cluster_ps.go etc.).
 
-The port of seaweedfs_tpu/shell/command_cluster.py's observability
-readers: cluster.health, cluster.slo, cluster.timeline, cluster.tail and
-cluster.incident.dump, over the port's HTTP client (server/http.py), with
-the reference's output.  cluster.ps and the raft verbs wait for ROADMAP
-A4c-5.
+The port of seaweedfs_tpu/shell/command_cluster.py: cluster.ps and the
+raft verbs cluster.raft.{ps,add,remove} over the master's rpcs
+(ListClusterNodes, RaftListClusterServers, RaftAddServer,
+RaftRemoveServer), and the observability readers cluster.health,
+cluster.slo, cluster.timeline, cluster.tail and cluster.incident.dump over
+the port's HTTP client (server/http.py), with the reference's output.
+cluster.check waits for ROADMAP A4c-6.
 """
 from __future__ import annotations
 
@@ -12,9 +14,24 @@ import asyncio
 import json
 import urllib.parse
 
-from ..pb import server_address
+from ..pb import RpcError, StatusCode, master_pb2, server_address
 from ..server.http import fetch
 from .commands import command, parse_flags
+
+
+async def fetch_following(hostport: str, method: str, path: str):
+    """One request, following redirects as the reference's aiohttp client
+    does (a follower master answers its control paths with a 307 to the
+    leader) -> (status, headers, body)."""
+    for _ in range(10):
+        status, headers, body = await fetch(hostport, method, path)
+        location = headers.get("Location")
+        if status not in (301, 302, 303, 307, 308) or not location:
+            break
+        parts = urllib.parse.urlsplit(location)
+        hostport = parts.netloc or hostport
+        path = parts.path + (f"?{parts.query}" if parts.query else "")
+    return status, headers, body
 
 
 async def http_get_json(hostport: str, path: str,
@@ -23,7 +40,7 @@ async def http_get_json(hostport: str, path: str,
     when the body is not JSON)."""
     if params:
         path += "?" + urllib.parse.urlencode(params)
-    status, _, body = await fetch(hostport, "GET", path)
+    status, _, body = await fetch_following(hostport, "GET", path)
     try:
         return status, json.loads(body)
     except ValueError:
@@ -53,6 +70,70 @@ def _fmt_size(n: int) -> str:
 def fmt_bytes(n: int) -> str:
     # one shell-wide byte formatter
     return _fmt_size(n)
+
+
+@command("cluster.ps")
+async def cmd_cluster_ps(env, args):
+    """list masters, filers/clients, and volume servers
+    (command_cluster_ps.go)"""
+    nodes, limit_mb = await env.collect_topology()
+    env.write(f"masters: {', '.join(env.masters)}")
+    try:
+        resp = await env.master_stub.ListClusterNodes(
+            master_pb2.ListClusterNodesRequest()
+        )
+        by_type: dict[str, list[str]] = {}
+        for cn in resp.cluster_nodes:
+            by_type.setdefault(cn.client_type, []).append(cn.address)
+        for ctype in sorted(by_type):
+            env.write(f"{ctype}s: {', '.join(sorted(by_type[ctype]))}")
+    except RpcError as e:
+        # older masters lack the RPC; anything else is worth surfacing
+        if e.code() != StatusCode.UNIMPLEMENTED:
+            env.write(f"cluster node listing failed: {e.code()}")
+    env.write(f"volume size limit: {limit_mb} MB")
+    for n in nodes:
+        env.write(
+            f"  {n.data_center}/{n.rack}/{n.url}"
+            f"  volumes={len(n.volumes)} ec_vols={len(n.ec_shards)}"
+            f" free_slots={n.free_slots()}"
+        )
+
+
+@command("cluster.raft.ps")
+async def cmd_cluster_raft_ps(env, args):
+    """list raft cluster servers (command_cluster_raft_ps.go)"""
+    resp = await env.master_stub.RaftListClusterServers(
+        master_pb2.RaftListClusterServersRequest()
+    )
+    env.write(f"term: {resp.term}")
+    for s in resp.cluster_servers:
+        env.write(f"  {s.id}{'  leader' if s.is_leader else ''}")
+
+
+@command("cluster.raft.add")
+async def cmd_cluster_raft_add(env, args):
+    """-id <raft grpc addr> : add a master to the raft cluster
+    (command_cluster_raft_add.go).  Start the new master with -peers
+    including the existing members, then add it here."""
+    env.confirm_is_locked()
+    flags = parse_flags(args)
+    await env.master_stub.RaftAddServer(
+        master_pb2.RaftAddServerRequest(id=flags["id"])
+    )
+    env.write(f"added raft server {flags['id']}")
+
+
+@command("cluster.raft.remove")
+async def cmd_cluster_raft_remove(env, args):
+    """-id <raft grpc addr> : remove a master from the raft cluster
+    (command_cluster_raft_remove.go)"""
+    env.confirm_is_locked()
+    flags = parse_flags(args)
+    await env.master_stub.RaftRemoveServer(
+        master_pb2.RaftRemoveServerRequest(id=flags["id"])
+    )
+    env.write(f"removed raft server {flags['id']}")
 
 
 @command("cluster.health")
@@ -320,7 +401,7 @@ async def cmd_cluster_incident_dump(env, args):
     path = "/cluster/incident/dump"
     if flags.get("window"):
         path += "?" + urllib.parse.urlencode({"window": flags["window"]})
-    status, _, body = await fetch(addr, "POST", path)
+    status, _, body = await fetch_following(addr, "POST", path)
     payload = json.loads(body)
     if status != 200:
         raise ValueError(

@@ -125,7 +125,14 @@ def test_every_port_module_is_walked():
                  "seaweedfs_tpu_torch.repair.scheduler",
                  "seaweedfs_tpu_torch.parallel",
                  "seaweedfs_tpu_torch.parallel.mesh",
-                 "seaweedfs_tpu_torch.parallel.distributed"):
+                 "seaweedfs_tpu_torch.parallel.distributed",
+                 "seaweedfs_tpu_torch.raft",
+                 "seaweedfs_tpu_torch.raft.node",
+                 "seaweedfs_tpu_torch.wdclient",
+                 "seaweedfs_tpu_torch.wdclient.vid_map",
+                 "seaweedfs_tpu_torch.wdclient.masterclient",
+                 "seaweedfs_tpu_torch.server.master_follower",
+                 "seaweedfs_tpu_torch.command.master_follower"):
         assert name in mods, name
 
 
@@ -443,7 +450,9 @@ print("clean")
 def test_cluster_path_runs_without_grpc_or_protobuf(tmp_path):
     """A master, two volume servers and the shell talk over the port's RPC
     plane in an interpreter where grpc, google.protobuf and aiohttp (and
-    JAX, and the JAX package) cannot be imported."""
+    JAX, and the JAX package) cannot be imported; then three masters built
+    from `master -peers ... -mdir ...` elect a leader, which a
+    master.follower follows and the shell's cluster.raft.ps names."""
     code = f"""
 import asyncio, importlib.abc, io, sys
 def bad_name(name):
@@ -476,6 +485,46 @@ async def go():
         await c.stop()
 out = asyncio.run(go())
 assert "locked" in out and "unlocked" in out, out
+# three masters as `master -peers ... -mdir ...` builds them, a
+# master.follower and the shell's cluster.raft.ps
+import socket
+from seaweedfs_tpu_torch import command
+from seaweedfs_tpu_torch.server.master_follower import MasterFollowerServer
+async def ha():
+    socks = [socket.socket() for _ in range(6)]
+    for s in socks:
+        s.bind(("127.0.0.1", 0))
+    ports = [s.getsockname()[1] for s in socks]
+    for s in socks:
+        s.close()
+    peers = ",".join(f"127.0.0.1:{{p}}.{{g}}" for p, g in zip(ports[:3], ports[3:]))
+    ms = [command.master.build_server(command.parser().parse_args(
+        ["master", "-port", str(p), "-port.grpc", str(g), "-peers", peers,
+         "-mdir", {str(tmp_path)!r} + f"/m{{i}}", "-pulseSeconds", "1"]))
+        for i, (p, g) in enumerate(zip(ports[:3], ports[3:]))]
+    f = MasterFollowerServer(peers.split(","), port=0, grpc_port=0)
+    try:
+        for m in ms:
+            await m.start()
+        await f.start()
+        for _ in range(1200):
+            leaders = [m for m in ms if m.is_leader]
+            # every master has heard from the leader, and the follower
+            # follows it
+            if len(leaders) == 1 and all(
+                    m.raft.leader_id == leaders[0].raft.id for m in ms) and \
+                    f.master_client.current_master == leaders[0].advertise_url:
+                break
+            await asyncio.sleep(0.05)
+        env = CommandEnv([ms[0].advertise_url], out=io.StringIO())
+        await run_command(env, "cluster.raft.ps")
+        return env.out.getvalue()
+    finally:
+        await f.stop()
+        for m in ms:
+            await m.stop()
+out = asyncio.run(ha())
+assert out.count("leader") == 1 and out.startswith("term: "), out
 bad = [m for m in sys.modules if bad_name(m)]
 assert not bad, bad
 print("clean")

@@ -28,6 +28,7 @@ import numpy as np
 import pytest
 
 from seaweedfs_tpu.pb import master_pb2 as ref_master
+from seaweedfs_tpu.pb import raft_pb2 as ref_raft
 from seaweedfs_tpu.pb import volume_server_pb2 as ref_volume
 from seaweedfs_tpu_torch.pb import (
     RpcError,
@@ -37,6 +38,7 @@ from seaweedfs_tpu_torch.pb import (
     channel,
     close_all_channels,
     master_pb2,
+    raft_pb2,
     server_address,
     sync_channel_cached,
     volume_server_pb2,
@@ -47,6 +49,7 @@ from seaweedfs_tpu_torch.utils import faultpolicy
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FILES = {"master.proto": (master_pb2, ref_master),
+         "raft.proto": (raft_pb2, ref_raft),
          "volume_server.proto": (volume_server_pb2, ref_volume)}
 
 
@@ -202,7 +205,8 @@ def test_multi_entry_maps_parse_both_ways(fname):
     rng = np.random.default_rng(7)
     with_maps = [c for c in _messages(port_ns)
                  if any(fd.kind == "map" for fd in c._fields.values())]
-    assert with_maps or fname == "volume_server.proto"
+    # raft.proto and volume_server.proto declare no map
+    assert with_maps or fname in ("raft.proto", "volume_server.proto")
     for cls in with_maps:
         for _ in range(8):
             tree = _random_tree(rng, cls, depth=2, max_map=6)

@@ -234,6 +234,10 @@ class _FakeMaster:
         self.telemetry = _FakeTelemetry()
         self.topo = _FakeTopo()
         self.is_leader = True
+        self.settling = False
+
+    def leader_settling(self):
+        return self.settling
 
 
 def _topo_info(vid_shards):
@@ -407,6 +411,47 @@ def test_scheduler_records_time_to_healthy(monkeypatch):
 
     mine, theirs = asyncio.run(go())
     assert mine == theirs
+
+
+def test_a_loss_while_a_new_leader_settles_is_counted_from_its_start(
+        monkeypatch):
+    """While the master settles after its election the port's scheduler
+    queues no job (ROADMAP §C), but its census, verdicts and
+    time-to-healthy clock run from the first cycle that sees the loss."""
+    fake_now = [50.0]
+    (master, sched), _ = _both_schedulers(
+        monkeypatch, _topo_info({9: _holders(*range(12))}),
+        dict(interval_seconds=0), clock=lambda: fake_now[0])
+
+    async def heal(env, nodes, job, **kw):
+        master.topo.info = _topo_info({9: _holders(*range(14))})
+        return {"rebuilt": list(job.missing), "rebuilder": "127.0.0.1:1"}
+
+    monkeypatch.setattr(
+        "seaweedfs_tpu_torch.repair.scheduler.executor.repair_volume", heal)
+
+    async def go():
+        master.settling = True
+        await sched.tick()
+        assert sched.totals["queued"] == 0 and sched._inflight == {}
+        assert sched._unhealthy_since == 50.0
+        verdict = sched.status()["volumes"]["9"]
+        assert verdict["missing"] == [12, 13]
+        assert verdict["healthy_shards"] == 12
+        master.settling = False
+        fake_now[0] = 58.0
+        await sched.tick()
+        await _settle()
+        assert sched.totals["queued"] == 1
+        assert sched.totals["completed"] == 1
+        fake_now[0] = 61.5
+        await sched.tick()
+        assert sched._unhealthy_since is None
+        assert sched.last_time_to_healthy_s == pytest.approx(11.5)
+        assert sched.status()["volumes"]["9"]["state"] == "healthy"
+        await sched.stop()
+
+    asyncio.run(go())
 
 
 def test_scheduler_max_inflight_bound(monkeypatch):

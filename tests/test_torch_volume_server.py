@@ -578,10 +578,11 @@ MASTER_ARGV = [
 
 def _master_flags_parse_with_the_reference_spellings(p, tmp_path):
     """The master's -obs.slo.*, -obs.incident.*, -metrics.*, -obs.*,
-    -garbageThreshold and -autoVacuum flags parse to the reference's
-    values and build the same SloConfig, IncidentConfig and vacuum
-    settings; -cpuprofile and -memprofile go before the command, as the
-    reference's."""
+    -garbageThreshold, -autoVacuum, -peers, -mdir and
+    -raft.snapshotThreshold flags parse to the reference's values and build
+    the same SloConfig, IncidentConfig, vacuum and raft settings;
+    master.follower's flags parse as the reference's; -cpuprofile and
+    -memprofile go before the command, as the reference's."""
     import argparse
     import dataclasses
 
@@ -633,6 +634,37 @@ def _master_flags_parse_with_the_reference_spellings(p, tmp_path):
             port_trace.configure(saved[0])
             port_incident.configure(saved[1])
     assert want == (0.45, True)
+    # raft: -peers, -mdir and -raft.snapshotThreshold build the same
+    # MasterServer fields as the reference's command
+    peers = "127.0.0.1:9333,127.0.0.1:9334.19334,127.0.0.1:9335"
+    for argv in ([], ["-peers", peers, "-mdir", str(tmp_path / "m"),
+                      "-raft.snapshotThreshold", "40"]):
+        ref = ref_p.parse_args(argv)
+        port = p.parse_args(["master"] + argv)
+        want = (ref.peers, ref.meta_dir, ref.raft_snapshot_threshold)
+        assert (port.peers, port.meta_dir, port.raft_snapshot_threshold) \
+            == want
+        saved = (port_trace.CONFIG, port_incident.CONFIG)
+        try:
+            ms = command.master.build_server(port)
+            assert (ms.peers, ms.meta_dir, ms.raft_snapshot_threshold) == (
+                [x for x in ref.peers.split(",") if x], ref.meta_dir or None,
+                ref.raft_snapshot_threshold)
+        finally:
+            port_trace.configure(saved[0])
+            port_incident.configure(saved[1])
+    assert ms.peers == peers.split(",") and ms.raft_snapshot_threshold == 40
+    # master.follower -masters, as the reference's command spells it
+    from seaweedfs_tpu.command import master_follower as ref_follower_cmd
+
+    ref_fp = argparse.ArgumentParser()
+    ref_follower_cmd.add_args(ref_fp)
+    argv = ["-masters", peers, "-port", "9444", "-port.grpc", "19444"]
+    ref = ref_fp.parse_args(argv)
+    port = p.parse_args(["master.follower"] + argv)
+    for dest in vars(ref):
+        assert getattr(port, dest) == getattr(ref, dest), dest
+    assert p.parse_args(["master.follower"]).masters == "127.0.0.1:9333"
     args = p.parse_args(["-cpuprofile", str(tmp_path / "cpu.prof"),
                          "-memprofile", str(tmp_path / "mem.txt"), "master"])
     assert (args.cpuprofile, args.memprofile, args.command) == (
