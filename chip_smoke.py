@@ -193,7 +193,23 @@ volume:
                  clients); two shards lost on a holder and healed by the
                  new leader's repair plane (K1 on the rebuilder, shards
                  equal to the native codec's); the killed master back on
-                 its -mdir as a follower, caught up
+                 its -mdir as a follower, caught up.
+                 9d, the all-in-one server: `python3 -m
+                 seaweedfs_tpu_torch server -ec.backend cuda
+                 -ec.deviceCacheMB ...` as one process S (its master and
+                 volume server); a 32 MiB volume of collection ec9d grown
+                 and written by 32 writers through its assign; the
+                 `benchmark` command as a process (-c 16 -n 2048 -size
+                 4096, collection ec9dbench, 0 failures); G and H started
+                 as `volume -mserver <S>`; `cluster.check` (3/3
+                 reachable), `collection.list`, `volume.list`; `ec.encode`
+                 (K1 on S, shards spread over S, G and H, S's pinned
+                 bytes); `volume.server.evacuate -node S -force` (0
+                 skipped; every shard and bench volume listed on G or H,
+                 S's cache empty); every needle read back through the
+                 master's lookup (32 clients), every shard equal to the
+                 native codec's; `volume.server.leave` and S gone from
+                 the topology
   10. mesh       the mesh on one card (two lanes of cuda:0 built with
                  make_mesh(devices=...); no multi-GPU figure): vid 1's 12
                  survivors pinned lane-sharded beside the one-device cache;
@@ -5222,6 +5238,319 @@ def _cluster_ha(workdir: str, seed: int) -> dict:
     return row
 
 
+# 9d: the all-in-one `server` (a master and a volume server in one
+# process, S) that encodes on the card, then evacuated onto two `volume`
+# processes (G, H) and retired.  The volume the writers fill (32 MiB, cut
+# from 30 GiB for the write budget: about 0.15 GiB with its shards, the
+# spread, the evacuation's copies and the benchmark's 8 MiB, §4 of
+# PERF.md), the benchmark command's load, and the slots each server gets
+# (the master grows seven volumes for the bench collection on S, all of
+# which the evacuation moves onto one of G and H)
+SRV_DAT_BYTES = 32 << 20
+SRV_COLLECTION = "ec9d"
+SRV_BENCH_COLLECTION = "ec9dbench"
+SRV_BENCH = ["-c", "16", "-n", "2048", "-size", "4096"]
+SRV_MAX_VOLUMES = 16
+SRV_CACHE_MB = 2048
+SRV_SERVERS = ("S", "G", "H")
+RESIDENT = "SeaweedFS_volumeServer_ec_resident_bytes"
+
+
+class _AllInOne:
+    """9d's processes, as users start them: `python3 -m
+    seaweedfs_tpu_torch server` (S: its master and volume server), and
+    `volume -mserver <S's master>` for G and H; the calls the step makes
+    to them over the RPC plane and HTTP, and the shell."""
+
+    def __init__(self, workdir: str, stack: contextlib.ExitStack,
+                 backend: str):
+        from seaweedfs_tpu_torch.pb import (
+            Stub, master_pb2, sync_channel_cached)
+
+        self.dir = workdir
+        self.stack = stack
+        self.backend = backend
+        self.env = {"TMPDIR": os.path.join(workdir, "tmp")}
+        os.makedirs(self.env["TMPDIR"])
+        # S's master and volume server, G's and H's volume servers
+        self.ports = {n: (_free_port(), _free_port())
+                      for n in ("M",) + SRV_SERVERS}
+        http, grpc = self.ports["M"]
+        self.master = f"127.0.0.1:{http}.{grpc}"
+        self.master_http = http
+        self.mstub = Stub(sync_channel_cached(f"127.0.0.1:{grpc}"),
+                          master_pb2, "Seaweed")
+        self.pb = master_pb2
+        self.procs: dict = {}
+        self.killed: set = set()  # none: every exit is fatal
+
+    def url(self, name: str) -> str:
+        return f"127.0.0.1:{self.ports[name][0]}"
+
+    def start(self, name: str) -> None:
+        d = os.path.join(self.dir, name)
+        os.makedirs(d)
+        http, grpc = self.ports[name]
+        if name == "S":
+            mhttp, mgrpc = self.ports["M"]
+            command, args = "server", [
+                "-dir", d, "-master.port", str(mhttp),
+                "-master.port.grpc", str(mgrpc), "-volume.port", str(http),
+                "-volume.port.grpc", str(grpc),
+                "-volume.max", str(SRV_MAX_VOLUMES),
+                "-ec.backend", self.backend,
+                "-ec.deviceCacheMB", str(SRV_CACHE_MB), "-pulseSeconds", "1"]
+        else:
+            command, args = "volume", [
+                "-dir", d, "-port", str(http), "-port.grpc", str(grpc),
+                "-mserver", self.master, "-max", str(SRV_MAX_VOLUMES),
+                "-ec.backend", self.backend, "-pulseSeconds", "1"]
+        self.procs[name] = self.stack.enter_context(_volume_server(
+            args, os.path.join(self.dir, f"{name}.log"), self.env,
+            command=command))
+
+    wait = _HaGroup.wait
+    shell = _Cluster.shell
+
+    def topology(self) -> dict:
+        """server url -> ({vid: collection}, {ec vid: shard ids}) as the
+        master's VolumeList says."""
+        info = json.loads(self.mstub.VolumeList(
+            self.pb.VolumeListRequest(), timeout=10).topology_info_json)
+        return {n["id"]: ({v["id"]: v["collection"] for v in n["volumes"]},
+                          {s["id"]: [i for i in range(14)
+                                     if s["ec_index_bits"] >> i & 1]
+                           for s in n["ec_shards"]})
+                for dc in info["data_centers"] for r in dc["racks"]
+                for n in r["nodes"]}
+
+
+def _bench_report(out: str) -> dict:
+    """The benchmark command's two reports: per title, the completed and
+    failed requests, requests/s and the latency columns (ms)."""
+    rows, title = {}, None
+    for line in out.splitlines():
+        if line.endswith("Benchmark:"):
+            title = line[:-len(" Benchmark:")].lower()
+            rows[title] = {}
+        elif title and ":" in line:
+            key, _, value = line.partition(":")
+            rows[title][key.strip()] = value.strip()
+    parsed = {}
+    for title, r in rows.items():
+        lat = [float(x) for x in r["Latency ms (avg/p50/p95/p99/max)"].split(" / ")]
+        parsed[title] = {
+            "completed": int(r["Completed requests"]),
+            "failed": int(r["Failed requests"]),
+            "per_s": float(r["Requests per second"]),
+            "KBps": float(r["Transfer rate"].split()[0]),
+            "avg_ms": lat[0], "p50_ms": lat[1], "p95_ms": lat[2],
+            "p99_ms": lat[3], "max_ms": lat[4]}
+    return parsed
+
+
+def _cluster_server(workdir: str, seed: int, backend: str = "cuda",
+                    dat_bytes: int = SRV_DAT_BYTES) -> dict:
+    """9d: `server -ec.backend cuda -ec.deviceCacheMB ...` as one process
+    (S), `/vol/grow` of collection ec9d, 32 writers filling its volume on S
+    through the master's assign (a hard link of the .dat kept as the
+    oracle), the `benchmark` command as a process (writes and reads of
+    collection ec9dbench, 0 failures), G and H started as `volume -mserver
+    <S>`, `cluster.check` (3/3 reachable), `collection.list` and
+    `volume.list` through the shell; `lock; ec.encode` (K1 on S, the
+    shards spread over S, G and H; S's cache use once its shards are
+    pinned); `volume.server.evacuate -node <S> -force` (0 skipped; every
+    shard and bench volume listed on G or H, none on S; S's cache use
+    after); every ec9d needle read back through the master's lookup (32
+    clients), every shard on G and H equal to the native codec's encode of
+    the oracle; `volume.server.leave` and S gone from the topology.
+    `backend` and `dat_bytes` are the card's and 32 MiB; a rehearsal on
+    the CPU passes torch and less."""
+    from seaweedfs_tpu_torch.storage import ec
+
+    row: dict = {"backend": backend}
+    with contextlib.ExitStack() as stack:
+        g = _AllInOne(workdir, stack, backend)
+        s_url = g.url("S")
+        t0 = time.perf_counter()
+        g.start("S")
+        row["master_answers_s"] = g.wait(
+            "S's master", lambda: g.topology() is not None)
+        g.wait("S's volume server at its master",
+               lambda: set(g.topology()) == {s_url})
+        row["registered_s"] = time.perf_counter() - t0
+        mport, sport = g.master_http, g.ports["S"][0]
+
+        vid = _get_json(mport, f"/vol/grow?count=1&collection="
+                        f"{SRV_COLLECTION}")["vids"][0]
+        needles = _ingest_needles(seed + 94, dat_bytes)
+        pool = _ingest_pool(seed + 94)
+        t0 = time.perf_counter()
+        written, ack = asyncio.run(_cluster_writes(
+            g.master, pool, needles, CLUSTER_WRITERS,
+            collection=SRV_COLLECTION))
+        wall = time.perf_counter() - t0
+        hosts = {u for _, u, _ in written}
+        if hosts != {s_url} or any(not f.startswith(f"{vid},")
+                                   for f, _, _ in written):
+            raise AssertionError(f"writes left volume {vid} on S: "
+                                 f"{sorted(hosts)}")
+        row["writes"] = {"needles": len(written), "wall_s": wall,
+                         "writes_per_s": len(written) / wall,
+                         "ack_p50_ms": _pct(ack, 50),
+                         "ack_p99_ms": _pct(ack, 99)}
+        stem = f"{SRV_COLLECTION}_{vid}"
+        oracle = os.path.join(workdir, "oracle.dat")
+        os.link(os.path.join(workdir, "S", stem + ".dat"), oracle)
+
+        t0 = time.perf_counter()
+        bench = subprocess.run(
+            [sys.executable, "-m", "seaweedfs_tpu_torch", "benchmark",
+             "-master", g.master, "-collection", SRV_BENCH_COLLECTION,
+             *SRV_BENCH], cwd=HERE, capture_output=True, text=True,
+            timeout=600)
+        report = _bench_report(bench.stdout)
+        if bench.returncode != 0 or set(report) != {"write", "read"} or any(
+                r["failed"] or r["completed"] != int(SRV_BENCH[3])
+                for r in report.values()):
+            raise AssertionError(f"benchmark: {bench.stdout}"
+                                 f"{bench.stderr[-4000:]}")
+        row["benchmark"] = {**report, "wall_s": time.perf_counter() - t0,
+                            "lines": [ln for ln in bench.stdout.splitlines()
+                                      if "per second" in ln
+                                      or ln.startswith("Latency")]}
+        bench_vids = sorted(v for v, c in g.topology()[s_url][0].items()
+                            if c == SRV_BENCH_COLLECTION)
+
+        t0 = time.perf_counter()
+        g.start("G")
+        g.start("H")
+        urls = {g.url(n): n for n in SRV_SERVERS}
+        g.wait("G and H at S's master", lambda: set(g.topology()) == set(urls))
+        row["volume_servers_registered_s"] = time.perf_counter() - t0
+        out, wall = g.shell("cluster.check; collection.list; volume.list")
+        lines = out.splitlines()
+        want_vol = f"  volume id:{vid} "
+        start = next(i for i, ln in enumerate(lines)
+                     if ln.endswith("/" + s_url))
+        s_block = list(itertools.takewhile(lambda ln: ln.startswith("  "),
+                                           lines[start + 1:]))
+        if ("3/3 volume servers reachable" not in lines
+                or f"  {SRV_COLLECTION}" not in lines
+                or f"  {SRV_BENCH_COLLECTION}" not in lines
+                or not any(ln.startswith(want_vol)
+                           and f"collection:'{SRV_COLLECTION}'" in ln
+                           for ln in s_block)):
+            raise AssertionError(f"cluster.check / collection.list / "
+                                 f"volume.list: {out}")
+        row["shell_checks"] = {"wall_s": wall, "lines": [
+            ln for ln in lines if "reachable" in ln or "collections" in ln
+            or ln.startswith("total ")]}
+
+        def where_stored() -> dict:
+            return {sid: [g.url(n) for n in SRV_SERVERS if os.path.exists(
+                os.path.join(workdir, n, stem + ec.to_ext(sid)))]
+                for sid in range(14)}
+
+        def listed_where_stored() -> bool:
+            topo, on_disk = g.topology(), where_stored()
+            listed = {sid: sorted(u for u, (_, ecs) in topo.items()
+                                  if sid in ecs.get(vid, []))
+                      for sid in range(14)}
+            return all(len(on_disk[s]) == 1 and listed[s] == on_disk[s]
+                       for s in range(14))
+
+        k0 = _k_counts(_scrape(sport))
+        out, wall = g.shell(f"lock; ec.encode -volumeId {vid} -collection "
+                            f"{SRV_COLLECTION}; unlock")
+        g.wait("14 spread shards listed where stored", listed_where_stored)
+        k1 = _k_counts(_scrape(sport))
+        encode_k1 = {k: k1[k] - k0[k] for k in ("gf2_matmul",
+                                                "gf2_matmul_small")}
+        if backend == "cuda" and not sum(encode_k1.values()):
+            raise AssertionError(f"ec.encode launched no K1 on S: {encode_k1}")
+        placed = {sid: urls[u[0]] for sid, u in where_stored().items()}
+        on_s = sorted(s for s, n in placed.items() if n == "S")
+
+        def s_pinned() -> bool:
+            st = _get_json(sport, "/status")
+            ecv = [v for v in st["EcVolumes"] if v["id"] == vid]
+            return bool(ecv) and sorted(ecv[0].get("resident", [])) == on_s
+
+        pin_s = g.wait("S's shards pinned", s_pinned) if on_s else 0.0
+        row["encode"] = {"wall_s": wall, "k1_on_S": encode_k1,
+                         "shards": {n: sorted(s for s, p in placed.items()
+                                              if p == n)
+                                    for n in SRV_SERVERS},
+                         "pin_wait_s": pin_s,
+                         "S_resident_bytes": _scrape(sport).get(RESIDENT)}
+
+        t0 = time.perf_counter()
+        out, wall = g.shell(f"lock; volume.server.evacuate -node {s_url} "
+                            "-force; unlock")
+        last = next((ln for ln in out.splitlines()
+                     if " moves applied, " in ln), "")
+        if not last.endswith(" moves applied, 0 skipped"):
+            raise AssertionError(f"volume.server.evacuate: {out}")
+
+        def evacuated() -> bool:
+            topo = g.topology()
+            gh = [u for u in topo if u != s_url]
+            return (topo[s_url] == ({}, {}) and listed_where_stored()
+                    and all(where_stored()[s][0] != s_url for s in range(14))
+                    and all(any(v in topo[u][0] for u in gh)
+                            for v in bench_vids))
+
+        g.wait("S empty, every shard and bench volume on G or H", evacuated)
+        moved = time.perf_counter() - t0
+        try:
+            cache_empty_s = g.wait("S's cache empty", lambda: _scrape(
+                sport).get(RESIDENT) == 0, timeout=15)
+        except AssertionError:
+            cache_empty_s = None  # recorded beside the bytes, not fatal
+        row["evacuate"] = {"wall_s": wall, "last_line": last,
+                           "moves": int(last.split()[0]),
+                           "listed_s": moved,
+                           "S_resident_bytes_after": _scrape(sport).get(
+                               RESIDENT),
+                           "cache_empty_s": cache_empty_s,
+                           "shards": {n: sorted(s for s, u in where_stored()
+                                                .items() if u == [g.url(n)])
+                                      for n in ("G", "H")},
+                           "bench_volumes": len(bench_vids)}
+
+        look = _get_json(mport, f"/dir/lookup?volumeId={vid}")
+        reader = urls[look["locations"][0]["url"]]
+        items = [("/" + fid, digest) for fid, _, digest in written]
+        read, _ = _timed_gets(g.ports[reader][0], items, CLUSTER_READERS,
+                              g.ports[reader][0])
+        read["server"] = reader
+        row["reads"] = read
+        native, _ = _native_shard_hashes(oracle)
+        for sid in range(14):
+            got = [sha256_file(os.path.join(workdir, n, stem + ec.to_ext(sid)))
+                   for n in ("G", "H") if os.path.exists(
+                       os.path.join(workdir, n, stem + ec.to_ext(sid)))]
+            if got != [native[sid]]:
+                raise AssertionError(f"shard {sid} on G and H: {got}, not "
+                                     "the native codec's bytes")
+        row["shards_equal_native"] = 14
+
+        out, wall = g.shell(f"lock; volume.server.leave -node "
+                            f"127.0.0.1:{g.ports['S'][1]}; unlock")
+        gone = g.wait("S gone from the topology",
+                      lambda: set(g.topology()) == {g.url("G"), g.url("H")})
+        row["leave"] = {"wall_s": wall, "gone_s": gone,
+                        "line": next(ln for ln in out.splitlines()
+                                     if "asked to leave" in ln)}
+        row["launches"] = {n: _k_counts(_scrape(g.ports[n][0]))
+                           for n in SRV_SERVERS}
+    log("cluster_server", **row, reduced={
+        "dat_mib": [FULL_VOLUME_GIB * 1024, dat_bytes >> 20],
+        "why": "the run's write budget: 9d writes about 0.15 GiB"})
+    return row
+
+
 def phase_cluster(torch, workdir: str, vol: dict, deg: dict, serve: dict,
                   seed: int) -> dict:
     """The cluster as users run it: `python3 -m seaweedfs_tpu_torch master`,
@@ -5263,12 +5592,16 @@ def phase_cluster(torch, workdir: str, vol: dict, deg: dict, serve: dict,
         ha_dir = os.path.join(cdir, "ha")
         os.makedirs(ha_dir)
         ha = _cluster_ha(ha_dir, seed)
+        srv_dir = os.path.join(cdir, "server")
+        os.makedirs(srv_dir)
+        srv = _cluster_server(srv_dir, seed)
     finally:
         shutil.rmtree(cdir, ignore_errors=True)
-    launches = {k: sum(c[k] for part in (full, verbs, ha)
+    launches = {k: sum(c[k] for part in (full, verbs, ha, srv)
                        for c in part["launches"].values())
                 for k in _k_counts({})}
-    return {"full": full, "verbs": verbs, "ha": ha, "launches": launches}
+    return {"full": full, "verbs": verbs, "ha": ha, "server": srv,
+            "launches": launches}
 
 
 # -------------------------------------------------------------- phase 10
@@ -5918,6 +6251,9 @@ def main() -> int:
         "failover_repair_launches": clu["ha"]["loss"]["rebuilder_k1"][
             "gf2_matmul"],
         "failover_encode_launches": clu["ha"]["encode_k1"]["gf2_matmul"],
+        # phase 9d: the all-in-one server's encode, on S
+        "server_encode_launches": clu["server"]["encode"]["k1_on_S"][
+            "gf2_matmul"],
     }, {
         "name": "gf2_matmul_small",
         "route": "cuda",
@@ -5942,6 +6278,8 @@ def main() -> int:
         "failover_repair_launches": clu["ha"]["loss"]["rebuilder_k1"][
             "gf2_matmul_small"],
         "failover_encode_launches": clu["ha"]["encode_k1"][
+            "gf2_matmul_small"],
+        "server_encode_launches": clu["server"]["encode"]["k1_on_S"][
             "gf2_matmul_small"],
     }, *resident, scrub_entry, *_b6_entries(mesh)]}), flush=True)
     print(SMI, flush=True)

@@ -2,8 +2,12 @@
 
 Each command module exposes NAME, HELP, add_args(parser), and async
 run(args).  `python -m seaweedfs_tpu_torch <command> ...` dispatches here.
-The port's commands: `master`, `master.follower`, `volume`, `shell` and
-`version`.
+The port's commands: the servers `master`, `master.follower`, `volume`
+and `server` (a master and a volume server in one process); `shell`; the
+offline volume tools `fix`, `fsck`, `compact` and `export`; the clients
+`backup`, `upload`, `download` and `benchmark`; and `scaffold`,
+`autocomplete` and `version`.  The filer, S3, WebDAV, mount and queue
+commands wait for the namespace and gateway layers (ROADMAP A10).
 """
 from __future__ import annotations
 
@@ -11,10 +15,33 @@ import argparse
 import asyncio
 import sys
 
-from . import master, master_follower, shell, version, volume
+from . import (
+    autocomplete,
+    backup,
+    benchmark,
+    compact,
+    download,
+    export,
+    fix,
+    fsck,
+    master,
+    master_follower,
+    scaffold,
+    server,
+    shell,
+    upload,
+    version,
+    volume,
+)
 
-COMMANDS = {m.NAME: m for m in (master, master_follower, shell, version,
-                                volume)}
+COMMANDS = {
+    m.NAME: m
+    for m in (
+        master, master_follower, volume, server, shell, fix, fsck, compact,
+        export, backup, upload, download, benchmark, scaffold, autocomplete,
+        version,
+    )
+}
 
 
 def parser() -> argparse.ArgumentParser:
@@ -55,4 +82,14 @@ def main(argv: list[str] | None = None) -> int:
         asyncio.run(COMMANDS[args.command].run(args))
     except KeyboardInterrupt:
         pass
+    except BrokenPipeError:
+        # only stdout-streaming commands (autocomplete) treat a closed pipe
+        # (head, less) as success; for a server it is a real failure
+        if not getattr(COMMANDS[args.command], "STDOUT_STREAM", False):
+            raise
+        # the exit-time stdout flush would hit the same broken fd
+        import os
+
+        devnull = os.open(os.devnull, os.O_WRONLY)
+        os.dup2(devnull, sys.stdout.fileno())
     return 0

@@ -28,6 +28,8 @@ class LocalCluster:
         master_kwargs: dict | None = None,  # extra MasterServer kwargs
         # (e.g. ec_repair=RepairConfig(...))
         jwt_signing_key: str = "",  # the write-JWT key of every server
+        dirs_per_server: int = 1,
+        disk_types: list[str] | None = None,  # per-directory, all servers
     ):
         # the reference LocalCluster's defaults: 1 GiB volumes, 16 slots a
         # server, every server in dc1/r1
@@ -38,13 +40,15 @@ class LocalCluster:
         self.base_dir = base_dir
         self._specs = [
             dict(
-                directories=[os.path.join(base_dir, f"vs{i}", "d0")],
+                directories=[os.path.join(base_dir, f"vs{i}", f"d{j}")
+                             for j in range(dirs_per_server)],
                 max_volume_counts=16,
                 pulse_seconds=pulse_seconds,
                 ec_backend=ec_backend,
                 data_center="dc1",
                 rack="r1",
                 jwt_signing_key=jwt_signing_key,
+                disk_types=disk_types,
                 **(volume_kwargs or {}),
             )
             for i in range(n_volume_servers)

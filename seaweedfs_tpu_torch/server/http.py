@@ -427,6 +427,22 @@ async def fetch(hostport: str, method: str, path: str, headers=None,
         await cl.close()
 
 
+async def fetch_following(hostport: str, method: str, path: str):
+    """One request, following redirects as the reference's aiohttp client
+    does (a follower master answers its control paths with a 307 to the
+    leader; a volume server in -readMode redirect a GET with a 301)
+    -> (status, headers, body)."""
+    for _ in range(10):
+        status, headers, body = await fetch(hostport, method, path)
+        location = headers.get("Location")
+        if status not in (301, 302, 303, 307, 308) or not location:
+            break
+        parts = urllib.parse.urlsplit(location)
+        hostport = parts.netloc or hostport
+        path = parts.path + (f"?{parts.query}" if parts.query else "")
+    return status, headers, body
+
+
 async def get_json(hostport: str, path: str, timeout: float | None = None):
     """GET http://hostport/path -> the JSON body; ValueError on a status
     other than 200."""

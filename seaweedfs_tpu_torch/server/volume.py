@@ -286,6 +286,7 @@ class VolumeServer:
         fix_jpg_orientation: bool = False,  # -images.fix.orientation
         tier_backends: dict | None = None,  # storage/backend.py configure()
         index_kind: str = "memory",  # memory | sqlite | native (-index)
+        disk_types: list[str] | None = None,  # per-directory (ref -disk flag)
     ):
         if tier_backends:
             from ..storage import backend as backend_mod
@@ -330,14 +331,20 @@ class VolumeServer:
             device_cache.pipeline.set_slots(ec_serving.pipeline_slots)
         if isinstance(max_volume_counts, int):
             max_volume_counts = [max_volume_counts] * len(directories)
-        if len(max_volume_counts) != len(directories):
-            raise ValueError("max_volume_counts must match directories 1:1")
+        if disk_types is None:
+            disk_types = ["hdd"] * len(directories)
+        if len(disk_types) != len(directories) or len(max_volume_counts) != len(
+            directories
+        ):
+            raise ValueError(
+                "disk_types / max_volume_counts must match directories 1:1"
+            )
         needle_map_kind = _NEEDLE_MAP_KINDS[index_kind]
         self.store = Store(
             [
-                DiskLocation(d, max_volume_count=c,
+                DiskLocation(d, max_volume_count=c, disk_type=dt,
                              needle_map_kind=needle_map_kind)
-                for d, c in zip(directories, max_volume_counts)
+                for d, c, dt in zip(directories, max_volume_counts, disk_types)
             ],
             ip=ip,
             port=port,

@@ -5,8 +5,8 @@ raft verbs cluster.raft.{ps,add,remove} over the master's rpcs
 (ListClusterNodes, RaftListClusterServers, RaftAddServer,
 RaftRemoveServer), and the observability readers cluster.health,
 cluster.slo, cluster.timeline, cluster.tail and cluster.incident.dump over
-the port's HTTP client (server/http.py), with the reference's output.
-cluster.check waits for ROADMAP A4c-6.
+the port's HTTP client (server/http.py), with the reference's output,
+and cluster.check (VolumeServerStatus on every volume server).
 """
 from __future__ import annotations
 
@@ -15,23 +15,8 @@ import json
 import urllib.parse
 
 from ..pb import RpcError, StatusCode, master_pb2, server_address
-from ..server.http import fetch
+from ..server.http import fetch, fetch_following
 from .commands import command, parse_flags
-
-
-async def fetch_following(hostport: str, method: str, path: str):
-    """One request, following redirects as the reference's aiohttp client
-    does (a follower master answers its control paths with a 307 to the
-    leader) -> (status, headers, body)."""
-    for _ in range(10):
-        status, headers, body = await fetch(hostport, method, path)
-        location = headers.get("Location")
-        if status not in (301, 302, 303, 307, 308) or not location:
-            break
-        parts = urllib.parse.urlsplit(location)
-        hostport = parts.netloc or hostport
-        path = parts.path + (f"?{parts.query}" if parts.query else "")
-    return status, headers, body
 
 
 async def http_get_json(hostport: str, path: str,
@@ -430,3 +415,21 @@ async def cmd_cluster_incident_dump(env, args):
             + (prof.get("trace_dir") or f"failed ({prof.get('error')})")
             + f" on {prof.get('node')}"
         )
+
+
+@command("cluster.check")
+async def cmd_cluster_check(env, args):
+    """sanity-check cluster connectivity (master + every volume server)"""
+    from ..pb import volume_server_pb2
+
+    nodes, _ = await env.collect_topology()
+    ok = 0
+    for n in nodes:
+        try:
+            await env.volume_stub(n.grpc_address).VolumeServerStatus(
+                volume_server_pb2.VolumeServerStatusRequest()
+            )
+            ok += 1
+        except Exception as e:  # noqa: BLE001
+            env.write(f"  {n.url}: UNREACHABLE ({e})")
+    env.write(f"{ok}/{len(nodes)} volume servers reachable")

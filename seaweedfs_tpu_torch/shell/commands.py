@@ -4,13 +4,12 @@ A command is an async function `cmd(env, args: list[str])` registered under
 its dotted name; `help` text comes from the docstring.  The port registers
 the modules it has ported: lock/unlock, the EC verbs (ec.encode,
 ec.rebuild, ec.scrub, ec.balance, ec.decode), the repair plane's
-volume.repair.status / pause / resume, cluster.ps,
-cluster.raft.{ps,add,remove}, cluster.health, cluster.slo,
-cluster.timeline, cluster.tail, cluster.incident.dump, and the readers of
-the device planes (volume.device.status, volume.device.attribution,
-volume.tier.status, volume.ingest.status, volume.trace,
-volume.trace.why).  cluster.check and the other volume.* commands wait
-for ROADMAP A4c-6, fsck for A4c-6, and fs, s3, mq and remote for A10.
+volume.repair.status / pause / resume, the cluster.* verbs (cluster.ps,
+cluster.check, cluster.raft.{ps,add,remove}, cluster.health, cluster.slo,
+cluster.timeline, cluster.tail, cluster.incident.dump), collection.list
+and collection.delete, and every volume.* verb of the reference but
+volume.fsck.  volume.fsck walks the filer's tree and waits, with fs, s3,
+mq and remote, for the filer (ROADMAP A10).
 """
 from __future__ import annotations
 
@@ -72,6 +71,7 @@ async def run_command(env: CommandEnv, line: str) -> None:
 
 # import side-effect registration
 from . import command_cluster  # noqa: E402,F401
+from . import command_collection  # noqa: E402,F401
 from . import command_ec  # noqa: E402,F401
 from . import command_lock  # noqa: E402,F401
 from . import command_repair  # noqa: E402,F401

@@ -261,7 +261,11 @@ class EcVolume:
         """Pin every locally mounted shard of this volume into the device
         cache, in shard-id order.  Returns shards pinned.  `should_stop`
         (callable -> bool) aborts between shards.  A vid another location
-        already pinned stays file-backed here (returns 0)."""
+        already pinned stays file-backed here (returns 0).  A shard
+        unmounted while the thread pins the ones before it (a spread or an
+        evacuation moving shards off this server) is skipped, and the rest
+        of the volume still pins; the reference's pin fails there on the
+        moved shard's deleted file and leaves the volume unpinned."""
         if cache is not None:
             self.device_cache = cache
         if self.device_cache is None:
@@ -272,6 +276,8 @@ class EcVolume:
         for sid, shard in sorted(self.shards.items()):
             if should_stop is not None and should_stop():
                 break
+            if sid not in self.shards:
+                continue  # unmounted since the snapshot
             if self.device_cache.get(self.id, sid) is None:
                 # promotion from the host tier never re-reads disk: the
                 # staged bytes ARE the shard file's bytes
@@ -280,11 +286,18 @@ class EcVolume:
                     if self.host_cache is not None
                     else None
                 )
-                self.device_cache.put(
-                    self.id, sid,
-                    staged if staged is not None
-                    else np.fromfile(shard.path, dtype=np.uint8),
-                )
+                if staged is None:
+                    try:
+                        staged = np.fromfile(shard.path, dtype=np.uint8)
+                    except FileNotFoundError:
+                        if sid in self.shards:
+                            raise
+                        continue  # unmounted and deleted meanwhile
+                self.device_cache.put(self.id, sid, staged)
+                if sid not in self.shards:
+                    # unmounted (and evicted) between the read and the put
+                    self.device_cache.evict(self.id, sid)
+                    continue
                 n += 1
         return n
 

@@ -168,3 +168,24 @@ def write_sorted_file_from_idx(idx_path: str, ecx_path: str) -> None:
     with open(ecx_path, "wb") as f:
         f.write(db.to_sorted_bytes())
 
+
+
+def verify_index_integrity(dat_path: str, idx_path: str, version: int) -> int:
+    """Cheap volume_checking.go analogue: every live idx entry must point
+    at a record whose header matches (id, size).  Returns checked count."""
+    m = CompactMap.load_from_idx(idx_path)
+    checked = 0
+    with open(dat_path, "rb") as f:
+        for nid, off, size in m.items():
+            f.seek(off)
+            hdr = f.read(t.NEEDLE_HEADER_SIZE)
+            if len(hdr) < t.NEEDLE_HEADER_SIZE:
+                raise ValueError(f"needle {nid:x}: offset {off} beyond EOF")
+            _, rid, rsize = needle_mod.Needle.parse_header(hdr)
+            if rid != nid or rsize != size:
+                raise ValueError(
+                    f"needle {nid:x}: header mismatch at {off} "
+                    f"(id {rid:x} size {rsize} != {size})"
+                )
+            checked += 1
+    return checked

@@ -132,7 +132,20 @@ def test_every_port_module_is_walked():
                  "seaweedfs_tpu_torch.wdclient.vid_map",
                  "seaweedfs_tpu_torch.wdclient.masterclient",
                  "seaweedfs_tpu_torch.server.master_follower",
-                 "seaweedfs_tpu_torch.command.master_follower"):
+                 "seaweedfs_tpu_torch.command.master_follower",
+                 "seaweedfs_tpu_torch.command.server",
+                 "seaweedfs_tpu_torch.command.fix",
+                 "seaweedfs_tpu_torch.command.fsck",
+                 "seaweedfs_tpu_torch.command.compact",
+                 "seaweedfs_tpu_torch.command.export",
+                 "seaweedfs_tpu_torch.command.backup",
+                 "seaweedfs_tpu_torch.command.upload",
+                 "seaweedfs_tpu_torch.command.download",
+                 "seaweedfs_tpu_torch.command.benchmark",
+                 "seaweedfs_tpu_torch.command.scaffold",
+                 "seaweedfs_tpu_torch.command.autocomplete",
+                 "seaweedfs_tpu_torch.shell.command_collection",
+                 "seaweedfs_tpu_torch.utils.aiofile"):
         assert name in mods, name
 
 
@@ -336,6 +349,17 @@ def test_entry_points_default_to_cuda(no_cuda, tmp_path):
         VolumeServer([], [str(tmp_path / "vs")], port=0, ec_backend="torch",
                      ec_ingest=IngestConfig(backend="cuda"))
     assert rs_ingest.StreamEncoder("torch").device
+    # the all-in-one `server` builds its volume server on the card too
+    import argparse
+
+    from seaweedfs_tpu_torch.command import server as server_cmd
+
+    p = argparse.ArgumentParser()
+    server_cmd.add_args(p)
+    args = p.parse_args(["-dir", str(tmp_path / "srv")])
+    assert args.ec_backend == "cuda"
+    with pytest.raises(RuntimeError, match="CUDA"):
+        server_cmd.build_servers(args)
 
 
 def test_chip_smoke_refuses_without_cuda(tmp_path):
