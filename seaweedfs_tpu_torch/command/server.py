@@ -14,8 +14,11 @@ compile cache to warm before the server starts.  A `-volumeSizeLimitMB`
 past the 4-byte offsets' 32 GB switches the process to 5-byte offsets, as
 `master` does.  `-master.port.grpc`, `-volume.port.grpc` and
 `-pulseSeconds` are those of the master and volume commands (default: the
-HTTP port + 10000, and 5 s).  `-filer` and `-s3` parse, and are refused at
-start: the filer and the S3 gateway wait for ROADMAP A10.
+HTTP port + 10000, and 5 s).  `-filer` adds a filer (`-filer.port`,
+`-filer.db`), built from the filer command's own parser as the reference
+builds it, so every other filer flag keeps that command's default; it
+never reaches the device.  `-s3` parses, and is refused at start: the S3
+gateway waits for its ROADMAP A10 item.
 """
 from __future__ import annotations
 
@@ -76,12 +79,13 @@ def add_args(p) -> None:
 
 def build_servers(args):
     """-> (MasterServer, VolumeServer) from the parsed flags, neither
-    started.  Raises, with -ec.backend cuda, without a card; exits at once
-    on -filer or -s3."""
-    if args.filer or args.s3:
+    started (the filer of -filer is built by `build_filer` once the
+    master is bound).  Raises, with -ec.backend cuda, without a card;
+    exits at once on -s3."""
+    if args.s3:
         raise SystemExit(
-            "server: -filer and -s3 are not served yet: the filer and the "
-            "S3 gateway wait for ROADMAP A10")
+            "server: -s3 is not served yet: the S3 gateway waits for "
+            "ROADMAP A10")
     common_args.apply_obs_args(args)
     from ..security import guard as guard_mod
     from ..server.master import MasterServer
@@ -132,16 +136,43 @@ def build_servers(args):
     return ms, vs
 
 
+def build_filer(args, master_address: str):
+    """-> the FilerServer of -filer, not started, subscribed to the
+    co-hosted master at `master_address` (host:port[.grpc])."""
+    import argparse
+
+    from . import filer as filer_cmd
+
+    # take every default from the filer command's own parser so new filer
+    # flags can never drift out of sync with `server`
+    fparser = argparse.ArgumentParser()
+    filer_cmd.add_args(fparser)
+    fargs = fparser.parse_args([])
+    fargs.masters = master_address
+    fargs.db_path = args.filer_db
+    fargs.ip = args.ip
+    fargs.port = args.filer_port
+    fargs.metrics_address = args.metrics_address
+    fargs.metrics_interval_seconds = args.metrics_interval_seconds
+    return filer_cmd.build_filer_server(fargs)
+
+
 async def run(args) -> None:
     logging.basicConfig(level=logging.INFO,
                         format="%(asctime)s %(name)s %(levelname)s %(message)s")
     ms, vs = build_servers(args)
     await ms.start()
+    fs = None
     try:
         await vs.start()
         try:
+            if args.filer:
+                fs = build_filer(args, ms.advertise_url)
+                await fs.start()
             await asyncio.Event().wait()
         finally:
+            if fs is not None:
+                await fs.stop()
             await vs.stop()
     finally:
         await ms.stop()

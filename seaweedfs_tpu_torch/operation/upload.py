@@ -48,17 +48,23 @@ async def upload_data(
     data: bytes,
     filename: str = "",
     mime: str = "",
+    compress: bool = True,
     retries: int = 2,
     client: Client | None = None,
     jwt: str = "",
+    headers: dict | None = None,
 ) -> dict:
     """POST to http://volume/fid as multipart/form-data; returns the volume
     server's JSON ({name, size, eTag}).  `client` reuses a keep-alive
     connection to the same server; `jwt` is the master's write token for
-    the fid (sent as `Authorization: Bearer`)."""
+    the fid (sent as `Authorization: Bearer`); `headers` are extra request
+    headers (the filer passes the QoS write tier and the remaining
+    deadline budget through to the volume server's ingest admission);
+    `compress=False` sends the bytes as they are (the filer compresses
+    its chunks itself)."""
     body = data
     gzipped = False
-    if _should_gzip(mime, data):
+    if compress and _should_gzip(mime, data):
         gz = gzip.compress(data)
         if len(gz) < len(data) * 0.9:
             body = gz
@@ -67,7 +73,7 @@ async def upload_data(
                                     gzipped)
     parts = urllib.parse.urlsplit(url)
     path = parts.path + (f"?{parts.query}" if parts.query else "")
-    headers = {"Content-Type": ctype, **auth_headers(jwt)}
+    headers = {**(headers or {}), "Content-Type": ctype, **auth_headers(jwt)}
     last_err: Exception | None = None
     for _ in range(retries + 1):
         c = client if client is not None else Client(parts.hostname, parts.port)

@@ -104,7 +104,7 @@ class _Abort(Exception):
 
 # the role a served call's trace carries; raft rides the master's listener
 _SERVICE_ROLES = {"Seaweed": "master", "SeaweedRaft": "master",
-                  "VolumeServer": "volume"}
+                  "SeaweedFiler": "filer", "VolumeServer": "volume"}
 
 
 # ------------------------------------------------------------------ frames

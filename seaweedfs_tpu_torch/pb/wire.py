@@ -445,6 +445,59 @@ class Message:
         body = ", ".join(f"{fd.name}={v!r}" for fd, v in self.ListFields())
         return f"{type(self).__name__}({body})"
 
+    def __str__(self):
+        """Protobuf's text format, as `str()` of a protoc message prints
+        it (fields in number order, strings with their UTF-8 as it is and
+        bytes C-escaped).  Map entries print by sorted key, as protobuf's
+        text_format module does (`str()` of a upb message keeps its map's
+        own order); an enum prints as its number."""
+        out: list[str] = []
+        _text_into(out, self, "")
+        return "".join(out)
+
+
+_CESCAPE = [chr(i) if 32 <= i < 127 else "\\%03o" % i for i in range(256)]
+for _c, _e in ((10, "\\n"), (13, "\\r"), (9, "\\t"), (39, "\\'"), (34, '\\"'),
+               (92, "\\\\")):
+    _CESCAPE[_c] = _e
+
+
+def _text_scalar(kind: str, v) -> str:
+    if kind == "bytes":
+        return '"' + "".join(_CESCAPE[b] for b in bytes(v)) + '"'
+    if kind == "string":  # UTF-8 stays as it is; control bytes escape
+        return '"' + "".join(c if ord(c) >= 128 else _CESCAPE[ord(c)]
+                             for c in v) + '"'
+    if kind == "bool":
+        return "true" if v else "false"
+    return str(v)
+
+
+def _text_into(out: list[str], msg: "Message", indent: str) -> None:
+    for fd, v in sorted(msg.ListFields(), key=lambda p: p[0].number):
+        if fd.kind == "map":
+            for k in sorted(v):
+                out.append(f"{indent}{fd.name} {{\n")
+                inner = indent + "  "
+                out.append(f"{inner}key: {_text_scalar(fd.key_kind, k)}\n")
+                if fd.value_kind == "message":
+                    out.append(f"{inner}value {{\n")
+                    _text_into(out, v[k], inner + "  ")
+                    out.append(f"{inner}}}\n")
+                else:
+                    out.append(f"{inner}value: "
+                               f"{_text_scalar(fd.value_kind, v[k])}\n")
+                out.append(f"{indent}}}\n")
+            continue
+        for item in (v if fd.repeated else [v]):
+            if fd.kind == "message":
+                out.append(f"{indent}{fd.name} {{\n")
+                _text_into(out, item, indent + "  ")
+                out.append(f"{indent}}}\n")
+            else:
+                out.append(f"{indent}{fd.name}: "
+                           f"{_text_scalar(fd.kind, item)}\n")
+
 
 def _coerce(kind: str, v):
     if kind == "string":

@@ -1,7 +1,8 @@
-"""In-process cluster: a master and N volume servers on one asyncio loop.
+"""In-process cluster: a master, N volume servers and, with `with_filer`,
+a filer on one asyncio loop.
 
 The port of seaweedfs_tpu/server/cluster.py (reference: weed/command/
-server.go) for the tests, without the filer, S3, WebDAV or IAM gateways.
+server.go) for the tests, without the S3, WebDAV or IAM gateways.
 Volume servers start one at a time, each waiting until the master has
 registered it, so server i is always the i-th node of the master's
 topology: placement decisions that break ties by node order then repeat
@@ -30,6 +31,8 @@ class LocalCluster:
         jwt_signing_key: str = "",  # the write-JWT key of every server
         dirs_per_server: int = 1,
         disk_types: list[str] | None = None,  # per-directory, all servers
+        with_filer: bool = False,
+        filer_kwargs: dict | None = None,  # extra FilerServer kwargs
     ):
         # the reference LocalCluster's defaults: 1 GiB volumes, 16 slots a
         # server, every server in dc1/r1
@@ -54,6 +57,9 @@ class LocalCluster:
             for i in range(n_volume_servers)
         ]
         self.volume_servers: list[VolumeServer] = []
+        self.with_filer = with_filer
+        self.filer_kwargs = filer_kwargs or {}
+        self.filer = None
 
     async def start(self) -> None:
         await self.master.start()
@@ -65,6 +71,14 @@ class LocalCluster:
             await vs.start()
             self.volume_servers.append(vs)
             await self.wait_for_nodes(len(self.volume_servers))
+        if self.with_filer:
+            from .filer import FilerServer
+
+            self.filer = FilerServer(
+                masters=[self.master.advertise_url], port=0, grpc_port=0,
+                **self.filer_kwargs,
+            )
+            await self.filer.start()
 
     async def wait_for_nodes(self, n: int, timeout: float = 10.0) -> None:
         loop = asyncio.get_running_loop()
@@ -77,6 +91,8 @@ class LocalCluster:
             f"only {len(self.master.topo.data_nodes())}/{n} nodes joined")
 
     async def stop(self) -> None:
+        if self.filer is not None:
+            await self.filer.stop()
         for vs in self.volume_servers:
             await vs.stop()
         await self.master.stop()

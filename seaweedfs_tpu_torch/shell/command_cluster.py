@@ -43,17 +43,10 @@ async def fetch_cluster_health(env) -> dict:
     return doc
 
 
-def _fmt_size(n: int) -> str:
-    # a copy of the reference shell's fs.ls formatter (shell/command_fs.py),
-    # which the port has not ported yet
-    for unit in ("B", "KB", "MB", "GB", "TB"):
-        if n < 1024 or unit == "TB":
-            return f"{n:.0f}{unit}" if unit == "B" else f"{n:.1f}{unit}"
-        n /= 1024
-
-
 def fmt_bytes(n: int) -> str:
-    # one shell-wide byte formatter
+    # one shell-wide byte formatter (fs.ls uses the same one)
+    from .command_fs import _fmt_size
+
     return _fmt_size(n)
 
 

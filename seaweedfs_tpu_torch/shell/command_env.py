@@ -1,7 +1,7 @@
 """CommandEnv: the shell's handle on the cluster.
 
-A copy of seaweedfs_tpu/shell/command_env.py over the port's RPC plane,
-without the filer helpers (no filer in the port yet).  Reference:
+A copy of seaweedfs_tpu/shell/command_env.py over the port's RPC plane.
+Reference:
 weed/shell/commands.go:51-89 — holds the master stub, the exclusive admin
 lock lease, and option state shared by all commands.
 """
@@ -105,6 +105,24 @@ class CommandEnv:
 
     def volume_stub(self, grpc_address: str) -> Stub:
         return Stub(channel(grpc_address), volume_server_pb2, "VolumeServer")
+
+    async def find_filer(self) -> str:
+        """One live filer's host:port from the master's cluster registry."""
+        resp = await self.master_stub.ListClusterNodes(
+            master_pb2.ListClusterNodesRequest(client_type="filer")
+        )
+        if not resp.cluster_nodes:
+            raise RuntimeError("no filer registered with the master")
+        return resp.cluster_nodes[0].address
+
+    def filer_stub(self, filer_address: str) -> Stub:
+        from ..pb import filer_pb2
+
+        return Stub(
+            channel(server_address.grpc_address(filer_address)),
+            filer_pb2,
+            "SeaweedFiler",
+        )
 
     # -- admin lock (commands.go:78, confirmIsLocked) ------------------------
 

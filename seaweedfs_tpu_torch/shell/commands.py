@@ -7,9 +7,10 @@ ec.rebuild, ec.scrub, ec.balance, ec.decode), the repair plane's
 volume.repair.status / pause / resume, the cluster.* verbs (cluster.ps,
 cluster.check, cluster.raft.{ps,add,remove}, cluster.health, cluster.slo,
 cluster.timeline, cluster.tail, cluster.incident.dump), collection.list
-and collection.delete, and every volume.* verb of the reference but
-volume.fsck.  volume.fsck walks the filer's tree and waits, with fs, s3,
-mq and remote, for the filer (ROADMAP A10).
+and collection.delete, every volume.* verb of the reference (volume.fsck
+walks the filer's tree), and the filer's fs.* verbs but fs.meta.notify.
+s3, mq, remote, mount and fs.meta.notify wait for the rest of the
+namespace and gateway layers (ROADMAP A10).
 """
 from __future__ import annotations
 
@@ -73,6 +74,8 @@ async def run_command(env: CommandEnv, line: str) -> None:
 from . import command_cluster  # noqa: E402,F401
 from . import command_collection  # noqa: E402,F401
 from . import command_ec  # noqa: E402,F401
+from . import command_fs  # noqa: E402,F401
+from . import command_fsck  # noqa: E402,F401
 from . import command_lock  # noqa: E402,F401
 from . import command_repair  # noqa: E402,F401
 from . import command_volume  # noqa: E402,F401

@@ -814,6 +814,28 @@ CRITPATH_ROUTE_SECONDS = Counter(
 )
 
 
+FILER_REQUEST_COUNTER = Counter(
+    "SeaweedFS_filer_request_total",
+    "Counter of filer requests.",
+    ["type"],
+    registry=REGISTRY,
+)
+FILER_REQUEST_HISTOGRAM = Histogram(
+    "SeaweedFS_filer_request_seconds",
+    "Bucketed histogram of filer request processing time.",
+    ["type"],
+    registry=REGISTRY,
+    buckets=(0.0001, 0.001, 0.01, 0.1, 1.0, 10.0),
+)
+# the port's own series (the reference's filer counts no cache lookups):
+# a read pass that should reach the volume servers reads 0 hits here
+FILER_CHUNK_CACHE = Counter(
+    "SeaweedFS_filer_chunk_cache_total",
+    "Chunk-cache lookups of the filer's reads, by result (hit, miss).",
+    ["result"],
+    registry=REGISTRY,
+)
+
 @contextmanager
 def time_request(counter: Counter, histogram: Histogram, kind: str):
     """Count + time one request under the given label."""

@@ -8,6 +8,8 @@ in a worker thread.
 from __future__ import annotations
 
 import asyncio
+import contextlib
+from typing import IO, Any, AsyncIterator
 
 
 def _read_bytes(path: str) -> bytes:
@@ -44,3 +46,18 @@ async def write_file_bytes(path: str, data: bytes) -> None:
 
 async def write_file_text(path: str, text: str) -> None:
     await asyncio.to_thread(_write_text, path, text)
+
+
+@contextlib.asynccontextmanager
+async def open_in_thread(
+    path: str, mode: str = "r", **kw: Any
+) -> AsyncIterator[IO[Any]]:
+    """`async with open_in_thread(p, "rb") as f:` — open and close run
+    in to_thread; the caller dispatches each read/write the same way
+    (`await asyncio.to_thread(f.read, n)`).  The shared form of the
+    streaming pattern the whole-file helpers above don't cover."""
+    f = await asyncio.to_thread(open, path, mode, **kw)
+    try:
+        yield f
+    finally:
+        await asyncio.to_thread(f.close)

@@ -407,7 +407,11 @@ def test_processes_run_as_users_start_them(tmp_path):
     servers and `shell -c` as separate processes (the chip smoke's phase 9
     shape, on the plain versions): the volume servers register, a blob
     written through the master's assign reads back, and the shell encodes
-    and spreads its volume."""
+    and spreads its volume.  The read-back waits until the master lists
+    the spread: a GET right after `ec.encode` returns, before the
+    servers' heartbeat deltas land, answers 500 on a server missing the
+    needle's shards, in the reference's processes too (4 of 6 rounds of
+    the same race on the JAX package's master, volume and shell)."""
     import json as json_mod
     import subprocess
     import sys
@@ -465,6 +469,34 @@ def test_processes_run_as_users_start_them(tmp_path):
             cmd + ["shell", "-master", master, "-c", "ec.encode -volumeId 1"],
             cwd=repo, capture_output=True, text=True, timeout=120)
         assert bad.returncode == 1 and "lock" in bad.stdout
+
+        async def spread_listed():
+            from seaweedfs_tpu_torch.pb import (RpcError, Stub, channel,
+                                                close_all_channels,
+                                                master_pb2)
+
+            stub = Stub(channel(f"127.0.0.1:{mg}"), master_pb2, "Seaweed")
+            where: dict = {}
+            try:
+                for _ in range(300):
+                    try:
+                        resp = await stub.LookupEcVolume(
+                            master_pb2.LookupEcVolumeRequest(volume_id=vid))
+                    except RpcError:  # no shard registered yet
+                        resp = master_pb2.LookupEcVolumeResponse()
+                    where = {sl.shard_id: [l.url for l in sl.locations]
+                             for sl in resp.shard_id_locations}
+                    if (sorted(where) == list(range(14))
+                            and all(len(u) == 1 for u in where.values())
+                            and len({u[0] for u in where.values()}) == 2):
+                        return
+                    await asyncio.sleep(0.1)
+                raise AssertionError(f"the master never listed the spread: "
+                                     f"{where}")
+            finally:
+                await close_all_channels()
+
+        asyncio.run(spread_listed())
 
         async def read_back():
             for p in (p1, p2):

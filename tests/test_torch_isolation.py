@@ -145,8 +145,77 @@ def test_every_port_module_is_walked():
                  "seaweedfs_tpu_torch.command.scaffold",
                  "seaweedfs_tpu_torch.command.autocomplete",
                  "seaweedfs_tpu_torch.shell.command_collection",
-                 "seaweedfs_tpu_torch.utils.aiofile"):
+                 "seaweedfs_tpu_torch.utils.aiofile",
+                 *FILER_MODULES):
         assert name in mods, name
+
+
+# the filer tier: none of it may reach torch (the filer process and its
+# tools start without it, as the shell does)
+FILER_MODULES = (
+    "seaweedfs_tpu_torch.filer",
+    "seaweedfs_tpu_torch.filer.entry",
+    "seaweedfs_tpu_torch.filer.filechunks",
+    "seaweedfs_tpu_torch.filer.manifest",
+    "seaweedfs_tpu_torch.filer.meta_log",
+    "seaweedfs_tpu_torch.filer.path_conf",
+    "seaweedfs_tpu_torch.filer.chunk_cache",
+    "seaweedfs_tpu_torch.filer.filerstore",
+    "seaweedfs_tpu_torch.filer.filer",
+    "seaweedfs_tpu_torch.filer.client",
+    "seaweedfs_tpu_torch.server.filer",
+    "seaweedfs_tpu_torch.server.ui",
+    "seaweedfs_tpu_torch.utils.compression",
+    "seaweedfs_tpu_torch.utils.cipher",
+    "seaweedfs_tpu_torch.command.filer",
+    "seaweedfs_tpu_torch.command.filer_cat",
+    "seaweedfs_tpu_torch.command.filer_copy",
+    "seaweedfs_tpu_torch.command.filer_meta_tail",
+    "seaweedfs_tpu_torch.command.filer_meta_backup",
+    "seaweedfs_tpu_torch.command.filer_backup",
+    "seaweedfs_tpu_torch.shell.command_fs",
+    "seaweedfs_tpu_torch.shell.command_fsck",
+)
+
+
+def test_the_filer_starts_without_torch(tmp_path):
+    """An interpreter that refuses torch (and JAX, the JAX package and the
+    server packages the card's machine lacks) imports every filer module,
+    builds a filer over each store kind with the command's own parser,
+    and serves `python -m seaweedfs_tpu_torch filer -h`."""
+    code = f"""
+import argparse, importlib, importlib.abc, sys
+def bad_name(name):
+    return name.split(".")[0] in {FORBIDDEN_ROOTS + ("torch",)!r} or any(
+        name == p or name.startswith(p + ".") for p in {FORBIDDEN_PACKAGES!r})
+class Refuse(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path, target=None):
+        if bad_name(name):
+            raise ImportError("filer imported " + name)
+sys.meta_path.insert(0, Refuse())
+for m in {FILER_MODULES!r}:
+    importlib.import_module(m)
+from seaweedfs_tpu_torch.command import filer
+for argv in ([], ["-store", "sqlite", "-db", {str(tmp_path / "s.db")!r}],
+             ["-store", "native", "-db", {str(tmp_path / "kv")!r}]):
+    p = argparse.ArgumentParser(); filer.add_args(p)
+    filer.build_filer_server(p.parse_args(argv)).filer.shutdown()
+from seaweedfs_tpu_torch.command import main
+try:
+    main(["filer", "-h"])
+except SystemExit as e:
+    assert e.code == 0, e.code
+bad = [m for m in sys.modules if bad_name(m)]
+assert not bad, bad
+print("clean")
+"""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run(
+        [sys.executable, "-c", code], cwd=REPO, env=env,
+        capture_output=True, text=True, timeout=120,
+    )
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip().endswith("clean")
 
 
 def test_importing_every_port_module_loads_no_jax():

@@ -27,6 +27,7 @@ import zlib
 import numpy as np
 import pytest
 
+from seaweedfs_tpu.pb import filer_pb2 as ref_filer
 from seaweedfs_tpu.pb import master_pb2 as ref_master
 from seaweedfs_tpu.pb import raft_pb2 as ref_raft
 from seaweedfs_tpu.pb import volume_server_pb2 as ref_volume
@@ -37,6 +38,7 @@ from seaweedfs_tpu_torch.pb import (
     Stub,
     channel,
     close_all_channels,
+    filer_pb2,
     master_pb2,
     raft_pb2,
     server_address,
@@ -48,7 +50,8 @@ from seaweedfs_tpu_torch.pb import rpc as rpc_mod
 from seaweedfs_tpu_torch.utils import faultpolicy
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-FILES = {"master.proto": (master_pb2, ref_master),
+FILES = {"filer.proto": (filer_pb2, ref_filer),
+         "master.proto": (master_pb2, ref_master),
          "raft.proto": (raft_pb2, ref_raft),
          "volume_server.proto": (volume_server_pb2, ref_volume)}
 
@@ -146,7 +149,13 @@ def _random_tree(rng, cls, depth, max_map):
             n = int(rng.integers(0, max_map + 1))
             keys = {_scalar(rng, fd.key_kind, allow_default=False)
                     for _ in range(n)}
-            tree[fd.name] = {k: _scalar(rng, fd.value_kind) for k in keys}
+            if fd.value_message is not None:  # map<_, Message>
+                tree[fd.name] = {
+                    k: _random_tree(rng, fd.value_message, depth - 1, max_map)
+                    for k in keys}
+            else:
+                tree[fd.name] = {k: _scalar(rng, fd.value_kind)
+                                 for k in keys}
         elif fd.kind == "message":
             if depth <= 0:
                 continue
@@ -176,6 +185,9 @@ def _build(cls, tree, resolve):
             kw[name] = [_build(fd.message, v, resolve) for v in val]
         elif fd.kind == "message":
             kw[name] = _build(fd.message, val, resolve)
+        elif fd.kind == "map" and fd.value_message is not None:
+            kw[name] = {k: _build(fd.value_message, v, resolve)
+                        for k, v in val.items()}
         else:
             kw[name] = val
     return target(**kw)

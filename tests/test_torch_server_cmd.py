@@ -6,8 +6,8 @@ processes against the server.  The departures are pinned here:
 
 - `server -ec.backend` takes the port's names (cuda, the default; torch;
   numpy) and refuses `auto`;
-- `server -filer` and `-s3` parse and are refused at start, naming
-  ROADMAP A10;
+- `server -s3` parses and is refused at start, naming ROADMAP A10
+  (`server -filer` serves a filer);
 - `server` makes no compile-cache call (the kernels take runtime shapes)
   and adds `-master.port.grpc`, `-volume.port.grpc` and `-pulseSeconds`;
 - `autocomplete` completes `python -m seaweedfs_tpu_torch`.
@@ -35,8 +35,10 @@ from seaweedfs_tpu_torch.command import server as server_cmd
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORTED = ["autocomplete", "backup", "benchmark", "compact", "download",
-          "export", "fix", "fsck", "master", "master.follower", "scaffold",
-          "server", "shell", "upload", "version", "volume"]
+          "export", "filer", "filer.backup", "filer.cat", "filer.copy",
+          "filer.meta.backup", "filer.meta.tail", "fix", "fsck", "master",
+          "master.follower", "scaffold", "server", "shell", "upload",
+          "version", "volume"]
 # flags the port's server has beyond the reference's
 SERVER_EXTRA = {"-master.port.grpc", "-volume.port.grpc", "-pulseSeconds"}
 
@@ -96,12 +98,56 @@ def test_server_ec_backend_takes_the_ports_names():
 
 
 @pytest.mark.parametrize("flag", ["-filer", "-s3"])
-def test_server_refuses_filer_and_s3_at_start(flag):
-    args = _parse([flag, "-ec.backend", "torch"])
-    with pytest.raises(SystemExit, match="A10"):
-        server_cmd.build_servers(args)
-    with pytest.raises(SystemExit, match="A10"):
-        asyncio.run(server_cmd.run(args))
+def test_server_refuses_filer_and_s3_at_start(flag, tmp_path):
+    """`-s3` is refused at start, naming A10.  `-filer` serves: `run`
+    starts a master, a volume server and a filer built from the filer
+    command's own parser, and the filer takes a PUT and answers its GET."""
+    if flag == "-s3":
+        args = _parse([flag, "-ec.backend", "torch"])
+        with pytest.raises(SystemExit, match="A10"):
+            server_cmd.build_servers(args)
+        with pytest.raises(SystemExit, match="A10"):
+            asyncio.run(server_cmd.run(args))
+        return
+    from seaweedfs_tpu_torch.server.http import Client
+
+    ports = []
+    for _ in range(5):
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            ports.append(s.getsockname()[1])
+    mp, mg, vp, vg, fp = ports
+    args = _parse(["-filer", "-filer.port", str(fp), "-filer.db",
+                   str(tmp_path / "filer.db"), "-dir", str(tmp_path),
+                   "-ec.backend", "torch", "-master.port", str(mp),
+                   "-master.port.grpc", str(mg), "-volume.port", str(vp),
+                   "-volume.port.grpc", str(vg), "-pulseSeconds", "1"])
+    data = np.random.default_rng(4).bytes(300_000)
+
+    async def go():
+        task = asyncio.create_task(server_cmd.run(args))
+        cl = Client("127.0.0.1", fp)
+        try:
+            for _ in range(300):
+                assert not task.done(), task
+                try:
+                    st, _, body = await cl.request("PUT", "/s/x.bin",
+                                                   body=data)
+                    if st == 201:
+                        break
+                except (ConnectionError, OSError):
+                    await cl.close()
+                await asyncio.sleep(0.1)
+            assert st == 201, body
+            st, _, got = await cl.request("GET", "/s/x.bin")
+            assert st == 200 and got == data
+        finally:
+            await cl.close()
+            task.cancel()
+            await asyncio.gather(task, return_exceptions=True)
+
+    asyncio.run(go())
+    assert os.path.getsize(tmp_path / "filer.db") > 0
 
 
 def test_server_builds_both_servers_without_a_compile_cache(tmp_path):

@@ -337,8 +337,9 @@ def test_metric_series_carry_the_reference_names():
     the reference's, less the ones the port does not serve, plus its own
     families: the kernels' launch counts, the remote shard reader's
     fetches and bytes (which the cluster's chip phase reads per GET), and
-    the vacuum rpcs' walls (which the chip phase's vacuum step reads).
-    Families, not samples: a
+    the vacuum rpcs' walls (which the chip phase's vacuum step reads), and
+    the filer's chunk-cache lookups (which the chip phase's filer step
+    reads).  Families, not samples: a
     labelled family shows samples only once some caller has touched a
     child, so a sample comparison would depend on what ran before it in
     the process."""
@@ -352,12 +353,14 @@ def test_metric_series_carry_the_reference_names():
     own = (stats.VOLUME_SERVER_EC_KERNEL_LAUNCHES,
            stats.VOLUME_SERVER_EC_REMOTE_SHARD_READS,
            stats.VOLUME_SERVER_EC_REMOTE_SHARD_BYTES,
-           stats.VOLUME_SERVER_VACUUMING_SECONDS)
+           stats.VOLUME_SERVER_VACUUMING_SECONDS,
+           stats.FILER_CHUNK_CACHE)
     assert ours - ref == {fam(m.name, m.kind, m.labelnames) for m in own}
     # every reference family of the slices ported so far is declared,
     # the ingest plane's and the residency ladder's included
     ported = ("volumeServer_ingest_", "volumeServer_ec_tier_",
-              "volumeServer_device_", "request_stage_seconds", "critpath_")
+              "volumeServer_device_", "request_stage_seconds", "critpath_",
+              "filer_request_")
     want = {f for f in ref if f[0].removeprefix("SeaweedFS_").startswith(ported)}
     assert len([f for f in want if "_ingest_" in f[0]]) == 8
     assert len([f for f in want if "_ec_tier_" in f[0]]) == 5
